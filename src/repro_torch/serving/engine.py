@@ -1,0 +1,686 @@
+"""LeoAM serving engine: batched tiered decoding on a live model (PyTorch).
+
+The port of ``repro.serving.engine`` for dense attention-only decoders
+(the paper's own model, longchat-7b-32k).  Prefill populates the
+three-tier store; each decode round runs, per attention layer, the paper's
+Dynamic Three-tier Pipeline (§4.4):
+
+1. **Evaluate**: one bounds product over the stacked per-request queries
+   and the layer's padded abstract stack — kernel B1
+   (``core.bounds.chunk_bounds_gqa_matmul``) — then chunk-level adaptive
+   selection (IAKM tree or flat) per sequence on the host.
+2. **Transfer**: one batch-coalesced disk gather stages cold chunks
+   host-side; the device chunk pool uploads ONLY the newly-promoted delta,
+   and with ``real_codec`` the θ-fraction of it crosses packed and is
+   dequantized on the device — kernel B3.
+3. **Attend**: sparse attention over the pool slots plus the new token —
+   kernel B2 (``kernels.sparse_decode.sparse_decode_pooled``) — then the
+   output projection and the append.
+
+With ``pipeline=True`` a one-worker prefetch executor overlaps layer l+1's
+abstract reads and speculative disk staging under layer l's attention;
+predictions only move residency, so output is bit-identical to
+``pipeline=False``.  Admission is synchronous (``add_sequence``) with
+bucketed prefill and write-behind ingest on the prefetch worker.
+
+Every kernel runs on the engine's device when it is the CUDA card; on the
+CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
+asks for the plain versions on the card too.  Options of the reference
+that this slice leaves out raise ``NotImplementedError`` naming their
+ROADMAP item: asynchronous and chunked admission, ``pooled=False``, MLA,
+non-attention layers, PQ abstracts, the prefix cache, the packed disk
+sidecar, fault injection and recompute-from-prompt recovery.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import compression
+from repro_torch.core import pipeline as dtp
+from repro_torch.core.adaptive import flat_select_chunks, tree_select_chunks
+from repro_torch.core.bounds import chunk_bounds_gqa_matmul
+from repro_torch.core.tiers import AccessTable
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.sparse_decode.ops import sparse_decode_pooled
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import lm
+from repro_torch.models.common import rms_norm
+from repro_torch.serving.faults import ChunkLostError
+from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
+from repro_torch.serving.sanitizer import decode_thread_only, worker_thread
+
+
+@dataclass
+class EngineCfg:
+    max_len: int = 1024
+    gpu_chunk_frac: float = 0.15     # device-resident fraction
+    cpu_chunk_frac: float = 0.45     # host tier fraction (rest -> disk)
+    selection: str = "tree"          # tree | flat
+    hot_frac: float = 0.05
+    transit_codec: Optional[str] = "int4"
+    sel_pad: int = 4                 # pad round working sets to a multiple
+                                     # of this many chunks (masking keeps
+                                     # it exact)
+    pooled: bool = True              # device-resident chunk pool (the only
+                                     # path ported; False raises)
+    pipeline: bool = True            # async DTP overlap (prefetch thread)
+    real_codec: bool = False         # carry actual packed int4/int8 transit
+                                     # payloads (vs ledger-only scaling)
+    bucket_prefill: bool = True      # pad prompts to power-of-two lengths
+                                     # with the true length threaded
+                                     # through — token-identical to exact
+                                     # length (False: exact length)
+    disk_sidecar: bool = False       # not ported (ROADMAP A4)
+    pq_abstracts: bool = False       # not ported (ROADMAP A10)
+    prefix_cache: bool = False       # not ported (ROADMAP A8)
+    debug_sync: bool = False         # not ported (ROADMAP A13)
+    fault_plan: Optional[Any] = None  # not ported (ROADMAP A9)
+    # measured-cost θ balance (paper §4.4); defaults mirror TierBW
+    pcie_bw: float = 16e9
+    disk_bw: float = 3.5e9
+    kappa: float = 1.0 / 80e9
+
+
+# one process-wide DTP prefetch worker, shared by every pipelined engine
+# (per-engine executors would leak a thread per engine); its FIFO order
+# also orders write-behind ingest before any later prefetch
+_PF_EXECUTOR: Optional[ThreadPoolExecutor] = None
+
+
+def _prefetch_executor() -> ThreadPoolExecutor:
+    global _PF_EXECUTOR
+    if _PF_EXECUTOR is None:
+        _PF_EXECUTOR = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="leoam-dtp")
+    return _PF_EXECUTOR
+
+
+@dataclass
+class StepStats:
+    evaluations: int = 0
+    fetched_chunks: int = 0
+    fetched_bytes: float = 0.0
+    abstract_bytes: float = 0.0
+
+
+@dataclass
+class _SeqState:
+    """Host-side per-sequence decode state.  An attention-only stack keeps
+    no model cache here: the tier store holds every K/V row."""
+    length: int
+    access: AccessTable
+    stats: List[StepStats] = field(default_factory=list)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A model-dtype tensor as numpy (bfloat16 crosses as float32, exact)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+class BatchedLeoAMEngine:
+    """Batched tiered-decoding engine over a dense decoder-only model.
+
+    Sequences join via :meth:`add_sequence`, decode together via
+    :meth:`decode_round`, and leave via :meth:`release` — the surface
+    :class:`~repro_torch.serving.scheduler.ContinuousBatcher` drives.
+    ``params`` must already live on ``device``."""
+
+    def __init__(self, cfg, params, ecfg: EngineCfg, *, max_seqs: int = 1,
+                 device_chunk_budget: Optional[int] = None,
+                 device: DeviceLike = None, impl: Optional[str] = None,
+                 store_root: Optional[str] = None):
+        lm.check_supported(cfg)
+        for bad, opt, item in (
+                (not ecfg.pooled, "pooled=False", "A5"),
+                (ecfg.pq_abstracts, "pq_abstracts=True", "A10"),
+                (ecfg.prefix_cache, "prefix_cache=True", "A8"),
+                (ecfg.disk_sidecar, "disk_sidecar=True", "A4"),
+                (ecfg.debug_sync, "debug_sync=True", "A13"),
+                (ecfg.fault_plan is not None, "fault_plan=", "A9")):
+            if bad:
+                raise NotImplementedError(
+                    f"EngineCfg({opt}) is not ported yet (ROADMAP {item})")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embed'].device}, the engine on "
+                f"{self.device}: build them on the engine's device")
+        self.impl = impl
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.chunk = cfg.leoam.chunk_size
+        self.n_chunks = ecfg.max_len // self.chunk
+        self.max_seqs = max_seqs
+        self.attn_layers = [i for i, k in enumerate(cfg.layer_kinds())
+                            if k.startswith("attn")]
+        self.store = TieredKVStore(
+            len(self.attn_layers), self.n_chunks, self.chunk,
+            cfg.n_kv_heads, cfg.hd, n_seqs=max_seqs,
+            transit_codec=ecfg.transit_codec, root=store_root,
+            pool_slots=device_chunk_budget, real_codec=ecfg.real_codec,
+            device=self.device, impl=impl)
+        self.seqs: Dict[int, _SeqState] = {}
+        self._free: List[int] = list(range(max_seqs - 1, -1, -1))
+        # DTP state: prefetch executor, per-(seq, layer) previous-round
+        # selections, per-layer abstract cache, per-layer measured costs;
+        # write-behind ingest rides the same worker
+        self._executor = _prefetch_executor() if ecfg.pipeline else None
+        self._ingest_exec = _prefetch_executor()
+        self._pf_futs: Dict[int, Future] = {}
+        self._abs_cache: Dict[int, Tuple] = {}
+        self._prev_sels: Dict[Tuple[int, int], List[int]] = {}
+        self._lcost: Dict[int, Dict[str, float]] = {}
+        self.round_profiles: List[Dict[str, float]] = []
+        self.admit_profiles: List[Dict[str, float]] = []
+        self.failed: Dict[int, str] = {}
+        self.seqs_failed = 0
+        self.ingest_errors = 0
+        # logits behind the last token handed out (prefill: (V,); decode
+        # round: (B, V) in sorted seq-id order) — for end-to-end checks
+        self.last_logits: Optional[np.ndarray] = None
+
+    @property
+    def free_slots(self) -> int:
+        """Sequence slots available for admission (scheduler-facing)."""
+        return len(self._free)
+
+    # ------------------------------------------------------------------
+    # Sequence lifecycle
+    # ------------------------------------------------------------------
+    @decode_thread_only
+    def add_sequence(self, tokens: np.ndarray) -> Tuple[int, int]:
+        """Prefill one request into a free store slot; returns (seq id,
+        first token).  Each attention layer's K/V is handed to the store
+        as it comes off the device, with the replica + abstract writes
+        write-behind on the prefetch worker; ``decode_round`` and
+        ``release`` fence them before any read."""
+        self._check_capacity()
+        self._check_prompt(tokens)     # validate BEFORE taking the slot
+        sid = self._free.pop()
+        self.failed.pop(sid, None)
+        try:
+            return self._admit(sid, tokens)
+        except BaseException:
+            self.abort_admission(sid)
+            raise
+
+    def _check_capacity(self) -> None:
+        if not self._free:
+            raise ValueError(
+                f"engine is at max_seqs={self.max_seqs} capacity — release "
+                f"a sequence first, or rebuild the engine with a larger "
+                f"max_seqs (the scheduler gates on engine.free_slots)")
+
+    def _check_prompt(self, tokens: np.ndarray) -> None:
+        S = len(tokens)
+        if S >= self.ecfg.max_len:
+            raise ValueError(
+                f"prompt length {S} needs < max_len={self.ecfg.max_len} "
+                f"(decode appends past the prompt); raise EngineCfg.max_len "
+                f"or truncate the prompt")
+
+    @worker_thread
+    def _admit(self, sid: int, tokens: np.ndarray) -> Tuple[int, int]:
+        S = len(tokens)
+        t0 = time.perf_counter()
+        logits, cache = self._prefill(np.asarray(tokens))
+        placement = self._default_placement()
+        ingest_s = 0.0
+        # layer-streamed: hand each layer off as it reaches the host; the
+        # replica/abstract writes go write-behind on the executor
+        for li, layer in enumerate(self.attn_layers):
+            k, v = self._layer_kv(cache, layer)
+            t1 = time.perf_counter()
+            self.store.ingest(li, k[0], v[0],
+                              self._layer_placement(layer, placement),
+                              seq=sid, executor=self._ingest_exec)
+            ingest_s += time.perf_counter() - t1
+        prefill_s = time.perf_counter() - t0 - ingest_s
+        self.last_logits = _to_host(logits)[0]
+        tok = int(np.argmax(self.last_logits))
+        self.seqs[sid] = _SeqState(length=S,
+                                   access=AccessTable(self.n_chunks))
+        self.admit_profiles.append({
+            "total_s": time.perf_counter() - t0, "prefill_s": prefill_s,
+            "ingest_s": ingest_s})
+        return sid, tok
+
+    def _default_placement(self) -> Dict[int, str]:
+        """Admission tier placement by chunk index (device head, host
+        middle, disk tail)."""
+        ecfg = self.ecfg
+        n_gpu = max(1, int(self.n_chunks * ecfg.gpu_chunk_frac))
+        n_cpu = max(1, int(self.n_chunks * ecfg.cpu_chunk_frac))
+        return {c: DEVICE if c < n_gpu else
+                (HOST if c < n_gpu + n_cpu else DISK)
+                for c in range(self.n_chunks)}
+
+    def _bucket_len(self, S: int) -> int:
+        """Smallest bucket >= S: powers of two from 16, capped at max_len."""
+        b = 16
+        while b < S:
+            b <<= 1
+        return min(b, self.ecfg.max_len)
+
+    def _prefill(self, tokens: np.ndarray):
+        """Model prefill on the engine's device.  With ``bucket_prefill``
+        the prompt is right-padded to its length bucket and the true
+        length rides along (logits row and cache zeroing honor it) —
+        token-identical to exact-length prefill, as in the reference."""
+        S = len(tokens)
+        if self.ecfg.bucket_prefill:
+            padded = np.zeros(self._bucket_len(S), np.int64)
+            padded[:S] = tokens
+            batch = {"tokens": torch.from_numpy(padded[None]).to(self.device),
+                     "length": S}
+        else:
+            batch = {"tokens": torch.from_numpy(
+                np.asarray(tokens, np.int64)[None]).to(self.device)}
+        with torch.no_grad():
+            return lm.prefill(self.params, self.cfg, batch,
+                              max_len=self.ecfg.max_len)
+
+    def _layer_cache(self, cache, layer: int) -> Dict[str, torch.Tensor]:
+        pro_n = len(cache["prologue"])
+        if layer < pro_n:
+            return cache["prologue"][layer]
+        period = self.cfg.period()
+        bi = (layer - pro_n) // period
+        pi = (layer - pro_n) % period
+        return {k: v[bi] for k, v in cache["body"][pi].items()}
+
+    def _layer_kv(self, cache, layer: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(k, v) (B, S, Hkv, hd) of one layer, on the host."""
+        c = self._layer_cache(cache, layer)
+        return _to_host(c["k"]), _to_host(c["v"])
+
+    def _layer_placement(self, layer: int,
+                         placement: Dict[int, str]) -> Dict[int, str]:
+        if layer < self.cfg.leoam.early_layers:
+            # early layers never go to disk (§4.3)
+            return {c: (DEVICE if placement[c] == DEVICE else HOST)
+                    for c in placement}
+        return dict(placement)
+
+    def _forget(self, sid: int) -> None:
+        """Drop every per-sequence record and recycle the slot."""
+        self.store.clear_seq(sid)
+        self.seqs.pop(sid, None)
+        for key in [k for k in self._prev_sels if k[0] == sid]:
+            self._prev_sels.pop(key, None)
+        if sid not in self._free:
+            self._free.append(sid)
+
+    @decode_thread_only
+    def release(self, sid: int) -> None:
+        """Retire a sequence and recycle its store slot, after draining
+        every in-flight future that may still reference the slot (its
+        write-behind ingest and the prefetch worker's staged reads)."""
+        self._drain_seq(sid)
+        self._abs_cache.clear()
+        self._forget(sid)
+
+    def _drain_seq(self, sid: int) -> None:
+        """Best-effort drain of the slot's in-flight futures; failures are
+        counted, never raised, so every teardown runs to completion."""
+        try:
+            self.store.ingest_fence(sid)
+        except Exception:
+            self.ingest_errors += 1
+        for li in list(self._pf_futs):
+            fut = self._pf_futs.pop(li, None)
+            if fut is not None:
+                try:
+                    fut.result()
+                except Exception:
+                    pass
+
+    @decode_thread_only
+    def abort_admission(self, sid: int) -> None:
+        """Reclaim a slot whose admission failed mid-flight.  Idempotent."""
+        self._drain_seq(sid)
+        self._forget(sid)
+
+    @decode_thread_only
+    def fail_sequence(self, sid: int, reason: str) -> None:
+        """Contain ONE sequence's failure as its terminal state."""
+        self._drain_seq(sid)
+        self._abs_cache.clear()
+        self._forget(sid)
+        self.failed[sid] = reason
+        self.seqs_failed += 1
+
+    def fault_stats(self) -> Dict[str, float]:
+        out = self.store.fault_stats()
+        out["seqs_failed"] = float(self.seqs_failed)
+        out["ingest_errors"] = float(self.ingest_errors)
+        return out
+
+    def pool_stats(self) -> Dict[str, float]:
+        """Live device-pool occupancy/hit counters (scheduler-facing)."""
+        return self.store.pool_stats()
+
+    def admission_need_chunks(self, prompt_len: int, max_new: int) -> int:
+        """Worst-case per-round device working set of one request, in pool
+        slots per layer — what pool-aware admission charges."""
+        cfg, ecfg = self.cfg, self.ecfg
+        L = min(prompt_len + max_new, ecfg.max_len)
+        nv = -(-L // self.chunk)
+        rate = max(cfg.leoam.importance_rate, cfg.leoam.early_rate)
+        sel = -(-max(self.chunk, math.ceil(L * rate)) // self.chunk)
+        forced = (cfg.leoam.sink_chunks + cfg.leoam.recent_chunks
+                  + math.ceil(ecfg.hot_frac * nv))
+        return min(nv, sel + forced)
+
+    # ------------------------------------------------------------------
+    # DTP: measured-cost θ balance + speculative prefetch
+    # ------------------------------------------------------------------
+    def _theta(self, li: int) -> float:
+        """Per-layer compressed fraction of the upload delta (§4.4): the
+        smallest θ hiding the transfer under the measured compute window."""
+        if not (self.ecfg.real_codec and self.ecfg.transit_codec):
+            return 1.0
+        lc = self._lcost.get(li)
+        if lc is None:
+            return 1.0                 # no measurement yet: compress all
+        bw = dtp.TierBW(pcie=self.ecfg.pcie_bw, disk=self.ecfg.disk_bw,
+                        kappa=self.ecfg.kappa,
+                        delta=compression.codec_ratio(self.ecfg.transit_codec,
+                                                      group=self.chunk))
+        return dtp.theta_from_measured(lc["D"], lc["T0"], lc["Tc"], bw)
+
+    def _update_costs(self, li: int, upload_bytes: float, disk_bytes: float,
+                      compute_s: float) -> None:
+        """EMA of the layer's measured round costs (the compute window is
+        (round − host stages)/n_attn without ``profile``)."""
+        lc = self._lcost.setdefault(li, {"D": upload_bytes, "T0": disk_bytes,
+                                         "Tc": max(compute_s, 1e-7)})
+        for k, v in (("D", upload_bytes), ("T0", disk_bytes),
+                     ("Tc", max(compute_s, 1e-7))):
+            lc[k] = 0.5 * lc[k] + 0.5 * v
+
+    def _submit_prefetch(self, li: int, order: Sequence[int],
+                         lengths: np.ndarray) -> None:
+        """Overlap layer ``li``'s abstract reads + speculative disk staging
+        under the previous layer's attention.  Predictions come from the
+        previous round's selection, else the AccessTable hot set —
+        residency-only.  Skipped when nothing predicted sits on disk."""
+        if self._executor is None or li >= len(self.attn_layers) \
+                or li in self._pf_futs:
+            return
+        chunks_by_seq = {}
+        pred = {}
+        any_disk = False
+        for i, sid in enumerate(order):
+            nv = (int(lengths[i]) + self.chunk - 1) // self.chunk
+            chunks_by_seq[sid] = list(range(nv))
+            prev = self._prev_sels.get((sid, li))
+            if prev is None:
+                prev = [int(c) for c in
+                        self.seqs[sid].access.hot_tokens(self.ecfg.hot_frac)]
+            pred[sid] = [c for c in prev if c < nv]
+            tiers = self.store.tier[sid, li]
+            if not any_disk and any(tiers[c] == DISK for c in pred[sid]):
+                any_disk = True
+        if not any_disk:
+            return
+        key = tuple((sid, len(chunks_by_seq[sid])) for sid in order)
+
+        @worker_thread
+        def work():
+            res = self.store.read_abstracts_batch(li, chunks_by_seq)
+            self._abs_cache[li] = (key, res)
+            self.store.stage_host(li, pred)
+
+        self._pf_futs[li] = self._executor.submit(work)
+
+    # ------------------------------------------------------------------
+    # Importance evaluation (batched LKA + per-sequence IAKM)
+    # ------------------------------------------------------------------
+    def _select_chunks_batched(self, li: int, layer: int, q: torch.Tensor,
+                               order: Sequence[int], lengths: np.ndarray
+                               ) -> Tuple[Dict[int, List[int]],
+                                          Dict[int, StepStats]]:
+        """One bounds product over the stacked batch (kernel B1 on the
+        card), then per-sequence chunk-level adaptive selection on the
+        host.  q: (B, H, hd) PRE-SCALED queries, rows matching ``order``."""
+        cfg = self.cfg
+        chunk = self.chunk
+        n_valid = {sid: (int(L) + chunk - 1) // chunk
+                   for sid, L in zip(order, lengths)}
+        chunks_by_seq = {sid: list(range(n_valid[sid])) for sid in order}
+        fut = self._pf_futs.pop(li, None)
+        if fut is not None:
+            fut.result()
+        cached = self._abs_cache.pop(li, None)
+        key = tuple((sid, n_valid[sid]) for sid in order)
+        if cached is not None and cached[0] == key:
+            km, kn, abs_billed = cached[1]
+        else:   # speculation miss: sync read (the worker's read stays billed)
+            km, kn, abs_billed = self.store.read_abstracts_batch(
+                li, chunks_by_seq)
+        ub, _ = chunk_bounds_gqa_matmul(q, torch.from_numpy(km).to(q.device),
+                                        torch.from_numpy(kn).to(q.device),
+                                        impl=self.impl)
+        ub = ub.cpu().numpy()                                # (B, Hkv, ncmax)
+
+        rate = (cfg.leoam.early_rate if layer < cfg.leoam.early_layers
+                else cfg.leoam.importance_rate)
+        sels: Dict[int, List[int]] = {}
+        stats: Dict[int, StepStats] = {}
+        for i, sid in enumerate(order):
+            st = StepStats(abstract_bytes=abs_billed[sid])
+            nv = n_valid[sid]
+            length = int(lengths[i])
+            scores = ub[i].max(0)[:nv]                       # (nv,)
+            budget_tokens = max(chunk, int(math.ceil(length * rate)))
+            chunk_scores = scores / chunk
+            if self.ecfg.selection == "tree":
+                sel, st.evaluations = tree_select_chunks(
+                    chunk_scores, length, budget_tokens, chunk)
+            else:
+                sel, st.evaluations = flat_select_chunks(
+                    chunk_scores, length, budget_tokens, chunk)
+            # sink + recent + hot chunks always included
+            forced = set(range(cfg.leoam.sink_chunks))
+            forced.update(range(max(0, nv - cfg.leoam.recent_chunks), nv))
+            forced.update(
+                int(c) for c in self.seqs[sid].access.hot_tokens(
+                    self.ecfg.hot_frac) if c < nv)
+            sels[sid] = sorted(set(sel) | forced)
+            stats[sid] = st
+        return sels, stats
+
+    # ------------------------------------------------------------------
+    # Decode round
+    # ------------------------------------------------------------------
+    @decode_thread_only
+    def decode_round(self, tokens: Dict[int, int]) -> Dict[int, int]:
+        """One token for every sequence in ``tokens`` ({seq id: last
+        token}); returns {seq id: next token}.  A sequence whose
+        write-behind ingest failed is failed alone (its reason lands in
+        :attr:`failed`); a disk-lost chunk raises ``NotImplementedError``
+        — recompute-from-prompt recovery is not ported (ROADMAP A9)."""
+        if not tokens:
+            raise ValueError(
+                "decode_round needs at least one sequence: pass "
+                "{seq id: last token} for every live sequence (admit one "
+                "via add_sequence first)")
+        live = dict(tokens)
+        for sid in sorted(live):        # write-behind completion fence
+            try:
+                self.store.ingest_fence(sid)
+            except Exception as e:
+                self.ingest_errors += 1
+                self.fail_sequence(sid, f"cold ingest failed: {e!r}")
+                live.pop(sid)
+        if not live:
+            return {}
+        try:
+            with torch.no_grad():
+                return self._decode_round_impl(live)
+        except ChunkLostError as e:
+            raise NotImplementedError(
+                f"disk-lost chunks {e.keys} at layer {e.layer}: "
+                f"recompute-from-prompt recovery is not ported yet "
+                f"(ROADMAP A9)") from e
+
+    @decode_thread_only
+    def _decode_round_impl(self, tokens: Dict[int, int]) -> Dict[int, int]:
+        cfg, ecfg = self.cfg, self.ecfg
+        dev = self.device
+        order = sorted(tokens)
+        B = len(order)
+        lengths = np.array([self.seqs[sid].length for sid in order],
+                           np.int64)
+        lengths_dev = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+        pos = lengths_dev[:, None]                               # (B, 1)
+        x = torch.tensor([[tokens[sid]] for sid in order], dtype=torch.long,
+                         device=dev)
+        params = self.params
+        h = params["embed"][x]                                   # (B, 1, d)
+        H, hd = cfg.n_heads, cfg.hd
+
+        prologue, period, repeats = lm._layer_plan(cfg)
+        round_stats = {sid: StepStats() for sid in order}
+        prof = {"eval_s": 0.0, "gather_s": 0.0, "upload_s": 0.0}
+        layer_io: List[Tuple[int, float, float]] = []  # (li, upB, diskB)
+        t_round = time.perf_counter()
+        li = 0
+
+        def run_attn(blk, mlpk, h, layer_idx):
+            nonlocal li
+            hln = rms_norm(h, blk["ln1"], cfg.norm_eps)
+            q, k_new, v_new = attn_mod._qkv(blk["core"], cfg, hln, pos)
+            qn = q[:, 0] / math.sqrt(hd)                         # (B, H, hd)
+            t0 = time.perf_counter()
+            sels, sel_stats = self._select_chunks_batched(
+                li, layer_idx, qn, order, lengths)
+            prof["eval_s"] += time.perf_counter() - t0
+
+            nmax = max(len(s) for s in sels.values())
+            pad = max(1, ecfg.sel_pad)
+            nmax = -(-nmax // pad) * pad
+            for sid in order:
+                st = round_stats[sid]
+                st.evaluations += sel_stats[sid].evaluations
+                st.fetched_chunks += len(sels[sid])
+                st.abstract_bytes += sel_stats[sid].abstract_bytes
+                self.seqs[sid].access.record(np.asarray(sels[sid]))
+                self._prev_sels[(sid, li)] = sels[sid]
+
+            slots, _, fst = self.store.fetch_chunks_pooled(
+                li, sels, pad_to=nmax, theta=self._theta(li))
+            prof["gather_s"] += fst.gather_s
+            prof["upload_s"] += fst.upload_s
+            layer_io.append((li, fst.uploads * self.store.chunk_bytes,
+                             fst.disk_bytes))
+            for sid in order:
+                round_stats[sid].fetched_bytes += fst.upload_bytes / B
+            # overlap: next layer's reads under this layer's attention
+            self._submit_prefetch(li + 1, order, lengths)
+            chunk_ids = np.full((B, nmax), -1, np.int32)
+            for i, sid in enumerate(order):
+                chunk_ids[i, :len(sels[sid])] = sels[sid]
+            o = sparse_decode_pooled(
+                q[:, 0], self.store.pools[li].kv,
+                torch.from_numpy(slots).to(dev),
+                torch.from_numpy(chunk_ids).to(dev), lengths_dev, k_new,
+                v_new, cfg.attn_softcap, impl=self.impl)
+            y = o.reshape(B, 1, H * hd) @ blk["core"]["wo"]
+            self.store.append_tokens_batch(li, lengths, _to_host(k_new[:, 0]),
+                                           _to_host(v_new[:, 0]), seqs=order)
+            li += 1
+            return lm._apply_mlp(blk, cfg, mlpk, h + y)
+
+        for pi, (idx, _kind, mlpk) in enumerate(prologue):
+            h = run_attn(params["prologue"][pi], mlpk, h, idx)
+        for r in range(repeats):
+            for pi, (_kind, mlpk) in enumerate(period):
+                h = run_attn(lm.body_block(params, pi, r), mlpk, h, 10 ** 6)
+
+        logits = _to_host(lm._logits(params, cfg, h)[:, 0])      # (B, V)
+        self.last_logits = logits
+        total_s = time.perf_counter() - t_round
+        prof["total_s"] = total_s
+        # the rest of the round: attention, MLPs, appends (the window the
+        # θ balance must hide transfers under — an upper bound, as in the
+        # reference without its profile mode)
+        prof["attend_s"] = max(0.0, total_s - prof["eval_s"]
+                               - prof["gather_s"] - prof["upload_s"])
+        self.round_profiles.append(prof)
+        # feed measured per-layer costs back into the θ balance
+        tc = prof["attend_s"] / max(1, len(self.attn_layers))
+        for lid, up_b, disk_b in layer_io:
+            self._update_costs(lid, up_b, disk_b, tc)
+        out: Dict[int, int] = {}
+        for i, sid in enumerate(order):
+            s = self.seqs[sid]
+            s.length += 1
+            s.stats.append(round_stats[sid])
+            out[sid] = int(np.argmax(logits[i]))
+        return out
+
+
+class LeoAMEngine:
+    """Single-sequence view: a B=1 wrapper over the batched engine,
+    preserving the prefill / decode_step / generate API."""
+
+    def __init__(self, cfg, params, ecfg: EngineCfg, *,
+                 device: DeviceLike = None, impl: Optional[str] = None,
+                 store_root: Optional[str] = None):
+        self._engine = BatchedLeoAMEngine(cfg, params, ecfg, max_seqs=1,
+                                          device=device, impl=impl,
+                                          store_root=store_root)
+        self._sid: Optional[int] = None
+
+    @property
+    def attn_layers(self):
+        return self._engine.attn_layers
+
+    @property
+    def store(self):
+        return self._engine.store
+
+    @property
+    def length(self) -> int:
+        return self._engine.seqs[self._sid].length if self._sid is not None \
+            else 0
+
+    @property
+    def stats(self) -> List[StepStats]:
+        if self._sid is None:
+            return []
+        return self._engine.seqs[self._sid].stats
+
+    def prefill(self, tokens: np.ndarray) -> int:
+        if self._sid is not None:        # re-prefill resets
+            self._engine.release(self._sid)
+        self._sid, tok = self._engine.add_sequence(tokens)
+        return tok
+
+    def decode_step(self, token: int) -> int:
+        if self._sid is None:
+            raise ValueError(
+                "decode_step before prefill: call prefill(prompt) (or "
+                "generate) to admit the sequence before decoding")
+        return self._engine.decode_round({self._sid: token})[self._sid]
+
+    def generate(self, prompt: np.ndarray, n_tokens: int) -> List[int]:
+        tok = self.prefill(prompt)
+        out = [tok]
+        for _ in range(n_tokens - 1):
+            tok = self.decode_step(tok)
+            out.append(tok)
+        return out

@@ -1,0 +1,776 @@
+"""Three-tier KV store: device / host / disk with byte-accurate accounting.
+
+The port of ``repro.serving.offload`` for the main path.  The unit of
+placement is the (seq, layer, chunk) triple; one store serves a whole
+decode batch.  The disk tier holds FULL fp16 REPLICAS of every chunk (one
+shared memmap, CRC32 per chunk) plus its min/max abstract (paper §4.3):
+demotions are metadata-only, promotions read the abstract or the chunk.
+
+* a :class:`DeviceChunkPool` per layer is ONE CUDA tensor of chunk slots,
+  updated in place by index assignment; ``fetch_chunks_pooled`` uploads
+  only the chunks not already resident (delta uploads) and returns slot
+  indices that the engine's attention kernel reads by;
+* with ``real_codec=True`` the θ-fraction of each upload crosses the link
+  as packed int4/int8 (``core.compression.quantize_chunks`` on the host)
+  and is dequantized on the device by kernel B3
+  (``repro_torch.kernels.kv_quant``) — K and V planes in one launch;
+* write-behind prefill ingest: ``ingest(..., executor=...)`` applies the
+  hot-tier placement synchronously and runs the disk replica + abstract
+  writes on the executor; :meth:`TieredKVStore.ingest_fence` is the
+  per-sequence completion fence;
+* per-sequence ``TrafficLog`` mirrors: the shared log always equals
+  Σ seq_logs + Σ retired_logs.
+
+Host-side state and billing are the reference's numpy code, so disk bytes,
+abstracts and the traffic log are bitwise equal to ``repro``'s for the same
+script (tested).  Options of the reference that this slice leaves out
+raise ``NotImplementedError`` at construction, naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import threading
+import time
+import zlib
+from collections import OrderedDict, defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import compression
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.kv_quant.ops import kv_dequant
+from repro_torch.serving.faults import ChunkLostError, IngestError
+from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
+                                           worker_thread)
+
+DEVICE, HOST, DISK = "device", "host", "disk"
+
+# per-chunk checksum states (kv_crc_state.bin): NONE = never written; VALID
+# = the stored CRC covers the replica bytes; DIRTY = a decode append
+# changed the replica in place (served unverified, as in the reference)
+_CRC_NONE, _CRC_VALID, _CRC_DIRTY = 0, 1, 2
+
+
+@dataclass
+class TrafficLog:
+    bytes: Dict[Tuple[str, str, str], float] = field(
+        default_factory=lambda: defaultdict(float))
+    ops: Dict[Tuple[str, str, str], int] = field(
+        default_factory=lambda: defaultdict(int))
+
+    def record(self, src: str, dst: str, kind: str, nbytes: float) -> None:
+        self.bytes[(src, dst, kind)] += nbytes
+        self.ops[(src, dst, kind)] += 1
+
+
+@dataclass
+class FetchStats:
+    """One pooled fetch's breakdown (per layer per round)."""
+    hits: int = 0                # chunks already pool-resident
+    uploads: int = 0             # chunks uploaded this call (the delta)
+    compressed: int = 0          # uploads that crossed the link packed
+    disk_reads: int = 0          # chunks staged disk→host first
+    upload_bytes: float = 0.0    # host→device bytes billed
+    disk_bytes: float = 0.0      # disk→host bytes billed
+    gather_s: float = 0.0        # disk stage wall time
+    upload_s: float = 0.0        # quantize + upload dispatch wall time
+
+
+class DeviceChunkPool:
+    """Fixed-capacity per-layer device slab of KV chunk slots.
+
+    ``kv`` is ONE (n_slots + 1, planes, chunk, Hkv, hd) tensor on the
+    device for the engine's lifetime, updated IN PLACE by index assignment
+    (no copy of the slab per round).  Slot ``n_slots`` is the reference's
+    write-only scratch row; it is kept so slot numbering and the slab's
+    shape match ``repro`` (this port needs no bucket padding: eager index
+    assignment compiles nothing).  ``slot_of`` maps (seq, chunk) → slot in
+    LRU order."""
+
+    def __init__(self, n_slots: int, chunk: int, kv_heads: int,
+                 head_dim: int, dtype: torch.dtype, device: torch.device,
+                 planes: int = 2):
+        self.n_slots = n_slots
+        self.planes = planes
+        self.kv = torch.zeros((n_slots + 1, planes, chunk, kv_heads,
+                               head_dim), dtype=dtype, device=device)
+        self.slot_of: "OrderedDict[Tuple[int, int], int]" = OrderedDict()
+        self.free: List[int] = list(range(n_slots - 1, -1, -1))
+        # decode appends queue here and are folded into the next round's
+        # slot upload — one slab update per (layer, round)
+        self.pending: Dict[Tuple[int, int], Tuple[int, np.ndarray]] = {}
+        self.hits = 0
+        self.misses = 0
+        self.uploads = 0
+
+    def lookup(self, key: Tuple[int, int]) -> Optional[int]:
+        slot = self.slot_of.get(key)
+        if slot is not None:
+            self.slot_of.move_to_end(key)
+            self.hits += 1
+        else:
+            self.misses += 1
+        return slot
+
+    def alloc(self, key: Tuple[int, int], pinned) -> Tuple[int,
+                                                           Optional[Tuple]]:
+        """Grab a slot for ``key``, evicting the LRU non-pinned resident if
+        full.  Returns (slot, evicted key or None)."""
+        if self.free:
+            slot = self.free.pop()
+            self.slot_of[key] = slot
+            return slot, None
+        for victim in self.slot_of:            # LRU → MRU
+            if victim not in pinned:
+                break
+        else:
+            raise RuntimeError(
+                "device pool exhausted by a single round's working set; "
+                "raise device_chunk_budget or lower the selection rate")
+        slot = self.slot_of.pop(victim)
+        self.pending.pop(victim, None)     # host copy keeps the rows
+        self.slot_of[key] = slot
+        return slot, victim
+
+    def evict(self, key: Tuple[int, int]) -> None:
+        slot = self.slot_of.pop(key, None)
+        self.pending.pop(key, None)
+        if slot is not None:
+            self.free.append(slot)
+
+    def evict_seq(self, seq: int) -> None:
+        for key in [k for k in self.slot_of if k[0] == seq]:
+            self.evict(key)
+
+    @decode_thread_only
+    def scatter(self, slots: Sequence[int], kv_new) -> List[Tuple[int, int]]:
+        """One slab update per (layer, round): write the (m, planes, chunk,
+        Hkv, hd) delta into ``slots`` AND flush the queued decode-append
+        rows, both by in-place index assignment.  ``kv_new`` is numpy
+        (plain fp16 upload) or a device tensor (dequantized codec payload).
+        Returns the (seq, chunk) keys whose append rows crossed to the
+        device — the caller bills those."""
+        dev = self.kv.device
+        rows = [(key, slot, off, row)
+                for key, (off, row) in self.pending.items()
+                if (slot := self.slot_of.get(key)) is not None]
+        if len(slots):
+            vals = kv_new if isinstance(kv_new, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(kv_new))
+            idx = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
+            self.kv[idx] = vals.to(device=dev, dtype=self.kv.dtype)
+        if rows:
+            si = torch.as_tensor([r[1] for r in rows], dtype=torch.long,
+                                 device=dev)
+            oi = torch.as_tensor([r[2] for r in rows], dtype=torch.long,
+                                 device=dev)
+            kv_rows = torch.from_numpy(np.stack([r[3] for r in rows]))
+            self.kv[si, :, oi] = kv_rows.to(device=dev, dtype=self.kv.dtype)
+        # clear AFTER the slab updates land: an exception mid-scatter must
+        # not drop queued append rows
+        self.pending.clear()
+        self.uploads += len(slots)
+        return [key for key, _, _, _ in rows]
+
+    def queue_row(self, key: Tuple[int, int], off: int,
+                  kv_row: np.ndarray) -> None:
+        """Queue a decode-append row for a resident chunk; flushed by the
+        next :meth:`scatter` (reads of the slab come only after it)."""
+        self.pending[key] = (off, kv_row)
+
+
+def _unsupported(option: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"TieredKVStore({option}) is not ported yet (ROADMAP {item})")
+
+
+class TieredKVStore:
+    """Multi-sequence chunked K/V with device/host/disk placement.
+
+    K/V chunks are (chunk, Hkv, hd) numpy arrays keyed by (seq, layer,
+    chunk); ``_disk`` is a real memory-mapped file shared by all sequences;
+    the device tier is the per-layer :class:`DeviceChunkPool` on
+    ``device`` (default: the CUDA card).  Mutating entry points take an
+    RLock so the engine's prefetch thread can stage disk reads while the
+    main thread decodes.  ``impl="ref"`` runs the plain version of the
+    dequant kernel even on the card."""
+
+    def __init__(self, n_layers: int, n_chunks: int, chunk: int, kv_heads: int,
+                 head_dim: int, *, n_seqs: int = 1, dtype=np.float16,
+                 transit_codec="int4", root: Optional[str] = None,
+                 use_pool: bool = True, pool_slots: Optional[int] = None,
+                 real_codec: bool = False, disk_sidecar: bool = False,
+                 latent: bool = False, prefix_rows: int = 0,
+                 debug_sync: bool = False, faults=None,
+                 abstract_kind: str = "minmax", device: DeviceLike = None,
+                 impl: Optional[str] = None):
+        for bad, opt, item in (
+                (not use_pool, "use_pool=False", "A5"),
+                (disk_sidecar, "disk_sidecar=True", "A4"),
+                (latent, "latent=True", "A7"),
+                (prefix_rows, "prefix_rows>0", "A8"),
+                (faults is not None, "faults=", "A9"),
+                (debug_sync, "debug_sync=True", "A13"),
+                (abstract_kind == "pq", "abstract_kind='pq'", "A10")):
+            if bad:
+                raise _unsupported(opt, item)
+        if abstract_kind != "minmax":
+            raise ValueError(f"unknown abstract_kind {abstract_kind!r}")
+        self.device = resolve_device(device)
+        self.impl = impl
+        self.n_seqs = n_seqs
+        self.n_layers, self.n_chunks, self.chunk = n_layers, n_chunks, chunk
+        self.kv_heads, self.head_dim = kv_heads, head_dim
+        self.planes = 2
+        self.dtype = np.dtype(dtype)
+        self.torch_dtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+        self.transit_codec = transit_codec
+        self.real_codec = real_codec and transit_codec is not None
+        self.tier: np.ndarray = np.full((n_seqs, n_layers, n_chunks), HOST,
+                                        object)
+        self.access: np.ndarray = np.zeros((n_seqs, n_layers, n_chunks))
+        self.log = TrafficLog()
+        self.seq_logs: Dict[int, TrafficLog] = defaultdict(TrafficLog)
+        self.retired_logs: List[TrafficLog] = []
+        Key = Tuple[int, int, int]
+        self._host_k: Dict[Key, np.ndarray] = {}
+        self._host_v: Dict[Key, np.ndarray] = {}
+        # persistent stacked abstracts: one (n_seqs, n_chunks, Hkv, hd)
+        # fancy-index per (layer, round)
+        self._abs_km = np.full((n_seqs, n_layers, n_chunks, kv_heads,
+                                head_dim), -np.inf, np.float32)
+        self._abs_kn = np.full_like(self._abs_km, np.inf)
+        self._lock = threading.RLock()
+        self.codec_uploads = 0         # pooled H2D chunks sent packed
+        self.plain_uploads = 0         # pooled H2D chunks sent fp16
+        slots = pool_slots if pool_slots is not None else n_seqs * n_chunks
+        self.pools: List[DeviceChunkPool] = [
+            DeviceChunkPool(slots, chunk, kv_heads, head_dim,
+                            self.torch_dtype, self.device)
+            for _ in range(n_layers)]
+        shape = (n_seqs, n_layers, n_chunks, self.planes, chunk, kv_heads,
+                 head_dim)
+        self._root = root or tempfile.mkdtemp(prefix="leoam_kv_")
+        os.makedirs(self._root, exist_ok=True)
+        self._disk = np.memmap(os.path.join(self._root, "kv.bin"),
+                               dtype=self.dtype, mode="w+", shape=shape)
+        # per-chunk CRC32 of the replica, verified at every promotion
+        self._crc = np.memmap(
+            os.path.join(self._root, "kv_crc.bin"), dtype=np.uint32,
+            mode="w+", shape=(n_seqs, n_layers, n_chunks))
+        self._crc_state = np.memmap(
+            os.path.join(self._root, "kv_crc_state.bin"),
+            dtype=np.uint8, mode="w+", shape=(n_seqs, n_layers, n_chunks))
+        self._disk_lost: Set[Tuple[int, int, int]] = set()
+        # write-behind ingest: per-seq in-flight cold-write futures; the
+        # fence pops under _futs_lock and waits OUTSIDE the store lock
+        self._ingest_futs: Dict[int, List] = defaultdict(list)
+        self._futs_lock = threading.Lock()
+
+    # ------------------------------------------------------------------
+    @property
+    def chunk_bytes(self) -> int:
+        """One chunk's stored payload (K+V planes)."""
+        return (self.planes * self.chunk * self.kv_heads * self.head_dim
+                * self.dtype.itemsize)
+
+    @property
+    def abstract_bytes(self) -> int:
+        """One chunk's LKA abstract: the (min, max) box pair over the keys."""
+        return 2 * self.kv_heads * self.head_dim * self.dtype.itemsize
+
+    @property
+    def row_bytes(self) -> int:
+        """One appended token's stored bytes (K+V)."""
+        return (self.planes * self.kv_heads * self.head_dim
+                * self.dtype.itemsize)
+
+    @property
+    def use_pool(self) -> bool:
+        return True
+
+    def _bill_flushed_rows(self, applied: List[Tuple[int, int]]) -> None:
+        """Bill the HOST→DEVICE append rows a slab flush actually carried."""
+        for seq, _c in applied:
+            self._record(seq, HOST, DEVICE, "kv_append", self.row_bytes)
+
+    def _record(self, seq: int, src: str, dst: str, kind: str,
+                nbytes: float) -> None:
+        """Tally into the shared log AND the sequence's mirror."""
+        self.log.record(src, dst, kind, nbytes)
+        self.seq_logs[seq].record(src, dst, kind, nbytes)
+
+    def _transit_bytes(self) -> float:
+        """Legacy ledger-only codec: chunk bytes scaled by the codec ratio."""
+        nbytes = float(self.chunk_bytes)
+        if self.transit_codec:
+            nbytes *= compression.codec_ratio(self.transit_codec)
+        return nbytes
+
+    def _packed_bytes(self) -> float:
+        """Actual packed payload bytes of one chunk through the real codec."""
+        return float(self.chunk_bytes) * compression.codec_ratio(
+            self.transit_codec, group=self.chunk)
+
+    def _disk_read_bytes(self) -> float:
+        """Disk→host promotion bytes of one chunk read off the fp16
+        replica: the full read with the real codec, the ledger-only codec
+        scaling otherwise (as the reference bills)."""
+        return float(self.chunk_bytes) if self.real_codec \
+            else self._transit_bytes()
+
+    def _plane_stack(self, kc: np.ndarray, vc: np.ndarray) -> np.ndarray:
+        """One chunk's storage planes: (2, chunk, Hkv, hd)."""
+        return np.stack((kc, vc))
+
+    @staticmethod
+    def _crc32(arr: np.ndarray) -> int:
+        return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+
+    def _replica_read_verified(self, layer: int,  # leolint: waive[billlint] reason=coalesced verified-read helper: its caller (_stage_disk) bills every chunk it promotes at the promotion site, where the per-seq attribution is known
+                               entries: Sequence[Tuple[int, int, int]]
+                               ) -> Tuple[np.ndarray, Set[int]]:
+        """Coalesced fp16-replica gather plus CRC verification.  ``entries``
+        is (bill seq, row, chunk).  Returns (blk, lost): blk is (n, planes,
+        chunk, Hkv, hd); ``lost`` positions failed verification and are
+        marked disk-lost."""
+        sq = np.array([p for _, p, _ in entries])
+        cq = np.array([c for _, _, c in entries])
+        blk = np.asarray(self._disk[sq, layer, cq])
+        lost: Set[int] = set()
+        for i, (_, p, c) in enumerate(entries):
+            if int(self._crc_state[p, layer, c]) == _CRC_VALID and \
+                    self._crc32(blk[i]) != int(self._crc[p, layer, c]):
+                lost.add(i)
+                self._disk_lost.add((p, layer, c))
+        return blk, lost
+
+    # ------------------------------------------------------------------
+    # Ingest (prefill) with write-behind cold half
+    # ------------------------------------------------------------------
+    @worker_thread
+    def ingest(self, layer: int, k: np.ndarray, v: np.ndarray,
+               placement: Optional[Dict[int, str]] = None, *, seq: int = 0,
+               executor=None) -> None:
+        """Store prefill KV.  k/v: (S, Hkv, hd).  Every chunk is replicated
+        to disk (with its abstract); ``placement`` assigns the hot tier.
+        With ``executor`` the cold half (disk replica + abstract writes and
+        their billing) runs write-behind; reads of the disk tier or the
+        abstracts need :meth:`ingest_fence` first."""
+        placement = placement or {}
+        with self._lock:
+            S = k.shape[0]
+            to_pool: List[Tuple[int, np.ndarray, np.ndarray]] = []
+            cids: List[int] = []
+            kcs: List[np.ndarray] = []
+            vcs: List[np.ndarray] = []
+            for c in range(min(self.n_chunks,
+                               (S + self.chunk - 1) // self.chunk)):
+                kr = k[c * self.chunk: (c + 1) * self.chunk]
+                vr = v[c * self.chunk: (c + 1) * self.chunk]
+                if kr.shape[0] < self.chunk:
+                    pad = self.chunk - kr.shape[0]
+                    kr = np.pad(kr, ((0, pad), (0, 0), (0, 0)))
+                    vr = np.pad(vr, ((0, pad), (0, 0), (0, 0)))
+                kc = kr.astype(self.dtype)
+                vc = vr.astype(self.dtype)
+                cids.append(c)
+                kcs.append(kc)
+                vcs.append(vc)
+                where = placement.get(c, HOST)
+                self.tier[seq, layer, c] = where
+                key = (seq, layer, c)
+                if where in (HOST, DEVICE):
+                    self._host_k[key], self._host_v[key] = kc, vc
+                if where == DEVICE:
+                    to_pool.append((c, kc, vc))
+            if to_pool:
+                # leolint: waive[locklint,threadlint] reason=synchronous admission only: the decode thread is the caller (the port has no admission worker yet), and the slab update is an eager in-place device write, not a compiled dispatch
+                self._pool_place(layer, seq, to_pool)
+        if not cids:
+            return
+        ks, vs = np.stack(kcs), np.stack(vcs)
+        if executor is None:
+            self._ingest_cold(layer, seq, cids, ks, vs)
+        else:
+            fut = executor.submit(self._ingest_cold, layer, seq, cids, ks, vs)
+            with self._futs_lock:
+                self._ingest_futs[seq].append(fut)
+
+    @worker_thread
+    def _ingest_cold(self, layer: int, seq: int, cids: List[int],
+                     kcs: np.ndarray, vcs: np.ndarray) -> None:
+        """The write-behind half of :meth:`ingest`: fp16 replica, CRC and
+        abstract writes, with their billing.  kcs/vcs: (n, chunk, Hkv, hd)
+        in store dtype, rows matching ``cids``."""
+        crcs = [self._crc32(self._plane_stack(kc, vc))
+                for kc, vc in zip(kcs, vcs)]
+        with self._lock:
+            idx = np.asarray(cids, np.int64)
+            self._disk[seq, layer, idx, 0] = kcs
+            self._disk[seq, layer, idx, 1] = vcs
+            self._abs_km[seq, layer, idx] = kcs.max(1)
+            self._abs_kn[seq, layer, idx] = kcs.min(1)
+            self._crc[seq, layer, idx] = crcs
+            self._crc_state[seq, layer, idx] = _CRC_VALID
+            for _c in cids:
+                self._record(seq, HOST, DISK, "kv_replica",
+                             float(self.chunk_bytes))
+                self._record(seq, HOST, DISK, "abstract", self.abstract_bytes)
+
+    @any_thread
+    def ingest_fence(self, seq: int) -> None:
+        """Block until every in-flight write-behind ingest of ``seq`` has
+        landed.  Must be called WITHOUT the store lock held.  All futures
+        are awaited even when one raises; the first failure re-raises as
+        :class:`IngestError`."""
+        with self._futs_lock:
+            futs = self._ingest_futs.pop(seq, [])
+        first: Optional[BaseException] = None
+        for fut in futs:
+            try:
+                fut.result()
+            except BaseException as e:
+                if first is None:
+                    first = e
+        if first is not None:
+            raise IngestError(seq, first) from first
+
+    @any_thread
+    def ingest_fence_all(self) -> None:
+        """Fence every sequence (shutdown path)."""
+        with self._futs_lock:
+            seqs = list(self._ingest_futs)
+        first: Optional[BaseException] = None
+        for s in seqs:
+            try:
+                self.ingest_fence(s)
+            except BaseException as e:
+                if first is None:
+                    first = e
+        if first is not None:
+            raise first
+
+    @decode_thread_only
+    def _pool_place(self, layer: int, seq: int,
+                    items: List[Tuple[int, np.ndarray, np.ndarray]]) -> None:
+        """Initial (prefill) pool placement: one scatter, no transit billing
+        — the KV was produced on the device; this is residency bookkeeping."""
+        pool = self.pools[layer]
+        slots = []
+        for c, _, _ in items:
+            slot, evicted = pool.alloc((seq, c), pinned=())
+            if evicted is not None:
+                self.tier[evicted[0], layer, evicted[1]] = HOST
+            slots.append(slot)
+        self._bill_flushed_rows(
+            pool.scatter(slots, np.stack([self._plane_stack(kc, vc)
+                                          for _, kc, vc in items])))
+
+    # ------------------------------------------------------------------
+    @any_thread
+    def read_abstracts_batch(self, layer: int,
+                             chunks_by_seq: Dict[int, Sequence[int]]
+                             ) -> Tuple[np.ndarray, np.ndarray,
+                                        Dict[int, float]]:
+        """Batched LKA read: one padded (B, ncmax, Hkv, hd) fancy-index into
+        the persistent abstract stack.  Returns (kmax, kmin, abstract bytes
+        billed per sequence); rows follow dict order, padded with zeros."""
+        with self._lock:
+            B = len(chunks_by_seq)
+            ncmax = max((len(c) for c in chunks_by_seq.values()), default=0)
+            km = np.zeros((B, ncmax, self.kv_heads, self.head_dim), np.float32)
+            kn = np.zeros_like(km)
+            billed: Dict[int, float] = {}
+            for i, (seq, chunks) in enumerate(chunks_by_seq.items()):
+                idx = np.asarray(list(chunks), np.int64)
+                km[i, :len(idx)] = self._abs_km[seq, layer, idx]
+                kn[i, :len(idx)] = self._abs_kn[seq, layer, idx]
+                n_disk = int(np.count_nonzero(
+                    self.tier[seq, layer, idx] == DISK))
+                for _ in range(n_disk):
+                    self._record(seq, DISK, HOST, "abstract",
+                                 self.abstract_bytes)
+                billed[seq] = n_disk * float(self.abstract_bytes)
+            return km, kn, billed
+
+    # ------------------------------------------------------------------
+    # Pooled path: device-resident slab, delta uploads, real codec
+    # ------------------------------------------------------------------
+    def _stage_disk(self, layer: int, keys: Sequence[Tuple[int, int]], *,
+                    nbytes: float, retier: bool = False) -> Tuple[int, float]:
+        """Coalesce disk→host reads for every key lacking a host copy (pool
+        residents need none): one fancy-indexed memmap gather, CRC-verified,
+        each chunk billed ``nbytes``.  ``retier`` marks staged chunks HOST
+        so a later fetch sees the copy instead of re-reading.  Returns
+        (chunks read, bytes billed); a failed checksum raises
+        :class:`ChunkLostError`."""
+        need: List[Tuple[int, int, int]] = []   # (billed seq, row, c)
+        seen = set()
+        pool = self.pools[layer]
+        for seq, c in keys:
+            key = (seq, layer, c)
+            if key in seen:
+                continue
+            seen.add(key)
+            if (seq, c) in pool.slot_of:
+                continue
+            if key in self._host_k and self.tier[seq, layer, c] != DISK:
+                continue
+            need.append((seq, seq, c))
+        billed = 0.0
+        if not need:
+            return 0, billed
+        blk, bad = self._replica_read_verified(layer, need)
+        lost: List[Tuple[int, int, int]] = []
+        for i, (seq, p, c) in enumerate(need):
+            if i in bad:
+                lost.append((seq, p, c))
+                continue
+            self._record(seq, DISK, HOST, "kv", nbytes)
+            billed += nbytes
+            key = (p, layer, c)
+            self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
+            if retier:
+                self.tier[p, layer, c] = HOST
+        if lost:
+            raise ChunkLostError(layer, lost)
+        return len(need), billed
+
+    @worker_thread
+    def stage_host(self, layer: int,
+                   chunks_by_seq: Dict[int, Sequence[int]]) -> int:
+        """Speculative disk→host staging (DTP prefetch): pulls predicted
+        chunks off disk and re-tiers them HOST so the true fetch finds
+        them; a wrong prediction costs only this read.  A lost chunk is
+        left for the decode thread's own fetch to detect.  Returns the
+        number of chunks staged."""
+        with self._lock:
+            keys = [(seq, c) for seq, chunks in chunks_by_seq.items()
+                    for c in chunks]
+            try:
+                n, _ = self._stage_disk(layer, keys,
+                                        nbytes=self._disk_read_bytes(),
+                                        retier=True)
+            except ChunkLostError:
+                return 0
+            return n
+
+    def _upload_delta(self, kv_stack: np.ndarray, n_comp: int):
+        """The delta upload's payload on the device: the first ``n_comp``
+        chunks cross packed and are dequantized by kernel B3 (K and V
+        planes stacked into one launch), the rest cross as fp16."""
+        if not n_comp:
+            return kv_stack
+        dev = self.device
+        packed = [compression.quantize_chunks(kv_stack[:n_comp, pl],
+                                              self.transit_codec)
+                  for pl in range(self.planes)]
+        data = torch.from_numpy(np.concatenate([d for d, _ in packed]))
+        scale = torch.from_numpy(np.concatenate([s for _, s in packed]))
+        out = kv_dequant(data.to(dev), scale.to(dev),
+                         codec=self.transit_codec,
+                         out_dtype=self.torch_dtype, impl=self.impl)
+        kv_dev = out.reshape(self.planes, n_comp, self.chunk, self.kv_heads,
+                             self.head_dim).transpose(0, 1)
+        if n_comp < len(kv_stack):
+            kv_dev = torch.cat([kv_dev, torch.from_numpy(
+                np.ascontiguousarray(kv_stack[n_comp:])).to(dev)])
+        return kv_dev
+
+    @decode_thread_only
+    def fetch_chunks_pooled(self, layer: int,  # leolint: waive[locklint] reason=decode-thread pooled fetch: the slab update runs under _lock so tier tables stay consistent with residency; it is an eager in-place device write, not a compiled dispatch
+                            chunks_by_seq: Dict[int, Sequence[int]], *,
+                            pad_to: Optional[int] = None,
+                            theta: float = 1.0
+                            ) -> Tuple[np.ndarray, np.ndarray, FetchStats]:
+        """Delta promotion into the layer's device slab.
+
+        Chunks already pool-resident cost NOTHING; only the missing delta
+        is stacked and written into freshly-allocated slots.  With
+        ``real_codec``, the first ``round(theta * missing)`` chunks cross
+        host→device as packed int4/int8 + f32 scales and are dequantized
+        on the device (kernel B3); the rest go as fp16.  Billing is the
+        actual payload per chunk.
+
+        Returns (slots, nsel, stats): slots (B, pad_to) int32 indices into
+        ``pools[layer]`` (padding rows point at slot 0 — the engine masks
+        them), nsel (B,) valid counts.  Rows follow dict order."""
+        with self._lock:
+            st = FetchStats()
+            pool = self.pools[layer]
+            items = list(chunks_by_seq.items())
+            B = len(items)
+            nsel = np.array([len(c) for _, c in items], np.int32)
+            nmax = int(pad_to if pad_to is not None
+                       else (nsel.max() if B else 0))
+
+            t0 = time.perf_counter()
+            st.disk_reads, st.disk_bytes = self._stage_disk(
+                layer, [(seq, c) for seq, chunks in items for c in chunks],
+                nbytes=self._disk_read_bytes())
+            st.gather_s = time.perf_counter() - t0
+
+            slots = np.zeros((B, nmax), np.int32)
+            pinned = {(seq, c) for seq, chunks in items for c in chunks}
+            missing: List[Tuple[int, int, int, int]] = []
+            for i, (seq, chunks) in enumerate(items):
+                for j, c in enumerate(chunks):
+                    self.access[seq, layer, c] += 1
+                    slot = pool.lookup((seq, c))
+                    if slot is None:
+                        missing.append((i, j, seq, c))
+                    else:
+                        slots[i, j] = slot
+                        st.hits += 1
+            t1 = time.perf_counter()
+            if missing:
+                fresh: Dict[Tuple[int, int], int] = {}
+                up_keys: List[Tuple[int, int]] = []
+                try:
+                    for i, j, seq, c in missing:
+                        slot, evicted = pool.alloc((seq, c), pinned)
+                        if evicted is not None:
+                            self.tier[evicted[0], layer, evicted[1]] = HOST
+                        self.tier[seq, layer, c] = DEVICE
+                        fresh[(seq, c)] = slot
+                        up_keys.append((seq, c))
+                        slots[i, j] = slot
+                    kv_stack = np.stack(
+                        [self._plane_stack(self._host_k[(s, layer, c)],
+                                           self._host_v[(s, layer, c)])
+                         for s, c in up_keys])  # (m, planes, c, Hkv, hd)
+                    m = len(up_keys)
+                    n_comp = int(round(min(1.0, max(0.0, theta)) * m)) \
+                        if self.real_codec else 0
+                    self._bill_flushed_rows(pool.scatter(
+                        [fresh[k] for k in up_keys],
+                        self._upload_delta(kv_stack, n_comp)))
+                except BaseException:
+                    # residency must never point at a slab row the scatter
+                    # did not write: return the half-uploaded slots
+                    for pk, slot in fresh.items():
+                        if pool.slot_of.get(pk) == slot:
+                            pool.slot_of.pop(pk, None)
+                            pool.free.append(slot)
+                        self.tier[pk[0], layer, pk[1]] = HOST
+                    raise
+                per_comp = self._packed_bytes() if self.real_codec \
+                    else self._transit_bytes()
+                per_plain = float(self.chunk_bytes) if self.real_codec \
+                    else self._transit_bytes()
+                for idx, (seq, _c) in enumerate(up_keys):
+                    nb = per_comp if idx < n_comp else per_plain
+                    self._record(seq, HOST, DEVICE, "kv", nb)
+                    st.upload_bytes += nb
+                st.uploads = m
+                st.compressed = n_comp
+                self.codec_uploads += n_comp
+                self.plain_uploads += m - n_comp
+            elif pool.pending:
+                self._bill_flushed_rows(pool.scatter([], None))
+            st.upload_s = time.perf_counter() - t1
+            return slots, nsel, st
+
+    def pool_stats(self) -> Dict[str, float]:
+        """Aggregate pool residency counters across layers."""
+        pools = self.pools
+        hits = sum(p.hits for p in pools)
+        misses = sum(p.misses for p in pools)
+        uploads = sum(p.uploads for p in pools)
+        return {"hits": hits, "misses": misses, "uploads": uploads,
+                "hit_rate": hits / max(1, hits + misses),
+                "slots": pools[0].n_slots if pools else 0,
+                "free_slots": (min(len(p.free) for p in pools)
+                               if pools else 0),
+                "resident": (max(len(p.slot_of) for p in pools)
+                             if pools else 0)}
+
+    # ------------------------------------------------------------------
+    @decode_thread_only
+    def append_tokens_batch(self, layer: int, positions: np.ndarray,
+                            k_news: np.ndarray, v_news: np.ndarray, *,
+                            seqs: Sequence[int]) -> None:
+        """One round's appends for a layer: vectorized disk writes +
+        abstract updates, host mirror updates, and the pool rows queued
+        for the next slab flush.  positions: (B,), k_news/v_news:
+        (B, Hkv, hd) (f32 or the store dtype), seqs: (B,)."""
+        with self._lock:
+            sq = np.asarray(list(seqs), np.int64)
+            pos = np.asarray(positions, np.int64)
+            cs, offs = pos // self.chunk, pos % self.chunk
+            kd = k_news.astype(self.dtype)
+            vd = v_news.astype(self.dtype)
+            self._disk[sq, layer, cs, 0, offs] = kd
+            self._disk[sq, layer, cs, 1, offs] = vd
+            # append-dirtied: the replica changed under its checksum
+            self._crc_state[sq, layer, cs] = _CRC_DIRTY
+            self._abs_km[sq, layer, cs] = np.maximum(
+                self._abs_km[sq, layer, cs], k_news)
+            self._abs_kn[sq, layer, cs] = np.minimum(
+                self._abs_kn[sq, layer, cs], k_news)
+            row_bytes = self.row_bytes
+            pool = self.pools[layer]
+            for i in range(len(sq)):
+                seq, c, off = int(sq[i]), int(cs[i]), int(offs[i])
+                key = (seq, layer, c)
+                if key in self._host_k:
+                    self._host_k[key][off] = kd[i]
+                    self._host_v[key][off] = vd[i]
+                if (seq, c) in pool.slot_of:
+                    # H2D billing happens when the flush carries the row
+                    pool.queue_row((seq, c), off,
+                                   self._plane_stack(kd[i], vd[i]))
+                self._record(seq, HOST, DISK, "kv_append", row_bytes)
+
+    # ------------------------------------------------------------------
+    @decode_thread_only
+    def clear_seq(self, seq: int) -> None:
+        """Retire a sequence: free its hot-tier entries so the slot can be
+        reused; its traffic log moves to ``retired_logs``."""
+        with self._lock:
+            for d in (self._host_k, self._host_v):
+                for key in [k for k in d if k[0] == seq]:
+                    d.pop(key, None)
+            for pool in self.pools:
+                pool.evict_seq(seq)
+            self._abs_km[seq] = -np.inf
+            self._abs_kn[seq] = np.inf
+            self.tier[seq] = HOST
+            self.access[seq] = 0.0
+            if seq in self.seq_logs:
+                self.retired_logs.append(self.seq_logs.pop(seq))
+            self._disk_lost = {k for k in self._disk_lost if k[0] != seq}
+            self._crc_state[seq] = _CRC_NONE
+
+    @any_thread
+    def disk_lost_keys(self) -> Set[Tuple[int, int, int]]:
+        with self._lock:
+            return set(self._disk_lost)
+
+    @any_thread
+    def fault_stats(self) -> Dict[str, float]:
+        """Fault-domain counters (scheduler-facing)."""
+        with self._lock:
+            return {"disk_lost": float(len(self._disk_lost))}
+
+    def tier_bytes(self) -> Dict[str, float]:
+        """Bytes moved so far, by (src, dst) pair."""
+        out: Dict[str, float] = defaultdict(float)
+        for (src, dst, _kind), v in self.log.bytes.items():
+            out[f"{src}->{dst}"] += v
+        return dict(out)
+
+    def close(self) -> None:
+        """Drain in-flight writes, then drop the memmaps (best-effort: a
+        failed worker must not block shutdown of the survivors)."""
+        try:
+            self.ingest_fence_all()
+        except Exception:
+            pass
+        del self._disk, self._crc, self._crc_state
