@@ -65,10 +65,9 @@ def library_path() -> Path:
     return BUILD_DIR / f"libleoam_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile every source in parallel and link the shared library (a
-    no-op when the hashed library exists).  ``verbose`` prints ptxas's
-    register / shared-memory report per kernel."""
+    no-op when the hashed library exists)."""
     so = library_path()
     if so.exists():
         return so
@@ -76,8 +75,6 @@ def build(verbose: bool = False) -> Path:
     tmp = BUILD_DIR / f"tmp-{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     flags = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-    if verbose:
-        flags += ["-Xptxas", "-v"]
     objs, procs = [], []
     for src in sources():
         obj = tmp / (src.stem + ".o")
@@ -88,8 +85,6 @@ def build(verbose: bool = False) -> Path:
     failed = []
     for src, p in procs:
         out, _ = p.communicate()
-        if verbose and out:
-            print(out, end="")
         if p.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
     if failed:
@@ -135,14 +130,13 @@ def stream_ptr(t: torch.Tensor) -> int:
 def use_kernel(impl: Optional[str], t: torch.Tensor) -> bool:
     """Dispatch by device: a CUDA tensor launches the kernel, a CPU tensor
     takes the plain version.  ``impl="ref"`` asks for the plain version
-    on any device (an explicit request, never a fallback); ``impl="cuda"``
-    insists on the kernel."""
+    on any device (an explicit request, never a fallback)."""
     if impl == "ref":
         return False
-    if impl not in (None, "cuda"):
-        raise ValueError(f"impl must be None, 'cuda' or 'ref', got {impl!r}")
+    if impl is not None:
+        raise ValueError(f"impl must be None or 'ref', got {impl!r}")
     if t.is_cuda:
         return True
-    if impl is None and t.device.type == "cpu":
+    if t.device.type == "cpu":
         return False
-    raise ValueError(f"no kernel for a tensor on {t.device} (impl={impl!r})")
+    raise ValueError(f"no kernel for a tensor on {t.device}")

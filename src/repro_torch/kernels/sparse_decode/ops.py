@@ -21,24 +21,10 @@ from repro_torch.kernels.sparse_decode.ref import (model_scale,
 
 launches = 0
 
-_MAX_G, _MAX_HD, _MAX_SMEM = 16, 256, 232448
-_ROW_GROUPS = 4          # SD_THREADS / SD_CT in csrc/sparse_decode.cu
-
 
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"sparse_decode: {what}")
-
-
-def _check_fits(G: int, hd: int, nsel: int, chunk: int) -> None:
-    """One block keeps the scaled queries and every selected row's score
-    in shared memory (split-KV for longer selections is later work)."""
-    _check(G <= _MAX_G and hd <= _MAX_HD,
-           f"G={G} > {_MAX_G} or hd={hd} > {_MAX_HD} is beyond this kernel")
-    smem = 4 * (_ROW_GROUPS * G * hd + G * (nsel * chunk + 1)
-                + 2 * _MAX_G)
-    _check(smem <= _MAX_SMEM, f"{nsel} chunks of {chunk} rows x G={G} need "
-           f"{smem} B of shared memory (> {_MAX_SMEM})")
 
 
 def sparse_decode_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
@@ -60,7 +46,6 @@ def sparse_decode_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
     nmax = slots.shape[1]
     _check(planes == 2 and hd2 == hd and G * Hkv == H,
            f"pool {tuple(pool_kv.shape)} does not fit q {tuple(q.shape)}")
-    _check_fits(G, hd, nmax, chunk)
     _check(pool_kv.is_contiguous() and pool_kv.is_cuda, "pool must be a "
            "contiguous CUDA tensor")
     _check(all(t.is_cuda and t.dtype == torch.int32 for t in
@@ -101,7 +86,6 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nsel = ids.shape[-1]
     _check(S % chunk == 0 and k.shape == v.shape and k.shape[2] == Hkv,
            f"k {tuple(k.shape)} / chunk {chunk} do not fit q {tuple(q.shape)}")
-    _check_fits(G, hd, nsel, chunk)
     _check(k.dtype == v.dtype and k.dtype in build.DTYPE_CODES and k.is_cuda
            and v.is_cuda, f"k/v dtype {k.dtype}/{v.dtype}")
     q = q.float().contiguous()

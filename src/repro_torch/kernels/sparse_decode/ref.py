@@ -42,6 +42,27 @@ def sparse_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return num, den, m
 
 
+BF16_MAX_ULPS = 2           # bar on max |diff|, in bf16 ulps of max|ref|
+BF16_MAX_MISMATCH = 0.05    # bar on the fraction of elements that differ
+
+
+def bf16_agreement(out: torch.Tensor, ref: torch.Tensor
+                   ) -> Tuple[float, float, float]:
+    """How a bf16 result agrees with its plain version: (max |diff|, its
+    bar of ``BF16_MAX_ULPS`` bf16 ulps of max|ref|, the fraction of
+    elements that differ at all).  Two results of the same cast points
+    agree bitwise except where f32 sums taken in another order straddle a
+    rounding boundary, so the fraction stays small; skipping one cast
+    point (probabilities, K/V or 1/sqrt(hd) not rounded to bf16) moves
+    40-60 % of the elements by under an ulp of max|ref|, which only the
+    fraction shows.  Hold the fraction to ``BF16_MAX_MISMATCH``."""
+    d = (out.float() - ref.float()).abs()
+    top = ref.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return (d.max().item(), BF16_MAX_ULPS * ulp,
+            (d > 0).float().mean().item())
+
+
 def model_scale(hd: int, dtype: torch.dtype) -> float:
     """1/sqrt(hd) rounded to the model dtype — the JAX reference multiplies
     by a weakly-typed Python float, which takes the array's dtype."""

@@ -3,9 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch longchat-7b-32k \\
         --prompt-len 200 --gen 16
 
-The port of ``repro.launch.serve``: a random-weight model (the smoke
-variant unless ``--full``), one prompt generated greedily, then the
-tier-traffic audit.  ``--device cpu`` runs on the CPU with the kernels'
+The port of ``repro.launch.serve``: a random-weight smoke model, one
+prompt generated greedily, then the tier-traffic audit.  ``--device cpu`` runs on the CPU with the kernels'
 plain versions.
 """
 
@@ -31,17 +30,12 @@ def main() -> None:
     ap.add_argument("--rate", type=float, default=0.2)
     ap.add_argument("--selection", default="tree", choices=["tree", "flat"])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--full", action="store_true",
-                    help="full-width model at the paper's chunk size "
-                         "(default: the smoke variant, chunk 16)")
     args = ap.parse_args()
 
-    cfg = get_config(args.arch, smoke=not args.full)
-    leoam = dataclasses.replace(cfg.leoam, importance_rate=args.rate,
-                                min_seq_for_sparse=32)
-    if not args.full:
-        leoam = dataclasses.replace(leoam, chunk_size=16)
-    cfg = dataclasses.replace(cfg, leoam=leoam)
+    cfg = get_config(args.arch, smoke=True)
+    cfg = dataclasses.replace(cfg, leoam=dataclasses.replace(
+        cfg.leoam, chunk_size=16, importance_rate=args.rate,
+        min_seq_for_sparse=32))
     params = lm.init(cfg, seed=0, device=args.device)
     eng = LeoAMEngine(cfg, params,
                       EngineCfg(max_len=args.max_len,

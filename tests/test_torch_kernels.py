@@ -4,8 +4,9 @@ functions the kernels replace on the main path.  Inputs come from numpy
 seeds and go to both frameworks.
 
 Tolerances follow tests/test_kernels.py (f32 1e-4 for bounds, 1e-5 for
-sparse decode; bf16 2e-2); the dequant and the host quantizer must be
-bitwise equal."""
+sparse decode; bf16 2e-2), except the bf16 attention output of the
+engine entry, held by :func:`assert_bf16_close`; the dequant and the host
+quantizer must be bitwise equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +26,9 @@ from repro_torch.kernels.kv_quant.ops import kv_dequant as t_kv_dequant
 from repro_torch.kernels.sparse_decode.ops import (sparse_decode as
                                                    t_sparse_decode,
                                                    sparse_decode_pooled)
+from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
+                                                   bf16_agreement,
+                                                   model_scale)
 
 _TDT = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -39,6 +43,15 @@ def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
     return np.asarray(x, np.float32)
+
+
+def assert_bf16_close(out: np.ndarray, ref: np.ndarray) -> None:
+    """Held by the kernel's own bar (``bf16_agreement``): at most 5 % of
+    the elements differ, each by at most two bf16 ulps of max|ref|."""
+    err, bar, frac = bf16_agreement(torch.from_numpy(out),
+                                    torch.from_numpy(ref))
+    assert err <= bar, f"max |diff| {err} > {bar}"
+    assert frac <= BF16_MAX_MISMATCH, f"{frac:.1%} of elements differ"
 
 
 @pytest.mark.parametrize("B,Hkv,G,hd,nc", [
@@ -133,9 +146,58 @@ def test_sparse_decode_engine_entry_matches_attend_pooled(rng, dtype,
                                torch.from_numpy(cids),
                                torch.from_numpy(lengths), knt, vnt, softcap)
     assert y_t.dtype == qt.dtype
-    tol = 1e-5 if dtype == np.float32 else 2e-2
-    np.testing.assert_allclose(_np(y_t).reshape(B, 1, H * hd), _np(y_j),
-                               rtol=tol, atol=tol)
+    if dtype == np.float32:
+        np.testing.assert_allclose(_np(y_t).reshape(B, 1, H * hd), _np(y_j),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert_bf16_close(_np(y_t).reshape(B, 1, H * hd), _np(y_j))
+
+
+@pytest.mark.parametrize("fault", [None, "p", "kv", "scale"])
+def test_bf16_bar_rejects_a_skipped_cast_point(rng, fault):
+    """At the main path's shapes (longchat: H = Hkv = 32, hd 128, chunk
+    64, ~12 selected chunks per sequence), the bar of bf16_agreement
+    accepts the plain version's arithmetic with its sums taken in f64,
+    and rejects it with one cast point skipped: probabilities (p), K/V
+    (kv) or 1/sqrt(hd) (scale) not rounded to bf16."""
+    B, H, hd, chunk, nmax = 4, 32, 128, 64, 12
+    lengths = np.array([1552, 2064, 3088, 3600], np.int32)
+    pool = torch.from_numpy(
+        rng.randn(B * nmax + 1, 2, chunk, H, hd).astype(np.float16))
+    slots = rng.permutation(B * nmax).reshape(B, nmax).astype(np.int32)
+    cids = np.stack([np.sort(rng.choice(-(-L // chunk), nmax, replace=False))
+                     for L in lengths]).astype(np.int32)
+    q, k_new, v_new = (torch.from_numpy(rng.randn(B, H, hd).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    ref = sparse_decode_pooled(q, pool, torch.from_numpy(slots),
+                               torch.from_numpy(cids),
+                               torch.from_numpy(lengths), k_new, v_new)
+
+    f64 = torch.float64
+    kv = pool[torch.from_numpy(slots).long()]         # (B, nmax, 2, c, H, hd)
+    pos = (torch.from_numpy(cids).long()[..., None] * chunk
+           + torch.arange(chunk)).reshape(B, -1)
+    ok = torch.cat([pos < torch.from_numpy(lengths).long()[:, None],
+                    torch.ones(B, 1, dtype=torch.bool)], 1)[:, None]
+    kk, vv = (kv[:, :, i].reshape(B, -1, H, hd) for i in (0, 1))
+    if fault != "kv":
+        kk, vv = kk.bfloat16(), vv.bfloat16()
+    kk = torch.cat([kk.to(f64), k_new[:, None].to(f64)], 1)
+    vv = torch.cat([vv.to(f64), v_new[:, None].to(f64)], 1)
+    scale = 1 / np.sqrt(hd) if fault == "scale" else model_scale(hd,
+                                                                 q.dtype)
+    qs = (q.double() * scale).bfloat16().to(f64)
+    sc = torch.einsum("bhd,bshd->bhs", qs, kk).masked_fill(~ok, -np.inf)
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    p = e if fault == "p" else e.float().bfloat16().to(f64)
+    out = (torch.einsum("bhs,bshd->bhd", p, vv)
+           / e.sum(-1, keepdim=True)).bfloat16()
+
+    err, bar, frac = bf16_agreement(out, ref)
+    if fault is None:
+        assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+    else:
+        assert frac > BF16_MAX_MISMATCH, (err, bar, frac)
 
 
 @pytest.mark.parametrize("codec", ["int8", "int4"])
@@ -182,7 +244,7 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting(rng):
     kq.kv_dequant(torch.zeros(1, 2, 4, dtype=torch.int8),
                   torch.ones(1, 8), codec="int4")
     assert (cb.launches, kq.launches, sd.launches) == before
-    with pytest.raises(ValueError):
-        cb.chunk_bounds(q, km, km - 1, impl="cuda")     # no card, no kernel
+    with pytest.raises(ValueError):                  # neither CPU nor CUDA
+        cb.chunk_bounds(q.to("meta"), km.to("meta"), km.to("meta"))
     with pytest.raises(ValueError):
         cb.chunk_bounds(q, km, km - 1, impl="pallas")
