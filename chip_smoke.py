@@ -11,10 +11,16 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    PyTorch version (max error beside the stated tolerance), the time of
    the kernel, of the plain version and of a PyTorch library call doing
    the same work where one exists, and the least time the card could take;
+   3b. the PQ k-means (``pq_train`` + ``pq_encode``) through the kernels
+   against the plain versions on clustered keys at one layer's size, and
+   two kernel runs byte-identical;
 4. serve: longchat-7b-32k at full width (32 layers, bf16 random weights
    from a seed) through ContinuousBatcher -> BatchedLeoAMEngine ->
    TieredKVStore, 4 requests of 1536/2048/3072/3584 prompt tokens and 32
    new tokens each; every kernel's launch counter must move;
+   4b. the same 4 requests with the PQ abstract plane
+   (``EngineCfg(pq_abstracts=True)``): B4 and B5 at ingest, ADC scoring,
+   no PQ fallback;
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
@@ -50,6 +56,20 @@ TOL_BOUNDS_REL = 1e-5        # f32 sums in another order
 # differences in attention outputs spread through 32 bf16 layers; the
 # logits may differ by this many bf16 ulps of max|logit|
 TOL_E2E_ULPS = 4
+# B5's sums are f32 sums in another order than the plain one-hot product:
+# each element within this many f32 ulps of the sum of |x| over the
+# centroid's members in that lane.  Counts and B4's codes are bitwise.
+PQ_SUM_ULPS = 8
+# phase 3b, the PQ k-means through the kernels against the plain versions
+# (4 Lloyd iterations from an empty codebook, then the encode): B4 is
+# bitwise, but B5 sums in another order, so a centroid moves by an ulp, a
+# near-tied row changes cluster in the next iteration and its centroids
+# move by a share of a member.  On an H100 (three seeds) the committed
+# kernels gave 1.0e-3 to 1.7e-3 and 1.9e-4 to 2.2e-4; a B5 that skips its
+# last row tile gave 1.1e-2 and 3.1e-2 (PERF.md)
+PQ_TRAIN_CB_REL = 4e-3       # max |cb(kernels) - cb(plain)| / max |cb|
+PQ_TRAIN_CODES = 1e-3        # share of codes that differ
+PQ_M, PQ_K, PQ_DSUB = 16, 256, 8
 KV_ROOT = ROOT / "build" / "chip_smoke_kv"
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
@@ -200,7 +220,10 @@ def phase_kernels(np, torch, rng):
         bound=(_nbytes(data, scale, d_r) / HBM_BYTES_S,
                d_r.numel() / PEAK_F32),
         shape=f"N={tuple(data.shape)[0]} c={chunk} d={H * hd} int4 -> fp16")
-    del pool, flush
+    del pool
+    torch.cuda.empty_cache()
+    rows.update(_pq_kernel_rows(np, torch, rng, flush))
+    del flush
     torch.cuda.empty_cache()
     for name, r in rows.items():
         b = max(r["bound"])
@@ -213,50 +236,185 @@ def phase_kernels(np, torch, rng):
               f"({'bytes' if r['bound'][0] >= r['bound'][1] else 'operations'})")
     bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]
            or not r.get("mismatch", 0.0) <= BF16_MAX_MISMATCH]
-    if not rows["kv_dequant"]["exact"]:
-        bad.append("kv_dequant (not bitwise)")
+    bad += [f"{n} (not bitwise)" for n in ("kv_dequant", "pq_assign")
+            if not rows[n]["exact"]]
+    if not rows["pq_update"]["within_bar"]:
+        bad.append("pq_update (sums outside the ulp bar)")
+    if not rows["pq_update"]["deterministic"]:
+        bad.append("pq_update (two launches differ)")
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain "
                          f"versions: {bad}")
     return rows
 
 
-def phase_serve(np, torch, cfg, params):
-    """The main path: 4 requests through the batcher, counters checked."""
+def _pq_kernel_rows(np, torch, rng, flush):
+    """B4 at the encode of one layer (m 16, N 131 072 = 64 chunks x 64 rows
+    x 32 kv heads, dsub 8, K 256) and B5 at the largest training batch
+    (N 114 688 = 3584 prompt tokens x 32 kv heads)."""
+    from repro_torch.kernels.pq import ops as pq
+    from repro_torch.kernels.pq.ref import centroid_norms
+
+    dev = torch.device("cuda")
+    rows = {}
+    x = torch.from_numpy(rng.randn(PQ_M, 131072, PQ_DSUB).astype(
+        np.float32)).to(dev)
+    cb = torch.from_numpy(rng.randn(PQ_M, PQ_K, PQ_DSUB).astype(
+        np.float32)).to(dev)
+    c_k = pq.pq_assign(x, cb)
+    c_r = pq.pq_assign(x, cb, impl="ref")
+    cbt = cb.transpose(1, 2)
+
+    def library_assign():
+        d = torch.baddbmm(centroid_norms(cb)[:, None, :], x, cbt, alpha=-2.0)
+        return d.argmin(-1)
+
+    rows["pq_assign"] = dict(
+        max_abs_err=float((c_k - c_r).abs().max().item()), tol=0.0,
+        exact=bool(torch.equal(c_k, c_r)),
+        ms=_time_ms(lambda: pq.pq_assign(x, cb), flush),
+        plain_ms=_time_ms(lambda: pq.pq_assign(x, cb, impl="ref"), flush),
+        library_ms=_time_ms(library_assign, flush),
+        bound=(_nbytes(x, cb, c_r) / HBM_BYTES_S,
+               2 * x.shape[0] * x.shape[1] * PQ_K * PQ_DSUB / PEAK_F32),
+        shape=f"x {tuple(x.shape)} f32, codebook {tuple(cb.shape)} f32")
+
+    x = x[:, :114688].contiguous()
+    codes = pq.pq_assign(x, cb)
+    s_k, n_k = pq.pq_update(x, codes, PQ_K)
+    s_k2, n_k2 = pq.pq_update(x, codes, PQ_K)
+    s_r, n_r = pq.pq_update(x, codes, PQ_K, impl="ref")
+    absum = pq.pq_update(x.abs(), codes, PQ_K, impl="ref")[0]
+    bar = PQ_SUM_ULPS * torch.finfo(torch.float32).eps * absum
+    err = (s_k - s_r).abs()
+    flat = (codes.long() + PQ_K * torch.arange(
+        PQ_M, device=dev)[:, None]).reshape(-1)
+    xf = x.reshape(-1, PQ_DSUB)
+
+    def library_update():
+        sums = torch.zeros(PQ_M * PQ_K, PQ_DSUB, device=dev).index_add_(
+            0, flat, xf)
+        return sums, torch.bincount(flat, minlength=PQ_M * PQ_K)
+
+    rows["pq_update"] = dict(
+        # the largest error beside its own element's bar; every element is
+        # held to its bar by within_bar
+        max_abs_err=float(err.max().item()),
+        tol=float(bar.flatten()[err.argmax()].item()),
+        within_bar=bool((err <= bar).all()) and bool(torch.equal(n_k, n_r)),
+        deterministic=bool(torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2)),
+        ms=_time_ms(lambda: pq.pq_update(x, codes, PQ_K), flush),
+        plain_ms=_time_ms(lambda: pq.pq_update(x, codes, PQ_K, impl="ref"),
+                          flush),
+        library_ms=_time_ms(library_update, flush),
+        bound=(_nbytes(x, codes, s_r, n_r) / HBM_BYTES_S,
+               x.numel() / PEAK_F32),
+        shape=f"x {tuple(x.shape)} f32, codes int32, K={PQ_K}")
+    r = rows["pq_update"]
+    print(f"[kernel] pq_update: counts bitwise and sums within "
+          f"{PQ_SUM_ULPS} f32 ulps of sum|x| per centroid lane: "
+          f"{r['within_bar']}; largest |diff| / bar "
+          f"{float((err / bar.clamp_min(1e-30)).max().item())!r}; two "
+          f"launches bitwise equal: {r['deterministic']}")
+    return rows
+
+
+def _clustered_keys(np, rng, S, Hkv, hd, n_clusters=64, span=8,
+                    noise=0.25):
+    """Keys with cluster runs of ``span`` tokens per kv head (the
+    reference's PQ test layout, at one layer's width)."""
+    centers = rng.randn(n_clusters, hd).astype(np.float32) * 2.0
+    assign = rng.randint(0, n_clusters, (S // span, Hkv))
+    assign = np.repeat(assign[:, None, :], span, 1).reshape(S, Hkv)
+    return centers[assign] + rng.randn(S, Hkv, hd).astype(np.float32) * noise
+
+
+def phase_pq_train(np, torch, rng):
+    """pq_train + pq_encode through B4/B5 against the plain versions, on
+    clustered keys of one layer: 114 688 training rows (3584 prompt tokens
+    x 32 kv heads), 131 072 encoded rows (64 chunks x 64 x 32), 4 Lloyd
+    iterations from an empty codebook."""
+    from repro_torch.kernels.pq import ops as pq
+    keys = _clustered_keys(np, rng, MAX_LEN, 32, 128)       # (4096, 32, 128)
+    vecs = keys.reshape(-1, 128)
+    train = keys[:PROMPTS[-1]].reshape(-1, 128)
+    cb0 = np.zeros((PQ_M, PQ_K, PQ_DSUB), np.float32)
+    cnt0 = np.zeros((PQ_M, PQ_K), np.float64)
+    runs = {}
+    for name, impl in (("kernel", None), ("kernel_again", None),
+                       ("plain", "ref")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb, cnt = pq.pq_train(train, cb0, cnt0, iters=4, impl=impl,
+                              device="cuda")
+        codes = pq.pq_encode(vecs, cb, impl=impl, device="cuda")
+        runs[name] = (cb, cnt, codes, time.perf_counter() - t0)
+    cb_k, cnt_k, codes_k, t_k = runs["kernel"]
+    cb_r, cnt_r, codes_r, t_r = runs["plain"]
+    same = all(a.tobytes() == b.tobytes()
+               for a, b in zip(runs["kernel"][:3], runs["kernel_again"][:3]))
+    cb_rel = float(np.abs(cb_k - cb_r).max() / np.abs(cb_r).max())
+    differ = float((codes_k != codes_r).mean())
+    print(f"[pq_train] {train.shape[0]} training rows, {vecs.shape[0]} "
+          f"encoded, m={PQ_M} K={PQ_K} dsub={PQ_DSUB}, 4 Lloyd iterations: "
+          f"codebook max|diff|/max|cb| {cb_rel!r} (bar {PQ_TRAIN_CB_REL}); "
+          f"codes that differ {differ!r} (bar {PQ_TRAIN_CODES}); counts "
+          f"equal {bool(np.array_equal(cnt_k, cnt_r))}; two kernel runs "
+          f"byte-identical: {same}; wall s kernel {t_k!r} plain {t_r!r}")
+    if not (same and cb_rel <= PQ_TRAIN_CB_REL and differ <= PQ_TRAIN_CODES):
+        raise SystemExit("chip_smoke: pq_train through the kernels "
+                         "disagrees with the plain versions")
+    return {"cb_rel": cb_rel, "codes_differ": differ}
+
+
+def phase_serve(np, torch, cfg, params, pq: bool = False):
+    """A main path: 4 requests through the batcher, counters checked.
+    ``pq`` turns on the PQ abstract plane (phase 4b): B4 and B5 train and
+    encode at ingest, evaluation scores code-valid chunks by ADC."""
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
+    from repro_torch.kernels.pq import ops as pqk
     from repro_torch.kernels.sparse_decode import ops as sd
-    from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
-                                                       bf16_agreement)
     from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
     from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
                                                SchedulerCfg)
 
+    tag = "[serve-pq]" if pq else "[serve]"
     ecfg = EngineCfg(max_len=MAX_LEN, real_codec=True, pooled=True,
-                     pipeline=True)
+                     pipeline=True, pq_abstracts=pq)
     eng = BatchedLeoAMEngine(cfg, params, ecfg, max_seqs=len(PROMPTS),
-                             device="cuda", store_root=str(KV_ROOT / "serve"))
+                             device="cuda",
+                             store_root=str(KV_ROOT / ("serve_pq" if pq
+                                                       else "serve")))
     rng = np.random.RandomState(0)
-    # warm-up (cuBLAS handles, allocator): one short prefill, released.  No
-    # decode round: it would seed the measured-cost θ balance, which the
-    # main path must start from, as a fresh server does
-    sid, _ = eng.add_sequence(rng.randint(2, cfg.vocab_size, 64))
-    eng.release(sid)
+    if not pq:
+        # warm-up (cuBLAS handles, allocator): one short prefill, released.
+        # No decode round: it would seed the measured-cost θ balance, which
+        # the main path must start from, as a fresh server does.  The PQ
+        # serve runs after this one in the same process and skips it: its
+        # first request must find an untrained codebook
+        sid, _ = eng.add_sequence(rng.randint(2, cfg.vocab_size, 64))
+        eng.release(sid)
+    else:
+        rng.randint(2, cfg.vocab_size, 64)      # the same prompts as above
 
     prompts = [rng.randint(2, cfg.vocab_size, n) for n in PROMPTS]
     batcher = ContinuousBatcher(engine=eng,
                                 cfg=SchedulerCfg(max_active=4, chunk=64))
     log0 = dict(eng.store.log.bytes)
     cb.launches = sd.launches = kq.launches = 0
+    pqk.assign_launches = pqk.update_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
         batcher.submit(Request(rid=i, prompt=p, max_new=NEW_TOKENS))
     finished = batcher.run()
+    eng.store.requant_fence()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"chunk_bounds": cb.launches, "sparse_decode": sd.launches,
-                "kv_dequant": kq.launches}
+                "kv_dequant": kq.launches, "pq_assign": pqk.assign_launches,
+                "pq_update": pqk.update_launches}
     st = batcher.stats()
     rounds = len(eng.round_profiles)
     n_attn = len(eng.attn_layers)
@@ -266,28 +424,35 @@ def phase_serve(np, torch, cfg, params):
     med = {k: float(np.median([p[k] for p in eng.round_profiles]))
            for k in stages}
     first = {k: eng.round_profiles[0][k] for k in stages}
-    tiers = {}
-    for (src, dst, _k), v in eng.store.log.bytes.items():
-        key = f"{src}->{dst}"
-        tiers[key] = tiers.get(key, 0.0) + v - log0.get((src, dst, _k), 0.0)
-    print(f"[serve] {len(finished)} requests, {rounds} decode rounds, "
+    tiers, kinds = {}, {}
+    for (src, dst, kind), v in eng.store.log.bytes.items():
+        moved = v - log0.get((src, dst, kind), 0.0)
+        tiers[f"{src}->{dst}"] = tiers.get(f"{src}->{dst}", 0.0) + moved
+        kinds[kind] = kinds.get(kind, 0.0) + moved
+    print(f"{tag} {len(finished)} requests, {rounds} decode rounds, "
           f"wall {wall!r} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
-    print(f"[serve] TTFT mean {st.get('mean_ttft_s')!r} s p95 "
+    print(f"{tag} TTFT mean {st.get('mean_ttft_s')!r} s p95 "
           f"{st.get('p95_ttft_s')!r} s; decode tok/s per request mean "
           f"{st.get('mean_decode_tok_s')!r}; throughput "
           f"{st.get('throughput_tok_s')!r} tok/s")
     for name, d in (("mean", prof), ("median", med), ("first", first)):
-        print(f"[serve] round breakdown ({name} s/round): "
+        print(f"{tag} round breakdown ({name} s/round): "
               + " ".join(f"{k}={v!r}" for k, v in d.items()))
-    for i, a in enumerate(eng.admit_profiles[1:]):
-        print(f"[serve] admission {i}: " + " ".join(
+    for i, a in enumerate(eng.admit_profiles[0 if pq else 1:]):
+        print(f"{tag} admission {i}: " + " ".join(
             f"{k}={v!r}" for k, v in a.items()))
-    print(f"[serve] tier bytes: {json.dumps(tiers, sort_keys=True)}")
-    print(f"[serve] launches: {json.dumps(launches)} (per round: "
+    print(f"{tag} tier bytes: {json.dumps(tiers, sort_keys=True)}")
+    print(f"{tag} bytes by kind: {json.dumps(kinds, sort_keys=True)}")
+    print(f"{tag} launches: {json.dumps(launches)} (per round: "
           + " ".join(f"{k}={v / max(rounds, 1)!r}" for k, v in launches.items())
           + f"; attention layers {n_attn}); codec uploads "
           f"{eng.store.codec_uploads} plain uploads {eng.store.plain_uploads}")
+    faults = eng.fault_stats()
+    if pq:
+        print(f"{tag} pq_fallbacks {faults['pq_fallbacks']!r} pq_reencodes "
+              f"{faults['pq_reencodes']!r} checksum_failures "
+              f"{faults['checksum_failures']!r}")
     errors = [r.error for r in finished if r.error]
     if errors or len(finished) != len(PROMPTS):
         raise SystemExit(f"chip_smoke: serve failed: {errors}")
@@ -295,13 +460,24 @@ def phase_serve(np, torch, cfg, params):
         if len(r.out) != NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in r.out):
             raise SystemExit(f"chip_smoke: request {r.rid} gave {r.out}")
-    zero = [k for k, v in launches.items() if v <= 0]
+    path = list(launches) if pq else ["chunk_bounds", "sparse_decode",
+                                      "kv_dequant"]
+    zero = [k for k in path if launches[k] <= 0]
     if zero:
-        raise SystemExit(f"chip_smoke: main path never launched {zero}")
+        raise SystemExit(f"chip_smoke: {tag} path never launched {zero}")
+    if pq and (faults["pq_fallbacks"] != 0 or kinds.get("pq_codes_read",
+                                                         0.0) <= 0):
+        raise SystemExit(f"chip_smoke: {tag} PQ codes did not serve: "
+                         f"{faults}")
     eng.store.close()
     del eng
     torch.cuda.empty_cache()
-    return launches, prof, st
+    return {"launches": launches, "round_s": prof, "round_median_s": med,
+            "ttft_mean_s": st.get("mean_ttft_s"),
+            "ttft_p95_s": st.get("p95_ttft_s"),
+            "decode_tok_s_mean": st.get("mean_decode_tok_s"),
+            "pq_fallbacks": faults["pq_fallbacks"],
+            "pq_reencodes": faults["pq_reencodes"]}
 
 
 def _bf16_ulp(x: float) -> float:
@@ -364,6 +540,9 @@ def phase_e2e(np, torch, cfg, params):
     return diffs
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -390,6 +569,7 @@ def main() -> int:
     rng = np.random.RandomState(0)
     torch.manual_seed(0)
     rows = phase_kernels(np, torch, rng)
+    pq_train_res = phase_pq_train(np, torch, rng)
 
     cfg = get_config("longchat-7b-32k")
     t0 = time.perf_counter()
@@ -400,7 +580,8 @@ def main() -> int:
           f"{sum(p.numel() for p in _leaves(params)) / 1e9!r} G params in "
           f"{time.perf_counter() - t0!r} s")
     try:
-        launches, prof, st = phase_serve(np, torch, cfg, params)
+        serve = phase_serve(np, torch, cfg, params)
+        serve_pq = phase_serve(np, torch, cfg, params, pq=True)
         e2e = phase_e2e(np, torch, cfg, params)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
@@ -413,7 +594,16 @@ def main() -> int:
                           "src/repro/kernels/sparse_decode/sparse_decode.py:29"),
         "kv_dequant": (src + "kv_dequant.cu",
                        "src/repro/kernels/kv_quant/kv_quant.py:27"),
+        "pq_assign": (src + "pq_kmeans.cu",
+                      "src/repro/kernels/pq/pq_kmeans.py:32"),
+        "pq_update": (src + "pq_kmeans.cu",
+                      "src/repro/kernels/pq/pq_kmeans.py:65"),
     }
+    # launches: B1-B3 from the minmax serve, B4/B5 from the PQ serve (the
+    # path that runs them); each path's counts were zeroed just before it
+    launches = {**serve["launches"],
+                "pq_assign": serve_pq["launches"]["pq_assign"],
+                "pq_update": serve_pq["launches"]["pq_update"]}
     kernels = []
     for name, r in rows.items():
         kernels.append({
@@ -424,10 +614,10 @@ def main() -> int:
             "bound_by": "bytes" if r["bound"][0] >= r["bound"][1]
             else "operations",
             "library_ms": r["library_ms"]})
+    print(f"[time] chip_smoke {time.perf_counter() - T_START!r} s")
     print(json.dumps({"kernels": kernels, "card": card, "e2e_max_diff": e2e,
-                      "round_s": prof,
-                      "ttft_mean_s": st.get("mean_ttft_s"),
-                      "decode_tok_s_mean": st.get("mean_decode_tok_s")}))
+                      "serve": serve, "serve_pq": serve_pq,
+                      "pq_train": pq_train_res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "leoam_sparse_decode": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _LL, _P,
                             _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P,
                             _P, _P, _I, _I, _P],
+    "leoam_pq_assign": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "leoam_pq_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,6 +17,12 @@ Dynamic Three-tier Pipeline (§4.4):
    kernel B2 (``kernels.sparse_decode.sparse_decode_pooled``) — then the
    output projection and the append.
 
+With ``pq_abstracts`` the store keeps a PQ abstract plane (codebooks
+trained at ingest on kernels B4 and B5); evaluate then scores chunks whose
+codes are fresh by asymmetric distance (``kernels.pq.adc_chunk_scores``)
+and keeps the min/max bound bitwise for the rest, and each round ends with
+the requant sweep that re-encodes quiet append-dirtied chunks.
+
 With ``pipeline=True`` a one-worker prefetch executor overlaps layer l+1's
 abstract reads and speculative disk staging under layer l's attention;
 predictions only move residency, so output is bit-identical to
@@ -26,10 +32,10 @@ bucketed prefill and write-behind ingest on the prefetch worker.
 Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.  Options of the reference
-that this slice leaves out raise ``NotImplementedError`` naming their
-ROADMAP item: asynchronous and chunked admission, ``pooled=False``, MLA,
-non-attention layers, PQ abstracts, the prefix cache, the packed disk
-sidecar, fault injection and recompute-from-prompt recovery.
+that the port leaves out so far raise ``NotImplementedError`` naming
+their ROADMAP item: asynchronous and chunked admission, ``pooled=False``,
+MLA, non-attention layers, the prefix cache, the packed disk sidecar,
+fault injection and recompute-from-prompt recovery.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from repro_torch.core.adaptive import flat_select_chunks, tree_select_chunks
 from repro_torch.core.bounds import chunk_bounds_gqa_matmul
 from repro_torch.core.tiers import AccessTable
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.pq.ops import adc_chunk_scores
 from repro_torch.kernels.sparse_decode.ops import sparse_decode_pooled
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
@@ -78,8 +85,21 @@ class EngineCfg:
                                      # with the true length threaded
                                      # through — token-identical to exact
                                      # length (False: exact length)
+    sidecar_requant: bool = True     # background sweep re-encodes the PQ
+                                     # codes of append-dirtied chunks once
+                                     # a chunk goes a full round without
+                                     # appends (no-op unless pq_abstracts)
     disk_sidecar: bool = False       # not ported (ROADMAP A4)
-    pq_abstracts: bool = False       # not ported (ROADMAP A10)
+    pq_abstracts: bool = False       # PQ abstract plane: per-layer online
+                                     # k-means codebooks over ingested key
+                                     # chunks; evaluation scores code-valid
+                                     # chunks by ADC and falls back BITWISE
+                                     # to the bounds product for the rest
+    pq_m: Optional[int] = None       # key subvectors per head dim (None =
+                                     # head_dim // 8)
+    pq_centroids: int = 256          # codebook entries per subspace (<= 256)
+    pq_train_iters: int = 4          # Lloyd iterations on the first
+                                     # (codebook-initializing) ingest
     prefix_cache: bool = False       # not ported (ROADMAP A8)
     debug_sync: bool = False         # not ported (ROADMAP A13)
     fault_plan: Optional[Any] = None  # not ported (ROADMAP A9)
@@ -120,6 +140,18 @@ class _SeqState:
     stats: List[StepStats] = field(default_factory=list)
 
 
+def group_sum(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B, H, hd) -> (B, Hkv, hd): each kv group's queries added in group
+    order, one rounding per add in q's dtype — the reference's numpy
+    ``q.reshape(B, Hkv, G, hd).sum(2)``."""
+    B, H, hd = q.shape
+    q4 = q.reshape(B, kv_heads, H // kv_heads, hd)
+    out = q4[:, :, 0]
+    for g in range(1, q4.shape[2]):
+        out = out + q4[:, :, g]
+    return out
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A model-dtype tensor as numpy (bfloat16 crosses as float32, exact)."""
     if t.dtype == torch.bfloat16:
@@ -142,7 +174,6 @@ class BatchedLeoAMEngine:
         lm.check_supported(cfg)
         for bad, opt, item in (
                 (not ecfg.pooled, "pooled=False", "A5"),
-                (ecfg.pq_abstracts, "pq_abstracts=True", "A10"),
                 (ecfg.prefix_cache, "prefix_cache=True", "A8"),
                 (ecfg.disk_sidecar, "disk_sidecar=True", "A4"),
                 (ecfg.debug_sync, "debug_sync=True", "A13"),
@@ -169,7 +200,9 @@ class BatchedLeoAMEngine:
             cfg.n_kv_heads, cfg.hd, n_seqs=max_seqs,
             transit_codec=ecfg.transit_codec, root=store_root,
             pool_slots=device_chunk_budget, real_codec=ecfg.real_codec,
-            device=self.device, impl=impl)
+            abstract_kind=("pq" if ecfg.pq_abstracts else "minmax"),
+            pq_m=ecfg.pq_m, pq_centroids=ecfg.pq_centroids,
+            pq_train_iters=ecfg.pq_train_iters, device=self.device, impl=impl)
         self.seqs: Dict[int, _SeqState] = {}
         self._free: List[int] = list(range(max_seqs - 1, -1, -1))
         # DTP state: prefetch executor, per-(seq, layer) previous-round
@@ -332,8 +365,9 @@ class BatchedLeoAMEngine:
         self._forget(sid)
 
     def _drain_seq(self, sid: int) -> None:
-        """Best-effort drain of the slot's in-flight futures; failures are
-        counted, never raised, so every teardown runs to completion."""
+        """Best-effort drain of the slot's in-flight futures (ingest fence,
+        prefetch worker, re-encode queue); failures are counted, never
+        raised, so every teardown runs to completion."""
         try:
             self.store.ingest_fence(sid)
         except Exception:
@@ -345,6 +379,10 @@ class BatchedLeoAMEngine:
                     fut.result()
                 except Exception:
                     pass
+        try:
+            self.store.requant_fence()
+        except Exception:
+            pass
 
     @decode_thread_only
     def abort_admission(self, sid: int) -> None:
@@ -439,7 +477,7 @@ class BatchedLeoAMEngine:
 
         @worker_thread
         def work():
-            res = self.store.read_abstracts_batch(li, chunks_by_seq)
+            res = self._read_abstracts(li, chunks_by_seq)
             self._abs_cache[li] = (key, res)
             self.store.stage_host(li, pred)
 
@@ -448,32 +486,53 @@ class BatchedLeoAMEngine:
     # ------------------------------------------------------------------
     # Importance evaluation (batched LKA + per-sequence IAKM)
     # ------------------------------------------------------------------
+    def _read_abstracts(self, li: int, chunks_by_seq: Dict[int, List[int]]):
+        """The layer's abstracts: min/max boxes, plus the PQ codes, their
+        validity and the codebook when ``pq_abstracts`` is on."""
+        if self.ecfg.pq_abstracts:
+            return self.store.read_abstracts_pq_batch(li, chunks_by_seq)
+        return self.store.read_abstracts_batch(li, chunks_by_seq)
+
     def _select_chunks_batched(self, li: int, layer: int, q: torch.Tensor,
                                order: Sequence[int], lengths: np.ndarray
                                ) -> Tuple[Dict[int, List[int]],
                                           Dict[int, StepStats]]:
         """One bounds product over the stacked batch (kernel B1 on the
-        card), then per-sequence chunk-level adaptive selection on the
-        host.  q: (B, H, hd) PRE-SCALED queries, rows matching ``order``."""
+        card), with ADC scores off the PQ codes for code-valid chunks when
+        ``pq_abstracts`` is on, then per-sequence chunk-level adaptive
+        selection on the host.  q: (B, H, hd) PRE-SCALED queries, rows
+        matching ``order``."""
         cfg = self.cfg
         chunk = self.chunk
         n_valid = {sid: (int(L) + chunk - 1) // chunk
                    for sid, L in zip(order, lengths)}
         chunks_by_seq = {sid: list(range(n_valid[sid])) for sid in order}
+        use_pq = self.ecfg.pq_abstracts
         fut = self._pf_futs.pop(li, None)
         if fut is not None:
             fut.result()
         cached = self._abs_cache.pop(li, None)
         key = tuple((sid, n_valid[sid]) for sid in order)
         if cached is not None and cached[0] == key:
-            km, kn, abs_billed = cached[1]
+            res = cached[1]
         else:   # speculation miss: sync read (the worker's read stays billed)
-            km, kn, abs_billed = self.store.read_abstracts_batch(
-                li, chunks_by_seq)
+            res = self._read_abstracts(li, chunks_by_seq)
+        if use_pq:
+            km, kn, pq_codes, pq_valid, pq_cb, abs_billed = res
+        else:
+            km, kn, abs_billed = res
         ub, _ = chunk_bounds_gqa_matmul(q, torch.from_numpy(km).to(q.device),
                                         torch.from_numpy(kn).to(q.device),
                                         impl=self.impl)
         ub = ub.cpu().numpy()                                # (B, Hkv, ncmax)
+        adc = None
+        if use_pq and pq_valid.any():
+            # asymmetric-distance scores off the PQ codes: q summed per kv
+            # group against decoded centroids, max over a chunk's live
+            # tokens.  Only code-valid chunks use them; the rest keep the
+            # min/max upper bound BITWISE (np.where selects whole values)
+            adc = adc_chunk_scores(group_sum(q, km.shape[2]), pq_cb,
+                                   pq_codes, lengths).cpu().numpy()
 
         rate = (cfg.leoam.early_rate if layer < cfg.leoam.early_layers
                 else cfg.leoam.importance_rate)
@@ -484,6 +543,9 @@ class BatchedLeoAMEngine:
             nv = n_valid[sid]
             length = int(lengths[i])
             scores = ub[i].max(0)[:nv]                       # (nv,)
+            if adc is not None:
+                scores = np.where(pq_valid[i, :nv], adc[i].max(0)[:nv],
+                                  scores)
             budget_tokens = max(chunk, int(math.ceil(length * rate)))
             chunk_scores = scores / chunk
             if self.ecfg.selection == "tree":
@@ -630,6 +692,11 @@ class BatchedLeoAMEngine:
             s.length += 1
             s.stats.append(round_stats[sid])
             out[sid] = int(np.argmax(logits[i]))
+        if ecfg.sidecar_requant and ecfg.pq_abstracts:
+            # background re-encode of append-dirtied PQ codes (chunks quiet
+            # for a full round): long-running sequences regain ADC scoring
+            # instead of the min/max box forever
+            self.store.requant_sweep(executor=_prefetch_executor())
         return out
 
 

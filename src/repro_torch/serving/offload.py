@@ -19,7 +19,13 @@ demotions are metadata-only, promotions read the abstract or the chunk.
   writes on the executor; :meth:`TieredKVStore.ingest_fence` is the
   per-sequence completion fence;
 * per-sequence ``TrafficLog`` mirrors: the shared log always equals
-  Σ seq_logs + Σ retired_logs.
+  Σ seq_logs + Σ retired_logs;
+* ``abstract_kind="pq"``: the PQ abstract plane — a per-layer codebook
+  trained online from every ingested key chunk (k-means on kernels B4 and
+  B5, ``repro_torch.kernels.pq``), uint8 codes per chunk on disk with a
+  CRC each, and a requant sweep that re-encodes append-dirtied chunks once
+  they go quiet.  The min/max boxes stay as the fallback for chunks whose
+  codes are stale or corrupt.
 
 Host-side state and billing are the reference's numpy code, so disk bytes,
 abstracts and the traffic log are bitwise equal to ``repro``'s for the same
@@ -44,6 +50,7 @@ import torch
 from repro_torch.core import compression
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.kv_quant.ops import kv_dequant
+from repro_torch.kernels.pq.ops import pq_encode, pq_train
 from repro_torch.serving.faults import ChunkLostError, IngestError
 from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
                                            worker_thread)
@@ -197,8 +204,8 @@ class TieredKVStore:
     the device tier is the per-layer :class:`DeviceChunkPool` on
     ``device`` (default: the CUDA card).  Mutating entry points take an
     RLock so the engine's prefetch thread can stage disk reads while the
-    main thread decodes.  ``impl="ref"`` runs the plain version of the
-    dequant kernel even on the card."""
+    main thread decodes.  ``impl="ref"`` runs the plain versions of the
+    dequant and k-means kernels even on the card."""
 
     def __init__(self, n_layers: int, n_chunks: int, chunk: int, kv_heads: int,
                  head_dim: int, *, n_seqs: int = 1, dtype=np.float16,
@@ -207,19 +214,19 @@ class TieredKVStore:
                  real_codec: bool = False, disk_sidecar: bool = False,
                  latent: bool = False, prefix_rows: int = 0,
                  debug_sync: bool = False, faults=None,
-                 abstract_kind: str = "minmax", device: DeviceLike = None,
-                 impl: Optional[str] = None):
+                 abstract_kind: str = "minmax", pq_m: Optional[int] = None,
+                 pq_centroids: int = 256, pq_train_iters: int = 4,
+                 device: DeviceLike = None, impl: Optional[str] = None):
         for bad, opt, item in (
                 (not use_pool, "use_pool=False", "A5"),
                 (disk_sidecar, "disk_sidecar=True", "A4"),
                 (latent, "latent=True", "A7"),
                 (prefix_rows, "prefix_rows>0", "A8"),
                 (faults is not None, "faults=", "A9"),
-                (debug_sync, "debug_sync=True", "A13"),
-                (abstract_kind == "pq", "abstract_kind='pq'", "A10")):
+                (debug_sync, "debug_sync=True", "A13")):
             if bad:
                 raise _unsupported(opt, item)
-        if abstract_kind != "minmax":
+        if abstract_kind not in ("minmax", "pq"):
             raise ValueError(f"unknown abstract_kind {abstract_kind!r}")
         self.device = resolve_device(device)
         self.impl = impl
@@ -266,11 +273,68 @@ class TieredKVStore:
         self._crc_state = np.memmap(
             os.path.join(self._root, "kv_crc_state.bin"),
             dtype=np.uint8, mode="w+", shape=(n_seqs, n_layers, n_chunks))
+        # PQ abstract plane (abstract_kind="pq"): per-layer product-
+        # quantization codebooks learned online from ingested key chunks,
+        # plus per-(seq, layer, chunk) uint8 codes on disk — the SECOND
+        # abstract representation next to the min/max boxes, which stay as
+        # the fallback for append-dirtied or corrupt codes.  ``_pq_valid``
+        # gates ADC reads: any mutation of a chunk's replica clears it, and
+        # the requant sweep re-encodes once the chunk goes quiet.
+        self.pq = abstract_kind == "pq"
+        self.pq_m = 0
+        self.pq_centroids = int(pq_centroids)
+        self.pq_train_iters = int(pq_train_iters)
+        self._pq_codes = self._pq_codebook = self._pq_crc = None
+        self._pq_cb = self._pq_counts = self._pq_valid = None
+        self.pq_reencodes = 0
+        if self.pq:
+            self.pq_m = int(pq_m) if pq_m is not None \
+                else max(1, head_dim // 8)
+            if head_dim % self.pq_m:
+                raise ValueError(
+                    f"pq_m={self.pq_m} must divide head_dim={head_dim}")
+            if not 0 < self.pq_centroids <= 256:
+                raise ValueError("pq_centroids must fit uint8 codes")
+            dsub = head_dim // self.pq_m
+            self._pq_codes = np.memmap(
+                os.path.join(self._root, "kv_pq.bin"), dtype=np.uint8,
+                mode="w+", shape=(n_seqs, n_layers, n_chunks, chunk,
+                                  kv_heads, self.pq_m))
+            self._pq_codebook = np.memmap(
+                os.path.join(self._root, "kv_pq_cb.bin"), dtype=np.float32,
+                mode="w+", shape=(n_layers, self.pq_m, self.pq_centroids,
+                                  dsub))
+            self._pq_crc = np.memmap(
+                os.path.join(self._root, "kv_pq_crc.bin"), dtype=np.uint32,
+                mode="w+", shape=(n_seqs, n_layers, n_chunks))
+            # RAM mirrors: codebook reads (selection, encode) never touch
+            # the memmap; counts make the online k-means a running mean
+            self._pq_cb = np.array(self._pq_codebook)
+            self._pq_counts = np.zeros((n_layers, self.pq_m,
+                                        self.pq_centroids), np.float64)
+            self._pq_valid = np.zeros((n_seqs, n_layers, n_chunks), bool)
+        # codebook mutations (train/merge) serialize on a leaf lock so
+        # cold-ingest workers never hold the store lock across them; the
+        # k-means kernels themselves run OUTSIDE any lock
+        # (snapshot-compute-merge)
+        self._pq_lock = threading.Lock()
+        self.fault_counters: Dict[str, int] = {"checksum_failures": 0,
+                                               "pq_fallbacks": 0}
+        self._stats_lock = threading.Lock()   # counters only; leaf lock
         self._disk_lost: Set[Tuple[int, int, int]] = set()
         # write-behind ingest: per-seq in-flight cold-write futures; the
         # fence pops under _futs_lock and waits OUTSIDE the store lock
         self._ingest_futs: Dict[int, List] = defaultdict(list)
         self._futs_lock = threading.Lock()
+        # requant sweep (PQ store): append-dirtied chunks keyed to the
+        # sweep round of their LAST append; a chunk quiet for a full round
+        # is re-encoded in the background.  The per-chunk version aborts a
+        # re-encode that raced a newer append (or a slot reuse).
+        self._requant_pending: Dict[Tuple[int, int, int], int] = {}
+        self._chunk_version: Dict[Tuple[int, int, int], int] = \
+            defaultdict(int)
+        self._requant_futs: List = []
+        self._sweep_round = 0
 
     # ------------------------------------------------------------------
     @property
@@ -283,6 +347,12 @@ class TieredKVStore:
     def abstract_bytes(self) -> int:
         """One chunk's LKA abstract: the (min, max) box pair over the keys."""
         return 2 * self.kv_heads * self.head_dim * self.dtype.itemsize
+
+    @property
+    def pq_bytes(self) -> int:
+        """One chunk's PQ abstract: uint8 codes per (token, kv head, m)
+        subvector — the bytes a ``pq_codes_read`` promotion moves."""
+        return self.chunk * self.kv_heads * self.pq_m
 
     @property
     def row_bytes(self) -> int:
@@ -332,6 +402,12 @@ class TieredKVStore:
     def _crc32(arr: np.ndarray) -> int:
         return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
 
+    def _count(self, name: str, n: int = 1) -> None:
+        """Bump a fault counter (worker and decode threads both count)."""
+        with self._stats_lock:
+            self.fault_counters[name] = \
+                self.fault_counters.get(name, 0) + n
+
     def _replica_read_verified(self, layer: int,  # leolint: waive[billlint] reason=coalesced verified-read helper: its caller (_stage_disk) bills every chunk it promotes at the promotion site, where the per-seq attribution is known
                                entries: Sequence[Tuple[int, int, int]]
                                ) -> Tuple[np.ndarray, Set[int]]:
@@ -347,7 +423,9 @@ class TieredKVStore:
             if int(self._crc_state[p, layer, c]) == _CRC_VALID and \
                     self._crc32(blk[i]) != int(self._crc[p, layer, c]):
                 lost.add(i)
-                self._disk_lost.add((p, layer, c))
+                if (p, layer, c) not in self._disk_lost:
+                    self._disk_lost.add((p, layer, c))
+                    self._count("checksum_failures")
         return blk, lost
 
     # ------------------------------------------------------------------
@@ -406,10 +484,37 @@ class TieredKVStore:
     def _ingest_cold(self, layer: int, seq: int, cids: List[int],
                      kcs: np.ndarray, vcs: np.ndarray) -> None:
         """The write-behind half of :meth:`ingest`: fp16 replica, CRC and
-        abstract writes, with their billing.  kcs/vcs: (n, chunk, Hkv, hd)
+        abstract writes (and, in a PQ store, the codebook update and the
+        chunks' codes), with their billing.  kcs/vcs: (n, chunk, Hkv, hd)
         in store dtype, rows matching ``cids``."""
         crcs = [self._crc32(self._plane_stack(kc, vc))
                 for kc, vc in zip(kcs, vcs)]
+        n = len(cids)
+        # PQ plane: fold this batch's key vectors into the layer's online
+        # codebook and encode every chunk.  The k-means kernels and the
+        # device->host copies that end them run OUTSIDE any lock; the
+        # codebook mirror is snapshotted and merged back under the leaf
+        # _pq_lock (last writer wins: codebook drift is estimator error,
+        # never a correctness hazard — attention always reads real KV)
+        pq_codes_arr = pq_crcs = None
+        if self.pq:
+            vecs = kcs.reshape(-1, self.head_dim).astype(np.float32)
+            # tail-chunk zero padding (and all-zero rows past the prompt)
+            # must not poison the codebook: train on non-zero rows only
+            train = vecs[np.any(vecs != 0.0, axis=1)]
+            with self._pq_lock:
+                cb0 = self._pq_cb[layer].copy()
+                cnt0 = self._pq_counts[layer].copy()
+            cb1, cnt1 = pq_train(train, cb0, cnt0, iters=self.pq_train_iters,
+                                 impl=self.impl, device=self.device)
+            pq_codes_arr = pq_encode(vecs, cb1, impl=self.impl,
+                                     device=self.device).reshape(
+                n, self.chunk, self.kv_heads, self.pq_m)
+            with self._pq_lock:
+                self._pq_cb[layer] = cb1
+                self._pq_counts[layer] = cnt1
+                self._pq_codebook[layer] = cb1
+            pq_crcs = [self._crc32(pq_codes_arr[i]) for i in range(n)]
         with self._lock:
             idx = np.asarray(cids, np.int64)
             self._disk[seq, layer, idx, 0] = kcs
@@ -418,10 +523,22 @@ class TieredKVStore:
             self._abs_kn[seq, layer, idx] = kcs.min(1)
             self._crc[seq, layer, idx] = crcs
             self._crc_state[seq, layer, idx] = _CRC_VALID
+            if pq_codes_arr is not None:
+                self._pq_codes[seq, layer, idx] = pq_codes_arr
+                self._pq_valid[seq, layer, idx] = True
+                self._pq_crc[seq, layer, idx] = pq_crcs
+                # write-through codebook persistence, billed once per cold
+                # batch (it is shared state, K * head_dim floats)
+                self._record(seq, HOST, DISK, "pq_codes_write",
+                             4.0 * self.pq_m * self.pq_centroids
+                             * (self.head_dim // self.pq_m))
             for _c in cids:
                 self._record(seq, HOST, DISK, "kv_replica",
                              float(self.chunk_bytes))
                 self._record(seq, HOST, DISK, "abstract", self.abstract_bytes)
+                if pq_codes_arr is not None:
+                    self._record(seq, HOST, DISK, "pq_codes_write",
+                                 float(self.pq_bytes))
 
     @any_thread
     def ingest_fence(self, seq: int) -> None:
@@ -498,6 +615,70 @@ class TieredKVStore:
                                  self.abstract_bytes)
                 billed[seq] = n_disk * float(self.abstract_bytes)
             return km, kn, billed
+
+    @any_thread
+    def read_abstracts_pq_batch(self, layer: int,
+                                chunks_by_seq: Dict[int, Sequence[int]]
+                                ) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray, np.ndarray,
+                                           np.ndarray, Dict[int, float]]:
+        """Batched PQ abstract read: codes + validity next to the min/max
+        boxes, so the engine scores valid chunks by ADC and falls back to
+        the bounds product BITWISE for the rest (append-dirtied or corrupt
+        codes).  Returns ``(kmax, kmin, codes, valid, codebook, billed)``;
+        codes is (B, ncmax, chunk, Hkv, m) uint8, valid (B, ncmax) bool,
+        codebook the layer's (m, K, dsub) snapshot.  Billing per disk-tier
+        chunk: ``pq_codes_read`` when its codes serve, ``abstract`` when it
+        degrades.  Each code block is CRC-verified; a mismatch quarantines
+        the chunk's codes into the requant queue (the sweep re-encodes it
+        off the replica)."""
+        if not self.pq:
+            raise ValueError("store built with abstract_kind='minmax'")
+        with self._lock:
+            B = len(chunks_by_seq)
+            ncmax = max((len(c) for c in chunks_by_seq.values()), default=0)
+            km = np.zeros((B, ncmax, self.kv_heads, self.head_dim),
+                          np.float32)
+            kn = np.zeros_like(km)
+            codes = np.zeros((B, ncmax, self.chunk, self.kv_heads,
+                              self.pq_m), np.uint8)
+            valid = np.zeros((B, ncmax), bool)
+            billed: Dict[int, float] = {}
+            for i, (seq, chunks) in enumerate(chunks_by_seq.items()):
+                idx = np.asarray(list(chunks), np.int64)
+                km[i, :len(idx)] = self._abs_km[seq, layer, idx]
+                kn[i, :len(idx)] = self._abs_kn[seq, layer, idx]
+                pqv = np.array(self._pq_valid[seq, layer, idx])
+                if pqv.any():
+                    blk = np.asarray(self._pq_codes[seq, layer, idx])
+                    for j in np.nonzero(pqv)[0]:
+                        c = int(idx[j])
+                        if self._crc32(blk[j]) != int(
+                                self._pq_crc[seq, layer, c]):
+                            # silent media corruption: min/max serves the
+                            # chunk until the sweep re-encodes it
+                            pqv[j] = False
+                            self._pq_valid[seq, layer, c] = False
+                            self._requant_pending.setdefault(
+                                (seq, layer, c), self._sweep_round)
+                            self._count("checksum_failures")
+                            self._count("pq_fallbacks")
+                    codes[i, :len(idx)][pqv] = blk[pqv]
+                valid[i, :len(idx)] = pqv
+                disk = np.asarray(self.tier[seq, layer, idx] == DISK)
+                n_pq = int(np.count_nonzero(disk & pqv))
+                n_mm = int(np.count_nonzero(disk & ~pqv))
+                for _ in range(n_pq):
+                    self._record(seq, DISK, HOST, "pq_codes_read",
+                                 float(self.pq_bytes))
+                for _ in range(n_mm):
+                    self._record(seq, DISK, HOST, "abstract",
+                                 self.abstract_bytes)
+                billed[seq] = (n_pq * float(self.pq_bytes)
+                               + n_mm * float(self.abstract_bytes))
+            with self._pq_lock:
+                cb = self._pq_cb[layer].copy()
+            return km, kn, codes, valid, cb, billed
 
     # ------------------------------------------------------------------
     # Pooled path: device-resident slab, delta uploads, real codec
@@ -710,6 +891,15 @@ class TieredKVStore:
             self._disk[sq, layer, cs, 1, offs] = vd
             # append-dirtied: the replica changed under its checksum
             self._crc_state[sq, layer, cs] = _CRC_DIRTY
+            if self.pq:
+                # the appended row is not in the codes: importance falls
+                # back to the chunk's min/max box — bitwise the minmax
+                # score — until the sweep re-encodes the quiet chunk
+                self._pq_valid[sq, layer, cs] = False
+                for i in range(len(sq)):
+                    key = (int(sq[i]), layer, int(cs[i]))
+                    self._requant_pending[key] = self._sweep_round
+                    self._chunk_version[key] += 1
             self._abs_km[sq, layer, cs] = np.maximum(
                 self._abs_km[sq, layer, cs], k_news)
             self._abs_kn[sq, layer, cs] = np.minimum(
@@ -729,6 +919,109 @@ class TieredKVStore:
                 self._record(seq, HOST, DISK, "kv_append", row_bytes)
 
     # ------------------------------------------------------------------
+    # Requant sweep (PQ codes of append-dirtied chunks)
+    # ------------------------------------------------------------------
+    @decode_thread_only
+    def requant_sweep(self, executor=None) -> int:
+        """Advance the sweep clock one decode round and re-encode every
+        append-dirtied chunk that stayed quiet for at least one FULL round
+        since its last append (the live tail chunk refreshes its entry
+        every round, so it is never re-encoded while appends land in it).
+        With ``executor`` the re-encode runs write-behind on that worker; a
+        concurrent append (or slot reuse) bumps the chunk's version and
+        aborts that chunk.  Returns the number of chunks submitted."""
+        if not self.pq:
+            return 0
+        # prune landed re-encodes so the in-flight list stays bounded,
+        # surfacing a worker exception instead of swallowing it: the whole
+        # list is pruned first, then the first failure re-raises
+        still, first = [], None
+        for f in self._requant_futs:
+            if f.done():
+                try:
+                    f.result()
+                except BaseException as e:
+                    if first is None:
+                        first = e
+            else:
+                still.append(f)
+        self._requant_futs = still
+        if first is not None:
+            raise first
+        with self._lock:
+            self._sweep_round += 1
+            r = self._sweep_round
+            ready = [key for key, rr in self._requant_pending.items()
+                     if rr < r - 1]
+            for key in ready:
+                self._requant_pending.pop(key)
+            vers = {key: self._chunk_version[key] for key in ready}
+        if not ready:
+            return 0
+        if executor is None:
+            self._requant_chunks(ready, vers)
+        else:
+            self._requant_futs.append(
+                executor.submit(self._requant_chunks, ready, vers))
+        return len(ready)
+
+    @worker_thread
+    def _requant_chunks(self, keys: List[Tuple[int, int, int]],
+                        vers: Dict[Tuple[int, int, int], int]) -> None:
+        """Re-encode each chunk's PQ codes off its current fp16 replica.
+        The encode (kernel B4) runs OUTSIDE the locks on a private copy;
+        the write re-validates the chunk's version under the lock, so codes
+        are never marked valid over rows they did not see."""
+        for seq, layer, c in keys:
+            key = (seq, layer, c)
+            with self._lock:
+                if self._chunk_version[key] != vers[key]:
+                    continue            # a newer append re-dirtied it
+                planes = [np.array(self._disk[seq, layer, c, pl])
+                          for pl in range(self.planes)]
+                # the re-encode READS the fp16 replica off disk before it
+                # writes fresh codes back — both directions bill
+                self._record(seq, DISK, HOST, "sidecar_repack_read",
+                             float(self.chunk_bytes))
+            with self._pq_lock:
+                cb = self._pq_cb[layer].copy()
+            codes_c = pq_encode(
+                planes[0].reshape(-1, self.head_dim).astype(np.float32), cb,
+                impl=self.impl, device=self.device).reshape(
+                    self.chunk, self.kv_heads, self.pq_m)
+            # the read already paid for the whole replica: refresh its CRC
+            # (append-dirtied -> valid) and checksum the fresh codes
+            rep_crc = self._crc32(np.stack(planes))
+            codes_crc = self._crc32(codes_c)
+            with self._lock:
+                if self._chunk_version[key] != vers[key]:
+                    continue            # raced an append mid-encode
+                self._crc[seq, layer, c] = rep_crc
+                self._crc_state[seq, layer, c] = _CRC_VALID
+                self._pq_codes[seq, layer, c] = codes_c
+                self._pq_valid[seq, layer, c] = True
+                self._pq_crc[seq, layer, c] = codes_crc
+                self.pq_reencodes += 1
+                self._record(seq, HOST, DISK, "pq_codes_write",
+                             float(self.pq_bytes))
+
+    @any_thread
+    def requant_fence(self) -> None:
+        """Drain in-flight background re-encodes (shutdown / test
+        ordering).  Every future is awaited even when one raises; the
+        first failure re-raises."""
+        futs, self._requant_futs = self._requant_futs, []
+        first: Optional[BaseException] = None
+        for f in futs:
+            try:
+                f.result()
+            except BaseException as e:
+                if first is None:
+                    first = e
+        if first is not None:
+            raise first
+
+    # ------------------------------------------------------------------
     @decode_thread_only
     def clear_seq(self, seq: int) -> None:
         """Retire a sequence: free its hot-tier entries so the slot can be
@@ -743,6 +1036,14 @@ class TieredKVStore:
             self._abs_kn[seq] = np.inf
             self.tier[seq] = HOST
             self.access[seq] = 0.0
+            if self._pq_valid is not None:
+                self._pq_valid[seq] = False
+            # retire the slot's requant state: pending entries drop and the
+            # version bump aborts any in-flight re-encode of the old data
+            for key in [k for k in self._requant_pending if k[0] == seq]:
+                self._requant_pending.pop(key)
+            for key in [k for k in self._chunk_version if k[0] == seq]:
+                self._chunk_version[key] += 1
             if seq in self.seq_logs:
                 self.retired_logs.append(self.seq_logs.pop(seq))
             self._disk_lost = {k for k in self._disk_lost if k[0] != seq}
@@ -756,8 +1057,12 @@ class TieredKVStore:
     @any_thread
     def fault_stats(self) -> Dict[str, float]:
         """Fault-domain counters (scheduler-facing)."""
+        with self._stats_lock:
+            out = {k: float(v) for k, v in self.fault_counters.items()}
         with self._lock:
-            return {"disk_lost": float(len(self._disk_lost))}
+            out["disk_lost"] = float(len(self._disk_lost))
+            out["pq_reencodes"] = float(self.pq_reencodes)
+        return out
 
     def tier_bytes(self) -> Dict[str, float]:
         """Bytes moved so far, by (src, dst) pair."""
@@ -767,10 +1072,16 @@ class TieredKVStore:
         return dict(out)
 
     def close(self) -> None:
-        """Drain in-flight writes, then drop the memmaps (best-effort: a
-        failed worker must not block shutdown of the survivors)."""
+        """Drain in-flight writes and re-encodes, then drop the memmaps
+        (best-effort: a failed worker must not block shutdown of the
+        survivors)."""
         try:
             self.ingest_fence_all()
         except Exception:
             pass
+        try:
+            self.requant_fence()
+        except Exception:
+            pass
         del self._disk, self._crc, self._crc_state
+        self._pq_codes = self._pq_codebook = self._pq_crc = None

@@ -1,7 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module loads
 neither ``jax`` nor any module of the JAX package ``repro``, no source file
-imports them, and entry points refuse to drift onto the CPU when no CUDA
-device is there and the caller did not ask for the CPU."""
+imports them — nor do ``chip_smoke.py`` and the card-only kernel tests,
+which run where there is no JAX — and entry points refuse to drift onto
+the CPU when no CUDA device is there and the caller did not ask for the
+CPU."""
 
 import ast
 import os
@@ -12,8 +14,12 @@ from pathlib import Path
 import pytest
 import torch
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+# files outside the package that run on the card's machine, which has no JAX
+CARD_SCRIPTS = (ROOT / "chip_smoke.py",
+                ROOT / "tests" / "test_torch_kernels_cuda.py")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -47,7 +53,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
 
 def test_no_source_imports_jax_or_repro():
     offenders = []
-    for path in PORT.rglob("*.py"):
+    for path in [*PORT.rglob("*.py"), *CARD_SCRIPTS]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

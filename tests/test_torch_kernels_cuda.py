@@ -9,7 +9,12 @@ f32 results agree to rtol 1e-5 (bf16 bounds inputs are cast to f32 first,
 same bar); a bf16 model's attention output is held by ``bf16_agreement``
 (at most 5 % of the elements differ, by at most two bf16 ulps of
 max|ref|: an f32 sum that lands next to a rounding boundary); the dequant
-must be bitwise equal.
+must be bitwise equal.  The PQ assign (B4) repeats the plain version's
+lane order with unfused products and sums, so its codes are bitwise equal,
+ties included; the PQ update (B5) counts are exact and its sums are f32
+sums in another order, held to ``PQ_SUM_ULPS`` f32 ulps of the sum of |x|
+over the centroid's members per lane, and two launches are bitwise equal
+(no float atomics).
 """
 
 import numpy as np
@@ -18,11 +23,14 @@ import torch
 
 from repro_torch.kernels.chunk_bounds import ops as cb_ops
 from repro_torch.kernels.kv_quant import ops as kq_ops
+from repro_torch.kernels.pq import ops as pq_ops
 from repro_torch.kernels.sparse_decode import ops as sd_ops
 from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
                                                    bf16_agreement)
 
 pytestmark = pytest.mark.requires_cuda
+
+PQ_SUM_ULPS = 8
 
 
 @pytest.fixture
@@ -141,3 +149,93 @@ def test_launch_counters_count_kernel_launches_only(cuda, rng):
     assert kq_ops.launches == before
     kq_ops.kv_dequant(data, scale, codec="int4")
     assert kq_ops.launches == before + 1
+
+
+def _pq_inputs(rng, dev, m, N, dsub, K, ties=False):
+    x = rng.randn(m, N, dsub).astype(np.float32)
+    cb = rng.randn(m, K, dsub).astype(np.float32)
+    if ties:
+        # exact ties: duplicated centroids, and rows that sit on a centroid
+        cb[:, K - 1] = cb[:, 0]
+        cb[:, K // 2] = cb[:, 1]
+        x[:, ::7] = cb[:, :1]
+    return _t(x, dev), _t(cb, dev)
+
+
+@pytest.mark.parametrize("m,N,dsub,K", [
+    (1, 8, 8, 4), (2, 100, 8, 16), (4, 257, 16, 32), (3, 512, 4, 256),
+    (16, 131072, 8, 256), (2, 1000, 32, 64), (1, 300, 1, 8), (2, 70, 2, 5),
+])
+@pytest.mark.parametrize("ties", [False, True])
+def test_pq_assign_cuda_bitwise(cuda, rng, m, N, dsub, K, ties):
+    x, cb = _pq_inputs(rng, cuda, m, N, dsub, K, ties)
+    ref = pq_ops.pq_assign(x, cb, impl="ref")
+    out = pq_ops.pq_assign(x, cb)
+    assert out.dtype == torch.int32 and torch.equal(out, ref)
+    if ties:
+        assert not (out == K - 1).any()   # the first of two equal centroids
+
+
+def pq_sum_bar(x: torch.Tensor, codes: torch.Tensor, K: int) -> torch.Tensor:
+    """Per (subspace, centroid, lane): PQ_SUM_ULPS f32 ulps of the sum of
+    |x| over the centroid's members — the scale a sum in another order can
+    move by."""
+    absum = pq_ops.pq_update(x.abs(), codes, K, impl="ref")[0]
+    return PQ_SUM_ULPS * torch.finfo(torch.float32).eps * absum
+
+
+@pytest.mark.parametrize("m,N,dsub,K", [
+    (1, 8, 8, 4), (2, 100, 8, 16), (4, 257, 16, 32), (3, 512, 4, 256),
+    (16, 114688, 8, 256), (2, 5000, 32, 64), (1, 9000, 1, 3),
+])
+def test_pq_update_cuda(cuda, rng, m, N, dsub, K):
+    x, _ = _pq_inputs(rng, cuda, m, N, dsub, K)
+    codes = _t(rng.randint(0, K + 1, (m, N)).astype(np.int32), cuda)  # K: pad
+    s_r, n_r = pq_ops.pq_update(x, codes, K, impl="ref")
+    s_k, n_k = pq_ops.pq_update(x, codes, K)
+    assert torch.equal(n_k, n_r)
+    assert n_k.sum().item() == (codes < K).sum().item()
+    assert bool(((s_k - s_r).abs() <= pq_sum_bar(x, codes, K)).all())
+    s_k2, n_k2 = pq_ops.pq_update(x, codes, K)
+    assert torch.equal(s_k2, s_k) and torch.equal(n_k2, n_k)
+
+
+def test_pq_train_cuda_is_deterministic(cuda):
+    """Two kernel runs of pq_train and pq_encode give byte-identical
+    codebooks and codes."""
+    rng = np.random.RandomState(1)
+    vecs = (rng.randn(20000, 128) * 2).astype(np.float32)
+    cb0 = np.zeros((16, 256, 8), np.float32)
+    cnt0 = np.zeros((16, 256), np.float64)
+    runs = []
+    for _ in range(2):
+        cb, cnt = pq_ops.pq_train(vecs, cb0, cnt0, iters=4, device=cuda)
+        runs.append((cb, cnt, pq_ops.pq_encode(vecs, cb, device=cuda)))
+    for a, b in zip(*runs):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("case", ["dsub3", "K512", "K0", "codes_f32",
+                                  "cb_on_cpu"])
+def test_pq_unsupported_cuda_shapes_raise(cuda, rng, case):
+    """A CUDA tensor the kernels do not take raises; it never runs the
+    plain version instead."""
+    before = (pq_ops.assign_launches, pq_ops.update_launches)
+    dsub = 3 if case == "dsub3" else 8
+    K = {"K512": 512, "K0": 0}.get(case, 16)
+    x = _t(rng.randn(2, 64, dsub).astype(np.float32), cuda)
+    cb = _t(rng.randn(2, K, dsub).astype(np.float32), cuda)
+    if case == "cb_on_cpu":
+        cb = cb.cpu()
+    codes = _t(rng.randint(0, max(K, 1), (2, 64)).astype(np.int32), cuda)
+    if case == "codes_f32":
+        codes = codes.float()
+    with pytest.raises(ValueError, match="not a supported CUDA shape"):
+        if case == "codes_f32":
+            pq_ops.pq_update(x, codes, K)
+        else:
+            pq_ops.pq_assign(x, cb)
+    if case in ("dsub3", "K512", "K0"):
+        with pytest.raises(ValueError, match="not a supported CUDA shape"):
+            pq_ops.pq_update(x, codes, K)
+    assert (pq_ops.assign_launches, pq_ops.update_launches) == before

@@ -137,7 +137,7 @@ def test_corrupt_replica_is_reported_lost(tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    {"disk_sidecar": True}, {"prefix_rows": 2}, {"abstract_kind": "pq"},
+    {"disk_sidecar": True}, {"prefix_rows": 2},
     {"faults": object()}, {"debug_sync": True}, {"latent": True},
     {"use_pool": False}])
 def test_unported_store_options_raise(tmp_path, opt):
