@@ -11,9 +11,11 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    PyTorch version (max error beside the stated tolerance), the time of
    the kernel, of the plain version and of a PyTorch library call doing
    the same work where one exists, and the least time the card could take;
+   B2 also at longchat's own 32k context, and two launches bitwise equal;
+   B4's mean candidates per row of its tensor-core screen;
    3b. the PQ k-means (``pq_train`` + ``pq_encode``) through the kernels
    against the plain versions on clustered keys at one layer's size, and
-   two kernel runs byte-identical;
+   two kernel runs byte-identical, and B4's candidates on these keys;
 4. serve: longchat-7b-32k at full width (32 layers, bf16 random weights
    from a seed) through ContinuousBatcher -> BatchedLeoAMEngine ->
    TieredKVStore, 4 requests of 1536/2048/3072/3584 prompt tokens and 32
@@ -26,6 +28,10 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    the plain run's chunk selections, logits held to a bf16 tolerance;
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --b2`` runs phases 1-2 and B2's two timing lines
+only (no result line); copied into a checkout of another commit, it holds
+that commit's B2 against this one's on the same card.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ MAX_LEN = 4096
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32 = 67e12             # f32 outside the tensor cores
 PEAK_BF16 = 989e12           # dense bf16 / fp16 tensor cores
+PEAK_TF32 = 495e12           # dense TF32 tensor cores
 TOL_BOUNDS_REL = 1e-5        # f32 sums in another order
 # B2's bf16 output is held by sparse_decode.ref.bf16_agreement: at most 5 %
 # of the elements differ, by at most two bf16 ulps of max|ref|.
@@ -70,6 +77,11 @@ PQ_SUM_ULPS = 8
 PQ_TRAIN_CB_REL = 4e-3       # max |cb(kernels) - cb(plain)| / max |cb|
 PQ_TRAIN_CODES = 1e-3        # share of codes that differ
 PQ_M, PQ_K, PQ_DSUB = 16, 256, 8
+# B2 at the serve's lengths halfway through decode, and at longchat's own
+# context: 4 sequences near 32k tokens
+MAIN_LENGTHS = tuple(p + NEW_TOKENS // 2 for p in PROMPTS)
+LONG_MAX_LEN = 32768
+LONG_LENGTHS = (31000, 31500, 32000, 32500)
 KV_ROOT = ROOT / "build" / "chip_smoke_kv"
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
@@ -101,21 +113,101 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_kernels(np, torch, rng):
-    """Each kernel against its plain version at the main path's shapes."""
+def b2_row(np, torch, rng, flush, lengths, max_len, chunk=64, rate=0.10):
+    """B2 against its plain version on 4 sequences of ``lengths`` tokens of
+    a ``max_len`` context: the tree's selection at ``rate`` plus chunk 0,
+    the last two chunks and 5 % of the context's chunks as hot ones, as
+    the engine would select them; the pool holds every chunk of the
+    context.  Also checks that two launches are bitwise equal."""
     import torch.nn.functional as F
     from repro_torch.core.adaptive import tree_select_chunks
+    from repro_torch.kernels.sparse_decode import ops as sd
+    from repro_torch.kernels.sparse_decode.ref import bf16_agreement
+
+    dev = torch.device("cuda")
+    B, H, hd = len(lengths), 32, 128
+    sels = []
+    for L in lengths:
+        nv = -(-int(L) // chunk)
+        sel, _ = tree_select_chunks(rng.rand(nv), int(L),
+                                    max(chunk, math.ceil(L * rate)), chunk)
+        hot = rng.choice(nv, max(1, int(max_len // chunk * 0.05)),
+                         replace=False)
+        sels.append(sorted(set(sel) | {0} | {nv - 2, nv - 1}
+                           | {int(c) for c in hot}))
+    nmax = -(-max(len(s) for s in sels) // 4) * 4
+    n_slots = B * (max_len // chunk)
+    pool = torch.randn(n_slots + 1, 2, chunk, H, hd,
+                       device=dev).to(torch.float16)
+    slots = np.zeros((B, nmax), np.int32)
+    cids = np.full((B, nmax), -1, np.int32)
+    for b, s in enumerate(sels):
+        slots[b, :len(s)] = rng.choice(n_slots, len(s), replace=False)
+        cids[b, :len(s)] = s
+    slots_t = torch.from_numpy(slots).to(dev)
+    cids_t = torch.from_numpy(cids).to(dev)
+    len_t = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
+    qd = torch.randn(B, H, hd, device=dev).bfloat16()
+    k_new = torch.randn(B, 1, H, hd, device=dev).bfloat16()
+    v_new = torch.randn(B, 1, H, hd, device=dev).bfloat16()
+    args = (qd, pool, slots_t, cids_t, len_t, k_new, v_new, None)
+    o_k = sd.sparse_decode_pooled(*args)
+    o_k2 = sd.sparse_decode_pooled(*args)
+    o_r = sd.sparse_decode_pooled(*args, impl="ref")
+    err, tol, mismatch = bf16_agreement(o_k, o_r)
+    n_live = int((cids >= 0).sum())
+
+    def sdpa():
+        kv = pool[slots_t.long()]                      # (B, nmax, 2, c, H, hd)
+        kk = torch.cat([kv[:, :, 0].reshape(B, -1, H, hd).bfloat16(), k_new],
+                       1).transpose(1, 2)
+        vv = torch.cat([kv[:, :, 1].reshape(B, -1, H, hd).bfloat16(), v_new],
+                       1).transpose(1, 2)
+        pos = (cids_t.long()[..., None] * chunk
+               + torch.arange(chunk, device=dev)).reshape(B, -1)
+        ok = (cids_t[..., None] >= 0).expand(B, nmax, chunk).reshape(B, -1) \
+            & (pos < len_t[:, None])
+        mask = torch.cat([ok, torch.ones(B, 1, dtype=torch.bool, device=dev)],
+                         1)[:, None, None]
+        return F.scaled_dot_product_attention(qd[:, :, None], kk, vv,
+                                              attn_mask=mask)
+
+    # every live row of K and V read once (the tail chunk only to length)
+    live_rows = sum(min(chunk, int(L) - c * chunk) for L, s in
+                    zip(lengths, sels) for c in s)
+    nbytes = (live_rows * 2 * H * hd * 2 + _nbytes(qd, k_new, v_new, o_r)
+              + _nbytes(slots_t, cids_t, len_t))
+    ops = 4 * H * hd * (live_rows + B)
+    plan = (sd.split_plan(nmax, B, H) if hasattr(sd, "split_plan")
+            else None)
+    row = dict(
+        max_abs_err=err, tol=tol, mismatch=mismatch,
+        bitwise=bool(torch.equal(o_k, o_k2)),
+        ms=_time_ms(lambda: sd.sparse_decode_pooled(*args), flush),
+        plain_ms=_time_ms(lambda: sd.sparse_decode_pooled(*args, impl="ref"),
+                          flush),
+        library_ms=_time_ms(sdpa, flush),
+        bound=(nbytes / HBM_BYTES_S, ops / PEAK_BF16),
+        shape=f"B={B} lengths={list(map(int, lengths))} nmax={nmax} live "
+              f"chunks={n_live} live rows={live_rows} chunk={chunk} "
+              f"H=Hkv={H} hd={hd} (nsplit, chunks per split)={plan}")
+    del pool
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernels(np, torch, rng):
+    """Each kernel against its plain version at the main path's shapes,
+    and B2 once more at longchat's own 32k context."""
     from repro_torch.core.compression import quantize_chunks
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
-    from repro_torch.kernels.sparse_decode import ops as sd
-    from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
-                                                       bf16_agreement)
+    from repro_torch.kernels.sparse_decode.ref import BF16_MAX_MISMATCH
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    B, H, hd, chunk, rate = len(PROMPTS), 32, 128, 64, 0.10
-    lengths = np.array([p + NEW_TOKENS // 2 for p in PROMPTS], np.int32)
+    B, H, hd, chunk = len(PROMPTS), 32, 128, 64
+    lengths = np.array(MAIN_LENGTHS, np.int32)
     ncs = [-(-int(L) // chunk) for L in lengths]
     rows = {}
 
@@ -143,62 +235,7 @@ def phase_kernels(np, torch, rng):
         shape=f"q {tuple(q.shape)} bf16, abstracts {tuple(km.shape)} f32")
 
     # --- B2: the selection the tree really produces at these lengths
-    sels = []
-    for L, nv in zip(lengths, ncs):
-        sel, _ = tree_select_chunks(rng.rand(nv), int(L),
-                                    max(chunk, math.ceil(L * rate)), chunk)
-        hot = rng.choice(nv, max(1, int(MAX_LEN // chunk * 0.05)),
-                         replace=False)
-        sels.append(sorted(set(sel) | {0} | {nv - 2, nv - 1}
-                           | {int(c) for c in hot}))
-    nmax = -(-max(len(s) for s in sels) // 4) * 4
-    n_slots = B * (MAX_LEN // chunk)
-    pool = torch.randn(n_slots + 1, 2, chunk, H, hd,
-                       device=dev).to(torch.float16)
-    slots = np.zeros((B, nmax), np.int32)
-    cids = np.full((B, nmax), -1, np.int32)
-    for b, s in enumerate(sels):
-        slots[b, :len(s)] = rng.choice(n_slots, len(s), replace=False)
-        cids[b, :len(s)] = s
-    slots_t = torch.from_numpy(slots).to(dev)
-    cids_t = torch.from_numpy(cids).to(dev)
-    len_t = torch.from_numpy(lengths).to(dev)
-    qd = torch.randn(B, H, hd, device=dev).bfloat16()
-    k_new = torch.randn(B, 1, H, hd, device=dev).bfloat16()
-    v_new = torch.randn(B, 1, H, hd, device=dev).bfloat16()
-    args = (qd, pool, slots_t, cids_t, len_t, k_new, v_new, None)
-    o_k = sd.sparse_decode_pooled(*args)
-    o_r = sd.sparse_decode_pooled(*args, impl="ref")
-    err, tol, mismatch = bf16_agreement(o_k, o_r)
-    n_live = int((cids >= 0).sum())
-
-    def sdpa():
-        kv = pool[slots_t.long()]                      # (B, nmax, 2, c, H, hd)
-        kk = torch.cat([kv[:, :, 0].reshape(B, -1, H, hd).bfloat16(), k_new],
-                       1).transpose(1, 2)
-        vv = torch.cat([kv[:, :, 1].reshape(B, -1, H, hd).bfloat16(), v_new],
-                       1).transpose(1, 2)
-        pos = (cids_t.long()[..., None] * chunk
-               + torch.arange(chunk, device=dev)).reshape(B, -1)
-        ok = (cids_t[..., None] >= 0).expand(B, nmax, chunk).reshape(B, -1) \
-            & (pos < len_t[:, None])
-        mask = torch.cat([ok, torch.ones(B, 1, dtype=torch.bool, device=dev)],
-                         1)[:, None, None]
-        return F.scaled_dot_product_attention(qd[:, :, None], kk, vv,
-                                              attn_mask=mask)
-
-    nbytes = (n_live * 2 * chunk * H * hd * 2 + _nbytes(qd, k_new, v_new, o_r)
-              + _nbytes(slots_t, cids_t, len_t))
-    ops = 4 * H * hd * (n_live * chunk + B)
-    rows["sparse_decode"] = dict(
-        max_abs_err=err, tol=tol, mismatch=mismatch,
-        ms=_time_ms(lambda: sd.sparse_decode_pooled(*args), flush),
-        plain_ms=_time_ms(lambda: sd.sparse_decode_pooled(*args, impl="ref"),
-                          flush),
-        library_ms=_time_ms(sdpa, flush),
-        bound=(nbytes / HBM_BYTES_S, ops / PEAK_BF16),
-        shape=f"B={B} nmax={nmax} live chunks={n_live} chunk={chunk} "
-              f"H=Hkv={H} hd={hd}")
+    rows["sparse_decode"] = b2_row(np, torch, rng, flush, lengths, MAX_LEN)
 
     # --- B3: K and V planes of 16 uploaded chunks in one launch
     kv = rng.randn(16, chunk, H, hd).astype(np.float16)
@@ -220,22 +257,26 @@ def phase_kernels(np, torch, rng):
         bound=(_nbytes(data, scale, d_r) / HBM_BYTES_S,
                d_r.numel() / PEAK_F32),
         shape=f"N={tuple(data.shape)[0]} c={chunk} d={H * hd} int4 -> fp16")
-    del pool
-    torch.cuda.empty_cache()
     rows.update(_pq_kernel_rows(np, torch, rng, flush))
+    long_row = b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN), flush,
+                      LONG_LENGTHS, LONG_MAX_LEN)
     del flush
     torch.cuda.empty_cache()
+    print_b2(long_row, "sparse_decode at 32k")
     for name, r in rows.items():
         b = max(r["bound"])
         extra = (f", {r['mismatch']!r} of elements differ (tol "
-                 f"{BF16_MAX_MISMATCH})" if "mismatch" in r else "")
+                 f"{BF16_MAX_MISMATCH}), two launches bitwise equal: "
+                 f"{r['bitwise']}" if "mismatch" in r else "")
         print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r}"
               f" (tol {r['tol']!r}){extra}; ms={r['ms']!r} "
               f"plain_ms={r['plain_ms']!r}"
               f" library_ms={r['library_ms']!r} bound_ms={b * 1e3!r} "
               f"({'bytes' if r['bound'][0] >= r['bound'][1] else 'operations'})")
-    bad = [n for n, r in rows.items() if not r["max_abs_err"] <= r["tol"]
-           or not r.get("mismatch", 0.0) <= BF16_MAX_MISMATCH]
+    bad = [n for n, r in {**rows, "sparse_decode at 32k": long_row}.items()
+           if not r["max_abs_err"] <= r["tol"]
+           or not r.get("mismatch", 0.0) <= BF16_MAX_MISMATCH
+           or not r.get("bitwise", True)]
     bad += [f"{n} (not bitwise)" for n in ("kv_dequant", "pq_assign")
             if not rows[n]["exact"]]
     if not rows["pq_update"]["within_bar"]:
@@ -245,7 +286,18 @@ def phase_kernels(np, torch, rng):
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain "
                          f"versions: {bad}")
-    return rows
+    return rows, long_row
+
+
+def print_b2(r, name):
+    from repro_torch.kernels.sparse_decode.ref import BF16_MAX_MISMATCH
+    b = max(r["bound"])
+    print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r} "
+          f"(tol {r['tol']!r}), {r['mismatch']!r} of elements differ (tol "
+          f"{BF16_MAX_MISMATCH}); two launches bitwise equal: "
+          f"{r['bitwise']}; ms={r['ms']!r} plain_ms={r['plain_ms']!r} "
+          f"library_ms={r['library_ms']!r} bound_ms={b * 1e3!r} "
+          f"({'bytes' if r['bound'][0] >= r['bound'][1] else 'operations'})")
 
 
 def _pq_kernel_rows(np, torch, rng, flush):
@@ -261,7 +313,7 @@ def _pq_kernel_rows(np, torch, rng, flush):
         np.float32)).to(dev)
     cb = torch.from_numpy(rng.randn(PQ_M, PQ_K, PQ_DSUB).astype(
         np.float32)).to(dev)
-    c_k = pq.pq_assign(x, cb)
+    c_k, cand = pq.pq_assign_candidates(x, cb)
     c_r = pq.pq_assign(x, cb, impl="ref")
     cbt = cb.transpose(1, 2)
 
@@ -269,15 +321,19 @@ def _pq_kernel_rows(np, torch, rng, flush):
         d = torch.baddbmm(centroid_norms(cb)[:, None, :], x, cbt, alpha=-2.0)
         return d.argmin(-1)
 
+    flops = 2 * x.shape[0] * x.shape[1] * PQ_K * PQ_DSUB
     rows["pq_assign"] = dict(
         max_abs_err=float((c_k - c_r).abs().max().item()), tol=0.0,
         exact=bool(torch.equal(c_k, c_r)),
         ms=_time_ms(lambda: pq.pq_assign(x, cb), flush),
         plain_ms=_time_ms(lambda: pq.pq_assign(x, cb, impl="ref"), flush),
         library_ms=_time_ms(library_assign, flush),
-        bound=(_nbytes(x, cb, c_r) / HBM_BYTES_S,
-               2 * x.shape[0] * x.shape[1] * PQ_K * PQ_DSUB / PEAK_F32),
+        # the products run on the TF32 tensor cores; the bound at the f32
+        # rate of a scalar kernel is printed beside it
+        bound=(_nbytes(x, cb, c_r) / HBM_BYTES_S, flops / PEAK_TF32),
         shape=f"x {tuple(x.shape)} f32, codebook {tuple(cb.shape)} f32")
+    print(f"[kernel] pq_assign: mean candidates per row {cand!r} (random "
+          f"keys); bound at the f32 rate {flops / PEAK_F32 * 1e3!r} ms")
 
     x = x[:, :114688].contiguous()
     codes = pq.pq_assign(x, cb)
@@ -351,6 +407,9 @@ def phase_pq_train(np, torch, rng):
         runs[name] = (cb, cnt, codes, time.perf_counter() - t0)
     cb_k, cnt_k, codes_k, t_k = runs["kernel"]
     cb_r, cnt_r, codes_r, t_r = runs["plain"]
+    _, cand = pq.pq_assign_candidates(
+        pq._subspaces(vecs, PQ_M, torch.device("cuda")),
+        torch.from_numpy(cb_k).cuda())
     same = all(a.tobytes() == b.tobytes()
                for a, b in zip(runs["kernel"][:3], runs["kernel_again"][:3]))
     cb_rel = float(np.abs(cb_k - cb_r).max() / np.abs(cb_r).max())
@@ -360,11 +419,13 @@ def phase_pq_train(np, torch, rng):
           f"codebook max|diff|/max|cb| {cb_rel!r} (bar {PQ_TRAIN_CB_REL}); "
           f"codes that differ {differ!r} (bar {PQ_TRAIN_CODES}); counts "
           f"equal {bool(np.array_equal(cnt_k, cnt_r))}; two kernel runs "
-          f"byte-identical: {same}; wall s kernel {t_k!r} plain {t_r!r}")
+          f"byte-identical: {same}; wall s kernel {t_k!r} plain {t_r!r}; "
+          f"B4 mean candidates per row on these keys {cand!r}")
     if not (same and cb_rel <= PQ_TRAIN_CB_REL and differ <= PQ_TRAIN_CODES):
         raise SystemExit("chip_smoke: pq_train through the kernels "
                          "disagrees with the plain versions")
-    return {"cb_rel": cb_rel, "codes_differ": differ}
+    return {"cb_rel": cb_rel, "codes_differ": differ,
+            "pq_assign_mean_candidates": cand}
 
 
 def phase_serve(np, torch, cfg, params, pq: bool = False):
@@ -568,7 +629,16 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     torch.manual_seed(0)
-    rows = phase_kernels(np, torch, rng)
+    if "--b2" in sys.argv[1:]:
+        # B2's two timing lines alone: run from a checkout of another
+        # commit to hold its kernel against this one on the same card
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+        print_b2(b2_row(np, torch, rng, flush, MAIN_LENGTHS, MAX_LEN),
+                 "sparse_decode")
+        print_b2(b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN), flush,
+                        LONG_LENGTHS, LONG_MAX_LEN), "sparse_decode at 32k")
+        return 0
+    rows, long_row = phase_kernels(np, torch, rng)
     pq_train_res = phase_pq_train(np, torch, rng)
 
     cfg = get_config("longchat-7b-32k")
@@ -615,9 +685,12 @@ def main() -> int:
             else "operations",
             "library_ms": r["library_ms"]})
     print(f"[time] chip_smoke {time.perf_counter() - T_START!r} s")
+    long_b2 = {k: v for k, v in long_row.items() if k != "bound"}
+    long_b2["bound_ms"] = max(long_row["bound"]) * 1e3
     print(json.dumps({"kernels": kernels, "card": card, "e2e_max_diff": e2e,
                       "serve": serve, "serve_pq": serve_pq,
-                      "pq_train": pq_train_res}))
+                      "pq_train": pq_train_res,
+                      "sparse_decode_32k": long_b2}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,9 +37,9 @@ _SIGNATURES = {
     "leoam_chunk_bounds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _P],
     "leoam_sparse_decode": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _LL, _P,
-                            _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P,
-                            _P, _P, _I, _I, _P],
-    "leoam_pq_assign": [_P, _P, _P, _I, _I, _I, _I, _P],
+                            _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _P, _P, _P, _P, _P, _I, _I, _P],
+    "leoam_pq_assign": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "leoam_pq_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

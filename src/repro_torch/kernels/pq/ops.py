@@ -61,9 +61,24 @@ def pq_assign(x: torch.Tensor, cb: torch.Tensor, *,
     nearest centroid by ``|c_k|^2 - 2 x . c_k``."""
     if not build.use_kernel(impl, x):
         return pq_assign_ref(x, cb)
+    return _assign_kernel(x, cb, None)
+
+
+def pq_assign_candidates(x: torch.Tensor, cb: torch.Tensor
+                         ) -> Tuple[torch.Tensor, float]:
+    """:func:`pq_assign` on the card, also returning the mean number of
+    centroids per row that the kernel's tensor-core screen left for the
+    exact check (1 when the screen alone decides every row)."""
+    count = torch.zeros(1, dtype=torch.int64, device=x.device)
+    codes = _assign_kernel(x, cb, count)
+    return codes, count.item() / max(1, codes.numel())
+
+
+def _assign_kernel(x: torch.Tensor, cb: torch.Tensor,
+                   count: Optional[torch.Tensor]) -> torch.Tensor:
     global assign_launches
     K = cb.shape[1] if cb.dim() == 3 else 0
-    _require(x.dim() == 3 and cb.dim() == 3 and cb.is_cuda
+    _require(x.dim() == 3 and cb.dim() == 3 and x.is_cuda and cb.is_cuda
              and cb.shape[0] == x.shape[0] and cb.shape[2] == x.shape[2]
              and x.shape[2] in SUPPORTED_DSUB and 1 <= K <= MAX_CENTROIDS,
              "pq_assign", x, cb, K)
@@ -75,7 +90,7 @@ def pq_assign(x: torch.Tensor, cb: torch.Tensor, *,
         return codes
     rc = build.library().leoam_pq_assign(
         x.data_ptr(), cb.data_ptr(), codes.data_ptr(), m, N, K, dsub,
-        build.stream_ptr(x))
+        None if count is None else count.data_ptr(), build.stream_ptr(x))
     build.check(rc, "pq_assign")
     assign_launches += 1
     return codes

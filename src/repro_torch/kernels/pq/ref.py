@@ -61,3 +61,83 @@ def pq_update_ref(x: torch.Tensor, codes: torch.Tensor, n_centroids: int
         sums = sums + torch.bmm(onehot.transpose(1, 2), x[:, s:s + TILE_ROWS])
         counts = counts + onehot.sum(1)
     return sums, counts
+
+
+# B4's screen: the constants of csrc/pq_kmeans.cu (kEpsC1, kEpsC2,
+# kEpsDelta, kEpsFull) and their derivation there.  A row's screened
+# distances are within eps = EPS_C1 |x|_2 max_k |c_k|_2 + EPS_C2 max_k
+# |cn_k| + EPS_DELTA of the exact ones.
+EPS_C1 = 4.0e-3
+EPS_C2 = 2.0 ** -17
+EPS_DELTA = 1.0e-30
+EPS_FULL = 1.0e30
+
+
+def tf32_round(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """f32 values with their mantissa cut to TF32's 10 bits, by masking:
+    ``"trunc"`` drops the low 13 bits, ``"nearest"`` rounds half away from
+    zero first (PTX ``cvt.rna.tf32.f32``)."""
+    bits = x.float().contiguous().view(torch.int32)
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    elif rounding != "trunc":
+        raise ValueError(f"rounding must be 'trunc' or 'nearest': {rounding}")
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _round_up_f32(v: torch.Tensor) -> torch.Tensor:
+    """f64 -> the least f32 >= v."""
+    f = v.float()
+    return torch.where(f.double() < v, torch.nextafter(
+        f, torch.full_like(f, float("inf"))), f)
+
+
+def screened_distances(x: torch.Tensor, cb: torch.Tensor, rounding: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m, N, K) distances: the exact chain of :func:`pq_assign_ref`, and
+    the screen's ``d~ = -2 acc`` with acc the sum of the TF32 products and
+    ``-cn / 2`` (the kernel's C input), here summed in f64 and rounded to
+    f32 once — one of the orders the kernel's bound admits."""
+    x = x.float()
+    cb = cb.float()
+    cn = centroid_norms(cb)                                  # (m, K)
+    dot = x[:, :, None, 0] * cb[:, None, :, 0]
+    for lane in range(1, x.shape[-1]):
+        dot = dot + x[:, :, None, lane] * cb[:, None, :, lane]
+    d = cn[:, None, :] - 2.0 * dot
+    acc = (torch.einsum("mnl,mkl->mnk", tf32_round(x, rounding).double(),
+                        tf32_round(cb, rounding).double())
+           - 0.5 * cn.double()[:, None, :]).float()
+    return d, -2.0 * acc
+
+
+def screen_eps(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """(m, N) f32 eps of each row, rounded up as the kernel rounds it."""
+    x = x.float()
+    cb = cb.float()
+    xn = x.double().pow(2).sum(-1).sqrt()                    # (m, N)
+    cmax = cb.double().pow(2).sum(-1).sqrt().amax(-1)        # (m,)
+    cnmax = centroid_norms(cb).double().abs().amax(-1)
+    return _round_up_f32(EPS_C1 * xn * cmax[:, None]
+                         + EPS_C2 * cnmax[:, None] + EPS_DELTA)
+
+
+def pq_assign_screened_ref(x: torch.Tensor, cb: torch.Tensor, *,
+                           rounding: str = "nearest",
+                           eps_scale: float = 1.0):
+    """The CUDA kernel's screen in plain PyTorch (used by the tests): the
+    screened distances of :func:`screened_distances`, the candidates
+    ``d~ <= d~_min + 2 eps`` (every centroid where eps exceeds
+    ``EPS_FULL`` or is NaN), and the first index of the least exact
+    distance among them.  ``eps_scale`` scales eps, so a test can show
+    that a smaller one gets codes wrong.  Returns (codes (m, N) int32,
+    mean candidates per row)."""
+    m, N, _ = x.shape
+    d, dt = screened_distances(x, cb, rounding)
+    eps = screen_eps(x, cb)
+    full = ~(eps <= EPS_FULL)
+    thr = dt.amin(-1).double() + 2.0 * eps_scale * eps.double()
+    cand = (dt.double() <= thr[..., None]) | full[..., None]
+    inf = torch.full_like(d, float("inf"))
+    codes = torch.argmin(torch.where(cand, d, inf), dim=-1).to(torch.int32)
+    return codes, cand.sum().item() / max(1, m * N)

@@ -6,11 +6,17 @@ per-sequence lengths, the new token's row) and the Pallas contract
 :func:`sparse_decode` (a (B, S, Hkv, hd) cache viewed as a slab of chunks,
 returning the partial-softmax triple).  A CUDA tensor launches the kernel;
 a CPU tensor takes the plain version in ``ref.py``.  ``launches`` counts
-kernel launches only."""
+wrapper calls that launched the kernel (each call is two CUDA launches:
+scores, then P.V with the combine).
+
+The kernel splits each (sequence, kv head)'s rows across blocks;
+:func:`split_plan` chooses the split and :func:`split_rows` says which
+rows each split covers."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -20,6 +26,68 @@ from repro_torch.kernels.sparse_decode.ref import (model_scale,
                                                    sparse_decode_ref)
 
 launches = 0
+
+H100_SMS = 132
+BLOCKS_PER_SM = 8       # blocks the split plan aims at, per SM
+
+
+def split_plan(nmax: int, batch: int, n_kv_heads: int,
+               n_sm: int = H100_SMS) -> Tuple[int, int]:
+    """(nsplit, chunks per split) for ``nmax`` selection entries of
+    ``batch`` sequences x ``n_kv_heads``: the fewest chunks per split (at
+    least one) that still give the grid ``(nsplit, n_kv_heads, batch)``
+    about ``BLOCKS_PER_SM`` blocks per SM, so the longest selection sets
+    the work of one block and short ones spread over more blocks."""
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // max(1, batch * n_kv_heads)))
+    cps = max(1, nmax // want)
+    return max(1, -(-nmax // cps)), cps
+
+
+def split_rows(nmax: int, chunk: int, nsplit: int, cps: int
+               ) -> List[List[int]]:
+    """The rows t of the (nmax * chunk + 1)-row score vector each split
+    covers: entries [s * cps, (s + 1) * cps) as rows j * chunk + r; the
+    new token's row (the last) belongs to the last split."""
+    out = []
+    for s in range(nsplit):
+        lo, hi = min(nmax, s * cps), min(nmax, (s + 1) * cps)
+        out.append(list(range(lo * chunk, hi * chunk)))
+    out[-1].append(nmax * chunk)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(q, k, v, row_stride, slot_idx, cid_idx, idx_b_stride,
+            idx_h_stride, nsel, row_b_offset, lengths, len_b_stride, k_new,
+            v_new, B, Hkv, G, hd, chunk, q_scale, softcap, out, num, den, m,
+            kv_dtype, name):
+    """One call of the kernel: the split plan, its f32 scratch, the
+    entry."""
+    global launches
+    _check(hd * kv_dtype.itemsize % 16 == 0 and hd <= 256 and G <= 16,
+           f"hd {hd} x {kv_dtype} rows must be a multiple of 16 bytes, "
+           f"hd <= 256, G {G} <= 16")
+    nsplit, cps = split_plan(nsel, B, Hkv, _sm_count(q.device.index or 0))
+    scratch = torch.empty(
+        B * Hkv * (G * (nsel * chunk + 1 + nsplit * (hd + 2)) + 1),
+        dtype=torch.float32, device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = build.library().leoam_sparse_decode(
+        q.data_ptr(), k, v, row_stride, slot_idx.data_ptr(),
+        cid_idx.data_ptr(), idx_b_stride, idx_h_stride, nsel, row_b_offset,
+        lengths.data_ptr(), len_b_stride, ptr(k_new), ptr(v_new), B, Hkv, G,
+        hd, chunk, nsplit, cps, q_scale, softcap, scratch.data_ptr(),
+        ptr(out), ptr(num), ptr(den), ptr(m), build.DTYPE_CODES[kv_dtype],
+        build.DTYPE_CODES[q.dtype], build.stream_ptr(q))
+    build.check(rc, name)
+    launches += 1
 
 
 def _check(cond: bool, what: str) -> None:
@@ -39,7 +107,6 @@ def sparse_decode_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
     if not build.use_kernel(impl, q):
         return sparse_decode_pooled_ref(q, pool_kv, slots, chunk_ids,
                                         lengths, k_new, v_new, attn_softcap)
-    global launches
     B, H, hd = q.shape
     _, planes, chunk, Hkv, hd2 = pool_kv.shape
     G = H // Hkv
@@ -58,17 +125,12 @@ def sparse_decode_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
     v_new = v_new.reshape(B, Hkv, hd).to(q.dtype).contiguous()
     out = torch.empty_like(q)
     plane = chunk * Hkv * hd
-    rc = build.library().leoam_sparse_decode(
-        q.data_ptr(), pool_kv.data_ptr(),
-        pool_kv.data_ptr() + plane * pool_kv.element_size(), 2 * plane,
-        slots.data_ptr(), chunk_ids.data_ptr(), nmax, 0, nmax, 0,
-        lengths.data_ptr(), 1, k_new.data_ptr(), v_new.data_ptr(), B, Hkv, G,
-        hd, chunk, model_scale(hd, q.dtype),
-        float(attn_softcap) if attn_softcap is not None else 0.0,
-        out.data_ptr(), None, None, None, build.DTYPE_CODES[pool_kv.dtype],
-        build.DTYPE_CODES[q.dtype], build.stream_ptr(q))
-    build.check(rc, "sparse_decode_pooled")
-    launches += 1
+    _launch(q, pool_kv.data_ptr(),
+            pool_kv.data_ptr() + plane * pool_kv.element_size(), 2 * plane,
+            slots, chunk_ids, nmax, 0, nmax, 0, lengths, 1, k_new, v_new, B,
+            Hkv, G, hd, chunk, model_scale(hd, q.dtype),
+            float(attn_softcap) if attn_softcap is not None else 0.0, out,
+            None, None, None, pool_kv.dtype, "sparse_decode_pooled")
     return out
 
 
@@ -80,7 +142,6 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ids (B, Hkv, nsel); scalar length -> (num, den, m) f32 triple."""
     if not build.use_kernel(impl, q):
         return sparse_decode_ref(q, k, v, ids, length, chunk=chunk)
-    global launches
     B, Hkv, G, hd = q.shape
     S = k.shape[1]
     nsel = ids.shape[-1]
@@ -96,13 +157,8 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     num = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=q.device)
     den = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
     m = torch.empty_like(den)
-    rc = build.library().leoam_sparse_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), chunk * Hkv * hd,
-        ids.data_ptr(), ids.data_ptr(), Hkv * nsel, nsel, nsel, S // chunk,
-        lens.data_ptr(), 0, None, None, B, Hkv, G, hd, chunk, 1.0, 0.0, None,
-        num.data_ptr(), den.data_ptr(), m.data_ptr(),
-        build.DTYPE_CODES[k.dtype], build.DTYPE_CODES[torch.float32],
-        build.stream_ptr(q))
-    build.check(rc, "sparse_decode")
-    launches += 1
+    _launch(q, k.data_ptr(), v.data_ptr(), chunk * Hkv * hd, ids, ids,
+            Hkv * nsel, nsel, nsel, S // chunk, lens, 0, None, None, B, Hkv,
+            G, hd, chunk, 1.0, 0.0, None, num, den, m, k.dtype,
+            "sparse_decode")
     return num, den, m

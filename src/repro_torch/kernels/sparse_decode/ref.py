@@ -69,20 +69,11 @@ def model_scale(hd: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / math.sqrt(hd), dtype=dtype))
 
 
-def sparse_decode_pooled_ref(q: torch.Tensor, pool_kv: torch.Tensor,
-                             slots: torch.Tensor, chunk_ids: torch.Tensor,
-                             lengths: torch.Tensor, k_new: torch.Tensor,
-                             v_new: torch.Tensor,
-                             attn_softcap: Optional[float] = None
-                             ) -> torch.Tensor:
-    """Engine contract (``repro.serving.engine._attend_pooled`` without
-    the output projection).
-
-    q: (B, H, hd) model dtype; pool_kv: (n_slots + 1, 2, chunk, Hkv, hd)
-    store dtype; slots / chunk_ids: (B, nmax) (chunk id -1 on padding);
-    lengths: (B,); k_new / v_new: (B, 1, Hkv, hd) or (B, Hkv, hd).  The
-    mask is STRICT (pos < length): this round's token rides in k_new /
-    v_new and is always attended.  Returns (B, H, hd) in q's dtype."""
+def _pooled_operands(q, pool_kv, slots, chunk_ids, lengths, k_new, v_new,
+                     attn_softcap):
+    """Scores (B, Hkv, G, T) f32, V (B, Hkv, T, hd) in q's dtype and the
+    live-row mask (B, 1, 1, T) of the engine contract, T = nmax * chunk +
+    1 (the new token's row last)."""
     B, H, hd = q.shape
     kv = pool_kv[slots.long()]                     # (B, nmax, 2, c, Hkv, hd)
     nmax = slots.shape[1]
@@ -107,5 +98,62 @@ def sparse_decode_pooled_ref(q: torch.Tensor, pool_kv: torch.Tensor,
                           kg.transpose(1, 2).float())
     if attn_softcap is not None:
         scores = attn_softcap * torch.tanh(scores / attn_softcap)
-    part = sa._masked_softmax_partials(scores, vg.transpose(1, 2), valid)
+    return scores, vg.transpose(1, 2), valid
+
+
+def sparse_decode_pooled_ref(q: torch.Tensor, pool_kv: torch.Tensor,
+                             slots: torch.Tensor, chunk_ids: torch.Tensor,
+                             lengths: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor,
+                             attn_softcap: Optional[float] = None
+                             ) -> torch.Tensor:
+    """Engine contract (``repro.serving.engine._attend_pooled`` without
+    the output projection).
+
+    q: (B, H, hd) model dtype; pool_kv: (n_slots + 1, 2, chunk, Hkv, hd)
+    store dtype; slots / chunk_ids: (B, nmax) (chunk id -1 on padding);
+    lengths: (B,); k_new / v_new: (B, 1, Hkv, hd) or (B, Hkv, hd).  The
+    mask is STRICT (pos < length): this round's token rides in k_new /
+    v_new and is always attended.  Returns (B, H, hd) in q's dtype."""
+    scores, v, valid = _pooled_operands(q, pool_kv, slots, chunk_ids,
+                                        lengths, k_new, v_new, attn_softcap)
+    part = sa._masked_softmax_partials(scores, v, valid)
     return sa._finish(part).to(q.dtype)
+
+
+def sparse_decode_pooled_split_ref(q: torch.Tensor, pool_kv: torch.Tensor,
+                                   slots: torch.Tensor,
+                                   chunk_ids: torch.Tensor,
+                                   lengths: torch.Tensor, k_new: torch.Tensor,
+                                   v_new: torch.Tensor,
+                                   attn_softcap: Optional[float] = None, *,
+                                   nsplit: int, chunks_per_split: int
+                                   ) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in plain PyTorch (used by the tests):
+    rows split as ``ops.split_rows`` splits them, each split's maximum,
+    the global maximum over the splits, per split p = exp(s - m) with p
+    rounded to the model dtype for P.V, and the f32 num / den partials
+    added in split order.  Same contract as
+    :func:`sparse_decode_pooled_ref`."""
+    scores, v, valid = _pooled_operands(q, pool_kv, slots, chunk_ids,
+                                        lengths, k_new, v_new, attn_softcap)
+    B, Hkv, G, T = scores.shape
+    chunk = pool_kv.shape[2]
+    sc = torch.where(valid, scores, sa.NEG_INF)
+    spans = []
+    for s in range(nsplit):
+        lo = min(T - 1, s * chunks_per_split * chunk)
+        hi = min(T - 1, (s + 1) * chunks_per_split * chunk)
+        spans.append((lo, T if s == nsplit - 1 else hi))
+    m = torch.stack([sc[..., lo:hi].amax(-1) for lo, hi in spans]).amax(0)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = torch.zeros(B, Hkv, G, v.shape[-1], device=q.device)
+    den = torch.zeros(B, Hkv, G, device=q.device)
+    for lo, hi in spans:
+        e = torch.exp(sc[..., lo:hi] - m_safe[..., None])
+        e = torch.where(valid[..., lo:hi], e, torch.zeros_like(e))
+        num = num + torch.einsum("bkgt,bktv->bkgv", e.to(v.dtype).float(),
+                                 v[:, :, lo:hi].float())
+        den = den + e.sum(-1)
+    out = num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+    return out.reshape(q.shape).to(q.dtype)

@@ -23,12 +23,14 @@ from repro_torch.core import compression as tcomp
 from repro_torch.core.bounds import chunk_bounds_gqa_matmul as t_bounds_gqa
 from repro_torch.kernels.chunk_bounds.ops import chunk_bounds as t_chunk_bounds
 from repro_torch.kernels.kv_quant.ops import kv_dequant as t_kv_dequant
-from repro_torch.kernels.sparse_decode.ops import (sparse_decode as
+from repro_torch.kernels.sparse_decode.ops import (BLOCKS_PER_SM,
+                                                   sparse_decode as
                                                    t_sparse_decode,
-                                                   sparse_decode_pooled)
-from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
-                                                   bf16_agreement,
-                                                   model_scale)
+                                                   sparse_decode_pooled,
+                                                   split_plan, split_rows)
+from repro_torch.kernels.sparse_decode.ref import (
+    BF16_MAX_MISMATCH, bf16_agreement, model_scale,
+    sparse_decode_pooled_split_ref)
 
 _TDT = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -151,6 +153,87 @@ def test_sparse_decode_engine_entry_matches_attend_pooled(rng, dtype,
                                    rtol=1e-5, atol=1e-5)
     else:
         assert_bf16_close(_np(y_t).reshape(B, 1, H * hd), _np(y_j))
+
+
+@pytest.mark.parametrize("nmax,B,Hkv,n_sm", [
+    (1, 1, 1, 132), (1, 4, 32, 132), (16, 4, 32, 132), (3, 1, 1, 132),
+    (80, 4, 32, 132), (500, 4, 32, 132), (500, 1, 8, 132), (7, 2, 2, 4),
+    (0, 2, 2, 132),
+])
+def test_split_plan_covers_every_row_once(nmax, B, Hkv, n_sm):
+    """Every one of the nmax * chunk + 1 rows lies in exactly one split,
+    in order, each split covers whole selection entries (at least one when
+    there are any), the new token's row is the last split's, and the grid
+    reaches BLOCKS_PER_SM blocks per SM where there are entries enough.
+    nmax 80 is longchat's 32k selection (rate 0.10 of 500 chunks of 64
+    plus hot ones), 500 the whole 32k context."""
+    chunk = 64
+    nsplit, cps = split_plan(nmax, B, Hkv, n_sm)
+    assert nsplit >= 1 and cps >= 1
+    rows = split_rows(nmax, chunk, nsplit, cps)
+    assert len(rows) == nsplit
+    flat = [t for r in rows for t in r]
+    assert flat == list(range(nmax * chunk + 1))
+    assert rows[-1][-1] == nmax * chunk
+    for r in rows[:-1] if nmax else []:
+        assert r and len(r) % chunk == 0 and r[0] % chunk == 0
+    if nmax:
+        assert nsplit * B * Hkv >= min(BLOCKS_PER_SM * n_sm, nmax * B * Hkv)
+
+
+def _split_inputs(rng, dtype, B, H, Hkv, hd, chunk, nmax, live):
+    """Pool inputs with ``live[b]`` selected chunks for sequence b (0: an
+    all-padding row of the selection) and the rest -1 padding."""
+    n_slots = B * nmax
+    pool = rng.randn(n_slots + 1, 2, chunk, Hkv, hd).astype(np.float16)
+    slots = np.zeros((B, nmax), np.int32)
+    cids = np.full((B, nmax), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b, n in enumerate(live):
+        slots[b, :n] = rng.choice(n_slots, n, replace=False)
+        cids[b, :n] = np.sort(rng.choice(4 * nmax, n, replace=False))
+        lengths[b] = (cids[b, n - 1] * chunk + rng.randint(1, chunk)
+                      if n else rng.randint(0, 3 * chunk))
+    q, kn, vn = (_both(rng.randn(B, 1, k, hd).astype(np.float32), dtype)
+                 for k in (H, Hkv, Hkv))
+    return pool, slots, cids, lengths, q, kn, vn
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,chunk,nmax,live", [
+    (3, 4, 2, 16, 8, 6, (6, 0, 2)),          # an all-padding sequence
+    (2, 8, 8, 32, 16, 12, (12, 3)),          # splits beyond the live chunks
+    (1, 32, 32, 128, 64, 24, (17,)),
+])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_split_emulation_matches_plain_and_attend_pooled(
+        rng, B, H, Hkv, hd, chunk, nmax, live, dtype, softcap):
+    """The kernel's split arithmetic (split maxima, one global max, p
+    rounded against it, f32 partials added in split order) in plain
+    PyTorch against sparse_decode_pooled_ref and JAX's _attend_pooled,
+    for the plan the wrapper picks and for one chunk per split and one
+    split in all."""
+    pool, slots, cids, lengths, (qj, qt), (knj, knt), (vnj, vnt) = \
+        _split_inputs(rng, dtype, B, H, Hkv, hd, chunk, nmax, live)
+    args = (qt[:, 0], torch.from_numpy(pool), torch.from_numpy(slots),
+            torch.from_numpy(cids), torch.from_numpy(lengths), knt, vnt,
+            softcap)
+    ref = sparse_decode_pooled(*args)
+    y_j = _np(j_attend_pooled(qj, jnp.asarray(pool), jnp.asarray(slots),
+                              jnp.asarray(cids), jnp.asarray(lengths), knj,
+                              vnj, jnp.eye(H * hd, dtype=qj.dtype),
+                              attn_softcap=softcap)).reshape(B, H, hd)
+    for nsplit, cps in (split_plan(nmax, B, Hkv), (nmax, 1), (1, nmax)):
+        out = sparse_decode_pooled_split_ref(*args, nsplit=nsplit,
+                                             chunks_per_split=cps)
+        assert out.dtype == qt.dtype
+        if dtype == np.float32:
+            np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(_np(out), y_j, rtol=1e-5, atol=1e-5)
+        else:
+            assert_bf16_close(_np(out), _np(ref))
+            assert_bf16_close(_np(out), y_j)
 
 
 @pytest.mark.parametrize("fault", [None, "p", "kv", "scale"])

@@ -11,10 +11,11 @@ same bar); a bf16 model's attention output is held by ``bf16_agreement``
 max|ref|: an f32 sum that lands next to a rounding boundary); the dequant
 must be bitwise equal.  The PQ assign (B4) repeats the plain version's
 lane order with unfused products and sums, so its codes are bitwise equal,
-ties included; the PQ update (B5) counts are exact and its sums are f32
-sums in another order, held to ``PQ_SUM_ULPS`` f32 ulps of the sum of |x|
-over the centroid's members per lane, and two launches are bitwise equal
-(no float atomics).
+ties included: its tensor-core screen only picks the candidates that the
+exact chain then decides.  The PQ update (B5) counts are exact and its
+sums are f32 sums in another order, held to ``PQ_SUM_ULPS`` f32 ulps of
+the sum of |x| over the centroid's members per lane, and two launches are
+bitwise equal (no float atomics).
 """
 
 import numpy as np
@@ -110,7 +111,7 @@ def _pooled_inputs(rng, dev, B, H, Hkv, hd, chunk, n_slots, nmax, dtype):
 
 @pytest.mark.parametrize("B,H,Hkv,hd,chunk,nmax", [
     (3, 4, 4, 16, 16, 8), (2, 8, 2, 64, 32, 5), (4, 32, 32, 128, 64, 20),
-    (1, 8, 8, 128, 64, 200),        # > 48 KB of scores: opt-in shared memory
+    (1, 8, 8, 128, 64, 200),        # a long selection: many splits
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("softcap", [None, 50.0])
@@ -125,6 +126,87 @@ def test_sparse_decode_pooled_cuda(cuda, rng, B, H, Hkv, hd, chunk, nmax,
     else:
         err, bar, frac = bf16_agreement(out, ref)
         assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+
+
+def _long_inputs(rng, dev, B, H, Hkv, hd, chunk, nmax, live, length,
+                 dtype=torch.bfloat16):
+    """Pool inputs of ``B`` sequences of ``length`` tokens, each with
+    ``live`` chunks selected out of length / chunk (sorted, the last
+    chunk always among them) and the rest of nmax -1 padding."""
+    nc = -(-length // chunk)
+    n_slots = B * live
+    pool = _t(rng.randn(n_slots + 1, 2, chunk, Hkv, hd).astype(np.float16),
+              dev)
+    slots = np.zeros((B, nmax), np.int32)
+    cids = np.full((B, nmax), -1, np.int32)
+    for b in range(B):
+        slots[b, :live] = rng.permutation(n_slots)[:live]
+        cids[b, :live] = np.sort(np.concatenate([
+            rng.choice(nc - 1, live - 1, replace=False), [nc - 1]]))
+    lengths = np.full(B, length, np.int32)
+    q = _t(rng.randn(B, H, hd).astype(np.float32), dev, dtype)
+    k_new = _t(rng.randn(B, 1, Hkv, hd).astype(np.float32), dev, dtype)
+    v_new = _t(rng.randn(B, 1, Hkv, hd).astype(np.float32), dev, dtype)
+    return (q, pool, _t(slots, dev), _t(cids, dev), _t(lengths, dev), k_new,
+            v_new)
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,nmax,live,length,softcap", [
+    (4, 32, 32, 128, 80, 80, 32000, None),     # longchat at 32k, rate 0.10
+    (1, 32, 32, 128, 500, 500, 32000, None),   # the whole 32k context
+    (1, 8, 2, 64, 300, 300, 19200, 50.0),      # G 4: scores past the old
+                                               # one-block shared memory
+    (2, 16, 4, 128, 96, 3, 4000, 30.0),        # most splits all padding
+])
+def test_sparse_decode_pooled_cuda_long(cuda, rng, B, H, Hkv, hd, nmax,
+                                        live, length, softcap):
+    args = _long_inputs(rng, cuda, B, H, Hkv, hd, 64, nmax, live, length)
+    ref = sd_ops.sparse_decode_pooled(*args, softcap, impl="ref")
+    out = sd_ops.sparse_decode_pooled(*args, softcap)
+    err, bar, frac = bf16_agreement(out, ref)
+    assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+
+
+def test_sparse_decode_pooled_cuda_all_padding_sequence(cuda, rng):
+    """A sequence whose selection is all padding attends only its new
+    token (den from that row alone); its neighbours are unaffected."""
+    args = list(_pooled_inputs(rng, cuda, 3, 8, 2, 64, 32, 30, 10,
+                               torch.bfloat16))
+    args[3][1] = -1
+    ref = sd_ops.sparse_decode_pooled(*args, impl="ref")
+    out = sd_ops.sparse_decode_pooled(*args)
+    err, bar, frac = bf16_agreement(out, ref)
+    assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+    v_new = args[6].reshape(3, 2, 1, 64).expand(3, 2, 4, 64).reshape(3, 8, 64)
+    assert torch.equal(out[1], v_new[1])
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_sparse_decode_cuda_two_launches_bitwise(cuda, rng, G):
+    """No float atomics: two calls give bitwise-equal outputs, for both
+    contracts."""
+    args = _long_inputs(rng, cuda, 4, 32 * G, 32, 128, 64, 40, 40, 3600)
+    a = sd_ops.sparse_decode_pooled(*args)
+    b = sd_ops.sparse_decode_pooled(*args)
+    assert torch.equal(a, b)
+    q = _t(rng.randn(2, 4, G, 64).astype(np.float32) / 8, cuda)
+    k = _t(rng.randn(2, 2048, 4, 64).astype(np.float32), cuda, torch.bfloat16)
+    ids = _t(np.stack([np.stack([rng.choice(32, 20, replace=False)
+                                 for _ in range(4)]) for _ in range(2)])
+             .astype(np.int32), cuda)
+    one = sd_ops.sparse_decode(q, k, k * 0.5, ids, 2000, chunk=64)
+    two = sd_ops.sparse_decode(q, k, k * 0.5, ids, 2000, chunk=64)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+def test_sparse_decode_launch_counter_counts_calls(cuda, rng):
+    """``launches`` moves by one per call (two CUDA launches)."""
+    args = _pooled_inputs(rng, cuda, 2, 8, 8, 64, 16, 12, 6, torch.bfloat16)
+    before = sd_ops.launches
+    sd_ops.sparse_decode_pooled(*args, impl="ref")
+    assert sd_ops.launches == before
+    sd_ops.sparse_decode_pooled(*args)
+    assert sd_ops.launches == before + 1
 
 
 @pytest.mark.parametrize("codec", ["int8", "int4"])
@@ -174,6 +256,35 @@ def test_pq_assign_cuda_bitwise(cuda, rng, m, N, dsub, K, ties):
     assert out.dtype == torch.int32 and torch.equal(out, ref)
     if ties:
         assert not (out == K - 1).any()   # the first of two equal centroids
+
+
+@pytest.mark.parametrize("rounding_bits", [0x1FFF, 0x1000])
+def test_pq_assign_cuda_at_the_screen_boundary(cuda, rng, rounding_bits):
+    """Rows built to carry the largest TF32 error in one direction (each
+    a power-of-two multiple of the largest centroid, every mantissa
+    1 + low bits) and near-tied centroid twins that TF32 cannot tell
+    apart: the codes stay bitwise equal, and the twins are re-checked."""
+    m, K, dsub = 16, 256, 8
+    mant = np.array([0x3F800000 | rounding_bits], np.int32).view(
+        np.float32)[0]
+    sign = np.where(rng.rand(m, K, dsub) < 0.5, -1.0, 1.0)
+    cb = (sign * 2.0 ** rng.randint(-3, 0, (m, K, dsub)) * mant).astype(
+        np.float32)
+    cb[:, 0] *= 8
+    x = (cb[:, :1] * 2.0 ** rng.randint(-1, 2, (m, 4096, 1))).astype(
+        np.float32)
+    twin = cb[:, 2:130:2].copy()
+    twin.view(np.int32)[...] ^= rng.randint(1, 0x2000, twin.shape)
+    cb[:, 3:131:2] = twin
+    near = (cb[:, rng.randint(2, 130, 4096)]
+            + rng.randn(m, 4096, dsub).astype(np.float32) * 1e-3)
+    x = np.concatenate([x, near], 1)
+    xt, cbt = _t(x, cuda), _t(cb, cuda)
+    ref = pq_ops.pq_assign(xt, cbt, impl="ref")
+    out, mean = pq_ops.pq_assign_candidates(xt, cbt)
+    assert torch.equal(out, ref)
+    assert mean > 1.0
+    assert torch.equal(pq_ops.pq_assign(xt, cbt), ref)
 
 
 def pq_sum_bar(x: torch.Tensor, codes: torch.Tensor, K: int) -> torch.Tensor:

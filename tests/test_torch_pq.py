@@ -12,18 +12,23 @@ tests/test_kernels.py; ADC scores are f32 dot products in another order,
 held to rtol/atol 1e-5."""
 
 import dataclasses
+import re
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels.pq import ops as jpq
 from repro.serving.offload import DEVICE, DISK, HOST
 from repro.serving.offload import TieredKVStore as JStore
 from repro_torch.kernels.pq import ops as tpq
+from repro_torch.kernels.pq import ref as tpq_ref
 from repro_torch.serving.engine import group_sum
 from repro_torch.serving.offload import TieredKVStore as TStore
 
@@ -46,6 +51,152 @@ def test_pq_assign_plain_matches_reference(rng, m, N, dsub, K, impl):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert not (got.numpy() == K // 2).any()
+
+
+# ---------------------------------------------------------------------------
+# B4's tensor-core screen, emulated (kernels/pq/ref.py)
+# ---------------------------------------------------------------------------
+
+ROUNDINGS = ["trunc", "nearest"]
+
+
+@pytest.mark.parametrize("m,N,dsub,K", [
+    (1, 8, 8, 4), (2, 100, 8, 16), (4, 257, 16, 32), (3, 512, 4, 256),
+    (2, 300, 32, 64), (1, 200, 1, 8), (2, 70, 2, 5),
+])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+def test_pq_screen_emulation_codes_equal_reference(rng, m, N, dsub, K,
+                                                   rounding):
+    """TF32 screen + exact re-check: codes bitwise equal to the plain
+    version and to JAX's oracle and interpret-mode Pallas kernel, with an
+    exact tie planted (the first index wins)."""
+    x = rng.randn(m, N, dsub).astype(np.float32)
+    cb = rng.randn(m, K, dsub).astype(np.float32)
+    cb[:, K - 1] = cb[:, 0]
+    codes, mean = tpq_ref.pq_assign_screened_ref(_t(x), _t(cb),
+                                                 rounding=rounding)
+    np.testing.assert_array_equal(codes.numpy(),
+                                  tpq.pq_assign(_t(x), _t(cb)).numpy())
+    for impl in ("ref", "interpret"):
+        np.testing.assert_array_equal(
+            codes.numpy(), np.asarray(jpq.pq_assign(jnp.asarray(x),
+                                                    jnp.asarray(cb),
+                                                    impl=impl)))
+    assert 1.0 <= mean < 2.0
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+def test_pq_screen_forced_ties(rng, rounding):
+    """Duplicated centroids and rows sitting on a centroid: every tied
+    centroid is a candidate and the first index wins."""
+    m, N, dsub, K = 2, 400, 8, 32
+    x = rng.randn(m, N, dsub).astype(np.float32)
+    cb = rng.randn(m, K, dsub).astype(np.float32)
+    cb[:, K - 1] = cb[:, 0]
+    cb[:, K // 2] = cb[:, 1]
+    x[:, ::7] = cb[:, :1]
+    x[:, 3::7] = cb[:, 1:2]
+    codes, mean = tpq_ref.pq_assign_screened_ref(_t(x), _t(cb),
+                                                 rounding=rounding)
+    np.testing.assert_array_equal(codes.numpy(),
+                                  tpq.pq_assign(_t(x), _t(cb)).numpy())
+    assert not (codes.numpy() == K - 1).any()
+    assert not (codes.numpy() == K // 2).any()
+    assert mean > 1.0
+
+
+def _boundary_rows(rng, rounding):
+    """Rows at the eps boundary: every value carries the largest relative
+    TF32 rounding error (mantissa 1 + (2^13 - 1) 2^-23 for truncation, the
+    half-way 1 + 2^-11 for rounding to nearest, times a power of two), and
+    each row is a power-of-two multiple of the largest centroid, so
+    |x . c| = |x| max|c| and the errors of the 8 products add up with one
+    sign."""
+    m, K, dsub = 2, 16, 8
+    low = 0x1FFF if rounding == "trunc" else 0x1000
+    mant = np.array([0x3F800000 | low], np.int32).view(np.float32)[0]
+
+    def pattern(shape, lo, hi):
+        sign = np.where(rng.rand(*shape) < 0.5, -1.0, 1.0)
+        return (sign * 2.0 ** rng.randint(lo, hi, shape) * mant).astype(
+            np.float32)
+
+    cb = pattern((m, K, dsub), -3, 0)
+    cb[:, 0] = pattern((m, dsub), 0, 2)                # the largest centroid
+    x = (cb[:, :1] * 2.0 ** rng.randint(-1, 2, (m, 64, 1))).astype(
+        np.float32)
+    return x, cb
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+def test_pq_screen_bound_holds_at_its_boundary(rng, rounding):
+    """|d~ - d| <= eps for every (row, centroid), and on rows built to
+    carry the largest error the bound is nearly reached (truncation: more
+    than 90 % of eps), so it is not loose; the codes stay exact."""
+    x, cb = _boundary_rows(rng, rounding)
+    xt, cbt = _t(x), _t(cb)
+    d, dt = tpq_ref.screened_distances(xt, cbt, rounding)
+    eps = tpq_ref.screen_eps(xt, cbt)
+    ratio = ((dt.double() - d.double()).abs() / eps[..., None]).amax()
+    assert ratio <= 1.0
+    assert ratio > (0.9 if rounding == "trunc" else 0.45), ratio
+    codes, _ = tpq_ref.pq_assign_screened_ref(xt, cbt, rounding=rounding)
+    assert torch.equal(codes, tpq.pq_assign(xt, cbt))
+
+
+def test_pq_screen_recheck_decides_near_ties(rng):
+    """Centroids that TF32 cannot tell apart (the same values above the
+    low 13 mantissa bits): the screen alone picks the wrong one in many
+    rows, which an eps of zero shows; the real eps makes both candidates
+    and the exact re-check gets every code right."""
+    m, N, dsub, K = 2, 500, 8, 8
+    cb = rng.randn(m, K, dsub).astype(np.float32)
+    cb.view(np.int32)[...] &= ~0x1FFF
+    twin = cb[:, ::2].copy()
+    twin.view(np.int32)[...] |= rng.randint(1, 0x2000, twin.shape)
+    cb[:, 1::2] = twin                        # odd centroid ~ its even one
+    x = (cb[:, rng.randint(0, K, N)]
+         + rng.randn(m, N, dsub).astype(np.float32) * 1e-3)
+    want = tpq.pq_assign(_t(x), _t(cb))
+    for rounding in ROUNDINGS:
+        codes, mean = tpq_ref.pq_assign_screened_ref(_t(x), _t(cb),
+                                                     rounding=rounding)
+        assert torch.equal(codes, want) and mean >= 2.0
+        blind, _ = tpq_ref.pq_assign_screened_ref(_t(x), _t(cb),
+                                                  rounding=rounding,
+                                                  eps_scale=0.0)
+        assert (blind != want).float().mean() > 0.05
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1),
+       dsub=st.sampled_from([1, 2, 4, 8, 16, 32]),
+       K=st.integers(1, 64), scale=st.sampled_from([1e-3, 1.0, 1e3]),
+       rounding=st.sampled_from(ROUNDINGS), ties=st.booleans())
+def test_pq_screen_emulation_property(seed, dsub, K, scale, rounding, ties):
+    """Hypothesis-drawn inputs: any dsub, K, scale and rounding, with and
+    without duplicated centroids, give the plain version's codes."""
+    r = np.random.RandomState(seed)
+    x = (r.randn(2, 64, dsub) * scale).astype(np.float32)
+    cb = (r.randn(2, K, dsub) * scale).astype(np.float32)
+    if ties and K > 1:
+        cb[:, -1] = cb[:, 0]
+        x[:, ::5] = cb[:, :1]
+    codes, _ = tpq_ref.pq_assign_screened_ref(_t(x), _t(cb),
+                                              rounding=rounding)
+    assert torch.equal(codes, tpq.pq_assign(_t(x), _t(cb)))
+
+
+def test_pq_screen_constants_match_the_kernel_source():
+    """The emulation's eps constants are the CUDA kernel's."""
+    src = (Path(tpq.__file__).resolve().parents[1] / "csrc"
+           / "pq_kmeans.cu").read_text()
+    found = dict(re.findall(r"constexpr float kEps(\w+) = ([-+.\deE]+)f;",
+                            src))
+    assert {k: float(v) for k, v in found.items()} == {
+        "C1": tpq_ref.EPS_C1, "C2": tpq_ref.EPS_C2,
+        "Delta": tpq_ref.EPS_DELTA, "Full": tpq_ref.EPS_FULL}
+    assert np.float32(tpq_ref.EPS_C2) == tpq_ref.EPS_C2
 
 
 @pytest.mark.parametrize("m,N,dsub,K", [
