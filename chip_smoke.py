@@ -12,10 +12,15 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    the kernel, of the plain version and of a PyTorch library call doing
    the same work where one exists, and the least time the card could take;
    B2 also at longchat's own 32k context, and two launches bitwise equal;
-   B4's mean candidates per row of its tensor-core screen;
+   B4's mean candidates per row of its tensor-core screen; B5 bitwise
+   equal to its plain version and over two launches, also on phase 3b's
+   clustered keys; the CUDA kernels one call launches and when each runs
+   on the device (``torch.profiler``); the launch floor (a one-element
+   fill, timed as the kernels are);
    3b. the PQ k-means (``pq_train`` + ``pq_encode``) through the kernels
-   against the plain versions on clustered keys at one layer's size, and
-   two kernel runs byte-identical, and B4's candidates on these keys;
+   against the plain versions on clustered keys at one layer's size:
+   codebooks, counts and codes byte-identical, and two kernel runs too,
+   and B4's candidates on these keys;
 4. serve: longchat-7b-32k at full width (32 layers, bf16 random weights
    from a seed) through ContinuousBatcher -> BatchedLeoAMEngine ->
    TieredKVStore, 4 requests of 1536/2048/3072/3584 prompt tokens and 32
@@ -29,9 +34,10 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --b2`` runs phases 1-2 and B2's two timing lines
-only (no result line); copied into a checkout of another commit, it holds
-that commit's B2 against this one's on the same card.
+``python3 chip_smoke.py --only b1,b2,b5`` runs phases 1-2 and the timing
+lines of the named kernels only (``--b2`` is ``--only b2``), with no
+result line; copied into a checkout of another commit, it holds that
+commit's kernels against this one's on the same card.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -63,20 +70,14 @@ TOL_BOUNDS_REL = 1e-5        # f32 sums in another order
 # differences in attention outputs spread through 32 bf16 layers; the
 # logits may differ by this many bf16 ulps of max|logit|
 TOL_E2E_ULPS = 4
-# B5's sums are f32 sums in another order than the plain one-hot product:
-# each element within this many f32 ulps of the sum of |x| over the
-# centroid's members in that lane.  Counts and B4's codes are bitwise.
-PQ_SUM_ULPS = 8
-# phase 3b, the PQ k-means through the kernels against the plain versions
-# (4 Lloyd iterations from an empty codebook, then the encode): B4 is
-# bitwise, but B5 sums in another order, so a centroid moves by an ulp, a
-# near-tied row changes cluster in the next iteration and its centroids
-# move by a share of a member.  On an H100 (three seeds) the committed
-# kernels gave 1.0e-3 to 1.7e-3 and 1.9e-4 to 2.2e-4; a B5 that skips its
-# last row tile gave 1.1e-2 and 3.1e-2 (PERF.md)
-PQ_TRAIN_CB_REL = 4e-3       # max |cb(kernels) - cb(plain)| / max |cb|
-PQ_TRAIN_CODES = 1e-3        # share of codes that differ
+# B4's codes and B5's sums and counts are bitwise equal to their plain
+# versions (B5 adds in the order that pq/ref.py:pq_update_ref repeats), so
+# phase 3b's k-means through the kernels gives the plain run's codebooks,
+# counts and codes byte for byte.
 PQ_M, PQ_K, PQ_DSUB = 16, 256, 8
+PQ_KEYS_SEED = 3             # phase 3b's clustered keys (also B5's 2nd line)
+PQ_RANDOM_SEED = 4           # B4's and B5's random keys
+KERNELS = ("b1", "b2", "b5")  # what --only may name
 # B2 at the serve's lengths halfway through decode, and at longchat's own
 # context: 4 sequences near 32k tokens
 MAIN_LENGTHS = tuple(p + NEW_TOKENS // 2 for p in PROMPTS)
@@ -111,6 +112,97 @@ def _time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def b1_inputs(torch):
+    """B1's operands at the evaluate stage's shape: q (B, H, hd) bf16, the
+    engine's dtype, against (B, nc, Hkv, hd) f32 abstracts of the serve's
+    lengths halfway through decode, from a seeded generator."""
+    dev = torch.device("cuda")
+    B, H, hd, chunk = len(PROMPTS), 32, 128, 64
+    nc = max(-(-int(L) // chunk) for L in MAIN_LENGTHS)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = (torch.randn(B, H, hd, device=dev, generator=g)
+         / math.sqrt(hd)).bfloat16()
+    km = torch.randn(B, nc, H, hd, device=dev, generator=g)
+    kn = km - torch.randn(B, nc, H, hd, device=dev, generator=g).abs()
+    return q, km, kn
+
+
+def b1_row(torch, flush):
+    """B1 against its plain version at :func:`b1_inputs`' shape."""
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    q, km, kn = b1_inputs(torch)
+    B, nc, H, hd = km.shape
+    ub_k, lb_k = cb.chunk_bounds_gqa(q, km, kn)
+    ub_r, lb_r = cb.chunk_bounds_gqa(q, km, kn, impl="ref")
+    err = max((ub_k - ub_r).abs().max().item(), (lb_k - lb_r).abs().max().item())
+    tol = TOL_BOUNDS_REL * max(ub_r.abs().max().item(), lb_r.abs().max().item())
+    qf = q.float().reshape(B, H, 1, hd)
+    qp, qn = qf.clamp(min=0), qf.clamp(max=0)
+    kmt, knt = km.transpose(1, 2), kn.transpose(1, 2)
+    nbytes = _nbytes(q, km, kn, ub_r, lb_r)
+    ops = 8 * B * H * nc * hd
+    return dict(
+        max_abs_err=err, tol=tol,
+        ms=_time_ms(lambda: cb.chunk_bounds_gqa(q, km, kn), flush),
+        plain_ms=_time_ms(lambda: cb.chunk_bounds_gqa(q, km, kn, impl="ref"),
+                          flush),
+        library_ms=_time_ms(lambda: torch.einsum("bkgd,bkcd->bkgc", qp, kmt)
+                            + torch.einsum("bkgd,bkcd->bkgc", qn, knt), flush),
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: cb.chunk_bounds_gqa(q, km, kn), flush),
+        bound=(nbytes / HBM_BYTES_S, ops / PEAK_F32),
+        shape=f"q {tuple(q.shape)} bf16, abstracts {tuple(km.shape)} f32")
+
+
+def _cuda_kernels_per_call(torch, fn, flush, reps: int = 3,
+                           attempts: int = 12):
+    """The CUDA kernels that one call of ``fn`` launches, in launch order,
+    each with its start and end on the device in us after the first one's
+    start (a dependent launch starts before its predecessor ends): read by
+    torch.profiler after a warm-up, each call into a cold L2 as in
+    :func:`_time_ms`, the mean of ``reps`` traces that list the same
+    kernels.  A trace in which the profiler caught no device activity is
+    taken again, up to ``attempts`` calls; an error of ``fn`` propagates.
+    [(name, start_us, end_us), ...]."""
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    runs, names = [], []
+    for _ in range(attempts):
+        flush.zero_()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == cuda),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            t0 = evs[0].time_range.start
+            runs.append([(re.sub(r"^void ", "", e.name).split("<")[0]
+                          .split("(")[0], e.time_range.start - t0,
+                          e.time_range.end - t0) for e in evs])
+            names.append([n for n, _, _ in runs[-1]])
+        if names and names.count(max(names, key=names.count)) >= reps:
+            break
+    else:
+        raise SystemExit(f"chip_smoke: the profiler traced {len(runs)} "
+                         f"calls in {attempts} with device kernels, not "
+                         f"{reps} alike: {names}")
+    common = max(names, key=names.count)
+    runs = [r for r, n in zip(runs, names) if n == common][:reps]
+    return [(n, sum(r[i][1] for r in runs) / reps,
+             sum(r[i][2] for r in runs) / reps)
+            for i, n in enumerate(common)]
+
+
+def launch_floor_ms(torch, flush) -> float:
+    """The time of a launch whose one block returns at once (a one-element
+    fill), timed as every kernel is: the floor under each ``ms``."""
+    t = torch.empty(1, device="cuda")
+    return _time_ms(t.zero_, flush)
 
 
 def b2_row(np, torch, rng, flush, lengths, max_len, chunk=64, rate=0.10):
@@ -187,6 +279,8 @@ def b2_row(np, torch, rng, flush, lengths, max_len, chunk=64, rate=0.10):
         plain_ms=_time_ms(lambda: sd.sparse_decode_pooled(*args, impl="ref"),
                           flush),
         library_ms=_time_ms(sdpa, flush),
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: sd.sparse_decode_pooled(*args), flush),
         bound=(nbytes / HBM_BYTES_S, ops / PEAK_BF16),
         shape=f"B={B} lengths={list(map(int, lengths))} nmax={nmax} live "
               f"chunks={n_live} live rows={live_rows} chunk={chunk} "
@@ -200,39 +294,16 @@ def phase_kernels(np, torch, rng):
     """Each kernel against its plain version at the main path's shapes,
     and B2 once more at longchat's own 32k context."""
     from repro_torch.core.compression import quantize_chunks
-    from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.sparse_decode.ref import BF16_MAX_MISMATCH
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    B, H, hd, chunk = len(PROMPTS), 32, 128, 64
+    H, hd, chunk = 32, 128, 64
     lengths = np.array(MAIN_LENGTHS, np.int32)
-    ncs = [-(-int(L) // chunk) for L in lengths]
     rows = {}
 
-    # --- B1: q (B, H, hd) bf16 against (B, nc, Hkv, hd) f32 abstracts
-    q = (torch.randn(B, H, hd, device=dev) / math.sqrt(hd)).bfloat16()
-    km = torch.randn(B, max(ncs), H, hd, device=dev)
-    kn = km - torch.randn(B, max(ncs), H, hd, device=dev).abs()
-    ub_k, lb_k = cb.chunk_bounds_gqa(q, km, kn)
-    ub_r, lb_r = cb.chunk_bounds_gqa(q, km, kn, impl="ref")
-    err = max((ub_k - ub_r).abs().max().item(), (lb_k - lb_r).abs().max().item())
-    tol = TOL_BOUNDS_REL * max(ub_r.abs().max().item(), lb_r.abs().max().item())
-    qf = q.float().reshape(B, H, 1, hd)
-    qp, qn = qf.clamp(min=0), qf.clamp(max=0)
-    kmt, knt = km.transpose(1, 2), kn.transpose(1, 2)
-    nbytes = _nbytes(q, km, kn, ub_r, lb_r)
-    ops = 8 * B * H * max(ncs) * hd
-    rows["chunk_bounds"] = dict(
-        max_abs_err=err, tol=tol,
-        ms=_time_ms(lambda: cb.chunk_bounds_gqa(q, km, kn), flush),
-        plain_ms=_time_ms(lambda: cb.chunk_bounds_gqa(q, km, kn, impl="ref"),
-                          flush),
-        library_ms=_time_ms(lambda: torch.einsum("bkgd,bkcd->bkgc", qp, kmt)
-                            + torch.einsum("bkgd,bkcd->bkgc", qn, knt), flush),
-        bound=(nbytes / HBM_BYTES_S, ops / PEAK_F32),
-        shape=f"q {tuple(q.shape)} bf16, abstracts {tuple(km.shape)} f32")
+    rows["chunk_bounds"] = b1_row(torch, flush)
 
     # --- B2: the selection the tree really produces at these lengths
     rows["sparse_decode"] = b2_row(np, torch, rng, flush, lengths, MAX_LEN)
@@ -254,65 +325,80 @@ def phase_kernels(np, torch, rng):
             data, scale, codec="int4", out_dtype=torch.float16, impl="ref"),
             flush),
         library_ms=None,
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: kq.kv_dequant(data, scale, codec="int4",
+                                         out_dtype=torch.float16), flush),
         bound=(_nbytes(data, scale, d_r) / HBM_BYTES_S,
                d_r.numel() / PEAK_F32),
         shape=f"N={tuple(data.shape)[0]} c={chunk} d={H * hd} int4 -> fp16")
-    rows.update(_pq_kernel_rows(np, torch, rng, flush))
+    rows.update(_pq_kernel_rows(np, torch, flush))
+    clustered = b5_row(torch, *clustered_update_inputs(np, torch), flush)
     long_row = b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN), flush,
                       LONG_LENGTHS, LONG_MAX_LEN)
+    print(f"[kernel] launch floor: one-element fill ms="
+          f"{launch_floor_ms(torch, flush)!r}")
     del flush
     torch.cuda.empty_cache()
-    print_b2(long_row, "sparse_decode at 32k")
+    print_row("sparse_decode at 32k", long_row)
+    print_row("pq_update on clustered keys", clustered)
     for name, r in rows.items():
-        b = max(r["bound"])
-        extra = (f", {r['mismatch']!r} of elements differ (tol "
-                 f"{BF16_MAX_MISMATCH}), two launches bitwise equal: "
-                 f"{r['bitwise']}" if "mismatch" in r else "")
-        print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r}"
-              f" (tol {r['tol']!r}){extra}; ms={r['ms']!r} "
-              f"plain_ms={r['plain_ms']!r}"
-              f" library_ms={r['library_ms']!r} bound_ms={b * 1e3!r} "
-              f"({'bytes' if r['bound'][0] >= r['bound'][1] else 'operations'})")
-    bad = [n for n, r in {**rows, "sparse_decode at 32k": long_row}.items()
+        print_row(name, r)
+    bad = [n for n, r in {**rows, "sparse_decode at 32k": long_row,
+                          "pq_update on clustered keys": clustered}.items()
            if not r["max_abs_err"] <= r["tol"]
            or not r.get("mismatch", 0.0) <= BF16_MAX_MISMATCH
-           or not r.get("bitwise", True)]
-    bad += [f"{n} (not bitwise)" for n in ("kv_dequant", "pq_assign")
-            if not rows[n]["exact"]]
-    if not rows["pq_update"]["within_bar"]:
-        bad.append("pq_update (sums outside the ulp bar)")
-    if not rows["pq_update"]["deterministic"]:
-        bad.append("pq_update (two launches differ)")
+           or not r.get("bitwise", True) or not r.get("exact", True)]
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain "
-                         f"versions: {bad}")
-    return rows, long_row
+                         f"versions (or two launches differ): {bad}")
+    return rows, long_row, clustered
 
 
-def print_b2(r, name):
+def print_row(name, r):
+    """One ``[kernel]`` line: the agreement with the plain version, the
+    CUDA kernels a call launches, and the times beside the bound."""
     from repro_torch.kernels.sparse_decode.ref import BF16_MAX_MISMATCH
     b = max(r["bound"])
-    print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r} "
-          f"(tol {r['tol']!r}), {r['mismatch']!r} of elements differ (tol "
-          f"{BF16_MAX_MISMATCH}); two launches bitwise equal: "
-          f"{r['bitwise']}; ms={r['ms']!r} plain_ms={r['plain_ms']!r} "
-          f"library_ms={r['library_ms']!r} bound_ms={b * 1e3!r} "
+    extra = ""
+    if "mismatch" in r:
+        extra = (f", {r['mismatch']!r} of elements differ (tol "
+                 f"{BF16_MAX_MISMATCH})")
+    if "grouping" in r:
+        extra = (f", sums and counts bitwise equal: {r['exact']}, rows per "
+                 f"distinct code in a 32-row step {r['grouping']!r}")
+    if "bitwise" in r:
+        extra += f", two launches bitwise equal: {r['bitwise']}"
+    stages = ", ".join(f"{n} {a!r}-{b!r} us"
+                       for n, a, b in r["cuda_per_call"])
+    print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r}"
+          f" (tol {r['tol']!r}){extra}; CUDA kernels per call "
+          f"{len(r['cuda_per_call'])} ({stages}; profiler, cold L2); "
+          f"ms={r['ms']!r} "
+          f"plain_ms={r['plain_ms']!r}"
+          f" library_ms={r['library_ms']!r} bound_ms={b * 1e3!r} "
           f"({'bytes' if r['bound'][0] >= r['bound'][1] else 'operations'})")
 
 
-def _pq_kernel_rows(np, torch, rng, flush):
+def pq_random_inputs(np, torch):
+    """Random keys of one layer's encode, (m, 131 072, dsub), and a random
+    codebook, on the card."""
+    rng = np.random.RandomState(PQ_RANDOM_SEED)
+    x = torch.from_numpy(rng.randn(PQ_M, 131072, PQ_DSUB).astype(
+        np.float32)).cuda()
+    cb = torch.from_numpy(rng.randn(PQ_M, PQ_K, PQ_DSUB).astype(
+        np.float32)).cuda()
+    return x, cb
+
+
+def _pq_kernel_rows(np, torch, flush):
     """B4 at the encode of one layer (m 16, N 131 072 = 64 chunks x 64 rows
     x 32 kv heads, dsub 8, K 256) and B5 at the largest training batch
     (N 114 688 = 3584 prompt tokens x 32 kv heads)."""
     from repro_torch.kernels.pq import ops as pq
     from repro_torch.kernels.pq.ref import centroid_norms
 
-    dev = torch.device("cuda")
     rows = {}
-    x = torch.from_numpy(rng.randn(PQ_M, 131072, PQ_DSUB).astype(
-        np.float32)).to(dev)
-    cb = torch.from_numpy(rng.randn(PQ_M, PQ_K, PQ_DSUB).astype(
-        np.float32)).to(dev)
+    x, cb = pq_random_inputs(np, torch)
     c_k, cand = pq.pq_assign_candidates(x, cb)
     c_r = pq.pq_assign(x, cb, impl="ref")
     cbt = cb.transpose(1, 2)
@@ -328,6 +414,8 @@ def _pq_kernel_rows(np, torch, rng, flush):
         ms=_time_ms(lambda: pq.pq_assign(x, cb), flush),
         plain_ms=_time_ms(lambda: pq.pq_assign(x, cb, impl="ref"), flush),
         library_ms=_time_ms(library_assign, flush),
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: pq.pq_assign(x, cb), flush),
         # the products run on the TF32 tensor cores; the bound at the f32
         # rate of a scalar kernel is printed beside it
         bound=(_nbytes(x, cb, c_r) / HBM_BYTES_S, flops / PEAK_TF32),
@@ -336,43 +424,59 @@ def _pq_kernel_rows(np, torch, rng, flush):
           f"keys); bound at the f32 rate {flops / PEAK_F32 * 1e3!r} ms")
 
     x = x[:, :114688].contiguous()
-    codes = pq.pq_assign(x, cb)
+    rows["pq_update"] = b5_row(torch, x, pq.pq_assign(x, cb), flush)
+    return rows
+
+
+def b5_row(torch, x, codes, flush):
+    """B5 against its plain version (bitwise, and over two launches), its
+    time, the library call's and the bound; ``grouping`` is the mean
+    number of rows per distinct code in a 32-row step (1 when all differ,
+    32 when all share one), the skew B5's routing sees."""
+    from repro_torch.kernels.pq import ops as pq
+    dev = x.device
+    m, N, dsub = x.shape
     s_k, n_k = pq.pq_update(x, codes, PQ_K)
     s_k2, n_k2 = pq.pq_update(x, codes, PQ_K)
     s_r, n_r = pq.pq_update(x, codes, PQ_K, impl="ref")
-    absum = pq.pq_update(x.abs(), codes, PQ_K, impl="ref")[0]
-    bar = PQ_SUM_ULPS * torch.finfo(torch.float32).eps * absum
-    err = (s_k - s_r).abs()
-    flat = (codes.long() + PQ_K * torch.arange(
-        PQ_M, device=dev)[:, None]).reshape(-1)
-    xf = x.reshape(-1, PQ_DSUB)
+    flat = (codes.long() + PQ_K * torch.arange(m, device=dev)[:, None]
+            ).reshape(-1)
+    xf = x.reshape(-1, dsub)
 
     def library_update():
-        sums = torch.zeros(PQ_M * PQ_K, PQ_DSUB, device=dev).index_add_(
-            0, flat, xf)
-        return sums, torch.bincount(flat, minlength=PQ_M * PQ_K)
+        sums = torch.zeros(m * PQ_K, dsub, device=dev).index_add_(0, flat, xf)
+        return sums, torch.bincount(flat, minlength=m * PQ_K)
 
-    rows["pq_update"] = dict(
-        # the largest error beside its own element's bar; every element is
-        # held to its bar by within_bar
-        max_abs_err=float(err.max().item()),
-        tol=float(bar.flatten()[err.argmax()].item()),
-        within_bar=bool((err <= bar).all()) and bool(torch.equal(n_k, n_r)),
-        deterministic=bool(torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2)),
+    steps = codes[:, :N // 32 * 32].reshape(-1, 32).sort(-1).values
+    distinct = 1 + (steps[:, 1:] != steps[:, :-1]).sum(-1)
+    return dict(
+        max_abs_err=float((s_k - s_r).abs().max().item()), tol=0.0,
+        exact=bool(torch.equal(s_k, s_r) and torch.equal(n_k, n_r)),
+        bitwise=bool(torch.equal(s_k, s_k2) and torch.equal(n_k, n_k2)),
         ms=_time_ms(lambda: pq.pq_update(x, codes, PQ_K), flush),
         plain_ms=_time_ms(lambda: pq.pq_update(x, codes, PQ_K, impl="ref"),
-                          flush),
+                          flush, iters=5, warmup=1),
         library_ms=_time_ms(library_update, flush),
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: pq.pq_update(x, codes, PQ_K), flush),
+        grouping=float((32.0 / distinct.float()).mean().item()),
         bound=(_nbytes(x, codes, s_r, n_r) / HBM_BYTES_S,
                x.numel() / PEAK_F32),
         shape=f"x {tuple(x.shape)} f32, codes int32, K={PQ_K}")
-    r = rows["pq_update"]
-    print(f"[kernel] pq_update: counts bitwise and sums within "
-          f"{PQ_SUM_ULPS} f32 ulps of sum|x| per centroid lane: "
-          f"{r['within_bar']}; largest |diff| / bar "
-          f"{float((err / bar.clamp_min(1e-30)).max().item())!r}; two "
-          f"launches bitwise equal: {r['deterministic']}")
-    return rows
+
+
+def clustered_update_inputs(np, torch):
+    """B5's inputs at the first Lloyd iteration of phase 3b: that phase's
+    clustered training keys as (m, N, dsub) rows, coded by B4 against
+    pq_train's strided-row initial codebook."""
+    from repro_torch.kernels.pq import ops as pq
+    keys = _clustered_keys(np, np.random.RandomState(PQ_KEYS_SEED), MAX_LEN,
+                           32, 128)
+    x = pq._subspaces(keys[:PROMPTS[-1]].reshape(-1, 128), PQ_M,
+                      torch.device("cuda"))
+    n = x.shape[1]
+    idx = torch.from_numpy((np.arange(PQ_K) * max(1, n // PQ_K)) % n)
+    return x, pq.pq_assign(x, x[:, idx.to(x.device)].contiguous())
 
 
 def _clustered_keys(np, rng, S, Hkv, hd, n_clusters=64, span=8,
@@ -385,13 +489,15 @@ def _clustered_keys(np, rng, S, Hkv, hd, n_clusters=64, span=8,
     return centers[assign] + rng.randn(S, Hkv, hd).astype(np.float32) * noise
 
 
-def phase_pq_train(np, torch, rng):
+def phase_pq_train(np, torch):
     """pq_train + pq_encode through B4/B5 against the plain versions, on
     clustered keys of one layer: 114 688 training rows (3584 prompt tokens
     x 32 kv heads), 131 072 encoded rows (64 chunks x 64 x 32), 4 Lloyd
-    iterations from an empty codebook."""
+    iterations from an empty codebook.  B4 and B5 are bitwise, so the
+    codebooks, counts and codes must be byte-identical."""
     from repro_torch.kernels.pq import ops as pq
-    keys = _clustered_keys(np, rng, MAX_LEN, 32, 128)       # (4096, 32, 128)
+    keys = _clustered_keys(np, np.random.RandomState(PQ_KEYS_SEED), MAX_LEN,
+                           32, 128)                         # (4096, 32, 128)
     vecs = keys.reshape(-1, 128)
     train = keys[:PROMPTS[-1]].reshape(-1, 128)
     cb0 = np.zeros((PQ_M, PQ_K, PQ_DSUB), np.float32)
@@ -412,20 +518,22 @@ def phase_pq_train(np, torch, rng):
         torch.from_numpy(cb_k).cuda())
     same = all(a.tobytes() == b.tobytes()
                for a, b in zip(runs["kernel"][:3], runs["kernel_again"][:3]))
+    equal = {k: a.tobytes() == b.tobytes() for k, a, b in
+             zip(("codebook", "counts", "codes"), runs["kernel"][:3],
+                 runs["plain"][:3])}
     cb_rel = float(np.abs(cb_k - cb_r).max() / np.abs(cb_r).max())
     differ = float((codes_k != codes_r).mean())
     print(f"[pq_train] {train.shape[0]} training rows, {vecs.shape[0]} "
           f"encoded, m={PQ_M} K={PQ_K} dsub={PQ_DSUB}, 4 Lloyd iterations: "
-          f"codebook max|diff|/max|cb| {cb_rel!r} (bar {PQ_TRAIN_CB_REL}); "
-          f"codes that differ {differ!r} (bar {PQ_TRAIN_CODES}); counts "
-          f"equal {bool(np.array_equal(cnt_k, cnt_r))}; two kernel runs "
-          f"byte-identical: {same}; wall s kernel {t_k!r} plain {t_r!r}; "
-          f"B4 mean candidates per row on these keys {cand!r}")
-    if not (same and cb_rel <= PQ_TRAIN_CB_REL and differ <= PQ_TRAIN_CODES):
+          f"kernels vs plain byte-identical {equal} (codebook max|diff|/"
+          f"max|cb| {cb_rel!r}, codes that differ {differ!r}); two kernel "
+          f"runs byte-identical: {same}; wall s kernel {t_k!r} plain "
+          f"{t_r!r}; B4 mean candidates per row on these keys {cand!r}")
+    if not (same and all(equal.values())):
         raise SystemExit("chip_smoke: pq_train through the kernels "
                          "disagrees with the plain versions")
-    return {"cb_rel": cb_rel, "codes_differ": differ,
-            "pq_assign_mean_candidates": cand}
+    return {"byte_identical": equal, "cb_rel": cb_rel,
+            "codes_differ": differ, "pq_assign_mean_candidates": cand}
 
 
 def phase_serve(np, torch, cfg, params, pq: bool = False):
@@ -604,7 +712,26 @@ def phase_e2e(np, torch, cfg, params):
 T_START = time.perf_counter()
 
 
+def only_kernels(argv):
+    """The kernels that ``--only a,b`` (or ``--b2``) names; empty for the
+    whole run."""
+    names = set()
+    for i, a in enumerate(argv):
+        if a == "--b2":
+            names.add("b2")
+        elif a == "--only" and i + 1 < len(argv):
+            names.update(argv[i + 1].split(","))
+        elif a.startswith("--only="):
+            names.update(a.split("=", 1)[1].split(","))
+    unknown = names - set(KERNELS)
+    if unknown:
+        raise SystemExit(f"chip_smoke: --only takes {KERNELS}, not "
+                         f"{sorted(unknown)}")
+    return names
+
+
 def main() -> int:
+    only = only_kernels(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -629,17 +756,32 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     torch.manual_seed(0)
-    if "--b2" in sys.argv[1:]:
-        # B2's two timing lines alone: run from a checkout of another
-        # commit to hold its kernel against this one on the same card
+    if only:
+        # the named kernels' timing lines alone: run from a checkout of
+        # another commit to hold its kernels against this one's on one card
         flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-        print_b2(b2_row(np, torch, rng, flush, MAIN_LENGTHS, MAX_LEN),
-                 "sparse_decode")
-        print_b2(b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN), flush,
-                        LONG_LENGTHS, LONG_MAX_LEN), "sparse_decode at 32k")
+        print(f"[kernel] launch floor: one-element fill ms="
+              f"{launch_floor_ms(torch, flush)!r}")
+        if "b1" in only:
+            print_row("chunk_bounds", b1_row(torch, flush))
+        if "b2" in only:
+            print_row("sparse_decode", b2_row(np, torch, rng, flush,
+                                              MAIN_LENGTHS, MAX_LEN))
+            print_row("sparse_decode at 32k",
+                      b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN),
+                             flush, LONG_LENGTHS, LONG_MAX_LEN))
+        if "b5" in only:
+            from repro_torch.kernels.pq import ops as pq
+            x, cb = pq_random_inputs(np, torch)
+            x = x[:, :114688].contiguous()
+            print_row("pq_update", b5_row(torch, x, pq.pq_assign(x, cb),
+                                          flush))
+            print_row("pq_update on clustered keys",
+                      b5_row(torch, *clustered_update_inputs(np, torch),
+                             flush))
         return 0
-    rows, long_row = phase_kernels(np, torch, rng)
-    pq_train_res = phase_pq_train(np, torch, rng)
+    rows, long_row, clustered = phase_kernels(np, torch, rng)
+    pq_train_res = phase_pq_train(np, torch)
 
     cfg = get_config("longchat-7b-32k")
     t0 = time.perf_counter()
@@ -687,10 +829,13 @@ def main() -> int:
     print(f"[time] chip_smoke {time.perf_counter() - T_START!r} s")
     long_b2 = {k: v for k, v in long_row.items() if k != "bound"}
     long_b2["bound_ms"] = max(long_row["bound"]) * 1e3
+    b5_clustered = {k: v for k, v in clustered.items() if k != "bound"}
+    b5_clustered["bound_ms"] = max(clustered["bound"]) * 1e3
     print(json.dumps({"kernels": kernels, "card": card, "e2e_max_diff": e2e,
                       "serve": serve, "serve_pq": serve_pq,
                       "pq_train": pq_train_res,
-                      "sparse_decode_32k": long_b2}))
+                      "sparse_decode_32k": long_b2,
+                      "pq_update_clustered": b5_clustered}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

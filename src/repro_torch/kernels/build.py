@@ -34,7 +34,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
     "leoam_kv_dequant": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "leoam_chunk_bounds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "leoam_chunk_bounds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _P],
     "leoam_sparse_decode": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _LL, _P,
                             _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
@@ -127,6 +127,13 @@ def check(rc: int, name: str) -> None:
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a C pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, for a kernel's vector loads
+    (a copy only when it is neither)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def use_kernel(impl: Optional[str], t: torch.Tensor) -> bool:

@@ -62,23 +62,44 @@
 // pq_update_pallas): a one-hot product per row tile, accumulated across the
 // TPU's sequential grid into one (K, dsub) output block.
 //
-// What bounds it on the H100: bytes (x and the codes are read once; the
-// sums are K*dsub per subspace).  Blocks run in no order on 132 SMs, so
-// nothing can carry a sum from one tile to the next, and the plane
-// promises byte-identical codebooks for the same ingest order: no float
-// atomics anywhere.  Design: two passes.  Pass 1, grid (T row tiles, m):
-// one thread per centroid scans the tile's codes (staged in shared
-// memory, a broadcast read) in row order and adds the rows that match
-// into registers, then writes the tile's partial sums and counts to a
-// scratch buffer.  Pass 2, grid (m): each (k, lane) adds the T partials in
-// tile order.  A code outside [0, K) (the padding sentinel K) matches no
-// thread and adds nothing.
+// What bounds it on the H100: bytes (x and the codes are read once, 36
+// bytes a row at dsub 8; the sums are K*dsub per subspace).  The work is
+// one add per input float, O(N dsub): a thread per centroid scanning every
+// code would do O(N K) compares and be bound by their latency instead.
+//
+// The order is the contract, and pq/ref.py:pq_update_ref repeats it, so
+// the kernel equals its plain version bitwise and two launches are equal
+// (no float atomics anywhere): the rows of a subspace fall into runs of
+// kUpdateRunRows consecutive rows, each summed in row order from +0.0;
+// a block's kUpdateWarps runs are folded left in order from +0.0; the
+// blocks of a subspace are folded left in order from +0.0.  A code
+// outside [0, K) (the padding sentinel K, a negative code) adds nothing.
+// Counts are integers and add in any order.
+//
+// Design: route each row to its centroid.  A warp takes one run, 32 rows
+// a step; each lane loads its own row (16-byte loads at dsub >= 4) and
+// code into registers.  __match_any_sync groups the step's lanes by code
+// (a tile's steps at once, off the adds' critical path): a lane alone
+// on its code adds its row into the warp's (K, dsub) f32 accumulator in
+// shared memory; a group of g lanes stages its rows in shared memory and
+// splits the row's vectors among its lanes, each adding the group's rows
+// in lane order (so g rows on one code cost max(g, dsub / 4) dependent
+// adds, not g dsub).  Each centroid has one writer per step: no atomics
+// but the integer counts.  A warp loads tiles of 8 row vectors a lane,
+// double-buffered: the next tile is in flight while one is added.  The block
+// folds its warps' accumulators into a partial in scratch.  A second,
+// programmatic dependent launch (a thread per 4 sums or per count) folds
+// the partials of a subspace in block order and writes every output
+// element.
 #include <float.h>
 
 #include "common.cuh"
 
-constexpr int kThreads = 256;
 constexpr int kMaxCentroids = 256;
+
+// B5's order (pq/ref.py UPDATE_RUN_ROWS, UPDATE_WARPS)
+constexpr int kUpdateRunRows = 1024;      // rows a warp sums in row order
+constexpr int kUpdateWarps = 4;           // runs (warps) a block folds
 
 // B4's screen (see the header for the derivation of the bound)
 constexpr float kEpsC1 = 4.0e-3f;         // x ||x||_2 max_k ||c_k||_2
@@ -384,69 +405,219 @@ __global__ void __launch_bounds__(kAssignWarps * 32)
   }
 }
 
-template <int DSUB>
-__global__ void __launch_bounds__(kThreads)
-    pq_update_partial_kernel(const float* __restrict__ x,
-                             const int* __restrict__ codes,
-                             float* __restrict__ part_sums,
-                             int* __restrict__ part_counts, int N, int K,
-                             int rows_per_tile) {
-  __shared__ int s_code[kThreads];
-  __shared__ float s_x[kThreads * DSUB];
-  const int t = blockIdx.x, T = gridDim.x, i = blockIdx.y;
-  const int k = threadIdx.x;
-  float acc[DSUB];
+template <int V>
+struct VecF;
+template <>
+struct VecF<1> { using T = float; };
+template <>
+struct VecF<2> { using T = float2; };
+template <>
+struct VecF<4> { using T = float4; };
+
+__device__ __forceinline__ float vadd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float2 vadd(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+template <typename VT>
+__device__ __forceinline__ VT vzero() {
+  VT v;
+  float* f = reinterpret_cast<float*>(&v);
 #pragma unroll
-  for (int l = 0; l < DSUB; ++l) acc[l] = 0.f;
-  int cnt = 0;
-  const long long row0 = (long long)t * rows_per_tile;
-  const long long row_end =
-      row0 + rows_per_tile < N ? row0 + rows_per_tile : (long long)N;
-  const long long base = (long long)i * N;
-  for (long long r0 = row0; r0 < row_end; r0 += kThreads) {
-    const int nr = (int)(row_end - r0 < kThreads ? row_end - r0 : kThreads);
-    if (threadIdx.x < nr) s_code[threadIdx.x] = codes[base + r0 + threadIdx.x];
-    const float* xs = x + (base + r0) * DSUB;
-    for (int e = threadIdx.x; e < nr * DSUB; e += kThreads) s_x[e] = xs[e];
-    __syncthreads();
-    if (k < K) {
-      for (int r = 0; r < nr; ++r) {
-        if (s_code[r] == k) {
-          ++cnt;
+  for (int l = 0; l < (int)(sizeof(VT) / sizeof(float)); ++l) f[l] = 0.f;
+  return v;
+}
+
+// Step s of a run of nrows rows, 32 rows a step: the lane's row and code
+// (-1 and zeros past the run's end).
+template <int Q, typename VT>
+__device__ __forceinline__ void load_step(const VT* __restrict__ xv,
+                                          const int* __restrict__ cv, int s,
+                                          int nrows, int lane, VT (&xr)[Q],
+                                          int& cr) {
+  const int r = s * 32 + lane;
+  const bool ok = r < nrows;
+  cr = ok ? __ldcs(cv + r) : -1;             // read once: evict first
 #pragma unroll
-          for (int l = 0; l < DSUB; ++l)
-            acc[l] = __fadd_rn(acc[l], s_x[r * DSUB + l]);
-        }
+  for (int q = 0; q < Q; ++q)
+    xr[q] = ok ? __ldcs(xv + (long long)r * Q + q) : vzero<VT>();
+}
+
+// One step's 32 rows (one a lane) into the accumulator acc (K rows of Q
+// vectors), each centroid's members in lane order.  grp: the lanes on this
+// lane's code (__match_any_sync); stage: the step's rows, staged for the
+// lanes of a group of two or more.
+template <int Q, typename VT>
+__device__ __forceinline__ void add_step(const VT (&xr)[Q], int c,
+                                         unsigned grp, VT* acc,
+                                         const VT* stage, int* cnt, int K,
+                                         int lane) {
+  if ((unsigned)c < (unsigned)K) {
+    VT* a = acc + c * Q;
+    const int g = __popc(grp);
+    const int rank = __popc(grp & ((1u << lane) - 1u));
+    if (g == 1) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) a[q] = vadd(a[q], xr[q]);
+    } else {
+      for (int q = rank; q < Q; q += g) {
+        VT s = a[q];
+        for (unsigned mm = grp; mm != 0u; mm &= mm - 1u)
+          s = vadd(s, stage[(__ffs(mm) - 1) * Q + q]);
+        a[q] = s;
       }
     }
-    __syncthreads();
+    if (rank == 0) atomicAdd(cnt + c, g);
   }
-  if (k < K) {
-    const long long o = ((long long)i * T + t) * K + k;
-#pragma unroll
-    for (int l = 0; l < DSUB; ++l) part_sums[o * DSUB + l] = acc[l];
-    part_counts[o] = cnt;
+  __syncwarp();                            // acc: the next step's
+}
+
+// dst[e] = +0.0 + src[0][e] + ... + src[n-1][e], left to right, for e in
+// [0, n_e) floats, sources spaced by stride floats (vectors of VT).
+template <typename VT>
+__device__ __forceinline__ void fold_smem(const float* src, int stride, int n,
+                                          float* dst, int n_e) {
+  constexpr int L = sizeof(VT) / sizeof(float);
+  const VT* s4 = reinterpret_cast<const VT*>(src);
+  VT* d4 = reinterpret_cast<VT*>(dst);
+  for (int e = threadIdx.x; e < n_e / L; e += blockDim.x) {
+    VT s = vzero<VT>();
+    for (int b = 0; b < n; ++b) s = vadd(s, s4[b * (stride / L) + e]);
+    d4[e] = s;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    pq_update_reduce_kernel(const float* __restrict__ part_sums,
-                            const int* __restrict__ part_counts,
-                            float* __restrict__ sums,
-                            float* __restrict__ counts, int T, int K,
-                            int dsub) {
-  const int i = blockIdx.x;
-  const int kd = K * dsub;
-  const float* ps = part_sums + (long long)i * T * kd;
-  for (int e = threadIdx.x; e < kd; e += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s = __fadd_rn(s, ps[(long long)t * kd + e]);
-    sums[(long long)i * kd + e] = s;
+// A row is loaded as DSUB / update_vec vectors; a warp stages a tile of
+// 8 / (DSUB / update_vec) steps, 32 rows each.
+template <int DSUB>
+__host__ __device__ constexpr int update_vec() { return DSUB < 4 ? DSUB : 4; }
+template <int DSUB>
+__host__ __device__ constexpr int update_stage_floats() {
+  return 32 * DSUB * (8 / (DSUB / update_vec<DSUB>()));
+}
+
+// Launch 1, grid (T blocks of kUpdateWarps runs, m subspaces); dynamic
+// shared memory kUpdateWarps (K DSUB + update_stage_floats) floats and K
+// ints.  Writes the block's partial sums and counts.
+template <int DSUB>
+__global__ void __launch_bounds__(kUpdateWarps * 32)
+    pq_update_kernel(const float* __restrict__ x, const int* __restrict__ codes,
+                     float* __restrict__ part_sums,
+                     int* __restrict__ part_counts, int N, int K) {
+  constexpr int V = update_vec<DSUB>();
+  constexpr int Q = DSUB / V;               // vectors a row
+  constexpr int P = 8 / Q;                  // steps a tile
+  using VT = typename VecF<V>::T;
+  // launch 2's blocks may take the SMs this grid leaves; they wait for
+  // all of it to finish before they read the partials
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int t = blockIdx.x, T = gridDim.x, i = blockIdx.y;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int KD = K * DSUB;
+  VT* acc = reinterpret_cast<VT*>(smem + w * KD);
+  constexpr int SF = update_stage_floats<DSUB>();
+  VT* stage = reinterpret_cast<VT*>(smem + kUpdateWarps * KD + w * SF);
+  int* cnt = reinterpret_cast<int*>(smem + kUpdateWarps * (KD + SF));
+  const long long base = (long long)i * N;
+  const long long r0 = ((long long)t * kUpdateWarps + w) * kUpdateRunRows;
+  const int nrows =
+      r0 >= N ? 0 : (int)(N - r0 < kUpdateRunRows ? N - r0 : kUpdateRunRows);
+  const int nsteps = (nrows + 31) >> 5;
+  const VT* xv = reinterpret_cast<const VT*>(x + (base + r0) * DSUB);
+  const int* cv = codes + base + r0;
+  // tiles of P steps, double-buffered: the next tile's loads are issued,
+  // then the current tile is added
+  VT xr[P][Q], xn[P][Q];
+  int cr[P], cn[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) load_step<Q>(xv, cv, p, nrows, lane, xr[p], cr[p]);
+  for (int k = lane; k < K * Q; k += 32) acc[k] = vzero<VT>();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) cnt[k] = 0;
+  __syncthreads();
+  for (int s0 = 0; s0 < nsteps; s0 += P) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      load_step<Q>(xv, cv, s0 + P + p, nrows, lane, xn[p], cn[p]);
+    // the tile's lanes grouped by code at once (P independent matches),
+    // and the rows of every group of two or more staged, behind one sync
+    unsigned grp[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool ok = (unsigned)cr[p] < (unsigned)K;
+      grp[p] = __match_any_sync(0xffffffffu, ok ? cr[p] : -1);
+      if (ok && __popc(grp[p]) > 1) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q) stage[(p * 32 + lane) * Q + q] = xr[p][q];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (s0 + p < nsteps)                   // warp-uniform
+        add_step<Q>(xr[p], cr[p], grp[p], acc, stage + p * 32 * Q, cnt, K,
+                    lane);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      cr[p] = cn[p];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) xr[p][q] = xn[p][q];
+    }
   }
-  const int* pc = part_counts + (long long)i * T * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+  __syncthreads();
+
+  // this block's partial: its runs folded in warp order
+  const long long pb = (long long)i * T + t;
+  if ((KD & 3) == 0)
+    fold_smem<float4>(smem, KD, kUpdateWarps, part_sums + pb * KD, KD);
+  else
+    fold_smem<float>(smem, KD, kUpdateWarps, part_sums + pb * KD, KD);
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    part_counts[pb * K + k] = cnt[k];
+}
+
+// Launch 2, grid (ceil((KD / L + K) / kFoldThreads), m): a thread per
+// vector column of the sums (L floats) or per count; the T partials of
+// launch 1 are folded in block order, up to kFoldDepth loads in flight.
+constexpr int kFoldThreads = 128;
+constexpr int kFoldDepth = 32;
+
+template <typename VT>
+__global__ void __launch_bounds__(kFoldThreads)
+    pq_update_fold_kernel(const float* __restrict__ part_sums,
+                          const int* __restrict__ part_counts,
+                          float* __restrict__ sums, float* __restrict__ counts,
+                          int T, int K, int KD) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  constexpr int L = sizeof(VT) / sizeof(float);
+  const int ncol = KD / L;
+  const int j = blockIdx.x * kFoldThreads + threadIdx.x;
+  const int i = blockIdx.y;
+  if (j < ncol) {
+    const VT* src = reinterpret_cast<const VT*>(part_sums) +
+                    (long long)i * T * ncol + j;
+    VT s = vzero<VT>();
+    for (int b = 0; b < T; b += kFoldDepth) {
+      VT v[kFoldDepth];
+#pragma unroll
+      for (int u = 0; u < kFoldDepth; ++u)
+        v[u] = b + u < T ? src[(long long)(b + u) * ncol] : vzero<VT>();
+#pragma unroll
+      for (int u = 0; u < kFoldDepth; ++u)
+        if (b + u < T) s = vadd(s, v[u]);
+    }
+    reinterpret_cast<VT*>(sums + (long long)i * KD)[j] = s;
+  } else if (j < ncol + K) {
+    const int k = j - ncol;
+    const int* src = part_counts + (long long)i * T * K + k;
     int c = 0;
-    for (int t = 0; t < T; ++t) c += pc[(long long)t * K + k];
+    for (int b = 0; b < T; ++b) c += src[(long long)b * K];
     counts[(long long)i * K + k] = (float)c;
   }
 }
@@ -475,15 +646,50 @@ static int assign(const float* x, const float* cb, int* codes,
   return 0;
 }
 
+template <typename VT>
+static int update_fold(const float* part_sums, const int* part_counts,
+                       float* sums, float* counts, int m, int T, int K,
+                       int KD, cudaStream_t st) {
+  constexpr int L = sizeof(VT) / sizeof(float);
+  // a programmatic dependent launch: its blocks are resident when launch 1
+  // drains, and wait for it in griddepcontrol.wait
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((KD / L + K + kFoldThreads - 1) / kFoldThreads, m);
+  cfg.blockDim = dim3(kFoldThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, pq_update_fold_kernel<VT>, part_sums,
+                                 part_counts, sums, counts, T, K, KD);
+}
+
 template <int DSUB>
-static void update(const float* x, const int* codes, float* part_sums,
-                   int* part_counts, float* sums, float* counts, int m, int N,
-                   int K, int rows_per_tile, cudaStream_t st) {
-  const int T = (N + rows_per_tile - 1) / rows_per_tile;
-  pq_update_partial_kernel<DSUB><<<dim3(T, m), kThreads, 0, st>>>(
-      x, codes, part_sums, part_counts, N, K, rows_per_tile);
-  pq_update_reduce_kernel<<<m, kThreads, 0, st>>>(part_sums, part_counts,
-                                                  sums, counts, T, K, DSUB);
+static int update(const float* x, const int* codes, float* part_sums,
+                  int* part_counts, float* sums, float* counts, int m, int N,
+                  int K, int T, cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * ((size_t)kUpdateWarps *
+                           ((size_t)K * DSUB + update_stage_floats<DSUB>()) +
+                       (size_t)K);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pq_update_kernel<DSUB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pq_update_kernel<DSUB><<<dim3(T, m), kUpdateWarps * 32, smem, st>>>(
+      x, codes, part_sums, part_counts, N, K);
+  const int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  const int KD = K * DSUB;
+  return KD % 4 == 0
+             ? update_fold<float4>(part_sums, part_counts, sums, counts, m, T,
+                                   K, KD, st)
+             : update_fold<float>(part_sums, part_counts, sums, counts, m, T,
+                                  K, KD, st);
 }
 
 #define PQ_DISPATCH(dsub, CALL)            \
@@ -517,16 +723,21 @@ extern "C" int leoam_pq_assign(const void* x, const void* cb, void* codes,
   return (int)cudaGetLastError();
 }
 
-// x: (m, N, dsub) f32; codes: (m, N) int32; part_sums: (m, T, K, dsub) f32
-// and part_counts: (m, T, K) int32 scratch, T = ceil(N / rows_per_tile);
-// sums: (m, K, dsub) f32; counts: (m, K) f32.
+// x: (m, N, dsub) f32, 16-byte aligned; codes: (m, N) int32; part_sums:
+// (m, T, K, dsub) f32 and part_counts: (m, T, K) int32 scratch, T =
+// ceil(N / (kUpdateRunRows kUpdateWarps)) -- the caller's T is checked
+// against the kernel's, so a scratch sized for another run length is
+// refused, never overrun; sums: (m, K, dsub) f32; counts: (m, K) f32.
+// Two launches; every output element is written.
 extern "C" int leoam_pq_update(const void* x, const void* codes,
                                void* part_sums, void* part_counts, void* sums,
                                void* counts, int m, int N, int K, int dsub,
-                               int rows_per_tile, void* stream) {
-  if (K < 1 || K > kMaxCentroids || rows_per_tile < 1)
-    return (int)cudaErrorInvalidValue;
+                               int T, void* stream) {
+  if (K < 1 || K > kMaxCentroids) return (int)cudaErrorInvalidValue;
   if (m == 0 || N == 0) return 0;
+  if ((long long)T != (N + (long long)kUpdateRunRows * kUpdateWarps - 1) /
+                          ((long long)kUpdateRunRows * kUpdateWarps))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);
   const int* cp = static_cast<const int*>(codes);
@@ -534,7 +745,8 @@ extern "C" int leoam_pq_update(const void* x, const void* codes,
   int* pc = static_cast<int*>(part_counts);
   float* sp = static_cast<float*>(sums);
   float* np_ = static_cast<float*>(counts);
-  PQ_DISPATCH(dsub, update<D>(xp, cp, ps, pc, sp, np_, m, N, K, rows_per_tile,
-                              st));
+  int rc = 0;
+  PQ_DISPATCH(dsub, rc = update<D>(xp, cp, ps, pc, sp, np_, m, N, K, T, st));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -33,14 +33,14 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
-from repro_torch.kernels.pq.ref import pq_assign_ref, pq_update_ref
+from repro_torch.kernels.pq.ref import (UPDATE_RUN_ROWS, UPDATE_WARPS,
+                                        pq_assign_ref, pq_update_ref)
 
 assign_launches = 0
 update_launches = 0
 
 SUPPORTED_DSUB = (1, 2, 4, 8, 16, 32)
 MAX_CENTROIDS = 256
-UPDATE_TILE_ROWS = 4096      # B5's row tile: one block per (tile, subspace)
 
 
 def _require(ok: bool, name: str, x: torch.Tensor, other: torch.Tensor,
@@ -111,20 +111,21 @@ def pq_update(x: torch.Tensor, codes: torch.Tensor, n_centroids: int, *,
              and x.shape[2] in SUPPORTED_DSUB and 1 <= K <= MAX_CENTROIDS,
              "pq_update", x, codes, K)
     m, N, dsub = x.shape
-    x = x.float().contiguous()
+    x = build.aligned(x.float())
     codes = codes.to(torch.int32).contiguous()
     dev = x.device
-    sums = torch.zeros((m, K, dsub), dtype=torch.float32, device=dev)
-    counts = torch.zeros((m, K), dtype=torch.float32, device=dev)
     if m == 0 or N == 0:
-        return sums, counts
-    T = -(-N // UPDATE_TILE_ROWS)
+        return (torch.zeros((m, K, dsub), dtype=torch.float32, device=dev),
+                torch.zeros((m, K), dtype=torch.float32, device=dev))
+    sums = torch.empty((m, K, dsub), dtype=torch.float32, device=dev)
+    counts = torch.empty((m, K), dtype=torch.float32, device=dev)
+    T = -(-N // (UPDATE_RUN_ROWS * UPDATE_WARPS))
     part_sums = torch.empty((m, T, K, dsub), dtype=torch.float32, device=dev)
     part_counts = torch.empty((m, T, K), dtype=torch.int32, device=dev)
     rc = build.library().leoam_pq_update(
         x.data_ptr(), codes.data_ptr(), part_sums.data_ptr(),
         part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(), m, N, K,
-        dsub, UPDATE_TILE_ROWS, build.stream_ptr(x))
+        dsub, T, build.stream_ptr(x))
     build.check(rc, "pq_update")
     update_launches += 1
     return sums, counts

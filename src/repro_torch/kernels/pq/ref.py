@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the PQ k-means kernels (B4 assign, B5 update).
 
-The arithmetic order is fixed so the CUDA kernel can repeat it bitwise:
-``|c_k|^2`` and ``x . c_k`` are sequential sums over the dsub lanes, one
-tensor op per product and per add (eager PyTorch never contracts them
-into fused multiply-adds), then ``d = |c_k|^2 - 2 x . c_k`` and the first
-minimal index.  Both work over row tiles so the (m, tile, K) temporaries
-stay small at a full layer's N."""
+The arithmetic order is fixed so the CUDA kernels can repeat it bitwise.
+Assign: ``|c_k|^2`` and ``x . c_k`` are sequential sums over the dsub
+lanes, one tensor op per product and per add (eager PyTorch never
+contracts them into fused multiply-adds), then ``d = |c_k|^2 - 2 x . c_k``
+and the first minimal index, over row tiles so the (m, tile, K)
+temporaries stay small at a full layer's N.  Update: B5's summation order
+(runs of rows, folded by block, then over blocks), see
+:func:`pq_update_ref`."""
 
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ from typing import Tuple
 import torch
 
 TILE_ROWS = 8192
+# B5's order (csrc/pq_kmeans.cu kUpdateRunRows, kUpdateWarps): rows are
+# summed in runs of UPDATE_RUN_ROWS, UPDATE_WARPS runs to a block
+UPDATE_RUN_ROWS = 1024
+UPDATE_WARPS = 4
 
 
 def centroid_norms(cb: torch.Tensor) -> torch.Tensor:
@@ -46,20 +52,47 @@ def pq_assign_ref(x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
 def pq_update_ref(x: torch.Tensor, codes: torch.Tensor, n_centroids: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (m, N, dsub); codes: (m, N) -> (sums (m, K, dsub), counts (m, K))
-    f32.  The one-hot product per row tile, added over tiles in order; an
-    out-of-range code (the padding sentinel K) matches no centroid and adds
-    nothing."""
+    f32.  A code outside [0, K) (the padding sentinel K) adds nothing.
+
+    The sums follow B5's order exactly: the rows of a subspace fall into
+    runs of UPDATE_RUN_ROWS consecutive rows, each summed in row order
+    from +0.0; the runs fall into blocks of UPDATE_WARPS runs, each folded
+    left in order from +0.0; the blocks of a subspace are folded left in
+    order from +0.0.  Vectorised over (subspace, run): step s adds row s
+    of every run by index assignment (no index repeats within a step), so
+    the loop runs min(UPDATE_RUN_ROWS, N) times, never over N.  Counts are
+    integers."""
     x = x.float()
     m, N, dsub = x.shape
-    ks = torch.arange(n_centroids, device=x.device)
-    sums = torch.zeros((m, n_centroids, dsub), dtype=torch.float32,
-                       device=x.device)
-    counts = torch.zeros((m, n_centroids), dtype=torch.float32,
-                         device=x.device)
-    for s in range(0, N, TILE_ROWS):
-        onehot = (codes[:, s:s + TILE_ROWS, None].long() == ks).float()
-        sums = sums + torch.bmm(onehot.transpose(1, 2), x[:, s:s + TILE_ROWS])
-        counts = counts + onehot.sum(1)
+    K = int(n_centroids)
+    dev = x.device
+    S, W = UPDATE_RUN_ROWS, UPDATE_WARPS
+    T = -(-N // (S * W))                  # blocks of a subspace
+    R = T * W                             # runs, the empty tail ones too
+    codes = codes.long()
+    ok = (codes >= 0) & (codes < K)
+    counts = torch.bincount(
+        (codes + (K + 1) * torch.arange(m, device=dev)[:, None])
+        .masked_fill(~ok, K).reshape(-1), minlength=m * (K + 1))
+    counts = counts.reshape(m, K + 1)[:, :K].float()
+    # bucket K of every (subspace, run) takes the rows that add nothing
+    pad = R * S - N
+    xr = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(m * R, S, dsub)
+    cr = torch.nn.functional.pad(torch.where(ok, codes, K), (0, pad),
+                                 value=K).reshape(m * R, S)
+    idx = cr + (K + 1) * torch.arange(m * R, device=dev)[:, None]
+    acc = torch.zeros((m * R * (K + 1), dsub), dtype=torch.float32,
+                      device=dev)
+    for s in range(min(S, N)):
+        i = idx[:, s]
+        acc[i] = acc[i] + xr[:, s]
+    runs = acc.reshape(m, T, W, K + 1, dsub)[:, :, :, :K]
+    part = torch.zeros((m, T, K, dsub), dtype=torch.float32, device=dev)
+    for w in range(W):
+        part = part + runs[:, :, w]
+    sums = torch.zeros((m, K, dsub), dtype=torch.float32, device=dev)
+    for t in range(T):
+        sums = sums + part[:, t]
     return sums, counts
 
 

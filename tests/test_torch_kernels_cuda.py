@@ -5,17 +5,17 @@ is marked ``requires_cuda`` and skips without a device.  Run on the card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: the kernels sum in another order than the plain einsums, so
-f32 results agree to rtol 1e-5 (bf16 bounds inputs are cast to f32 first,
-same bar); a bf16 model's attention output is held by ``bf16_agreement``
+f32 results agree to rtol 1e-5 (fp16 and bf16 bounds queries are widened
+to f32 exactly, same bar); a bf16 model's attention output is held by ``bf16_agreement``
 (at most 5 % of the elements differ, by at most two bf16 ulps of
 max|ref|: an f32 sum that lands next to a rounding boundary); the dequant
 must be bitwise equal.  The PQ assign (B4) repeats the plain version's
 lane order with unfused products and sums, so its codes are bitwise equal,
 ties included: its tensor-core screen only picks the candidates that the
-exact chain then decides.  The PQ update (B5) counts are exact and its
-sums are f32 sums in another order, held to ``PQ_SUM_ULPS`` f32 ulps of
-the sum of |x| over the centroid's members per lane, and two launches are
-bitwise equal (no float atomics).
+exact chain then decides.  The PQ update (B5) adds in the order that its
+plain version repeats (runs of rows, folded by block, then over blocks),
+so its sums and counts are bitwise equal, and so are two launches (no
+float atomics).
 """
 
 import numpy as np
@@ -30,8 +30,6 @@ from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
                                                    bf16_agreement)
 
 pytestmark = pytest.mark.requires_cuda
-
-PQ_SUM_ULPS = 8
 
 
 @pytest.fixture
@@ -49,8 +47,11 @@ def _t(a, dev, dtype=None):
 @pytest.mark.parametrize("B,Hkv,G,hd,nc", [
     (1, 1, 1, 8, 4), (2, 4, 2, 32, 16), (1, 2, 3, 128, 7),
     (2, 8, 1, 64, 130), (1, 16, 6, 192, 33), (4, 32, 1, 128, 64),
+    (4, 32, 1, 128, 57),            # the main path's shape
+    (1, 3, 2, 256, 9), (2, 5, 1, 12, 5), (1, 40, 1, 128, 3),
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
 def test_chunk_bounds_cuda(cuda, rng, B, Hkv, G, hd, nc, dtype):
     q = _t(rng.randn(B, Hkv, G, hd).astype(np.float32), cuda, dtype)
     km = _t(rng.randn(B, Hkv, nc, hd).astype(np.float32), cuda)
@@ -66,6 +67,61 @@ def test_chunk_bounds_cuda(cuda, rng, B, Hkv, G, hd, nc, dtype):
     ue_k, le_k = cb_ops.chunk_bounds_gqa(qe, kme, kne)
     torch.testing.assert_close(ue_k, ue_r, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(le_k, le_r, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [6, 260])
+def test_chunk_bounds_unsupported_hd_raises(cuda, rng, hd):
+    """hd must be a multiple of 4 up to 256; others raise, and never run
+    the plain version instead."""
+    q = _t(rng.randn(1, 2, 1, hd).astype(np.float32), cuda)
+    km = _t(rng.randn(1, 2, 3, hd).astype(np.float32), cuda)
+    before = cb_ops.launches
+    with pytest.raises(ValueError, match="CUDA contract"):
+        cb_ops.chunk_bounds(q, km, km - 1)
+    assert cb_ops.launches == before
+
+
+def _cuda_kernels(fn):
+    """Names of the CUDA kernels that one call of ``fn`` launches, read by
+    torch.profiler after a warm-up call (the build, the allocator)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("kernel", ["b1_bf16", "b1_f32", "b1_pallas",
+                                    "b5"])
+def test_cuda_kernels_per_call(cuda, rng, kernel):
+    """B1 (any q dtype, either layout) is one CUDA kernel, B5 its two (the
+    partials, then their fold): no cast of q, no fill of outputs that the
+    kernels write in full."""
+    if kernel.startswith("b1"):
+        dtype = torch.float32 if kernel == "b1_f32" else torch.bfloat16
+        q = _t(rng.randn(4, 32, 128).astype(np.float32), cuda, dtype)
+        km = _t(rng.randn(4, 57, 32, 128).astype(np.float32), cuda)
+        kn = km - 1.0
+        if kernel == "b1_pallas":
+            kmt, knt = km.transpose(1, 2).contiguous(), kn.transpose(1, 2) \
+                .contiguous()
+            fn = lambda: cb_ops.chunk_bounds(q.reshape(4, 32, 1, 128), kmt,
+                                             knt)
+        else:
+            fn = lambda: cb_ops.chunk_bounds_gqa(q, km, kn)
+    else:
+        x, _ = _pq_inputs(rng, cuda, 16, 114688, 8, 256)
+        codes = _t(rng.randint(0, 256, (16, 114688)).astype(np.int32), cuda)
+        fn = lambda: pq_ops.pq_update(x, codes, 256)
+    names = _cuda_kernels(fn)
+    if kernel == "b5":
+        assert len(names) == 2 and all("pq_update" in n for n in names), names
+    else:
+        assert len(names) == 1 and "chunk_bounds" in names[0], names
 
 
 @pytest.mark.parametrize("B,Hkv,G,hd,S,chunk,nsel", [
@@ -287,28 +343,65 @@ def test_pq_assign_cuda_at_the_screen_boundary(cuda, rng, rounding_bits):
     assert torch.equal(pq_ops.pq_assign(xt, cbt), ref)
 
 
-def pq_sum_bar(x: torch.Tensor, codes: torch.Tensor, K: int) -> torch.Tensor:
-    """Per (subspace, centroid, lane): PQ_SUM_ULPS f32 ulps of the sum of
-    |x| over the centroid's members — the scale a sum in another order can
-    move by."""
-    absum = pq_ops.pq_update(x.abs(), codes, K, impl="ref")[0]
-    return PQ_SUM_ULPS * torch.finfo(torch.float32).eps * absum
-
-
 @pytest.mark.parametrize("m,N,dsub,K", [
     (1, 8, 8, 4), (2, 100, 8, 16), (4, 257, 16, 32), (3, 512, 4, 256),
     (16, 114688, 8, 256), (2, 5000, 32, 64), (1, 9000, 1, 3),
+    (16, 49152, 8, 256), (16, 131072, 8, 256),   # the path's N range
+    (2, 5000, 2, 7), (3, 4097, 8, 256),          # N % 1024 != 0
+    (2, 1000, 16, 1),
 ])
-def test_pq_update_cuda(cuda, rng, m, N, dsub, K):
+@pytest.mark.parametrize("codes_kind", ["random", "one_code"])
+def test_pq_update_cuda(cuda, rng, m, N, dsub, K, codes_kind):
     x, _ = _pq_inputs(rng, cuda, m, N, dsub, K)
-    codes = _t(rng.randint(0, K + 1, (m, N)).astype(np.int32), cuda)  # K: pad
+    if codes_kind == "random":
+        # K is the padding sentinel, -1 another code outside [0, K)
+        codes = rng.randint(-1, K + 1, (m, N)).astype(np.int32)
+    else:
+        # every row on one code: each 32-row step is one group
+        codes = np.full((m, N), K - 1, np.int32)
+        codes[:, ::97] = K
+    codes = _t(codes, cuda)
     s_r, n_r = pq_ops.pq_update(x, codes, K, impl="ref")
     s_k, n_k = pq_ops.pq_update(x, codes, K)
     assert torch.equal(n_k, n_r)
-    assert n_k.sum().item() == (codes < K).sum().item()
-    assert bool(((s_k - s_r).abs() <= pq_sum_bar(x, codes, K)).all())
+    assert n_k.sum().item() == ((codes >= 0) & (codes < K)).sum().item()
+    assert torch.equal(s_k, s_r)
     s_k2, n_k2 = pq_ops.pq_update(x, codes, K)
     assert torch.equal(s_k2, s_k) and torch.equal(n_k2, n_k)
+
+
+def test_pq_update_cuda_signed_zero(cuda):
+    """Every fold starts from +0.0: a centroid whose only members are -0.0
+    sums to +0.0, as in the plain version."""
+    x = torch.full((1, 3000, 8), -0.0, device=cuda)
+    codes = torch.zeros((1, 3000), dtype=torch.int32, device=cuda)
+    s_k, _ = pq_ops.pq_update(x, codes, 4)
+    s_r, _ = pq_ops.pq_update(x, codes, 4, impl="ref")
+    assert torch.equal(torch.signbit(s_k), torch.signbit(s_r))
+    assert not torch.signbit(s_k).any()
+
+
+@pytest.mark.parametrize("blocks_off", [-1, 1])
+def test_pq_update_entry_refuses_another_scratch_size(cuda, blocks_off):
+    """B5's C entry takes the scratch's block count and refuses one that
+    is not its own, so a scratch sized for another run length is never
+    overrun."""
+    from repro_torch.kernels import build
+    m, N, dsub, K = 2, 9000, 8, 16
+    x = torch.randn(m, N, dsub, device=cuda)
+    codes = torch.zeros((m, N), dtype=torch.int32, device=cuda)
+    T = -(-N // (pq_ops.UPDATE_RUN_ROWS * pq_ops.UPDATE_WARPS)) + blocks_off
+    ps = torch.empty((m, T + 1, K, dsub), device=cuda)
+    pc = torch.empty((m, T + 1, K), dtype=torch.int32, device=cuda)
+    sums = torch.empty((m, K, dsub), device=cuda)
+    counts = torch.empty((m, K), device=cuda)
+    rc = build.library().leoam_pq_update(
+        x.data_ptr(), codes.data_ptr(), ps.data_ptr(), pc.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), m, N, K, dsub, T,
+        build.stream_ptr(x))
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="pq_update: CUDA error"):
+        build.check(rc, "pq_update")
 
 
 def test_pq_train_cuda_is_deterministic(cuda):

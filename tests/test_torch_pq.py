@@ -7,8 +7,9 @@ frameworks.
 
 Tolerances: codes and counts are exact (both sides compute the same
 distance expression and take the first minimal index); Lloyd sums are
-f32 sums in another order, held to rtol/atol 1e-5 as in
-tests/test_kernels.py; ADC scores are f32 dot products in another order,
+f32 sums in another order than JAX's (the port's plain version repeats
+B5's order, held byte for byte to a loop over rows), held to rtol/atol
+1e-5 as in tests/test_kernels.py; ADC scores are f32 dot products in another order,
 held to rtol/atol 1e-5."""
 
 import dataclasses
@@ -199,10 +200,13 @@ def test_pq_screen_constants_match_the_kernel_source():
     assert np.float32(tpq_ref.EPS_C2) == tpq_ref.EPS_C2
 
 
-@pytest.mark.parametrize("m,N,dsub,K", [
-    (1, 8, 8, 4), (2, 100, 8, 16), (4, 257, 16, 32),
+@pytest.mark.parametrize("m,N,dsub,K,impl", [
+    (1, 8, 8, 4, "ref"), (2, 100, 8, 16, "ref"), (4, 257, 16, 32, "ref"),
+    (1, 8, 8, 4, "interpret"), (2, 100, 8, 16, "interpret"),
+    (4, 257, 16, 32, "interpret"),
+    # past one block of B5's order: several runs and blocks folded
+    (2, 9000, 8, 16, "ref"), (2, 5000, 32, 64, "ref"),
 ])
-@pytest.mark.parametrize("impl", ["ref", "interpret"])
 def test_pq_update_plain_matches_reference(rng, m, N, dsub, K, impl):
     x = rng.randn(m, N, dsub).astype(np.float32)
     codes = rng.randint(0, K, (m, N)).astype(np.int32)
@@ -221,6 +225,73 @@ def test_pq_update_plain_matches_reference(rng, m, N, dsub, K, impl):
                                atol=1e-5)
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     assert n_t.numpy().sum() == (codes < K).sum()
+
+
+def _update_in_order(x, codes, K):
+    """B5's order as a plain loop over rows: runs of UPDATE_RUN_ROWS rows
+    summed in row order from +0.0, UPDATE_WARPS runs to a block folded
+    left, blocks folded left."""
+    S, W = tpq_ref.UPDATE_RUN_ROWS, tpq_ref.UPDATE_WARPS
+    m, N, dsub = x.shape
+    T = -(-N // (S * W))
+    sums = np.zeros((m, K, dsub), np.float32)
+    counts = np.zeros((m, K), np.float32)
+    for i in range(m):
+        for t in range(T):
+            part = np.zeros((K, dsub), np.float32)
+            for w in range(W):
+                run = np.zeros((K, dsub), np.float32)
+                r0 = (t * W + w) * S
+                for r in range(r0, min(r0 + S, N)):
+                    c = codes[i, r]
+                    if 0 <= c < K:
+                        run[c] = run[c] + x[i, r]
+                        counts[i, c] += 1
+                part = part + run
+            sums[i] = sums[i] + part
+    return sums, counts
+
+
+# N against B5's runs of 1 024 rows, 4 to a block: under one run, one
+# run, a tail run in the first block, one full block, a second block of
+# one short run, and three blocks with a tail
+@pytest.mark.parametrize("N", [100, 1024, 3000, 4096, 5000, 9000])
+@pytest.mark.parametrize("m,dsub,K,codes_kind", [
+    (2, 8, 16, "random"),
+    (3, 4, 256, "random"),              # K 256
+    (2, 2, 1, "random"),                # K 1
+    (2, 8, 8, "one_code"),              # every row on one code
+    (1, 16, 5, "neg_zero"),             # sums of -0.0 start from +0.0
+])
+def test_pq_update_plain_is_b5s_order(rng, N, m, dsub, K, codes_kind):
+    """The plain version repeats B5's order exactly: byte for byte against
+    a loop over rows, with the padding sentinel K and negative codes
+    adding nothing."""
+    x = rng.randn(m, N, dsub).astype(np.float32)
+    codes = rng.randint(-2, K + 2, (m, N)).astype(np.int32)
+    if codes_kind == "one_code":
+        codes[:] = K - 1
+        codes[:, ::13] = K
+    elif codes_kind == "neg_zero":
+        x[:, :, :] = -0.0
+        x[:, ::3, 0] = 0.0
+        codes[:, ::2] = 0
+    s_t, n_t = tpq_ref.pq_update_ref(_t(x), _t(codes), K)
+    s_o, n_o = _update_in_order(x, codes, K)
+    assert s_t.numpy().tobytes() == s_o.tobytes()
+    assert n_t.numpy().tobytes() == n_o.tobytes()
+    if codes_kind == "neg_zero":
+        assert not np.signbit(s_o).any()
+
+
+def test_pq_update_order_constants_match_the_kernel_source():
+    """The plain version's run length and block width are B5's."""
+    src = (Path(tpq.__file__).resolve().parents[1] / "csrc"
+           / "pq_kmeans.cu").read_text()
+    found = dict(re.findall(r"constexpr int kUpdate(\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in found.items()} == {
+        "RunRows": tpq_ref.UPDATE_RUN_ROWS, "Warps": tpq_ref.UPDATE_WARPS}
+    assert tpq_ref.UPDATE_RUN_ROWS % 256 == 0
 
 
 @pytest.mark.parametrize("n,d,m,K", [(500, 16, 2, 16), (300, 32, 4, 64),
