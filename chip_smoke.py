@@ -14,9 +14,13 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    B2 also at longchat's own 32k context, and two launches bitwise equal;
    B4's mean candidates per row of its tensor-core screen; B5 bitwise
    equal to its plain version and over two launches, also on phase 3b's
-   clustered keys; the CUDA kernels one call launches and when each runs
-   on the device (``torch.profiler``); the launch floor (a one-element
-   fill, timed as the kernels are);
+   clustered keys; B3, the fused dequant-and-scatter of a layer's codec
+   upload into the pool's slots, at 16 and 48 chunks beside the earlier
+   upload (dequant, then an index put), the kernel alone, a fill of as
+   many output bytes and the host's packing and copy; the CUDA kernels
+   one call launches and when each runs on the device
+   (``torch.profiler``); the launch floor (a one-element fill, timed as
+   the kernels are);
    3b. the PQ k-means (``pq_train`` + ``pq_encode``) through the kernels
    against the plain versions on clustered keys at one layer's size:
    codebooks, counts and codes byte-identical, and two kernel runs too,
@@ -34,7 +38,7 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --only b1,b2,b5`` runs phases 1-2 and the timing
+``python3 chip_smoke.py --only b1,b2,b3,b5`` runs phases 1-2 and the timing
 lines of the named kernels only (``--b2`` is ``--only b2``), with no
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
@@ -77,7 +81,7 @@ TOL_E2E_ULPS = 4
 PQ_M, PQ_K, PQ_DSUB = 16, 256, 8
 PQ_KEYS_SEED = 3             # phase 3b's clustered keys (also B5's 2nd line)
 PQ_RANDOM_SEED = 4           # B4's and B5's random keys
-KERNELS = ("b1", "b2", "b5")  # what --only may name
+KERNELS = ("b1", "b2", "b3", "b5")  # what --only may name
 # B2 at the serve's lengths halfway through decode, and at longchat's own
 # context: 4 sequences near 32k tokens
 MAIN_LENGTHS = tuple(p + NEW_TOKENS // 2 for p in PROMPTS)
@@ -182,7 +186,7 @@ def _cuda_kernels_per_call(torch, fn, flush, reps: int = 3,
         if evs:
             t0 = evs[0].time_range.start
             runs.append([(re.sub(r"^void ", "", e.name).split("<")[0]
-                          .split("(")[0], e.time_range.start - t0,
+                          .split("(")[0].strip(), e.time_range.start - t0,
                           e.time_range.end - t0) for e in evs])
             names.append([n for n, _, _ in runs[-1]])
         if names and names.count(max(names, key=names.count)) >= reps:
@@ -292,14 +296,12 @@ def b2_row(np, torch, rng, flush, lengths, max_len, chunk=64, rate=0.10):
 
 def phase_kernels(np, torch, rng):
     """Each kernel against its plain version at the main path's shapes,
-    and B2 once more at longchat's own 32k context."""
-    from repro_torch.core.compression import quantize_chunks
-    from repro_torch.kernels.kv_quant import ops as kq
+    and B2 once more at longchat's own 32k context; B3 also at 48
+    chunks, about a first round's upload of one layer."""
     from repro_torch.kernels.sparse_decode.ref import BF16_MAX_MISMATCH
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    H, hd, chunk = 32, 128, 64
     lengths = np.array(MAIN_LENGTHS, np.int32)
     rows = {}
 
@@ -308,29 +310,11 @@ def phase_kernels(np, torch, rng):
     # --- B2: the selection the tree really produces at these lengths
     rows["sparse_decode"] = b2_row(np, torch, rng, flush, lengths, MAX_LEN)
 
-    # --- B3: K and V planes of 16 uploaded chunks in one launch
-    kv = rng.randn(16, chunk, H, hd).astype(np.float16)
-    pk = [quantize_chunks(kv, "int4"), quantize_chunks(kv * 0.5, "int4")]
-    data = torch.from_numpy(np.concatenate([d for d, _ in pk])).to(dev)
-    scale = torch.from_numpy(np.concatenate([s for _, s in pk])).to(dev)
-    d_k = kq.kv_dequant(data, scale, codec="int4", out_dtype=torch.float16)
-    d_r = kq.kv_dequant(data, scale, codec="int4", out_dtype=torch.float16,
-                        impl="ref")
-    err = (d_k.float() - d_r.float()).abs().max().item()
-    rows["kv_dequant"] = dict(
-        max_abs_err=err, tol=0.0, exact=bool(torch.equal(d_k, d_r)),
-        ms=_time_ms(lambda: kq.kv_dequant(data, scale, codec="int4",
-                                          out_dtype=torch.float16), flush),
-        plain_ms=_time_ms(lambda: kq.kv_dequant(
-            data, scale, codec="int4", out_dtype=torch.float16, impl="ref"),
-            flush),
-        library_ms=None,
-        cuda_per_call=_cuda_kernels_per_call(
-            torch, lambda: kq.kv_dequant(data, scale, codec="int4",
-                                         out_dtype=torch.float16), flush),
-        bound=(_nbytes(data, scale, d_r) / HBM_BYTES_S,
-               d_r.numel() / PEAK_F32),
-        shape=f"N={tuple(data.shape)[0]} c={chunk} d={H * hd} int4 -> fp16")
+    # --- B3: a layer's codec upload of 16 chunks into the pool's slots
+    slab = b3_slab(torch)
+    rows["kv_dequant"] = b3_row(np, torch, flush, slab, 16)
+    b3_48 = b3_row(np, torch, flush, slab, 48)
+    del slab
     rows.update(_pq_kernel_rows(np, torch, flush))
     clustered = b5_row(torch, *clustered_update_inputs(np, torch), flush)
     long_row = b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN), flush,
@@ -341,17 +325,125 @@ def phase_kernels(np, torch, rng):
     torch.cuda.empty_cache()
     print_row("sparse_decode at 32k", long_row)
     print_row("pq_update on clustered keys", clustered)
+    print_row("kv_dequant at 48 chunks", b3_48)
     for name, r in rows.items():
         print_row(name, r)
     bad = [n for n, r in {**rows, "sparse_decode at 32k": long_row,
-                          "pq_update on clustered keys": clustered}.items()
+                          "pq_update on clustered keys": clustered,
+                          "kv_dequant at 48 chunks": b3_48}.items()
            if not r["max_abs_err"] <= r["tol"]
            or not r.get("mismatch", 0.0) <= BF16_MAX_MISMATCH
            or not r.get("bitwise", True) or not r.get("exact", True)]
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain "
                          f"versions (or two launches differ): {bad}")
-    return rows, long_row, clustered
+    return rows, long_row, clustered, b3_48
+
+
+def b3_slab(torch):
+    """A pool slab of the serve's size: (4 sequences x 64 chunks + the
+    scratch slot, K and V, 64, 32, 128) fp16, the store's dtype."""
+    n_slots = len(PROMPTS) * (MAX_LEN // 64)
+    return torch.zeros(n_slots + 1, 2, 64, 32, 128, dtype=torch.float16,
+                       device="cuda")
+
+
+def b3_row(np, torch, flush, slab, n):
+    """B3 at one layer's codec upload of ``n`` chunks, as the store makes
+    it: the K and V planes of seeded fp16 chunks int4-packed on the host
+    (``host_pack_ms``: the store's packing and stacking, host clock; then
+    ``h2d_ms``: the pageable copy of payload and scales, synchronised)
+    and dequantized into ``n`` permuted slots of ``slab``.  ``ms`` is the
+    fused call (one launch, after the copy of the slot list);
+    ``unfused_ms`` the earlier store's upload on the same inputs:
+    ``kv_dequant`` into a fresh tensor, then an index assignment into the
+    slab.  A tree without the fused entry times its ``kv_dequant`` plus
+    the index assignment as ``ms``.  Two yardsticks beside them:
+    ``kernel_ms``, the fused kernel's C entry alone with the slot list
+    already on the card (the fused call less its copy of the slots), and
+    ``fill_ms``, a fill of as many output bytes.  The plain version runs
+    into another copy of the slab, which must come out bitwise equal."""
+    from repro_torch.core.compression import quantize_chunks
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kv_quant import ops as kq
+    dev = slab.device
+    S, planes, c, H, hd = slab.shape
+    rng = np.random.RandomState(100 + n)
+    kv = rng.randn(n, planes, c, H, hd).astype(np.float16)
+    kv[:, 1] *= 0.5                                  # V apart from K
+
+    def pack():
+        pk = [quantize_chunks(kv[:, pl], "int4") for pl in range(planes)]
+        return (torch.from_numpy(np.concatenate([d for d, _ in pk])),
+                torch.from_numpy(np.concatenate([s for _, s in pk])))
+
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        data_h, scale_h = pack()
+        times.append(time.perf_counter() - t0)
+    host_pack_ms = sorted(times)[2] * 1e3
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data, scale = data_h.to(dev), scale_h.to(dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    h2d_ms = sorted(times)[2] * 1e3
+    slots = rng.permutation(S - 1)[:n].tolist()
+    fused = hasattr(kq, "kv_dequant_scatter")
+
+    def unfused(impl=None):
+        out = kq.kv_dequant(data, scale, codec="int4",
+                            out_dtype=torch.float16, impl=impl)
+        idx = torch.from_numpy(np.asarray(slots, np.int64)).pin_memory().to(
+            dev, non_blocking=True)
+        slab[idx] = out.reshape(planes, n, c, H, hd).transpose(0, 1)
+
+    if fused:
+        call = lambda: kq.kv_dequant_scatter(data, scale, slab, slots,
+                                             codec="int4")
+        plain = lambda: kq.kv_dequant_scatter(data, scale, slab, slots,
+                                              codec="int4", impl="ref")
+        slots_dev = torch.tensor(slots, dtype=torch.int64, device=dev)
+
+        def kernel_alone():
+            build.check(build.library().leoam_kv_dequant_scatter(
+                data.data_ptr(), scale.data_ptr(), slab.data_ptr(),
+                slots_dev.data_ptr(), n, planes, c, H * hd, 4,
+                build.DTYPE_CODES[slab.dtype], planes * c * H * hd,
+                kq.access_width("int4", data, scale, slab),
+                build.stream_ptr(data)), "kv_dequant_scatter")
+    else:
+        call, plain = unfused, lambda: unfused("ref")
+    slab.normal_()
+    sentinel = slab.clone()
+    call()
+    first = slab.clone()
+    slab.copy_(sentinel)
+    call()
+    bitwise = bool(torch.equal(slab, first))
+    slab.copy_(sentinel)
+    plain()
+    err = (first.float() - slab.float()).abs().max().item()
+    exact = bool(torch.equal(first, slab))
+    del first, sentinel
+    nbytes = _nbytes(data, scale) + n * planes * c * H * hd * 2 + n * 8
+    ms = _time_ms(call, flush)
+    out_rows = slab[:n]
+    return dict(
+        max_abs_err=err, tol=0.0, exact=exact, bitwise=bitwise, ms=ms,
+        plain_ms=_time_ms(plain, flush), library_ms=None,
+        unfused_ms=_time_ms(unfused, flush) if fused else ms,
+        kernel_ms=_time_ms(kernel_alone, flush) if fused else None,
+        fill_ms=_time_ms(out_rows.zero_, flush),
+        host_pack_ms=host_pack_ms, h2d_ms=h2d_ms,
+        cuda_per_call=_cuda_kernels_per_call(torch, call, flush),
+        bound=(nbytes / HBM_BYTES_S, n * planes * c * H * hd / PEAK_F32),
+        shape=f"{n} chunks x K,V of c={c} d={H * hd} int4 -> fp16 into "
+              f"{n} permuted slots of a ({S}, {planes}, {c}, {H}, {hd}) "
+              f"slab; {'fused' if fused else 'kv_dequant + index put'}")
 
 
 def print_row(name, r):
@@ -368,11 +460,17 @@ def print_row(name, r):
                  f"distinct code in a 32-row step {r['grouping']!r}")
     if "bitwise" in r:
         extra += f", two launches bitwise equal: {r['bitwise']}"
+    if "unfused_ms" in r:
+        extra += (f", unfused_ms={r['unfused_ms']!r} kernel_ms="
+                  f"{r['kernel_ms']!r} fill_ms={r['fill_ms']!r} host_pack_ms="
+                  f"{r['host_pack_ms']!r} h2d_ms={r['h2d_ms']!r}")
     stages = ", ".join(f"{n} {a!r}-{b!r} us"
                        for n, a, b in r["cuda_per_call"])
+    n_kernels = sum(not n.startswith("Memcpy")
+                    for n, _, _ in r["cuda_per_call"])
     print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r}"
           f" (tol {r['tol']!r}){extra}; CUDA kernels per call "
-          f"{len(r['cuda_per_call'])} ({stages}; profiler, cold L2); "
+          f"{n_kernels} ({stages}; profiler, cold L2); "
           f"ms={r['ms']!r} "
           f"plain_ms={r['plain_ms']!r}"
           f" library_ms={r['library_ms']!r} bound_ms={b * 1e3!r} "
@@ -770,6 +868,12 @@ def main() -> int:
             print_row("sparse_decode at 32k",
                       b2_row(np, torch, np.random.RandomState(LONG_MAX_LEN),
                              flush, LONG_LENGTHS, LONG_MAX_LEN))
+        if "b3" in only:
+            slab = b3_slab(torch)
+            print_row("kv_dequant", b3_row(np, torch, flush, slab, 16))
+            print_row("kv_dequant at 48 chunks",
+                      b3_row(np, torch, flush, slab, 48))
+            del slab
         if "b5" in only:
             from repro_torch.kernels.pq import ops as pq
             x, cb = pq_random_inputs(np, torch)
@@ -780,7 +884,7 @@ def main() -> int:
                       b5_row(torch, *clustered_update_inputs(np, torch),
                              flush))
         return 0
-    rows, long_row, clustered = phase_kernels(np, torch, rng)
+    rows, long_row, clustered, b3_48 = phase_kernels(np, torch, rng)
     pq_train_res = phase_pq_train(np, torch)
 
     cfg = get_config("longchat-7b-32k")
@@ -825,17 +929,22 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": max(r["bound"]) * 1e3,
             "bound_by": "bytes" if r["bound"][0] >= r["bound"][1]
             else "operations",
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"unfused_ms": r["unfused_ms"]} if "unfused_ms" in r
+               else {})})
     print(f"[time] chip_smoke {time.perf_counter() - T_START!r} s")
     long_b2 = {k: v for k, v in long_row.items() if k != "bound"}
     long_b2["bound_ms"] = max(long_row["bound"]) * 1e3
     b5_clustered = {k: v for k, v in clustered.items() if k != "bound"}
     b5_clustered["bound_ms"] = max(clustered["bound"]) * 1e3
+    b3_48c = {k: v for k, v in b3_48.items() if k != "bound"}
+    b3_48c["bound_ms"] = max(b3_48["bound"]) * 1e3
     print(json.dumps({"kernels": kernels, "card": card, "e2e_max_diff": e2e,
                       "serve": serve, "serve_pq": serve_pq,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
-                      "pq_update_clustered": b5_clustered}))
+                      "pq_update_clustered": b5_clustered,
+                      "kv_dequant_48": b3_48c}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

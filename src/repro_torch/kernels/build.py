@@ -33,7 +33,8 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    "leoam_kv_dequant": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "leoam_kv_dequant_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _LL, _I, _P],
     "leoam_chunk_bounds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _P],
     "leoam_sparse_decode": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _LL, _P,

@@ -7,13 +7,13 @@ shared memmap, CRC32 per chunk) plus its min/max abstract (paper §4.3):
 demotions are metadata-only, promotions read the abstract or the chunk.
 
 * a :class:`DeviceChunkPool` per layer is ONE CUDA tensor of chunk slots,
-  updated in place by index assignment; ``fetch_chunks_pooled`` uploads
+  updated in place; ``fetch_chunks_pooled`` uploads
   only the chunks not already resident (delta uploads) and returns slot
   indices that the engine's attention kernel reads by;
 * with ``real_codec=True`` the θ-fraction of each upload crosses the link
   as packed int4/int8 (``core.compression.quantize_chunks`` on the host)
-  and is dequantized on the device by kernel B3
-  (``repro_torch.kernels.kv_quant``) — K and V planes in one launch;
+  and kernel B3 (``repro_torch.kernels.kv_quant``) dequantizes it straight
+  into its pool slots — K and V planes of a layer's upload in one launch;
 * write-behind prefill ingest: ``ingest(..., executor=...)`` applies the
   hot-tier placement synchronously and runs the disk replica + abstract
   writes on the executor; :meth:`TieredKVStore.ingest_fence` is the
@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.core import compression
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.kv_quant.ops import kv_dequant
+from repro_torch.kernels.kv_quant.ops import kv_dequant_scatter
 from repro_torch.kernels.pq.ops import pq_encode, pq_train
 from repro_torch.serving.faults import ChunkLostError, IngestError
 from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
@@ -92,11 +92,11 @@ class DeviceChunkPool:
     """Fixed-capacity per-layer device slab of KV chunk slots.
 
     ``kv`` is ONE (n_slots + 1, planes, chunk, Hkv, hd) tensor on the
-    device for the engine's lifetime, updated IN PLACE by index assignment
-    (no copy of the slab per round).  Slot ``n_slots`` is the reference's
-    write-only scratch row; it is kept so slot numbering and the slab's
-    shape match ``repro`` (this port needs no bucket padding: eager index
-    assignment compiles nothing).  ``slot_of`` maps (seq, chunk) → slot in
+    device for the engine's lifetime, updated IN PLACE (no copy of the slab
+    per round): codec uploads by kernel B3, the rest by index assignment.
+    Slot ``n_slots`` is the reference's write-only scratch row; it is kept
+    so slot numbering and the slab's shape match ``repro`` (this port needs
+    no bucket padding: eager writes compile nothing).  ``slot_of`` maps (seq, chunk) → slot in
     LRU order."""
 
     def __init__(self, n_slots: int, chunk: int, kv_heads: int,
@@ -155,21 +155,30 @@ class DeviceChunkPool:
             self.evict(key)
 
     @decode_thread_only
-    def scatter(self, slots: Sequence[int], kv_new) -> List[Tuple[int, int]]:
-        """One slab update per (layer, round): write the (m, planes, chunk,
-        Hkv, hd) delta into ``slots`` AND flush the queued decode-append
-        rows, both by in-place index assignment.  ``kv_new`` is numpy
-        (plain fp16 upload) or a device tensor (dequantized codec payload).
-        Returns the (seq, chunk) keys whose append rows crossed to the
-        device — the caller bills those."""
+    def scatter(self, slots: Sequence[int], kv_plain, packed=None, *,
+                codec: Optional[str] = None, impl: Optional[str] = None
+                ) -> List[Tuple[int, int]]:
+        """One slab update per (layer, round): write a delta into ``slots``
+        AND flush the queued decode-append rows.  ``packed`` = (data,
+        scale) is a codec payload on the device for the first ``len(slots)
+        - len(kv_plain)`` slots: kernel B3 dequantizes it straight into
+        them, one launch.  ``kv_plain`` (numpy (m, planes, chunk, Hkv, hd),
+        or None) takes the remaining slots, and the append rows follow,
+        both by in-place index assignment.  Returns the (seq, chunk) keys
+        whose append rows crossed to the device — the caller bills
+        those."""
         dev = self.kv.device
         rows = [(key, slot, off, row)
                 for key, (off, row) in self.pending.items()
                 if (slot := self.slot_of.get(key)) is not None]
-        if len(slots):
-            vals = kv_new if isinstance(kv_new, torch.Tensor) \
-                else torch.from_numpy(np.ascontiguousarray(kv_new))
-            idx = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
+        n_comp = len(slots) - (0 if kv_plain is None else len(kv_plain))
+        if packed is not None:
+            kv_dequant_scatter(*packed, self.kv, slots[:n_comp], codec=codec,
+                               impl=impl)
+        if n_comp < len(slots):
+            vals = torch.from_numpy(np.ascontiguousarray(kv_plain))
+            idx = torch.as_tensor(list(slots[n_comp:]), dtype=torch.long,
+                                  device=dev)
             self.kv[idx] = vals.to(device=dev, dtype=self.kv.dtype)
         if rows:
             si = torch.as_tensor([r[1] for r in rows], dtype=torch.long,
@@ -742,27 +751,19 @@ class TieredKVStore:
                 return 0
             return n
 
-    def _upload_delta(self, kv_stack: np.ndarray, n_comp: int):
-        """The delta upload's payload on the device: the first ``n_comp``
-        chunks cross packed and are dequantized by kernel B3 (K and V
-        planes stacked into one launch), the rest cross as fp16."""
-        if not n_comp:
-            return kv_stack
-        dev = self.device
-        packed = [compression.quantize_chunks(kv_stack[:n_comp, pl],
+    def _pack_upload(self, kv_comp: np.ndarray):
+        """The codec part of a delta upload, on the device: each plane of
+        the (n, planes, c, Hkv, hd) chunks packed on the host and stacked
+        plane-major (the K planes, then the V planes), as kernel B3 takes
+        them; None when there is no codec part."""
+        if not len(kv_comp):
+            return None
+        packed = [compression.quantize_chunks(kv_comp[:, pl],
                                               self.transit_codec)
                   for pl in range(self.planes)]
         data = torch.from_numpy(np.concatenate([d for d, _ in packed]))
         scale = torch.from_numpy(np.concatenate([s for _, s in packed]))
-        out = kv_dequant(data.to(dev), scale.to(dev),
-                         codec=self.transit_codec,
-                         out_dtype=self.torch_dtype, impl=self.impl)
-        kv_dev = out.reshape(self.planes, n_comp, self.chunk, self.kv_heads,
-                             self.head_dim).transpose(0, 1)
-        if n_comp < len(kv_stack):
-            kv_dev = torch.cat([kv_dev, torch.from_numpy(
-                np.ascontiguousarray(kv_stack[n_comp:])).to(dev)])
-        return kv_dev
+        return data.to(self.device), scale.to(self.device)
 
     @decode_thread_only
     def fetch_chunks_pooled(self, layer: int,  # leolint: waive[locklint] reason=decode-thread pooled fetch: the slab update runs under _lock so tier tables stay consistent with residency; it is an eager in-place device write, not a compiled dispatch
@@ -830,8 +831,9 @@ class TieredKVStore:
                     n_comp = int(round(min(1.0, max(0.0, theta)) * m)) \
                         if self.real_codec else 0
                     self._bill_flushed_rows(pool.scatter(
-                        [fresh[k] for k in up_keys],
-                        self._upload_delta(kv_stack, n_comp)))
+                        [fresh[k] for k in up_keys], kv_stack[n_comp:],
+                        self._pack_upload(kv_stack[:n_comp]),
+                        codec=self.transit_codec, impl=self.impl))
                 except BaseException:
                     # residency must never point at a slab row the scatter
                     # did not write: return the half-uploaded slots

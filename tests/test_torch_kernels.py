@@ -301,6 +301,108 @@ def test_kv_dequant_plain_bitwise_equal_to_jax(rng, codec, N, c, d):
 
 
 @pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("N,c,d", [(1, 8, 16), (4, 16, 64), (2, 64, 128),
+                                   (3, 32, 256)])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_kv_dequant_scatter_plain_bitwise_equal_to_jax(rng, codec, N, c, d,
+                                                       dtype):
+    """The K and V planes of N chunks, stacked plane-major as the store
+    stacks them, land in permuted slots of a sentinel-filled slab exactly
+    where numpy scatters the JAX dequant; the other slots keep their
+    values, and no launch is counted on the CPU."""
+    from repro_torch.kernels.kv_quant import ops as kq
+    jdt, tdt = {"float16": (jnp.float16, torch.float16),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    planes, hkv, S = 2, 2, N + 3
+    dp = d if codec == "int8" else d // 2
+    data = rng.randint(-128, 128, (planes * N, c, dp)).astype(np.int8)
+    scale = (np.abs(rng.randn(planes * N, d)) + 0.01).astype(np.float32)
+    slots = rng.permutation(S)[:N]
+    sentinel = torch.from_numpy(
+        rng.randn(S, planes, c, hkv, d // hkv).astype(np.float32)).to(tdt)
+    slab = sentinel.clone()
+    before = kq.launches
+    kq.kv_dequant_scatter(torch.from_numpy(data), torch.from_numpy(scale),
+                          slab, slots.tolist(), codec=codec)
+    assert kq.launches == before
+    for impl in ("ref", "interpret"):
+        o_j = _np(j_kv_dequant(jnp.asarray(data), jnp.asarray(scale),
+                               codec=codec, out_dtype=jdt, impl=impl))
+        want = sentinel.float().numpy()
+        want[slots] = o_j.reshape(planes, N, c, hkv, d // hkv).transpose(
+            1, 0, 2, 3, 4)
+        assert np.array_equal(slab.float().numpy(), want)
+
+
+@pytest.mark.parametrize("codec,d,offset,dtype,width", [
+    ("int4", 4096, 0, torch.float16, 4),     # the main path: 16-byte stores
+    ("int8", 4096, 0, torch.bfloat16, 8),
+    ("int4", 4096, 0, torch.float32, 2),
+    ("int8", 4096, 0, torch.float32, 4),
+    ("int4", 16, 0, torch.float16, 4),
+    ("int4", 12, 0, torch.float16, 2),       # 6-byte packed rows
+    ("int8", 6, 0, torch.float16, 2),
+    ("int4", 10, 0, torch.float16, 1),       # 5-byte packed rows
+    ("int8", 7, 0, torch.bfloat16, 1),
+    ("int4", 64, 1, torch.float16, 1),       # a slab 2 bytes off alignment
+    ("int8", 64, 4, torch.float16, 4),       # 8 bytes off: 8-byte stores
+    ("int4", 64, 8, torch.float16, 4),       # 16 bytes off: aligned again
+])
+def test_access_width_follows_shape_and_alignment(codec, d, offset, dtype,
+                                                  width):
+    """The widest payload access whose outputs make one store of at most
+    16 bytes, that the packed row width and every pointer allow."""
+    from repro_torch.kernels.kv_quant import ops as kq
+    dp = d if codec == "int8" else d // 2
+    data = torch.zeros(2, 4, dp, dtype=torch.int8)
+    scale = torch.ones(2, d)
+    out = torch.zeros(2 * 4 * d + offset, dtype=dtype)[offset:]
+    assert data.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
+    assert kq.access_width(codec, data, scale, out) == width
+
+
+@pytest.mark.parametrize("case", ["duplicate", "negative", "past_end",
+                                  "dtype", "rank", "width", "chunk",
+                                  "noncontiguous", "payload", "scale"])
+def test_kv_dequant_scatter_refuses_a_bad_call(case):
+    """Duplicate or out-of-range slots, a slab the kernel cannot write
+    (dtype, rank, Hkv·hd ≠ d, another chunk length, not contiguous) and a
+    payload that is not planes·n chunk planes raise ValueError, and nothing
+    is written."""
+    from repro_torch.kernels.kv_quant import ops as kq
+    planes, n, c, hkv, hd, S = 2, 3, 4, 2, 8, 6
+    data = torch.zeros(planes * n, c, hkv * hd // 2, dtype=torch.int8)
+    scale = torch.ones(planes * n, hkv * hd)
+    slab = torch.zeros(S, planes, c, hkv, hd, dtype=torch.float16)
+    slots = [4, 0, 2]
+    if case == "duplicate":
+        slots = [4, 0, 4]
+    elif case == "negative":
+        slots = [-1, 0, 2]
+    elif case == "past_end":
+        slots = [4, 0, S]
+    elif case == "dtype":
+        slab = slab.double()
+    elif case == "rank":
+        slab = slab.reshape(S, planes, c, hkv * hd)
+    elif case == "width":
+        slab = torch.zeros(S, planes, c, hkv, hd + 2, dtype=torch.float16)
+    elif case == "chunk":
+        slab = torch.zeros(S, planes, c + 1, hkv, hd, dtype=torch.float16)
+    elif case == "noncontiguous":
+        slab = torch.zeros(S, planes, c, hd, hkv,
+                           dtype=torch.float16).transpose(3, 4)
+    elif case == "payload":
+        data = data[:-1]
+    elif case == "scale":
+        scale = scale[:, :-2]
+    keep = slab.clone()
+    with pytest.raises(ValueError):
+        kq.kv_dequant_scatter(data, scale, slab, slots, codec="int4")
+    assert torch.equal(slab, keep)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
 @pytest.mark.parametrize("n,c,H,hd", [(1, 8, 2, 8), (3, 16, 4, 16),
                                       (2, 64, 2, 64)])
 def test_quantize_chunks_bitwise_equal_to_jax(rng, codec, n, c, H, hd):
@@ -326,6 +428,9 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting(rng):
     cb.chunk_bounds(q, km, km - 1)
     kq.kv_dequant(torch.zeros(1, 2, 4, dtype=torch.int8),
                   torch.ones(1, 8), codec="int4")
+    kq.kv_dequant_scatter(torch.zeros(2, 2, 4, dtype=torch.int8),
+                          torch.ones(2, 8), torch.zeros(3, 2, 2, 2, 4),
+                          [1], codec="int4")
     assert (cb.launches, kq.launches, sd.launches) == before
     with pytest.raises(ValueError):                  # neither CPU nor CUDA
         cb.chunk_bounds(q.to("meta"), km.to("meta"), km.to("meta"))

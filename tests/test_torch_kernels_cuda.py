@@ -96,11 +96,12 @@ def _cuda_kernels(fn):
 
 
 @pytest.mark.parametrize("kernel", ["b1_bf16", "b1_f32", "b1_pallas",
-                                    "b5"])
+                                    "b3", "b3_scatter", "b5"])
 def test_cuda_kernels_per_call(cuda, rng, kernel):
     """B1 (any q dtype, either layout) is one CUDA kernel, B5 its two (the
     partials, then their fold): no cast of q, no fill of outputs that the
-    kernels write in full."""
+    kernels write in full.  B3 is one CUDA kernel on either entry; the
+    scatter's only other device work is the copy of its slot list."""
     if kernel.startswith("b1"):
         dtype = torch.float32 if kernel == "b1_f32" else torch.bfloat16
         q = _t(rng.randn(4, 32, 128).astype(np.float32), cuda, dtype)
@@ -113,12 +114,27 @@ def test_cuda_kernels_per_call(cuda, rng, kernel):
                                              knt)
         else:
             fn = lambda: cb_ops.chunk_bounds_gqa(q, km, kn)
+    elif kernel.startswith("b3"):
+        data, scale, slab, slots = _scatter_inputs(rng, cuda, "int4", 16, 64,
+                                                   4096, torch.float16)
+        fn = (lambda: kq_ops.kv_dequant_scatter(data, scale, slab, slots,
+                                                codec="int4")) \
+            if kernel == "b3_scatter" else \
+            (lambda: kq_ops.kv_dequant(data, scale, codec="int4",
+                                       out_dtype=torch.float16))
     else:
         x, _ = _pq_inputs(rng, cuda, 16, 114688, 8, 256)
         codes = _t(rng.randint(0, 256, (16, 114688)).astype(np.int32), cuda)
         fn = lambda: pq_ops.pq_update(x, codes, 256)
     names = _cuda_kernels(fn)
-    if kernel == "b5":
+    if kernel.startswith("b3"):
+        kernels = [n for n in names if not n.startswith("Memcpy")]
+        copies = [n for n in names if n.startswith("Memcpy HtoD")]
+        assert len(kernels) == 1 and "kv_dequant_scatter" in kernels[0], \
+            names
+        assert len(names) - 1 == len(copies) <= (kernel == "b3_scatter"), \
+            names
+    elif kernel == "b5":
         assert len(names) == 2 and all("pq_update" in n for n in names), names
     else:
         assert len(names) == 1 and "chunk_bounds" in names[0], names
@@ -279,14 +295,135 @@ def test_kv_dequant_cuda_bitwise(cuda, rng, codec, N, c, d, out_dtype):
     assert torch.equal(out, ref)
 
 
+def _scatter_inputs(rng, dev, codec, n, c, d, dtype, offset=0, extra=3):
+    """A plane-major payload of n chunks (the K planes, then the V planes,
+    with V's scales apart from K's), a slab of n + extra slots filled with
+    sentinel values and starting ``offset`` elements into its buffer, and
+    n permuted slots that are not contiguous."""
+    dp = d if codec == "int8" else d // 2
+    data = _t(rng.randint(-128, 128, (2 * n, c, dp)).astype(np.int8), dev)
+    scale = np.abs(rng.randn(2 * n, d)).astype(np.float32) + 0.01
+    scale[n:] *= 3.0
+    hkv = d // 128 if d >= 256 else 2 if d % 2 == 0 else 1
+    shape = (n + extra, 2, c, hkv, d // hkv)
+    buf = _t(rng.randn(int(np.prod(shape)) + offset).astype(np.float32),
+             dev, dtype)
+    slab = buf[offset:].view(shape)
+    slots = rng.permutation(n + extra)[:n].tolist()
+    return data, _t(scale, dev), slab, slots
+
+
+def _scatter_matches_plain(codec, data, scale, slab, slots):
+    """The kernel's slab equals the plain version's bitwise, and the slots
+    it was not given keep their sentinels."""
+    ref = slab.clone()
+    kq_ops.kv_dequant_scatter(data, scale, ref, slots, codec=codec,
+                              impl="ref")
+    keep = slab.clone()
+    kq_ops.kv_dequant_scatter(data, scale, slab, slots, codec=codec)
+    torch.cuda.synchronize()
+    assert torch.equal(slab, ref)
+    rest = [s for s in range(slab.shape[0]) if s not in slots]
+    assert torch.equal(slab[rest], keep[rest])
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("N,c,d", [(1, 8, 16), (4, 16, 64), (2, 64, 128),
+                                   (3, 32, 256), (16, 64, 4096),
+                                   (48, 64, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_kv_dequant_scatter_cuda_bitwise(cuda, rng, codec, N, c, d, dtype):
+    data, scale, slab, slots = _scatter_inputs(rng, cuda, codec, N, c, d,
+                                               dtype)
+    _scatter_matches_plain(codec, data, scale, slab, slots)
+
+
+@pytest.mark.parametrize("codec,d,offset,width", [
+    ("int4", 16, 0, 4),        # 8-byte packed rows
+    ("int8", 16, 0, 8),        # 16-byte rows
+    ("int4", 8, 0, 4),         # one unit a row
+    ("int8", 12, 0, 4),
+    ("int4", 12, 0, 2),        # 6-byte packed rows
+    ("int8", 6, 0, 2),
+    ("int4", 10, 0, 1),        # 5-byte packed rows
+    ("int8", 7, 0, 1),
+    ("int4", 64, 1, 1),        # a slab 2 bytes off alignment
+    ("int8", 64, 4, 4),        # 8 bytes off: 8-byte stores
+    ("int4", 64, 8, 4),        # 16 bytes off: aligned again
+])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_kv_dequant_scatter_cuda_narrow_widths(cuda, rng, codec, d, offset,
+                                               width, dtype):
+    """Rows that are not a multiple of 16 bytes, and a slab that is not
+    16-byte aligned, take a narrower access in the same kernel."""
+    data, scale, slab, slots = _scatter_inputs(rng, cuda, codec, 5, 24, d,
+                                               dtype, offset=offset)
+    assert kq_ops.access_width(codec, data, scale, slab) == width
+    _scatter_matches_plain(codec, data, scale, slab, slots)
+
+
+def test_kv_dequant_scatter_cuda_two_launches_bitwise(cuda, rng):
+    data, scale, slab, slots = _scatter_inputs(rng, cuda, "int4", 16, 64,
+                                               4096, torch.float16)
+    other = slab.clone()
+    kq_ops.kv_dequant_scatter(data, scale, slab, slots, codec="int4")
+    kq_ops.kv_dequant_scatter(data, scale, other, slots, codec="int4")
+    assert torch.equal(slab, other)
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.5])
+def test_fetch_chunks_pooled_cuda_matches_plain_scatter(cuda, tmp_path,
+                                                        theta):
+    """The store's codec upload through the fused kernel leaves the same
+    slab, slots and billing as the same store with the plain scatter, over
+    rounds with evictions and queued decode-append rows."""
+    from repro_torch.serving.offload import HOST, TieredKVStore
+    L, NC, C, HKV, HD = 1, 8, 16, 4, 32
+    stores = {impl: TieredKVStore(
+        L, NC, C, HKV, HD, n_seqs=2, transit_codec="int4", pool_slots=9,
+        real_codec=True, root=str(tmp_path / str(impl)), device="cuda",
+        impl=impl) for impl in (None, "ref")}
+    out = {}
+    before = kq_ops.launches
+    for impl, store in stores.items():
+        rng = np.random.RandomState(0)
+        for seq in range(2):
+            k = rng.randn(NC * C, HKV, HD).astype(np.float32)
+            v = rng.randn(NC * C, HKV, HD).astype(np.float32)
+            store.ingest(0, k, v, {c: HOST for c in range(NC)}, seq=seq)
+        res = []
+        for rnd in range(4):
+            sels = {seq: sorted(rng.choice(NC, 4, replace=False).tolist())
+                    for seq in range(2)}
+            slots, nsel, st = store.fetch_chunks_pooled(0, sels, theta=theta)
+            res.append((slots.tolist(), st.uploads, st.compressed,
+                        st.upload_bytes))
+            store.append_tokens_batch(
+                0, np.array([NC * C - 8 + rnd] * 2),
+                rng.randn(2, HKV, HD).astype(np.float32),
+                rng.randn(2, HKV, HD).astype(np.float32), seqs=[0, 1])
+        torch.cuda.synchronize()
+        out[impl] = (res, store.pools[0].kv.clone(), store.codec_uploads)
+        store.close()
+    assert out[None][0] == out["ref"][0]
+    assert torch.equal(out[None][1], out["ref"][1])
+    assert out[None][2] == out["ref"][2] > 0
+    assert kq_ops.launches > before
+
+
 def test_launch_counters_count_kernel_launches_only(cuda, rng):
     data = _t(rng.randint(-128, 128, (2, 8, 8)).astype(np.int8), cuda)
     scale = _t(np.ones((2, 16), np.float32), cuda)
+    slab = torch.zeros(3, 2, 4, 2, 8, dtype=torch.float16, device=cuda)
     before = kq_ops.launches
     kq_ops.kv_dequant(data, scale, codec="int4", impl="ref")
+    kq_ops.kv_dequant_scatter(data[:, :4], scale, slab, [2], codec="int4",
+                              impl="ref")
     assert kq_ops.launches == before
     kq_ops.kv_dequant(data, scale, codec="int4")
     assert kq_ops.launches == before + 1
+    kq_ops.kv_dequant_scatter(data[:, :4], scale, slab, [2], codec="int4")
+    assert kq_ops.launches == before + 2
 
 
 def _pq_inputs(rng, dev, m, N, dsub, K, ties=False):
