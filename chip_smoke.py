@@ -32,6 +32,20 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    4b. the same 4 requests with the PQ abstract plane
    (``EngineCfg(pq_abstracts=True)``): B4 and B5 at ingest, ADC scoring,
    no PQ fallback;
+   4c. admission parity: the serve's 1536- and 3584-token prompts, each
+   admitted on three fresh engines — ``add_sequence``,
+   ``add_sequence_async(...).result()`` and ``begin_admission(...).drain()``
+   — and fenced: the overlapped admission must store the synchronous
+   one's disk replica and min/max abstracts bit for bit, with the same
+   first token; the chunked one's first-token logits must lie within
+   ``TOL_E2E_ULPS`` bf16 ulps of the synchronous logits (its replica's
+   largest difference is printed); the async admission must have run on
+   the ``leoam-admit`` thread and the chunked one in ceil(S / C) steps;
+   4d. the 4 requests served again with ``SchedulerCfg(
+   overlap_admission=True)``, then with ``chunked_admission=True``: 32
+   valid tokens each, B1-B3 launched, every admission in its mode (and the
+   chunked serve's ``stats()`` reporting ``chunk_step_ewma_s``), with the
+   decode rounds that overlapped an admission timed apart;
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
@@ -88,6 +102,8 @@ MAIN_LENGTHS = tuple(p + NEW_TOKENS // 2 for p in PROMPTS)
 LONG_MAX_LEN = 32768
 LONG_LENGTHS = (31000, 31500, 32000, 32500)
 KV_ROOT = ROOT / "build" / "chip_smoke_kv"
+# phase 4d's chunked serve: prompt tokens advanced between two rounds
+CHUNKED_ROUND_TOKENS = 256
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
 
@@ -634,10 +650,76 @@ def phase_pq_train(np, torch):
             "codes_differ": differ, "pq_assign_mean_candidates": cand}
 
 
-def phase_serve(np, torch, cfg, params, pq: bool = False):
+def serve_prompts(np, cfg):
+    """The serve's 4 prompts (after the warm-up prompt's draw)."""
+    rng = np.random.RandomState(0)
+    rng.randint(2, cfg.vocab_size, 64)
+    return [rng.randint(2, cfg.vocab_size, n) for n in PROMPTS]
+
+
+def _spy_admissions(eng, record):
+    """Wrap ``eng._admit`` to record, per whole-prompt admission, the
+    thread it ran on and its host-clock span."""
+    import threading
+    admit = eng._admit
+
+    def spy(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return admit(*a, **kw)
+        finally:
+            record.append((threading.current_thread().name, t0,
+                           time.perf_counter()))
+
+    eng._admit = spy
+
+
+def _spy_round_waits(eng, waits):
+    """Count, on the decode thread, the seconds spent inside the store's
+    locked calls of a round (abstract read, pooled fetch, append) and
+    waiting for the prefetch worker's futures (which queue behind the
+    write-behind ingest on the same worker); ``waits`` holds the running
+    totals."""
+    import threading
+    main = threading.current_thread()
+    store = eng.store
+
+    def add(key, fn):
+        def timed(*a, **kw):
+            if threading.current_thread() is not main:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                waits[key] += time.perf_counter() - t0
+        return timed
+
+    for name in ("read_abstracts_batch", "read_abstracts_pq_batch",
+                 "fetch_chunks_pooled", "append_tokens_batch"):
+        setattr(store, name, add("store_s", getattr(store, name)))
+
+    class Prefetch:
+        def __init__(self, ex):
+            self.ex = ex
+
+        def submit(self, fn, *a, **kw):
+            fut = self.ex.submit(fn, *a, **kw)
+            fut.result = add("prefetch_wait_s", fut.result)
+            return fut
+
+    eng._executor = Prefetch(eng._executor)
+
+
+def phase_serve(np, torch, cfg, params, pq: bool = False,
+                mode: str = "sync"):
     """A main path: 4 requests through the batcher, counters checked.
     ``pq`` turns on the PQ abstract plane (phase 4b): B4 and B5 train and
-    encode at ingest, evaluation scores code-valid chunks by ADC."""
+    encode at ingest, evaluation scores code-valid chunks by ADC.
+    ``mode`` is the admission (phase 4d): ``"async"`` is
+    ``SchedulerCfg(overlap_admission=True)``, ``"chunked"``
+    ``chunked_admission=True`` with ``CHUNKED_ROUND_TOKENS`` prompt tokens
+    between two rounds."""
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.pq import ops as pqk
@@ -646,28 +728,44 @@ def phase_serve(np, torch, cfg, params, pq: bool = False):
     from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
                                                SchedulerCfg)
 
-    tag = "[serve-pq]" if pq else "[serve]"
+    tag = "[serve-pq]" if pq else ("[serve]" if mode == "sync"
+                                   else f"[serve-{mode}]")
     ecfg = EngineCfg(max_len=MAX_LEN, real_codec=True, pooled=True,
                      pipeline=True, pq_abstracts=pq)
     eng = BatchedLeoAMEngine(cfg, params, ecfg, max_seqs=len(PROMPTS),
                              device="cuda",
-                             store_root=str(KV_ROOT / ("serve_pq" if pq
-                                                       else "serve")))
-    rng = np.random.RandomState(0)
-    if not pq:
+                             store_root=str(KV_ROOT / tag.strip("[]")))
+    warm = not pq and mode == "sync"
+    if warm:
         # warm-up (cuBLAS handles, allocator): one short prefill, released.
         # No decode round: it would seed the measured-cost θ balance, which
         # the main path must start from, as a fresh server does.  The PQ
-        # serve runs after this one in the same process and skips it: its
-        # first request must find an untrained codebook
+        # and mode serves run after this one in the same process and skip
+        # it (the PQ serve's first request must find an untrained codebook)
+        rng = np.random.RandomState(0)
         sid, _ = eng.add_sequence(rng.randint(2, cfg.vocab_size, 64))
         eng.release(sid)
-    else:
-        rng.randint(2, cfg.vocab_size, 64)      # the same prompts as above
+    prompts = serve_prompts(np, cfg)
+    batcher = ContinuousBatcher(engine=eng, cfg=SchedulerCfg(
+        max_active=4, chunk=64, overlap_admission=mode == "async",
+        chunked_admission=mode == "chunked",
+        prefill_round_tokens=CHUNKED_ROUND_TOKENS))
+    admits, rounds_t = [], []
+    waits = {"store_s": 0.0, "prefetch_wait_s": 0.0}
+    _spy_admissions(eng, admits)
+    _spy_round_waits(eng, waits)
+    decode_round = eng.decode_round
 
-    prompts = [rng.randint(2, cfg.vocab_size, n) for n in PROMPTS]
-    batcher = ContinuousBatcher(engine=eng,
-                                cfg=SchedulerCfg(max_active=4, chunk=64))
+    def timed_round(tokens):
+        w0 = dict(waits)
+        t0 = time.perf_counter()
+        try:
+            return decode_round(tokens)
+        finally:
+            rounds_t.append((t0, time.perf_counter(),
+                             *(waits[k] - w0[k] for k in sorted(waits))))
+
+    eng.decode_round = timed_round
     log0 = dict(eng.store.log.bytes)
     cb.launches = sd.launches = kq.launches = 0
     pqk.assign_launches = pqk.update_launches = 0
@@ -706,9 +804,36 @@ def phase_serve(np, torch, cfg, params, pq: bool = False):
     for name, d in (("mean", prof), ("median", med), ("first", first)):
         print(f"{tag} round breakdown ({name} s/round): "
               + " ".join(f"{k}={v!r}" for k, v in d.items()))
-    for i, a in enumerate(eng.admit_profiles[0 if pq else 1:]):
+    for i, a in enumerate(eng.admit_profiles[1 if warm else 0:]):
         print(f"{tag} admission {i}: " + " ".join(
             f"{k}={v!r}" for k, v in a.items()))
+    # decode rounds that overlapped an admission (on the worker, or a
+    # chunk step between rounds) against those that did not
+    # (rounds_t rows: start, end, prefetch wait s, store calls s)
+    spans = [(a, b) for _, a, b in admits]
+    over = [any(r[0] < s1 and s0 < r[1] for s0, s1 in spans)
+            for r in rounds_t]
+
+    def median_of(rows, i):
+        return float(np.median([r[i] for r in rows])) if rows else None
+
+    gaps = [b[0] - a[1] for a, b in zip(rounds_t, rounds_t[1:])]
+    contention = {}
+    for name, rows in (("during_admission",
+                        [(r[1] - r[0], *r[2:]) for r, o in zip(rounds_t, over)
+                         if o]),
+                       ("without_admission",
+                        [(r[1] - r[0], *r[2:]) for r, o in zip(rounds_t, over)
+                         if not o])):
+        contention[f"rounds_{name}"] = len(rows)
+        contention[f"median_round_{name}_s"] = median_of(rows, 0)
+        contention[f"median_prefetch_wait_{name}_s"] = median_of(rows, 1)
+        contention[f"median_store_calls_{name}_s"] = median_of(rows, 2)
+    contention.update({
+        "max_gap_between_rounds_s": max(gaps) if gaps else None,
+        "admission_threads": sorted({n for n, _, _ in admits}),
+        "chunk_step_ewma_s": st.get("chunk_step_ewma_s")})
+    print(f"{tag} rounds and admissions: {json.dumps(contention)}")
     print(f"{tag} tier bytes: {json.dumps(tiers, sort_keys=True)}")
     print(f"{tag} bytes by kind: {json.dumps(kinds, sort_keys=True)}")
     print(f"{tag} launches: {json.dumps(launches)} (per round: "
@@ -736,15 +861,137 @@ def phase_serve(np, torch, cfg, params, pq: bool = False):
                                                          0.0) <= 0):
         raise SystemExit(f"chip_smoke: {tag} PQ codes did not serve: "
                          f"{faults}")
+    if mode == "async" and (len(admits) != len(PROMPTS) or not all(
+            n.startswith("leoam-admit") for n, _, _ in admits)):
+        raise SystemExit(f"chip_smoke: {tag} admissions did not all run on "
+                         f"the admission worker: {admits}")
+    if mode == "chunked" and (admits or "chunk_step_ewma_s" not in st
+                              or not all(p.get("chunked") == 1.0
+                                         for p in eng.admit_profiles)):
+        raise SystemExit(f"chip_smoke: {tag} did not admit chunked: "
+                         f"{admits} {eng.admit_profiles} {st}")
+    if mode == "sync" and not all(n == "MainThread" for n, _, _ in admits):
+        raise SystemExit(f"chip_smoke: {tag} admitted off the decode "
+                         f"thread: {admits}")
     eng.store.close()
-    del eng
+    del eng, decode_round, timed_round
+    gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "round_s": prof, "round_median_s": med,
             "ttft_mean_s": st.get("mean_ttft_s"),
             "ttft_p95_s": st.get("p95_ttft_s"),
             "decode_tok_s_mean": st.get("mean_decode_tok_s"),
+            "throughput_tok_s": st.get("throughput_tok_s"),
+            "contention": contention,
             "pq_fallbacks": faults["pq_fallbacks"],
             "pq_reencodes": faults["pq_reencodes"]}
+
+
+def phase_admission(np, torch, cfg, params):
+    """Phase 4c: two of the serve's prompts, each admitted on three fresh
+    engines (sync, async, chunked), every store fenced, then held against
+    the synchronous admission."""
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+
+    prompts = serve_prompts(np, cfg)
+    out = []
+    for p in (prompts[0], prompts[-1]):
+        S = len(p)
+        res = {}
+        for mode in ("sync", "async", "chunked"):
+            root = KV_ROOT / f"admit_{S}_{mode}"
+            eng = BatchedLeoAMEngine(
+                cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=True,
+                                       pipeline=True),
+                device="cuda", store_root=str(root))
+            admits = []
+            _spy_admissions(eng, admits)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "sync":
+                sid, tok = eng.add_sequence(p)
+                steps = None
+            elif mode == "async":
+                sid, tok = eng.add_sequence_async(p).result()
+                steps = None
+            else:
+                adm = eng.begin_admission(p)
+                sid, tok = adm.drain()
+                steps = adm.n_steps
+            eng.store.ingest_fence(sid)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.store
+            res[mode] = dict(
+                tok=tok, logits=eng.seqs[sid].prefill_logits.copy(),
+                km=st._abs_km[sid].copy(), kn=st._abs_kn[sid].copy(),
+                disk=(os.path.join(st._root, "kv.bin"), st._disk.shape, sid),
+                threads=[n for n, _, _ in admits], steps=steps, wall=wall,
+                profile=dict(eng.admit_profiles[-1]),
+                C=eng.ecfg.prefill_chunk_tokens)
+            st.close()
+            del eng, st
+            gc.collect()
+            torch.cuda.empty_cache()
+        sync, ov, ch = res["sync"], res["async"], res["chunked"]
+
+        def replica(r):
+            path, shape, sid = r["disk"]
+            return np.memmap(path, dtype=np.float16, mode="r",
+                             shape=shape)[sid]
+
+        rs, ro, rc = replica(sync), replica(ov), replica(ch)
+        ov_equal = all(np.array_equal(rs[li], ro[li])
+                       for li in range(rs.shape[0]))
+        ch_diff = max(float(np.abs(rs[li].astype(np.float32)
+                                   - rc[li].astype(np.float32)).max())
+                      for li in range(rs.shape[0]))
+        ch_frac = float(np.mean([(rs[li] != rc[li]).mean()
+                                 for li in range(rs.shape[0])]))
+        del rs, ro, rc
+        abs_equal = (np.array_equal(sync["km"], ov["km"])
+                     and np.array_equal(sync["kn"], ov["kn"]))
+        fin = np.isfinite(sync["km"])
+        ch_abs = float(max(np.abs(sync["km"] - ch["km"])[fin].max(),
+                           np.abs(sync["kn"] - ch["kn"])[fin].max()))
+        bar = TOL_E2E_ULPS * _bf16_ulp(float(np.abs(sync["logits"]).max()))
+        ch_logit = float(np.abs(ch["logits"] - sync["logits"]).max())
+        ov_logit = float(np.abs(ov["logits"] - sync["logits"]).max())
+        want_steps = -(-S // ch["C"])
+        row = {"prompt": S, "first_token": {m: r["tok"] for m, r in
+                                            res.items()},
+               "overlap_replica_bitwise": ov_equal,
+               "overlap_abstracts_bitwise": abs_equal,
+               "overlap_max_logit_diff": ov_logit,
+               "chunked_max_logit_diff": ch_logit, "logit_tol": bar,
+               "chunked_max_replica_diff": ch_diff,
+               "chunked_replica_fraction_differ": ch_frac,
+               "chunked_max_abstract_diff": ch_abs,
+               "async_threads": ov["threads"], "chunked_steps": ch["steps"],
+               "chunked_steps_expected": want_steps,
+               "admit_wall_s": {m: r["wall"] for m, r in res.items()},
+               "admit_profile": {m: r["profile"] for m, r in res.items()}}
+        print(f"[admit] {json.dumps(row)}")
+        for m in res:
+            shutil.rmtree(KV_ROOT / f"admit_{S}_{m}", ignore_errors=True)
+        fails = []
+        if not (ov_equal and abs_equal and ov["tok"] == sync["tok"]):
+            fails.append("overlapped admission differs from synchronous")
+        if ch_logit > bar:
+            fails.append("chunked first-token logits beyond the bar")
+        if not (len(ov["threads"]) == 1
+                and ov["threads"][0].startswith("leoam-admit")):
+            fails.append(f"async admission ran on {ov['threads']}")
+        if sync["threads"] != ["MainThread"] or ch["threads"]:
+            fails.append(f"sync/chunked admission threads "
+                         f"{sync['threads']} {ch['threads']}")
+        if ch["steps"] != want_steps:
+            fails.append(f"chunked admission took {ch['steps']} steps")
+        if fails:
+            raise SystemExit(f"chip_smoke: admission parity at S={S}: "
+                             + "; ".join(fails))
+        out.append(row)
+    return out
 
 
 def _bf16_ulp(x: float) -> float:
@@ -898,6 +1145,9 @@ def main() -> int:
     try:
         serve = phase_serve(np, torch, cfg, params)
         serve_pq = phase_serve(np, torch, cfg, params, pq=True)
+        admission = phase_admission(np, torch, cfg, params)
+        serve_async = phase_serve(np, torch, cfg, params, mode="async")
+        serve_chunked = phase_serve(np, torch, cfg, params, mode="chunked")
         e2e = phase_e2e(np, torch, cfg, params)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
@@ -941,6 +1191,8 @@ def main() -> int:
     b3_48c["bound_ms"] = max(b3_48["bound"]) * 1e3
     print(json.dumps({"kernels": kernels, "card": card, "e2e_max_diff": e2e,
                       "serve": serve, "serve_pq": serve_pq,
+                      "admission": admission, "serve_async": serve_async,
+                      "serve_chunked": serve_chunked,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,

@@ -36,12 +36,17 @@ def gqa_params(cfg) -> Dict[str, ParamDef]:
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       attn_softcap: Optional[float] = None,
-                      block_kv: int = 1024) -> torch.Tensor:
+                      block_kv: int = 1024, q_offset: int = 0
+                      ) -> torch.Tensor:
     """Flash-style attention: full query rows × KV blocks.
 
     q: (B, S, H, hd) pre-scaled; k/v: (B, Skv, Hkv, hd).  KV blocks are
     expanded to H heads per block; scores and the P·V product run in f32.
-    Returns (B, S, H, vd) in q's dtype.
+    ``q_offset`` places the query rows at global positions ``q_offset +
+    [0, S)`` against the keys' absolute positions: a prefill chunk attends
+    over the whole decode cache, and the causal mask alone keeps rows not
+    yet written out of every valid query row.  Returns (B, S, H, vd) in
+    q's dtype.
     """
     B, S, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -52,7 +57,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     assert Skv % bkv == 0, (Skv, bkv)
     dev = q.device
     qf = q.float()
-    q_pos = torch.arange(S, device=dev)
+    q_pos = torch.arange(S, device=dev) + int(q_offset)
     num = torch.zeros((B, H, S, vd), dtype=torch.float32, device=dev)
     den = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)

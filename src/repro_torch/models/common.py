@@ -63,9 +63,13 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def positions_for(cfg, batch: int, seq: int, device=None) -> torch.Tensor:
-    """Default position ids (B, S); M-RoPE text mode repeats them 3x."""
-    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+def positions_for(cfg, batch: int, seq: int, device=None, offset: int = 0
+                  ) -> torch.Tensor:
+    """Default position ids (B, S) starting at ``offset`` (a prefill chunk
+    starts where the previous one ended); M-RoPE text mode repeats them
+    3x."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.int32,
+                       device=device)[None, :]
     pos = pos.expand(batch, seq)
     if cfg.rope == "mrope":
         return pos[None].expand(3, batch, seq)

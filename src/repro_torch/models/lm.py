@@ -9,9 +9,12 @@ repeat axis — so a JAX parameter tree carries over leaf for leaf
 the body is a Python loop over the repeat axis.
 
 Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
-``prefill(params, cfg, batch, max_len)``.  Recurrent, MoE, MLA and
-encoder-decoder stacks raise ``NotImplementedError`` (ROADMAP A7, A11);
-``decode_step`` with its in-model sparse path is a later slice.
+``prefill(params, cfg, batch, max_len)``, and chunked prefill:
+``init_decode_cache(cfg, batch, max_len, device)`` then
+``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk.
+Recurrent, MoE, MLA and encoder-decoder stacks raise
+``NotImplementedError`` (ROADMAP A7, A11); ``decode_step`` with its
+in-model sparse path is a later slice.
 """
 
 from __future__ import annotations
@@ -111,6 +114,35 @@ def body_block(params, pi: int, r: int) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# Cache structure
+# ---------------------------------------------------------------------------
+
+
+def cache_defs(cfg, batch: int, max_len: int) -> Dict[str, Any]:
+    """The decode cache's leaves, as :func:`prefill` returns them: K and V
+    (batch, max_len, Hkv, hd) per attention layer, body layers stacked on
+    the repeat axis.  The JAX cache's abstract pyramid is left out: the
+    serving engine never reads it."""
+    check_supported(cfg)
+    prologue, period, repeats = _layer_plan(cfg)
+    kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.hd),
+                  ("batch", None, "kv", None), init="zeros")
+    blk = {"k": kv, "v": kv}
+    return {"prologue": [dict(blk) for _ in prologue],
+            "body": [_stack_defs(blk, repeats) for _ in period]
+            if repeats else []}
+
+
+def init_decode_cache(cfg, batch: int, max_len: int,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """A zeroed decode cache on ``device``: the starting state of chunked
+    prefill, with the structure :func:`prefill` returns."""
+    dev = resolve_device(device)
+    return init_tree(cache_defs(cfg, batch, max_len), None,
+                     torch_dtype(cfg.dtype), dev)
+
+
+# ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
 
@@ -195,3 +227,62 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
         x_last = x[:, -1:]
     logits_last = _logits(params, cfg, x_last)[:, 0]
     return logits_last, {"prologue": caches_pro, "body": caches_body}
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: advance admission one fixed-size token chunk at a time
+# ---------------------------------------------------------------------------
+
+
+def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
+                  max_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One chunk of a chunked prefill.
+
+    batch: ``{"tokens": (B, C), "start": int, "length": int}`` — the chunk
+    occupies global positions ``[start, start + C)``; rows at positions
+    >= ``length`` are padding (last chunk only).  ``cache`` is the decode
+    cache (:func:`init_decode_cache` to start).  Each layer writes the
+    chunk's K/V into it at ``start``, padding rows zeroed first, and
+    attends the chunk's queries over the whole cache with an offset causal
+    mask: rows not yet written sit at later positions, so the mask alone
+    keeps them out.  The cache is updated IN PLACE and returned.
+
+    Returns (logits (B, V) f32 at position ``min(length, start + C) - 1``,
+    cache); the final chunk's logits give the prompt's first token."""
+    check_supported(cfg)
+    prologue, period, repeats = _layer_plan(cfg)
+    tokens = batch["tokens"]
+    B, C = tokens.shape
+    start, length = int(batch["start"]), int(batch["length"])
+    if start + C > max_len:
+        raise ValueError(f"chunk [{start}, {start + C}) runs past "
+                         f"max_len={max_len}")
+    x = params["embed"][tokens.long()]
+    pos = positions_for(cfg, B, C, device=x.device, offset=start)
+    valid = (torch.arange(C, device=x.device) + start < length)[
+        None, :, None, None]
+
+    def attn_chunk(blk, kind, mlpk, x, c):
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        q, k, v = attn._qkv(blk["core"], cfg, h, pos)
+        c["k"][:, start:start + C] = torch.where(valid, k, 0).to(c["k"].dtype)
+        c["v"][:, start:start + C] = torch.where(valid, v, 0).to(c["v"].dtype)
+        window = cfg.window if kind == "attn_local" else None
+        o = attn.blocked_attention(
+            scale_like(q, 1.0 / math.sqrt(cfg.hd)), c["k"], c["v"],
+            causal=True, window=window, attn_softcap=cfg.attn_softcap,
+            block_kv=cfg.runtime.attn_block_kv, q_offset=start)
+        y = o.reshape(B, C, -1) @ blk["core"]["wo"]
+        return _apply_mlp(blk, cfg, mlpk, x + y)
+
+    for blk, (_idx, kind, mlpk), c in zip(params["prologue"], prologue,
+                                          cache["prologue"]):
+        x = attn_chunk(blk, kind, mlpk, x, c)
+    for r in range(repeats):
+        for pi, (kind, mlpk) in enumerate(period):
+            c = {name: leaf[r] for name, leaf in cache["body"][pi].items()}
+            x = attn_chunk(body_block(params, pi, r), kind, mlpk, x, c)
+
+    # last valid row of THIS chunk (earlier chunks' logits are discarded)
+    idx = min(max(min(length, start + C) - 1 - start, 0), C - 1)
+    return _logits(params, cfg, x[:, idx:idx + 1])[:, 0], cache

@@ -26,20 +26,39 @@ the requant sweep that re-encodes quiet append-dirtied chunks.
 With ``pipeline=True`` a one-worker prefetch executor overlaps layer l+1's
 abstract reads and speculative disk staging under layer l's attention;
 predictions only move residency, so output is bit-identical to
-``pipeline=False``.  Admission is synchronous (``add_sequence``) with
-bucketed prefill and write-behind ingest on the prefetch worker.
+``pipeline=False``.
+
+Admission has three modes, all with write-behind ingest (replica, CRC
+and abstract writes on the prefetch worker, behind a per-sequence
+fence):
+
+* ``add_sequence`` — synchronous, bucketed prefill on the decode thread;
+* ``add_sequence_async`` — overlapped: the whole prefill and ingest run on
+  a one-worker admission thread (``leoam-admit``, its own CUDA stream)
+  under the batch's decode rounds; device placements are deferred into
+  the pool's ``pending_place`` and folded in by the next decode round;
+* ``begin_admission`` — chunked: a :class:`ChunkedAdmission` whose
+  ``step()`` prefills one fixed-size chunk over the decode cache and
+  streams it into the store, so decode rounds run between a long prompt's
+  chunks.
+
+Overlapped admission stores exactly the synchronous bytes.  Chunked
+prefill runs other GEMM shapes (M = chunk rows), so in bf16 its K/V may
+round differently; in f32 all three modes store the same bytes and give
+the same token streams, as in the reference (tested).
 
 Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.  Options of the reference
 that the port leaves out so far raise ``NotImplementedError`` naming
-their ROADMAP item: asynchronous and chunked admission, ``pooled=False``,
-MLA, non-attention layers, the prefix cache, the packed disk sidecar,
-fault injection and recompute-from-prompt recovery.
+their ROADMAP item: ``pooled=False``, MLA, non-attention layers, the
+prefix cache, the packed disk sidecar, fault injection, recompute-from-
+prompt recovery and whole-sequence preemption.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -60,7 +79,7 @@ from repro_torch.kernels.sparse_decode.ops import sparse_decode_pooled
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.common import rms_norm
-from repro_torch.serving.faults import ChunkLostError
+from repro_torch.serving.faults import AdmissionError, ChunkLostError
 from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
 from repro_torch.serving.sanitizer import decode_thread_only, worker_thread
 
@@ -85,6 +104,9 @@ class EngineCfg:
                                      # with the true length threaded
                                      # through — token-identical to exact
                                      # length (False: exact length)
+    prefill_chunk_tokens: int = 64   # chunk size of begin_admission's
+                                     # chunked prefill; must divide max_len
+                                     # and be a multiple of the store chunk
     sidecar_requant: bool = True     # background sweep re-encodes the PQ
                                      # codes of append-dirtied chunks once
                                      # a chunk goes a full round without
@@ -115,12 +137,26 @@ class EngineCfg:
 _PF_EXECUTOR: Optional[ThreadPoolExecutor] = None
 
 
+# a separate one-worker admission executor runs whole add_sequence_async
+# calls (prefill + ingest) under the batch's decode rounds — on the DTP
+# worker a long prefill would stall every round's prefetch
+_ADMIT_EXECUTOR: Optional[ThreadPoolExecutor] = None
+
+
 def _prefetch_executor() -> ThreadPoolExecutor:
     global _PF_EXECUTOR
     if _PF_EXECUTOR is None:
         _PF_EXECUTOR = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="leoam-dtp")
     return _PF_EXECUTOR
+
+
+def _admit_executor() -> ThreadPoolExecutor:
+    global _ADMIT_EXECUTOR
+    if _ADMIT_EXECUTOR is None:
+        _ADMIT_EXECUTOR = ThreadPoolExecutor(max_workers=1,
+                                             thread_name_prefix="leoam-admit")
+    return _ADMIT_EXECUTOR
 
 
 @dataclass
@@ -137,6 +173,8 @@ class _SeqState:
     no model cache here: the tier store holds every K/V row."""
     length: int
     access: AccessTable
+    prefill_logits: Optional[np.ndarray] = None  # (V,) behind the first
+                                     # token, for end-to-end checks
     stats: List[StepStats] = field(default_factory=list)
 
 
@@ -219,9 +257,14 @@ class BatchedLeoAMEngine:
         self.failed: Dict[int, str] = {}
         self.seqs_failed = 0
         self.ingest_errors = 0
-        # logits behind the last token handed out (prefill: (V,); decode
-        # round: (B, V) in sorted seq-id order) — for end-to-end checks
+        # logits behind the last token the decode thread handed out
+        # (add_sequence or a chunked admission's last step: (V,); decode
+        # round: (B, V) in sorted seq-id order) — for end-to-end checks.
+        # Only the decode thread writes it: an async admission's logits
+        # stay in its sequence's ``prefill_logits``
         self.last_logits: Optional[np.ndarray] = None
+        # the admission worker's CUDA stream (made at its first use)
+        self._admit_stream: Optional[torch.cuda.Stream] = None
 
     @property
     def free_slots(self) -> int:
@@ -243,10 +286,54 @@ class BatchedLeoAMEngine:
         sid = self._free.pop()
         self.failed.pop(sid, None)
         try:
-            return self._admit(sid, tokens)
+            out = self._admit(sid, tokens, pool_place=True)
         except BaseException:
             self.abort_admission(sid)
             raise
+        self.last_logits = self.seqs[sid].prefill_logits
+        return out
+
+    @decode_thread_only
+    def add_sequence_async(self, tokens: np.ndarray) -> Future:
+        """Admission under decode: reserve a slot NOW and run the prefill
+        and ingest on the process-wide admission worker (``leoam-admit``),
+        overlapped with the batch's decode rounds; only the store's locked
+        sections serialize.  Device placements are deferred (the decode
+        thread alone writes the pool slab); the next decode round folds
+        them in — residency only, token streams are unchanged.  On the
+        card the worker runs on its own CUDA stream, so its kernels can
+        overlap the decode thread's.  Returns a Future of (seq id, first
+        token); the sequence may join a decode round once it resolves.  A
+        failure resolves it with :class:`AdmissionError` naming the slot,
+        which the caller reclaims with :meth:`abort_admission`."""
+        self._check_capacity()
+        self._check_prompt(tokens)     # validate BEFORE taking the slot
+        sid = self._free.pop()
+        self.failed.pop(sid, None)
+        if self.device.type == "cuda":
+            if self._admit_stream is None:
+                self._admit_stream = torch.cuda.Stream(self.device)
+            # the worker's kernels start after everything this thread has
+            # queued so far (the weights' writes included)
+            self._admit_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+        return _admit_executor().submit(self._admit_guarded, sid, tokens)
+
+    @worker_thread
+    def _admit_guarded(self, sid: int, tokens: np.ndarray
+                       ) -> Tuple[int, int]:
+        """Admission-worker body: the whole admission on the worker's CUDA
+        stream, its K/V and logits on the host before it returns.  Any
+        failure surfaces as :class:`AdmissionError` carrying the slot id —
+        the worker never touches the free list (the decode thread owns
+        slot recycling)."""
+        stream = torch.cuda.stream(self._admit_stream) \
+            if self._admit_stream is not None else contextlib.nullcontext()
+        try:
+            with stream:
+                return self._admit(sid, tokens, pool_place=False)
+        except BaseException as e:
+            raise AdmissionError(sid, e) from e
 
     def _check_capacity(self) -> None:
         if not self._free:
@@ -264,7 +351,11 @@ class BatchedLeoAMEngine:
                 f"or truncate the prompt")
 
     @worker_thread
-    def _admit(self, sid: int, tokens: np.ndarray) -> Tuple[int, int]:
+    def _admit(self, sid: int, tokens: np.ndarray, *,
+               pool_place: bool) -> Tuple[int, int]:
+        """Whole-prompt admission into slot ``sid``, on the decode thread
+        (``pool_place=True``) or the admission worker (``False``: device
+        placements deferred)."""
         S = len(tokens)
         t0 = time.perf_counter()
         logits, cache = self._prefill(np.asarray(tokens))
@@ -277,17 +368,18 @@ class BatchedLeoAMEngine:
             t1 = time.perf_counter()
             self.store.ingest(li, k[0], v[0],
                               self._layer_placement(layer, placement),
-                              seq=sid, executor=self._ingest_exec)
+                              seq=sid, executor=self._ingest_exec,
+                              pool_place=pool_place)
             ingest_s += time.perf_counter() - t1
         prefill_s = time.perf_counter() - t0 - ingest_s
-        self.last_logits = _to_host(logits)[0]
-        tok = int(np.argmax(self.last_logits))
+        first = _to_host(logits)[0]
         self.seqs[sid] = _SeqState(length=S,
-                                   access=AccessTable(self.n_chunks))
+                                   access=AccessTable(self.n_chunks),
+                                   prefill_logits=first)
         self.admit_profiles.append({
             "total_s": time.perf_counter() - t0, "prefill_s": prefill_s,
-            "ingest_s": ingest_s})
-        return sid, tok
+            "ingest_s": ingest_s, "overlapped": 1.0})
+        return sid, int(np.argmax(first))
 
     def _default_placement(self) -> Dict[int, str]:
         """Admission tier placement by chunk index (device head, host
@@ -324,6 +416,27 @@ class BatchedLeoAMEngine:
             return lm.prefill(self.params, self.cfg, batch,
                               max_len=self.ecfg.max_len)
 
+    @decode_thread_only
+    def begin_admission(self, tokens: np.ndarray) -> "ChunkedAdmission":
+        """Start a CHUNKED admission: reserve the slot now and return a
+        :class:`ChunkedAdmission` whose ``step()`` prefills one chunk of
+        ``EngineCfg.prefill_chunk_tokens`` and streams its K/V into the
+        store, so the caller can run decode rounds between chunks.
+        Stepped on the decode thread, which places device chunks into the
+        pool at once."""
+        C = self.ecfg.prefill_chunk_tokens
+        if C % self.chunk or self.ecfg.max_len % C:
+            raise ValueError(
+                f"prefill chunk_tokens={C} must be a multiple of the store "
+                f"chunk ({self.chunk}) and divide max_len "
+                f"({self.ecfg.max_len}) so partial ingests stay "
+                f"chunk-aligned")
+        self._check_capacity()
+        self._check_prompt(tokens)     # validate BEFORE taking the slot
+        sid = self._free.pop()
+        self.failed.pop(sid, None)
+        return ChunkedAdmission(self, sid, tokens, C)
+
     def _layer_cache(self, cache, layer: int) -> Dict[str, torch.Tensor]:
         pro_n = len(cache["prologue"])
         if layer < pro_n:
@@ -337,6 +450,14 @@ class BatchedLeoAMEngine:
         """(k, v) (B, S, Hkv, hd) of one layer, on the host."""
         c = self._layer_cache(cache, layer)
         return _to_host(c["k"]), _to_host(c["v"])
+
+    def _layer_kv_slice(self, cache, layer: int, start: int, n: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Rows [start, start + n) of one layer's (k, v), batch row 0, on
+        the host: a chunked admission's stream-out."""
+        c = self._layer_cache(cache, layer)
+        return (_to_host(c["k"][0, start:start + n]),
+                _to_host(c["v"][0, start:start + n]))
 
     def _layer_placement(self, layer: int,
                          placement: Dict[int, str]) -> Dict[int, str]:
@@ -398,6 +519,20 @@ class BatchedLeoAMEngine:
         self._forget(sid)
         self.failed[sid] = reason
         self.seqs_failed += 1
+
+    @decode_thread_only
+    def suspend_sequence(self, sid: int) -> None:
+        """Whole-sequence preemption (swap a live sequence down-tier) is
+        not ported yet; the scheduler's pressure policy calls it."""
+        raise NotImplementedError(
+            "suspend_sequence (preemption with swap_out_seq) is not ported "
+            "yet (ROADMAP A9)")
+
+    @decode_thread_only
+    def resume_sequence(self, sid: int) -> None:
+        """The other half of :meth:`suspend_sequence`; not ported yet."""
+        raise NotImplementedError(
+            "resume_sequence (swap_in_seq) is not ported yet (ROADMAP A9)")
 
     def fault_stats(self) -> Dict[str, float]:
         out = self.store.fault_stats()
@@ -698,6 +833,136 @@ class BatchedLeoAMEngine:
             # instead of the min/max box forever
             self.store.requant_sweep(executor=_prefetch_executor())
         return out
+
+
+class ChunkedAdmission:
+    """Resumable chunked prefill of ONE request.
+
+    Made by :meth:`BatchedLeoAMEngine.begin_admission`.  Each :meth:`step`
+    prefills one fixed-size chunk over the decode cache (offset-causal
+    attention, ``lm.prefill_chunk``) and streams the chunk's K/V into the
+    store — hot placement at once, replica and abstract writes
+    write-behind, as in whole-prompt admission — then returns, so decode
+    rounds can run between a long prompt's chunks.  After the last prompt
+    chunk the cache rows past it (zeros) are ingested too, so tiers,
+    abstracts and replicas cover what whole-prompt admission covers.
+    ``result`` is (seq id, first token) once ``done``."""
+
+    def __init__(self, engine: BatchedLeoAMEngine, sid: int,
+                 tokens: np.ndarray, chunk_tokens: int):
+        self.engine = engine
+        self.sid = sid
+        self.tokens = np.asarray(tokens)
+        self.S = len(self.tokens)
+        self.C = int(chunk_tokens)
+        self.pos = 0
+        self.cache = lm.init_decode_cache(engine.cfg, 1, engine.ecfg.max_len,
+                                          device=engine.device)
+        self.placement = engine._default_placement()
+        self.result: Optional[Tuple[int, int]] = None
+        self.cancelled = False
+        self.n_steps = 0
+        self._t0 = time.perf_counter()
+        self._prefill_s = 0.0
+        self._ingest_s = 0.0
+
+    @property
+    def done(self) -> bool:
+        return self.result is not None
+
+    @property
+    def remaining(self) -> int:
+        """Prompt tokens still to prefill."""
+        return max(0, self.S - self.pos)
+
+    def _ingest_rows(self, li: int, layer: int, k: np.ndarray,
+                     v: np.ndarray, start: int) -> None:
+        eng = self.engine
+        eng.store.ingest(li, k, v,
+                         eng._layer_placement(layer, self.placement),
+                         seq=self.sid, executor=eng._ingest_exec,
+                         start=start)
+
+    @decode_thread_only
+    def step(self) -> int:
+        """Advance one chunk; returns the prompt tokens it consumed (0 once
+        done or cancelled)."""
+        return self._step_impl()
+
+    @decode_thread_only
+    def cancel(self) -> None:
+        """Abandon a partial admission (deadline or client cancel): drain
+        the write-behind futures of the chunks already streamed and
+        release everything the slot holds via
+        :meth:`BatchedLeoAMEngine.abort_admission`.  Later steps do
+        nothing."""
+        if self.done or self.cancelled:
+            return
+        self.cancelled = True
+        self.cache = None
+        self.engine.abort_admission(self.sid)
+
+    def _step_impl(self) -> int:
+        if self.done or self.cancelled:
+            return 0
+        eng, C = self.engine, self.C
+        take = min(C, self.S - self.pos)
+        t0 = time.perf_counter()
+        chunk_toks = np.zeros(C, np.int64)
+        chunk_toks[:take] = self.tokens[self.pos:self.pos + take]
+        batch = {"tokens": torch.from_numpy(chunk_toks[None]).to(eng.device),
+                 "start": self.pos, "length": self.S}
+        with torch.no_grad():
+            logits, self.cache = lm.prefill_chunk(
+                eng.params, eng.cfg, batch, self.cache,
+                max_len=eng.ecfg.max_len)
+        ingest_s = 0.0
+        for li, layer in enumerate(eng.attn_layers):
+            # the copy to the host waits for the chunk's kernels: prefill
+            k, v = eng._layer_kv_slice(self.cache, layer, self.pos, C)
+            t1 = time.perf_counter()
+            self._ingest_rows(li, layer, k, v, self.pos)
+            ingest_s += time.perf_counter() - t1
+        self._prefill_s += time.perf_counter() - t0 - ingest_s
+        self._ingest_s += ingest_s
+        self.pos += take
+        self.n_steps += 1
+        if self.pos >= self.S:
+            self._finish(logits)
+        return take
+
+    def _finish(self, logits: torch.Tensor) -> None:
+        eng = self.engine
+        end = -(-self.S // self.C) * self.C      # rows ingested so far
+        tail = eng.ecfg.max_len - end
+        if tail > 0:
+            # zero-fill the chunks past the prompt: whole-prompt admission
+            # ingests the whole max_len cache, and tier labels, abstracts
+            # and the reused-slot scrub must match it
+            t1 = time.perf_counter()
+            zk = np.zeros((tail, eng.store.kv_heads, eng.store.head_dim),
+                          eng.store.dtype)
+            for li, layer in enumerate(eng.attn_layers):
+                self._ingest_rows(li, layer, zk, zk, end)
+            self._ingest_s += time.perf_counter() - t1
+        first = _to_host(logits)[0]
+        self.cache = None              # the store holds every row now
+        eng.seqs[self.sid] = _SeqState(length=self.S,
+                                       access=AccessTable(eng.n_chunks),
+                                       prefill_logits=first)
+        eng.last_logits = first
+        eng.admit_profiles.append({
+            "total_s": time.perf_counter() - self._t0,
+            "prefill_s": self._prefill_s, "ingest_s": self._ingest_s,
+            "overlapped": 1.0, "chunked": 1.0, "chunks": float(self.n_steps)})
+        self.result = (self.sid, int(np.argmax(first)))
+
+    @decode_thread_only
+    def drain(self) -> Tuple[int, int]:
+        """Run every remaining chunk back to back (no interleaving)."""
+        while not self.done:
+            self.step()
+        return self.result
 
 
 class LeoAMEngine:

@@ -17,7 +17,11 @@ demotions are metadata-only, promotions read the abstract or the chunk.
 * write-behind prefill ingest: ``ingest(..., executor=...)`` applies the
   hot-tier placement synchronously and runs the disk replica + abstract
   writes on the executor; :meth:`TieredKVStore.ingest_fence` is the
-  per-sequence completion fence;
+  per-sequence completion fence.  ``start=`` ingests a chunk-aligned part
+  of a sequence (chunked admission), and ``pool_place=False`` (admission
+  on a worker thread) defers device placements into the pool's
+  ``pending_place``, which the next ``fetch_chunks_pooled`` folds in on the
+  decode thread, unbilled;
 * per-sequence ``TrafficLog`` mirrors: the shared log always equals
   Σ seq_logs + Σ retired_logs;
 * ``abstract_kind="pq"``: the PQ abstract plane — a per-layer codebook
@@ -111,6 +115,13 @@ class DeviceChunkPool:
         # decode appends queue here and are folded into the next round's
         # slot upload — one slab update per (layer, round)
         self.pending: Dict[Tuple[int, int], Tuple[int, np.ndarray]] = {}
+        # deferred prefill placements (admission on a worker thread): only
+        # the decode thread writes the slab, so device-bound chunks queue
+        # here, (planes, chunk, Hkv, hd) each, and the NEXT pooled fetch
+        # folds them in — unbilled, like the synchronous prefill placement
+        # (the KV was produced on the device).  Read and written under the
+        # store lock by both threads
+        self.pending_place: Dict[Tuple[int, int], np.ndarray] = {}
         self.hits = 0
         self.misses = 0
         self.uploads = 0
@@ -147,12 +158,15 @@ class DeviceChunkPool:
     def evict(self, key: Tuple[int, int]) -> None:
         slot = self.slot_of.pop(key, None)
         self.pending.pop(key, None)
+        self.pending_place.pop(key, None)
         if slot is not None:
             self.free.append(slot)
 
     def evict_seq(self, seq: int) -> None:
         for key in [k for k in self.slot_of if k[0] == seq]:
             self.evict(key)
+        for key in [k for k in self.pending_place if k[0] == seq]:
+            self.pending_place.pop(key, None)
 
     @decode_thread_only
     def scatter(self, slots: Sequence[int], kv_plain, packed=None, *,
@@ -163,8 +177,9 @@ class DeviceChunkPool:
         scale) is a codec payload on the device for the first ``len(slots)
         - len(kv_plain)`` slots: kernel B3 dequantizes it straight into
         them, one launch.  ``kv_plain`` (numpy (m, planes, chunk, Hkv, hd),
-        or None) takes the remaining slots, and the append rows follow,
-        both by in-place index assignment.  Returns the (seq, chunk) keys
+        or None) takes the remaining slots — the fp16 part of the delta,
+        then any deferred placements — and the append rows follow, both by
+        in-place index assignment.  Returns the (seq, chunk) keys
         whose append rows crossed to the device — the caller bills
         those."""
         dev = self.kv.device
@@ -443,23 +458,39 @@ class TieredKVStore:
     @worker_thread
     def ingest(self, layer: int, k: np.ndarray, v: np.ndarray,
                placement: Optional[Dict[int, str]] = None, *, seq: int = 0,
-               executor=None) -> None:
+               executor=None, pool_place: bool = True,
+               start: int = 0) -> None:
         """Store prefill KV.  k/v: (S, Hkv, hd).  Every chunk is replicated
         to disk (with its abstract); ``placement`` assigns the hot tier.
         With ``executor`` the cold half (disk replica + abstract writes and
         their billing) runs write-behind; reads of the disk tier or the
-        abstracts need :meth:`ingest_fence` first."""
+        abstracts need :meth:`ingest_fence` first.
+
+        ``pool_place=False`` (ingest on a thread other than the decode
+        thread, whose attention reads the pool slab) defers each would-be
+        DEVICE chunk into the pool's ``pending_place`` and tiers it HOST;
+        the next :meth:`fetch_chunks_pooled` places it.  ``start`` (a
+        chunk-aligned token position) ingests a PART of the sequence: rows
+        land in chunks ``start // chunk`` onward, ``placement`` stays keyed
+        by global chunk id, and every call's cold writes join the same
+        per-sequence fence."""
+        if start % self.chunk:
+            raise ValueError(
+                f"ingest start={start} must be a multiple of the store "
+                f"chunk ({self.chunk}): partial ingests land whole chunks")
         placement = placement or {}
+        c0 = start // self.chunk
         with self._lock:
             S = k.shape[0]
             to_pool: List[Tuple[int, np.ndarray, np.ndarray]] = []
             cids: List[int] = []
             kcs: List[np.ndarray] = []
             vcs: List[np.ndarray] = []
-            for c in range(min(self.n_chunks,
+            for j in range(min(self.n_chunks - c0,
                                (S + self.chunk - 1) // self.chunk)):
-                kr = k[c * self.chunk: (c + 1) * self.chunk]
-                vr = v[c * self.chunk: (c + 1) * self.chunk]
+                c = c0 + j
+                kr = k[j * self.chunk: (j + 1) * self.chunk]
+                vr = v[j * self.chunk: (j + 1) * self.chunk]
                 if kr.shape[0] < self.chunk:
                     pad = self.chunk - kr.shape[0]
                     kr = np.pad(kr, ((0, pad), (0, 0), (0, 0)))
@@ -470,6 +501,12 @@ class TieredKVStore:
                 kcs.append(kc)
                 vcs.append(vc)
                 where = placement.get(c, HOST)
+                if where == DEVICE and not pool_place:
+                    # the decode thread reads the slab outside the lock:
+                    # queue the placement for its next pooled fetch
+                    self.pools[layer].pending_place[(seq, c)] = \
+                        self._plane_stack(kc, vc)
+                    where = HOST
                 self.tier[seq, layer, c] = where
                 key = (seq, layer, c)
                 if where in (HOST, DEVICE):
@@ -477,7 +514,7 @@ class TieredKVStore:
                 if where == DEVICE:
                     to_pool.append((c, kc, vc))
             if to_pool:
-                # leolint: waive[locklint,threadlint] reason=synchronous admission only: the decode thread is the caller (the port has no admission worker yet), and the slab update is an eager in-place device write, not a compiled dispatch
+                # leolint: waive[locklint,threadlint] reason=decode-thread ingest only: to_pool fills only when pool_place=True, which the admission worker never passes (it defers via pending_place), and the slab update is an eager in-place device write, not a compiled dispatch
                 self._pool_place(layer, seq, to_pool)
         if not cids:
             return
@@ -778,7 +815,9 @@ class TieredKVStore:
         ``real_codec``, the first ``round(theta * missing)`` chunks cross
         host→device as packed int4/int8 + f32 scales and are dequantized
         on the device (kernel B3); the rest go as fp16.  Billing is the
-        actual payload per chunk.
+        actual payload per chunk.  Deferred prefill placements
+        (``pool.pending_place``) take slots first and are written in the
+        same update as plain rows, billed nothing.
 
         Returns (slots, nsel, stats): slots (B, pad_to) int32 indices into
         ``pools[layer]`` (padding rows point at slot 0 — the engine masks
@@ -800,6 +839,23 @@ class TieredKVStore:
 
             slots = np.zeros((B, nmax), np.int32)
             pinned = {(seq, c) for seq, chunks in items for c in chunks}
+            # fold deferred prefill placements (admission on a worker) into
+            # this round's slab update — unbilled; the decode thread is the
+            # only slab writer, so attention never races a placement
+            place_keys: List[Tuple[int, int]] = []
+            place_slots: List[int] = []
+            place_kv: List[np.ndarray] = []
+            for key, kv in list(pool.pending_place.items()):
+                pool.pending_place.pop(key)
+                if not pool.free and all(v in pinned for v in pool.slot_of):
+                    continue           # pool pinned solid: stays on host
+                slot, evicted = pool.alloc(key, pinned)
+                if evicted is not None:
+                    self.tier[evicted[0], layer, evicted[1]] = HOST
+                self.tier[key[0], layer, key[1]] = DEVICE
+                place_keys.append(key)
+                place_slots.append(slot)
+                place_kv.append(kv)
             missing: List[Tuple[int, int, int, int]] = []
             for i, (seq, chunks) in enumerate(items):
                 for j, c in enumerate(chunks):
@@ -811,8 +867,22 @@ class TieredKVStore:
                         slots[i, j] = slot
                         st.hits += 1
             t1 = time.perf_counter()
+            fresh: Dict[Tuple[int, int], int] = {}
+
+            def scrub_partial():
+                # residency must never point at a slab row the scatter did
+                # not write: return the half-uploaded slots (host copies
+                # and replicas are intact) and put the deferred placements
+                # back for the next fetch
+                for pk, slot in [*fresh.items(),
+                                 *zip(place_keys, place_slots)]:
+                    if pool.slot_of.get(pk) == slot:
+                        pool.slot_of.pop(pk, None)
+                        pool.free.append(slot)
+                    self.tier[pk[0], layer, pk[1]] = HOST
+                pool.pending_place.update(zip(place_keys, place_kv))
+
             if missing:
-                fresh: Dict[Tuple[int, int], int] = {}
                 up_keys: List[Tuple[int, int]] = []
                 try:
                     for i, j, seq, c in missing:
@@ -830,18 +900,16 @@ class TieredKVStore:
                     m = len(up_keys)
                     n_comp = int(round(min(1.0, max(0.0, theta)) * m)) \
                         if self.real_codec else 0
+                    # deferred placements ride along as plain rows after
+                    # the delta; B3's slot list stays the codec part
                     self._bill_flushed_rows(pool.scatter(
-                        [fresh[k] for k in up_keys], kv_stack[n_comp:],
+                        [fresh[k] for k in up_keys] + place_slots,
+                        np.concatenate([kv_stack[n_comp:], *(
+                            [np.stack(place_kv)] if place_kv else [])]),
                         self._pack_upload(kv_stack[:n_comp]),
                         codec=self.transit_codec, impl=self.impl))
                 except BaseException:
-                    # residency must never point at a slab row the scatter
-                    # did not write: return the half-uploaded slots
-                    for pk, slot in fresh.items():
-                        if pool.slot_of.get(pk) == slot:
-                            pool.slot_of.pop(pk, None)
-                            pool.free.append(slot)
-                        self.tier[pk[0], layer, pk[1]] = HOST
+                    scrub_partial()
                     raise
                 per_comp = self._packed_bytes() if self.real_codec \
                     else self._transit_bytes()
@@ -855,6 +923,13 @@ class TieredKVStore:
                 st.compressed = n_comp
                 self.codec_uploads += n_comp
                 self.plain_uploads += m - n_comp
+            elif place_slots:
+                try:
+                    self._bill_flushed_rows(
+                        pool.scatter(place_slots, np.stack(place_kv)))
+                except BaseException:
+                    scrub_partial()
+                    raise
             elif pool.pending:
                 self._bill_flushed_rows(pool.scatter([], None))
             st.upload_s = time.perf_counter() - t1

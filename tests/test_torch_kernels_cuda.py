@@ -81,18 +81,25 @@ def test_chunk_bounds_unsupported_hd_raises(cuda, rng, hd):
     assert cb_ops.launches == before
 
 
-def _cuda_kernels(fn):
+def _cuda_kernels(fn, attempts: int = 5):
     """Names of the CUDA kernels that one call of ``fn`` launches, read by
-    torch.profiler after a warm-up call (the build, the allocator)."""
+    torch.profiler after a warm-up call (the build, the allocator).  A
+    trace in which the profiler caught no device activity at all is taken
+    again, up to ``attempts`` calls (the profiler sometimes returns such a
+    trace on the card; ``chip_smoke.py`` retakes them too)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.parametrize("kernel", ["b1_bf16", "b1_f32", "b1_pallas",
@@ -409,6 +416,101 @@ def test_fetch_chunks_pooled_cuda_matches_plain_scatter(cuda, tmp_path,
     assert torch.equal(out[None][1], out["ref"][1])
     assert out[None][2] == out["ref"][2] > 0
     assert kq_ops.launches > before
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.5])
+def test_deferred_placements_fold_into_a_codec_upload_cuda(
+        cuda, tmp_path, monkeypatch, theta):
+    """Deferred prefill placements (ingest with ``pool_place=False``, as an
+    admission on the worker does) ride along with a pooled fetch's codec
+    upload: the slab, slots and billing equal the same store's with
+    ``impl="ref"``, and kernel B3's slot list holds the codec part of the
+    delta only, never a placed slot."""
+    from repro_torch.serving import offload
+    from repro_torch.serving.offload import DEVICE, HOST, TieredKVStore
+    L, NC, C, HKV, HD = 1, 8, 16, 4, 32
+    lists = []
+    real = offload.kv_dequant_scatter
+
+    def spy(data, scale, slab, slots, **kw):
+        lists.append(list(slots))
+        return real(data, scale, slab, slots, **kw)
+
+    monkeypatch.setattr(offload, "kv_dequant_scatter", spy)
+    out = {}
+    before = kq_ops.launches
+    for impl in (None, "ref"):
+        store = TieredKVStore(
+            L, NC, C, HKV, HD, n_seqs=2, transit_codec="int4",
+            pool_slots=12, real_codec=True, root=str(tmp_path / str(impl)),
+            device="cuda", impl=impl)
+        rng = np.random.RandomState(0)
+        place = {c: DEVICE if c < 2 else HOST for c in range(NC)}
+        for seq in range(2):
+            k = rng.randn(NC * C, HKV, HD).astype(np.float32)
+            v = rng.randn(NC * C, HKV, HD).astype(np.float32)
+            store.ingest(0, k, v, place, seq=seq, pool_place=False)
+        assert len(store.pools[0].pending_place) == 4
+        lists.clear()
+        slots, _, st = store.fetch_chunks_pooled(
+            0, {0: [2, 3, 4, 5], 1: [2, 3, 6, 7]}, theta=theta)
+        pool = store.pools[0]
+        placed = {pool.slot_of[(s, c)] for s in range(2) for c in range(2)}
+        assert not pool.pending_place and len(lists) == 1
+        assert len(lists[0]) == st.compressed == round(theta * 8)
+        assert not placed & set(lists[0])
+        torch.cuda.synchronize()
+        out[impl] = (slots.tolist(), dict(pool.slot_of), st.upload_bytes,
+                     dict(store.log.bytes), pool.kv.clone())
+        store.close()
+    for a, b in zip(out[None][:4], out["ref"][:4]):
+        assert a == b
+    assert torch.equal(out[None][4], out["ref"][4])
+    assert kq_ops.launches == before + 1
+
+
+def test_async_admission_on_its_stream_stores_the_sync_bytes(cuda, tmp_path):
+    """``add_sequence_async`` runs the admission on the worker's own CUDA
+    stream; what it stores (disk replica, abstracts), its first token and
+    logits, and the next round's token equal a synchronous admission's,
+    which runs on the decode thread's stream."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+    cfg = get_config("longchat-7b-32k", smoke=True)
+    cfg = dataclasses.replace(cfg, leoam=dataclasses.replace(
+        cfg.leoam, chunk_size=16))
+    params = lm.init(cfg, seed=0, device=cuda)
+    prompt = np.random.RandomState(0).randint(2, cfg.vocab_size, 100)
+    res = {}
+    for mode in ("sync", "async"):
+        eng = BatchedLeoAMEngine(cfg, params, EngineCfg(max_len=128),
+                                 device=cuda,
+                                 store_root=str(tmp_path / mode))
+        streams = []
+        admit = eng._admit
+
+        def spy(*a, _admit=admit, _streams=streams, **kw):
+            _streams.append(torch.cuda.current_stream(cuda))
+            return _admit(*a, **kw)
+
+        eng._admit = spy
+        if mode == "sync":
+            sid, tok = eng.add_sequence(prompt)
+            assert streams == [torch.cuda.default_stream(cuda)]
+        else:
+            sid, tok = eng.add_sequence_async(prompt).result(timeout=300)
+            assert streams == [eng._admit_stream]
+            assert streams[0] != torch.cuda.default_stream(cuda)
+        eng.store.ingest_fence(sid)
+        st = eng.store
+        res[mode] = (tok, eng.seqs[sid].prefill_logits.copy(),
+                     np.array(st._disk), st._abs_km.copy(),
+                     st._abs_kn.copy(), eng.decode_round({sid: tok})[sid])
+        st.close()
+    for a, b in zip(res["sync"], res["async"]):
+        assert np.array_equal(a, b)
 
 
 def test_launch_counters_count_kernel_launches_only(cuda, rng):
