@@ -46,6 +46,23 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    valid tokens each, B1-B3 launched, every admission in its mode (and the
    chunked serve's ``stats()`` reporting ``chunk_step_ewma_s``), with the
    decode rounds that overlapped an admission timed apart;
+   4e. the 4 requests served as in phase 4 with the packed int4 disk
+   sidecar (``EngineCfg(disk_sidecar=True)``): every ``kv_replica`` write
+   and every disk->host ``kv`` read off the sidecar billed exactly
+   ``chunk_bytes * codec_ratio("int4", 64)``; the only fp16 reads are of
+   chunks a decode append invalidated (the reference bills those at fp16)
+   and none falls back on a failed CRC;
+   4f. the 1536- and 3584-token prompts, 16 new tokens, served by the
+   engine with ``pooled=False`` (each round's working set uploaded whole,
+   B2 over it in place) and with ``pooled=True``, both with
+   ``real_codec=False, pipeline=False``: the token streams must be
+   identical; the largest logit difference, the legacy round's median and
+   upload bytes, and its B1/B2 launches are printed;
+   4g. a store-level reopen on the card: one 3584-token sequence of two
+   longchat-shaped layers ingested with the sidecar and the real codec,
+   fenced, flushed, closed and reopened; every chunk promoted into the
+   pool must equal, bit for bit, a CPU store's (``impl="ref"``) after the
+   same script;
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
@@ -104,6 +121,8 @@ LONG_LENGTHS = (31000, 31500, 32000, 32500)
 KV_ROOT = ROOT / "build" / "chip_smoke_kv"
 # phase 4d's chunked serve: prompt tokens advanced between two rounds
 CHUNKED_ROUND_TOKENS = 256
+# phase 4f: the legacy full re-upload against the pool, new tokens each
+LEGACY_NEW_TOKENS = 16
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
 
@@ -712,14 +731,15 @@ def _spy_round_waits(eng, waits):
 
 
 def phase_serve(np, torch, cfg, params, pq: bool = False,
-                mode: str = "sync"):
+                mode: str = "sync", sidecar: bool = False):
     """A main path: 4 requests through the batcher, counters checked.
     ``pq`` turns on the PQ abstract plane (phase 4b): B4 and B5 train and
     encode at ingest, evaluation scores code-valid chunks by ADC.
     ``mode`` is the admission (phase 4d): ``"async"`` is
     ``SchedulerCfg(overlap_admission=True)``, ``"chunked"``
     ``chunked_admission=True`` with ``CHUNKED_ROUND_TOKENS`` prompt tokens
-    between two rounds."""
+    between two rounds.  ``sidecar`` turns on the packed int4 disk
+    sidecar (phase 4e) and gates its billing."""
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.pq import ops as pqk
@@ -728,14 +748,14 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
                                                SchedulerCfg)
 
-    tag = "[serve-pq]" if pq else ("[serve]" if mode == "sync"
-                                   else f"[serve-{mode}]")
+    tag = "[serve-pq]" if pq else "[serve-sidecar]" if sidecar else (
+        "[serve]" if mode == "sync" else f"[serve-{mode}]")
     ecfg = EngineCfg(max_len=MAX_LEN, real_codec=True, pooled=True,
-                     pipeline=True, pq_abstracts=pq)
+                     pipeline=True, pq_abstracts=pq, disk_sidecar=sidecar)
+    root = KV_ROOT / tag.strip("[]")
     eng = BatchedLeoAMEngine(cfg, params, ecfg, max_seqs=len(PROMPTS),
-                             device="cuda",
-                             store_root=str(KV_ROOT / tag.strip("[]")))
-    warm = not pq and mode == "sync"
+                             device="cuda", store_root=str(root))
+    warm = not pq and mode == "sync" and not sidecar
     if warm:
         # warm-up (cuBLAS handles, allocator): one short prefill, released.
         # No decode round: it would seed the measured-cost θ balance, which
@@ -766,7 +786,9 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
                              *(waits[k] - w0[k] for k in sorted(waits))))
 
     eng.decode_round = timed_round
+    replica_reads = _spy_replica_reads(eng.store) if sidecar else None
     log0 = dict(eng.store.log.bytes)
+    ops0 = dict(eng.store.log.ops)
     cb.launches = sd.launches = kq.launches = 0
     pqk.assign_launches = pqk.update_launches = 0
     torch.cuda.synchronize()
@@ -794,6 +816,14 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
         moved = v - log0.get((src, dst, kind), 0.0)
         tiers[f"{src}->{dst}"] = tiers.get(f"{src}->{dst}", 0.0) + moved
         kinds[kind] = kinds.get(kind, 0.0) + moved
+
+    def billed(src, dst, kind):
+        key = (src, dst, kind)
+        log = eng.store.log
+        return {"bytes": log.bytes.get(key, 0.0) - log0.get(key, 0.0),
+                "ops": log.ops.get(key, 0) - ops0.get(key, 0)}
+
+    disk_kv = billed("disk", "host", "kv")
     print(f"{tag} {len(finished)} requests, {rounds} decode rounds, "
           f"wall {wall!r} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
@@ -829,7 +859,12 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
         contention[f"median_round_{name}_s"] = median_of(rows, 0)
         contention[f"median_prefetch_wait_{name}_s"] = median_of(rows, 1)
         contention[f"median_store_calls_{name}_s"] = median_of(rows, 2)
+    walls = [r[1] - r[0] for r in rounds_t]
     contention.update({
+        # decode_round's wall, its ingest fence included (the round
+        # profiles start after the fence)
+        "first_round_wall_s": walls[0] if walls else None,
+        "max_round_wall_s": max(walls) if walls else None,
         "max_gap_between_rounds_s": max(gaps) if gaps else None,
         "admission_threads": sorted({n for n, _, _ in admits}),
         "chunk_step_ewma_s": st.get("chunk_step_ewma_s")})
@@ -873,11 +908,19 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     if mode == "sync" and not all(n == "MainThread" for n, _, _ in admits):
         raise SystemExit(f"chip_smoke: {tag} admitted off the decode "
                          f"thread: {admits}")
+    side = None
+    if sidecar:
+        side = sidecar_gate(eng.store, tag, disk_kv,
+                            billed("host", "disk", "kv_replica"),
+                            billed("disk", "host", "kv_fallback"),
+                            replica_reads)
     eng.store.close()
     del eng, decode_round, timed_round
+    shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "round_s": prof, "round_median_s": med,
+            "disk_kv": disk_kv, "sidecar": side,
             "ttft_mean_s": st.get("mean_ttft_s"),
             "ttft_p95_s": st.get("p95_ttft_s"),
             "decode_tok_s_mean": st.get("mean_decode_tok_s"),
@@ -885,6 +928,216 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
             "contention": contention,
             "pq_fallbacks": faults["pq_fallbacks"],
             "pq_reencodes": faults["pq_reencodes"]}
+
+
+def _spy_replica_reads(store):
+    """Record every chunk the store reads off its fp16 replica, with its
+    sidecar's valid bit at the time of the read: [(row, layer, chunk,
+    valid), ...]."""
+    reads = []
+    read = store._replica_read_verified
+
+    def spy(layer, entries):
+        reads.extend((p, layer, c, bool(store._sidecar_valid[p, layer, c]))
+                     for _, p, c in entries)
+        return read(layer, entries)
+
+    store._replica_read_verified = spy
+    return reads
+
+
+def sidecar_gate(store, tag, disk_kv, replica, fallback, replica_reads):
+    """Phase 4e's gate.  Every ``kv_replica`` write, and every disk->host
+    ``kv`` read served by the sidecar, is billed exactly ``chunk_bytes *
+    codec_ratio("int4", 64)``.  The reference reads a chunk whose sidecar
+    a decode append invalidated off the fp16 replica and bills it at fp16
+    under the same kind, so those reads (counted by the spy, each of a
+    chunk whose sidecar was invalid) are taken out first; no read may fall
+    back on a failed CRC."""
+    from repro_torch.core.compression import codec_ratio
+    full = float(store.chunk_bytes)
+    packed = full * codec_ratio("int4", 64)
+    n_fp16 = len(replica_reads)
+    n_packed = disk_kv["ops"] - n_fp16
+    res = {"chunk_bytes": full, "packed_bytes": packed,
+           "kv_replica": replica,
+           "kv_replica_bytes_per_op":
+           replica["bytes"] / max(1, replica["ops"]),
+           "sidecar_reads": n_packed,
+           "sidecar_bytes_per_read": (disk_kv["bytes"] - n_fp16 * full)
+           / max(1, n_packed),
+           "fp16_reads_of_appended_chunks": n_fp16,
+           "fp16_reads_with_a_valid_sidecar":
+           sum(v for *_, v in replica_reads),
+           "kv_fallback": fallback, "sidecar_repacks": store.sidecar_repacks,
+           "degraded_seqs": len(store.degraded_seqs)}
+    print(f"{tag} sidecar billing: {json.dumps(res)}")
+    fails = []
+    if replica["ops"] <= 0 or replica["bytes"] != replica["ops"] * packed:
+        fails.append("kv_replica not billed at the packed bytes")
+    if n_packed <= 0 or disk_kv["bytes"] - n_fp16 * full != n_packed * packed:
+        fails.append("sidecar reads not billed at the packed bytes")
+    if res["fp16_reads_with_a_valid_sidecar"] or fallback["ops"]:
+        fails.append("an fp16 read of a chunk whose sidecar could serve it")
+    if fails:
+        raise SystemExit(f"chip_smoke: {tag} " + "; ".join(fails))
+    return res
+
+
+def phase_legacy(np, torch, cfg, params):
+    """Phase 4f: the serve's shortest and longest prompts, driven through
+    the engine with ``pooled=False`` (the working set assembled on the host
+    and uploaded whole every round; B2 reads it in place) and with
+    ``pooled=True``, both ``real_codec=False, pipeline=False``.  The two
+    must give identical token streams."""
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    from repro_torch.kernels.kv_quant import ops as kq
+    from repro_torch.kernels.sparse_decode import ops as sd
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+
+    prompts = serve_prompts(np, cfg)
+    prompts = [prompts[0], prompts[-1]]
+    res = {}
+    for pooled in (False, True):
+        name = "pooled" if pooled else "legacy"
+        root = KV_ROOT / f"serve-{name}"
+        eng = BatchedLeoAMEngine(
+            cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=False,
+                                   pipeline=False, pooled=pooled),
+            max_seqs=len(prompts), device="cuda", store_root=str(root))
+        upload = [0]
+        if not pooled:
+            fetch = eng.store.fetch_chunks_batch
+
+            def counted(*a, _fetch=fetch, **kw):
+                kg, vg, nsel = _fetch(*a, **kw)
+                upload[0] += kg.nbytes + vg.nbytes
+                return kg, vg, nsel
+
+            eng.store.fetch_chunks_batch = counted
+        cb.launches = sd.launches = kq.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, streams = {}, {}
+        for p in prompts:
+            sid, tok = eng.add_sequence(p)
+            toks[sid], streams[sid] = tok, [tok]
+        logits = [np.stack([eng.seqs[s].prefill_logits for s in sorted(toks)])]
+        for _ in range(LEGACY_NEW_TOKENS - 1):
+            toks = eng.decode_round(toks)
+            logits.append(eng.last_logits.copy())
+            for sid, tok in toks.items():
+                streams[sid].append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = len(eng.round_profiles)
+        res[name] = {
+            "streams": [streams[s] for s in sorted(streams)],
+            "logits": logits, "wall_s": wall, "rounds": rounds,
+            "round_median_s": float(np.median(
+                [p["total_s"] for p in eng.round_profiles])),
+            "round_first_s": eng.round_profiles[0]["total_s"],
+            "upload_bytes_per_round": upload[0] / max(1, rounds),
+            "launches": {"chunk_bounds": cb.launches,
+                         "sparse_decode": sd.launches,
+                         "kv_dequant": kq.launches},
+            "h2d_kv_bytes_per_round": eng.store.log.bytes.get(
+                ("host", "device", "kv"), 0.0) / max(1, rounds)}
+        eng.store.close()
+        del eng
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    leg, poo = res["legacy"], res["pooled"]
+    same = leg["streams"] == poo["streams"]
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(leg["logits"], poo["logits"]))
+    row = {"prompts": [len(p) for p in prompts],
+           "new_tokens": LEGACY_NEW_TOKENS, "streams_identical": same,
+           "max_logit_diff": diff,
+           **{f"{n}_{k}": r[k] for n, r in res.items()
+              for k in ("round_median_s", "round_first_s", "wall_s",
+                        "upload_bytes_per_round", "h2d_kv_bytes_per_round",
+                        "launches")}}
+    print(f"[serve-legacy] {json.dumps(row)}")
+    bad = []
+    if not same:
+        bad.append(f"token streams differ: {leg['streams']} vs "
+                   f"{poo['streams']}")
+    if leg["launches"]["chunk_bounds"] <= 0 or \
+            leg["launches"]["sparse_decode"] <= 0:
+        bad.append(f"the legacy serve did not launch B1 and B2: "
+                   f"{leg['launches']}")
+    if bad:
+        raise SystemExit("chip_smoke: [serve-legacy] " + "; ".join(bad))
+    return row
+
+
+def phase_reopen(np, torch):
+    """Phase 4g: a reopened store on the card against the same script on
+    a CPU store with the plain versions.  One sequence of the longest
+    prompt over two longchat-shaped layers (64 chunks of 64 x 32 x 128),
+    ingested write-behind with the sidecar and the real codec under the
+    engine's placement, fenced, flushed and closed; reopened, every chunk
+    promoted into the pool (θ 0.5: half of each upload through B3)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
+    L, NC, C, HKV, HD = 2, MAX_LEN // 64, 64, 32, 128
+    kw = dict(n_seqs=1, transit_codec="int4", use_pool=True,
+              real_codec=True, disk_sidecar=True)
+    rng = np.random.RandomState(7)
+    S = PROMPTS[-1]
+    kv = []
+    for _ in range(L):
+        k = np.zeros((NC * C, HKV, HD), np.float16)
+        v = np.zeros_like(k)
+        k[:S] = rng.randn(S, HKV, HD)
+        v[:S] = rng.randn(S, HKV, HD)
+        kv.append((k, v))
+    place = {c: DEVICE if c < 9 else (HOST if c < 37 else DISK)
+             for c in range(NC)}
+    out = {}
+    t0 = time.perf_counter()
+    for dev, impl in (("cuda", None), ("cpu", "ref")):
+        root = str(KV_ROOT / f"reopen_{dev}")
+        st = TieredKVStore(L, NC, C, HKV, HD, root=root, device=dev,
+                           impl=impl, **kw)
+        with ThreadPoolExecutor(1) as ex:
+            for layer, (k, v) in enumerate(kv):
+                st.ingest(layer, k, v, place, seq=0, executor=ex)
+            st.ingest_fence(0)
+        for m in (st._disk, st._disk_q, st._disk_scale, st._crc,
+                  st._crc_state, st._q_crc):
+            m.flush()
+        st.close()
+        st = TieredKVStore(L, NC, C, HKV, HD, root=root, device=dev,
+                           impl=impl, reopen=True, **kw)
+        res = []
+        for layer in range(L):
+            slots, _, fs = st.fetch_chunks_pooled(layer,
+                                                  {0: list(range(NC))},
+                                                  theta=0.5)
+            res.append((slots.tolist(), fs.disk_reads, fs.compressed,
+                        fs.disk_bytes, fs.upload_bytes))
+        torch.cuda.synchronize()
+        out[dev] = (res, [p.kv.cpu() for p in st.pools], dict(st.log.bytes))
+        st.close()
+        shutil.rmtree(root, ignore_errors=True)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
+                                                    out["cpu"][1]))
+    row = {"layers": L, "chunks": NC, "tokens": S,
+           "disk_reads_per_layer": out["cuda"][0][0][1],
+           "compressed_per_layer": out["cuda"][0][0][2],
+           "slots_equal": out["cuda"][0] == out["cpu"][0],
+           "pool_bitwise": bitwise,
+           "logs_equal": out["cuda"][2] == out["cpu"][2],
+           "wall_s": time.perf_counter() - t0}
+    print(f"[reopen] {json.dumps(row)}")
+    if not (row["slots_equal"] and bitwise and row["logs_equal"]
+            and row["disk_reads_per_layer"] == NC):
+        raise SystemExit("chip_smoke: [reopen] the reopened card store "
+                         "differs from the CPU store")
+    return row
 
 
 def phase_admission(np, torch, cfg, params):
@@ -1148,6 +1401,12 @@ def main() -> int:
         admission = phase_admission(np, torch, cfg, params)
         serve_async = phase_serve(np, torch, cfg, params, mode="async")
         serve_chunked = phase_serve(np, torch, cfg, params, mode="chunked")
+        serve_sidecar = phase_serve(np, torch, cfg, params, sidecar=True)
+        print(f"[serve-sidecar] disk->host kv beside phase 4's: "
+              f"{json.dumps(serve_sidecar['disk_kv'])} against "
+              f"{json.dumps(serve['disk_kv'])}")
+        legacy = phase_legacy(np, torch, cfg, params)
+        reopen = phase_reopen(np, torch)
         e2e = phase_e2e(np, torch, cfg, params)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
@@ -1193,6 +1452,8 @@ def main() -> int:
                       "serve": serve, "serve_pq": serve_pq,
                       "admission": admission, "serve_async": serve_async,
                       "serve_chunked": serve_chunked,
+                      "serve_sidecar": serve_sidecar, "legacy": legacy,
+                      "reopen": reopen,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,

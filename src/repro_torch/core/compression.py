@@ -3,9 +3,10 @@
 Symmetric per-(group, channel) int8 and int4 quantization; int4 packs two
 nibbles per byte (``lo | hi << 4``, lo in the even channel).  The host side
 of the transit codec: the tier store packs chunks here and the device
-unpacks them with ``repro_torch.kernels.kv_quant``.  Results are bitwise
-equal to ``repro.core.compression`` (round half to even, the same f32
-division, the same packing — tested).
+unpacks them with ``repro_torch.kernels.kv_quant``; the packed disk
+sidecar is read back through :func:`dequantize_chunks` on the host.
+Results are bitwise equal to ``repro.core.compression`` (round half to
+even, the same f32 division and product, the same packing — tested).
 """
 
 from __future__ import annotations
@@ -52,6 +53,25 @@ def quantize(x: np.ndarray, codec: str = "int4", group: int = 64
     return QuantizedKV(q, scale, codec, orig_shape)
 
 
+def dequantize(qkv: QuantizedKV, group: int = 64,
+               dtype=np.float32) -> np.ndarray:
+    """Inverse of :func:`quantize`: payload x per-(group, channel) scale in
+    f32, then one rounding to ``dtype`` (numpy has no bfloat16, so the
+    default is f32 where the reference's is bf16)."""
+    q = np.asarray(qkv.data)
+    if qkv.codec == "int4":
+        u = q.view(np.uint8)
+        lo = (u & 0xF).astype(np.int8)
+        hi = ((u >> 4) & 0xF).astype(np.int8)
+        # sign-extend 4-bit two's complement
+        lo = np.where(lo > 7, lo - 16, lo).astype(np.int8)
+        hi = np.where(hi > 7, hi - 16, hi).astype(np.int8)
+        q = np.stack([lo, hi], axis=-1).reshape(qkv.shape)
+    g = _group_reshape(q.astype(np.float32), group)
+    out = g * np.asarray(qkv.scale, np.float32)[..., None, :]
+    return out.reshape(qkv.shape).astype(dtype)
+
+
 def packed_dim(codec: str, d: int) -> int:
     """Payload channel width of :func:`quantize_chunks` for ``d`` fp16
     channels: int4 packs two nibbles per byte along the channel dim."""
@@ -88,3 +108,21 @@ def quantize_chunks(k: np.ndarray, codec: str = "int4"
     d = H * hd
     q = quantize(k.reshape(n, c, d), codec, group=c)
     return q.data, q.scale.reshape(n, d)
+
+
+def dequantize_chunks(data: np.ndarray, scale: np.ndarray, codec: str,
+                      kv_heads: int, head_dim: int, dtype=np.float16
+                      ) -> np.ndarray:
+    """Host-side inverse of :func:`quantize_chunks`: (n, c, dq) payload and
+    (n, d) scales -> (n, c, kv_heads, head_dim) in ``dtype``."""
+    n, c = data.shape[:2]
+    d = kv_heads * head_dim
+    q = QuantizedKV(data, np.asarray(scale)[:, None, :], codec, (n, c, d))
+    out = dequantize(q, group=c, dtype=np.float32)
+    return out.astype(dtype).reshape(n, c, kv_heads, head_dim)
+
+
+def quantization_rmse(x: np.ndarray, codec: str = "int4",
+                      group: int = 64) -> float:
+    xq = dequantize(quantize(x, codec, group), group, np.float32)
+    return float(np.sqrt(np.mean((xq - x) ** 2)))

@@ -1,10 +1,12 @@
 """Dispatching wrapper for sparse decode attention (kernel B2).
 
-Two entries over one CUDA kernel (``csrc/sparse_decode.cu``): the engine's
-:func:`sparse_decode_pooled` (slot-indexed reads from the device pool slab,
-per-sequence lengths, the new token's row) and the Pallas contract
-:func:`sparse_decode` (a (B, S, Hkv, hd) cache viewed as a slab of chunks,
-returning the partial-softmax triple).  A CUDA tensor launches the kernel;
+Three entries over one CUDA kernel (``csrc/sparse_decode.cu``): the
+engine's :func:`sparse_decode_pooled` (slot-indexed reads from the device
+pool slab, per-sequence lengths, the new token's row), the legacy engine's
+:func:`sparse_decode_workingset` (the same over a working set uploaded
+whole, read in place) and the Pallas contract :func:`sparse_decode` (a (B,
+S, Hkv, hd) cache viewed as a slab of chunks, returning the partial-softmax
+triple).  A CUDA tensor launches the kernel;
 a CPU tensor takes the plain version in ``ref.py``.  ``launches`` counts
 wrapper calls that launched the kernel (each call is two CUDA launches:
 scores, then P.V with the combine).
@@ -21,9 +23,9 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sparse_decode.ref import (model_scale,
-                                                   sparse_decode_pooled_ref,
-                                                   sparse_decode_ref)
+from repro_torch.kernels.sparse_decode.ref import (
+    model_scale, sparse_decode_pooled_ref, sparse_decode_ref,
+    sparse_decode_workingset_ref)
 
 launches = 0
 
@@ -131,6 +133,50 @@ def sparse_decode_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
             Hkv, G, hd, chunk, model_scale(hd, q.dtype),
             float(attn_softcap) if attn_softcap is not None else 0.0, out,
             None, None, None, pool_kv.dtype, "sparse_decode_pooled")
+    return out
+
+
+def sparse_decode_workingset(q: torch.Tensor, kg: torch.Tensor,
+                             vg: torch.Tensor, chunk_ids: torch.Tensor,
+                             lengths: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor,
+                             attn_softcap: Optional[float] = None, *,
+                             impl: Optional[str] = None) -> torch.Tensor:
+    """Normalized sparse attention of the legacy engine's round, over the
+    padded working set kg/vg (B, nmax, chunk, Hkv, hd) uploaded whole.  See
+    :func:`~repro_torch.kernels.sparse_decode.ref.sparse_decode_workingset_ref`
+    for the contract.  The kernel reads kg and vg in place as a slab with
+    one chunk per row, entry j of sequence b at row b * nmax + j, with the
+    pooled call's mask and split plan, so over the same rows it returns
+    the pooled call's bits.  Returns (B, H, hd) in q's dtype."""
+    if not build.use_kernel(impl, q):
+        return sparse_decode_workingset_ref(q, kg, vg, chunk_ids, lengths,
+                                            k_new, v_new, attn_softcap)
+    B, H, hd = q.shape
+    _, nmax, chunk, Hkv, hd2 = kg.shape
+    G = H // Hkv
+    _check(kg.shape == vg.shape and kg.shape[0] == B and hd2 == hd
+           and G * Hkv == H and tuple(chunk_ids.shape) == (B, nmax),
+           f"working set {tuple(kg.shape)} / {tuple(vg.shape)} does not fit "
+           f"q {tuple(q.shape)} and chunk ids {tuple(chunk_ids.shape)}")
+    _check(kg.is_contiguous() and vg.is_contiguous() and kg.is_cuda
+           and vg.is_cuda and kg.dtype == vg.dtype,
+           "kg / vg must be contiguous CUDA tensors of one dtype")
+    _check(all(t.is_cuda and t.dtype == torch.int32 for t in
+               (chunk_ids, lengths)), "indices must be int32 on CUDA")
+    _check(q.dtype in build.DTYPE_CODES and kg.dtype in build.DTYPE_CODES,
+           f"dtypes {q.dtype} / {kg.dtype}")
+    q = q.contiguous()
+    chunk_ids = chunk_ids.contiguous()
+    slots = torch.arange(B * nmax, dtype=torch.int32, device=q.device)
+    k_new = k_new.reshape(B, Hkv, hd).to(q.dtype).contiguous()
+    v_new = v_new.reshape(B, Hkv, hd).to(q.dtype).contiguous()
+    out = torch.empty_like(q)
+    _launch(q, kg.data_ptr(), vg.data_ptr(), chunk * Hkv * hd, slots,
+            chunk_ids, nmax, 0, nmax, 0, lengths, 1, k_new, v_new, B, Hkv, G,
+            hd, chunk, model_scale(hd, q.dtype),
+            float(attn_softcap) if attn_softcap is not None else 0.0, out,
+            None, None, None, kg.dtype, "sparse_decode_workingset")
     return out
 
 

@@ -121,6 +121,36 @@ def sparse_decode_pooled_ref(q: torch.Tensor, pool_kv: torch.Tensor,
     return sa._finish(part).to(q.dtype)
 
 
+def workingset_slab(kg: torch.Tensor, vg: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A legacy working set as a pool slab: kg/vg (B, nmax, chunk, Hkv,
+    hd) -> the (B * nmax, 2, chunk, Hkv, hd) slab whose row b * nmax + j
+    holds entry j of sequence b, and the (B, nmax) int32 slots that name
+    those rows."""
+    B, nmax = kg.shape[:2]
+    slab = torch.stack((kg, vg), dim=2).reshape(B * nmax, 2, *kg.shape[2:])
+    slots = torch.arange(B * nmax, dtype=torch.int32,
+                         device=kg.device).reshape(B, nmax)
+    return slab, slots
+
+
+def sparse_decode_workingset_ref(q: torch.Tensor, kg: torch.Tensor,
+                                 vg: torch.Tensor, chunk_ids: torch.Tensor,
+                                 lengths: torch.Tensor, k_new: torch.Tensor,
+                                 v_new: torch.Tensor,
+                                 attn_softcap: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Legacy engine contract (``repro.serving.engine._attend_workingset``
+    without the output projection): the round's padded working set kg/vg
+    (B, nmax, chunk, Hkv, hd) in store dtype, entry j of sequence b holding
+    chunk ``chunk_ids[b, j]`` (-1 on padding); otherwise as
+    :func:`sparse_decode_pooled_ref`, which it is over the slab of
+    :func:`workingset_slab`."""
+    slab, slots = workingset_slab(kg, vg)
+    return sparse_decode_pooled_ref(q, slab, slots, chunk_ids, lengths,
+                                    k_new, v_new, attn_softcap)
+
+
 def sparse_decode_pooled_split_ref(q: torch.Tensor, pool_kv: torch.Tensor,
                                    slots: torch.Tensor,
                                    chunk_ids: torch.Tensor,

@@ -20,8 +20,19 @@ Dynamic Three-tier Pipeline (§4.4):
 With ``pq_abstracts`` the store keeps a PQ abstract plane (codebooks
 trained at ingest on kernels B4 and B5); evaluate then scores chunks whose
 codes are fresh by asymmetric distance (``kernels.pq.adc_chunk_scores``)
-and keeps the min/max bound bitwise for the rest, and each round ends with
-the requant sweep that re-encodes quiet append-dirtied chunks.
+and keeps the min/max bound bitwise for the rest.  With ``disk_sidecar``
+the store keeps a packed int4/int8 replica beside the fp16 one, and
+disk→host promotions read (and bill) the packed bytes.  Each round ends
+with the requant sweep, which repacks the sidecar and re-encodes the codes
+of quiet append-dirtied chunks.
+
+``pooled=False`` is the reference's synchronous full-re-upload path: the
+store assembles each layer's padded working set on the host
+(``fetch_chunks_batch`` over the legacy device tier) and the engine
+uploads it whole to the card, where kernel B2 attends over it in place
+(``kernels.sparse_decode.sparse_decode_workingset``) — the pooled call's
+kernel, mask and split plan over the same fp16 rows, so the two paths give
+the same tokens.
 
 With ``pipeline=True`` a one-worker prefetch executor overlaps layer l+1's
 abstract reads and speculative disk staging under layer l's attention;
@@ -51,9 +62,8 @@ Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.  Options of the reference
 that the port leaves out so far raise ``NotImplementedError`` naming
-their ROADMAP item: ``pooled=False``, MLA, non-attention layers, the
-prefix cache, the packed disk sidecar, fault injection, recompute-from-
-prompt recovery and whole-sequence preemption.
+their ROADMAP item: MLA, non-attention layers, the prefix cache, fault
+injection, recompute-from-prompt recovery and whole-sequence preemption.
 """
 
 from __future__ import annotations
@@ -75,7 +85,8 @@ from repro_torch.core.bounds import chunk_bounds_gqa_matmul
 from repro_torch.core.tiers import AccessTable
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.pq.ops import adc_chunk_scores
-from repro_torch.kernels.sparse_decode.ops import sparse_decode_pooled
+from repro_torch.kernels.sparse_decode.ops import (sparse_decode_pooled,
+                                                   sparse_decode_workingset)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.common import rms_norm
@@ -95,8 +106,10 @@ class EngineCfg:
     sel_pad: int = 4                 # pad round working sets to a multiple
                                      # of this many chunks (masking keeps
                                      # it exact)
-    pooled: bool = True              # device-resident chunk pool (the only
-                                     # path ported; False raises)
+    pooled: bool = True              # device-resident chunk pool (delta
+                                     # uploads); False = the synchronous
+                                     # full re-upload of each round's
+                                     # working set
     pipeline: bool = True            # async DTP overlap (prefetch thread)
     real_codec: bool = False         # carry actual packed int4/int8 transit
                                      # payloads (vs ledger-only scaling)
@@ -107,11 +120,19 @@ class EngineCfg:
     prefill_chunk_tokens: int = 64   # chunk size of begin_admission's
                                      # chunked prefill; must divide max_len
                                      # and be a multiple of the store chunk
-    sidecar_requant: bool = True     # background sweep re-encodes the PQ
-                                     # codes of append-dirtied chunks once
-                                     # a chunk goes a full round without
-                                     # appends (no-op unless pq_abstracts)
-    disk_sidecar: bool = False       # not ported (ROADMAP A4)
+    sidecar_requant: bool = True     # background sweep repacks the disk
+                                     # sidecar and re-encodes the PQ codes
+                                     # of append-dirtied chunks once a
+                                     # chunk goes a full round without
+                                     # appends (no-op unless disk_sidecar
+                                     # or pq_abstracts)
+    disk_sidecar: bool = False       # packed int4/int8 disk replicas: tier
+                                     # writes + disk->host promotions move
+                                     # packed bytes (fp16 stays as the
+                                     # lossless fallback)
+    sidecar_lossless: bool = False   # promotions read the fp16 replica
+                                     # (full bytes) even when the sidecar
+                                     # is valid
     pq_abstracts: bool = False       # PQ abstract plane: per-layer online
                                      # k-means codebooks over ingested key
                                      # chunks; evaluation scores code-valid
@@ -124,6 +145,9 @@ class EngineCfg:
                                      # (codebook-initializing) ingest
     prefix_cache: bool = False       # not ported (ROADMAP A8)
     debug_sync: bool = False         # not ported (ROADMAP A13)
+    checksums: bool = True           # per-chunk CRC32 on disk replicas +
+                                     # packed sidecars, verified at every
+                                     # promotion
     fault_plan: Optional[Any] = None  # not ported (ROADMAP A9)
     # measured-cost θ balance (paper §4.4); defaults mirror TierBW
     pcie_bw: float = 16e9
@@ -211,9 +235,7 @@ class BatchedLeoAMEngine:
                  store_root: Optional[str] = None):
         lm.check_supported(cfg)
         for bad, opt, item in (
-                (not ecfg.pooled, "pooled=False", "A5"),
                 (ecfg.prefix_cache, "prefix_cache=True", "A8"),
-                (ecfg.disk_sidecar, "disk_sidecar=True", "A4"),
                 (ecfg.debug_sync, "debug_sync=True", "A13"),
                 (ecfg.fault_plan is not None, "fault_plan=", "A9")):
             if bad:
@@ -233,11 +255,17 @@ class BatchedLeoAMEngine:
         self.max_seqs = max_seqs
         self.attn_layers = [i for i, k in enumerate(cfg.layer_kinds())
                             if k.startswith("attn")]
+        # the legacy device tier's budget is per store, the pool's per layer
+        budget = (device_chunk_budget * len(self.attn_layers)
+                  if device_chunk_budget is not None else None)
         self.store = TieredKVStore(
             len(self.attn_layers), self.n_chunks, self.chunk,
             cfg.n_kv_heads, cfg.hd, n_seqs=max_seqs,
             transit_codec=ecfg.transit_codec, root=store_root,
+            device_budget=budget, use_pool=ecfg.pooled,
             pool_slots=device_chunk_budget, real_codec=ecfg.real_codec,
+            disk_sidecar=ecfg.disk_sidecar,
+            sidecar_lossless=ecfg.sidecar_lossless, checksums=ecfg.checksums,
             abstract_kind=("pq" if ecfg.pq_abstracts else "minmax"),
             pq_m=ecfg.pq_m, pq_centroids=ecfg.pq_centroids,
             pq_train_iters=ecfg.pq_train_iters, device=self.device, impl=impl)
@@ -480,14 +508,15 @@ class BatchedLeoAMEngine:
     def release(self, sid: int) -> None:
         """Retire a sequence and recycle its store slot, after draining
         every in-flight future that may still reference the slot (its
-        write-behind ingest and the prefetch worker's staged reads)."""
+        write-behind ingest, the prefetch worker's staged reads and the
+        queued repacks, which then land instead of being aborted)."""
         self._drain_seq(sid)
         self._abs_cache.clear()
         self._forget(sid)
 
     def _drain_seq(self, sid: int) -> None:
         """Best-effort drain of the slot's in-flight futures (ingest fence,
-        prefetch worker, re-encode queue); failures are counted, never
+        prefetch worker, repack queue); failures are counted, never
         raised, so every teardown runs to completion."""
         try:
             self.store.ingest_fence(sid)
@@ -777,24 +806,40 @@ class BatchedLeoAMEngine:
                 self.seqs[sid].access.record(np.asarray(sels[sid]))
                 self._prev_sels[(sid, li)] = sels[sid]
 
-            slots, _, fst = self.store.fetch_chunks_pooled(
-                li, sels, pad_to=nmax, theta=self._theta(li))
-            prof["gather_s"] += fst.gather_s
-            prof["upload_s"] += fst.upload_s
-            layer_io.append((li, fst.uploads * self.store.chunk_bytes,
-                             fst.disk_bytes))
-            for sid in order:
-                round_stats[sid].fetched_bytes += fst.upload_bytes / B
-            # overlap: next layer's reads under this layer's attention
-            self._submit_prefetch(li + 1, order, lengths)
             chunk_ids = np.full((B, nmax), -1, np.int32)
             for i, sid in enumerate(order):
                 chunk_ids[i, :len(sels[sid])] = sels[sid]
-            o = sparse_decode_pooled(
-                q[:, 0], self.store.pools[li].kv,
-                torch.from_numpy(slots).to(dev),
-                torch.from_numpy(chunk_ids).to(dev), lengths_dev, k_new,
-                v_new, cfg.attn_softcap, impl=self.impl)
+            if ecfg.pooled:
+                slots, _, fst = self.store.fetch_chunks_pooled(
+                    li, sels, pad_to=nmax, theta=self._theta(li))
+                prof["gather_s"] += fst.gather_s
+                prof["upload_s"] += fst.upload_s
+                layer_io.append((li, fst.uploads * self.store.chunk_bytes,
+                                 fst.disk_bytes))
+                for sid in order:
+                    round_stats[sid].fetched_bytes += fst.upload_bytes / B
+                # overlap: next layer's reads under this layer's attention
+                self._submit_prefetch(li + 1, order, lengths)
+                o = sparse_decode_pooled(
+                    q[:, 0], self.store.pools[li].kv,
+                    torch.from_numpy(slots).to(dev),
+                    torch.from_numpy(chunk_ids).to(dev), lengths_dev, k_new,
+                    v_new, cfg.attn_softcap, impl=self.impl)
+            else:
+                # the legacy path: the host-assembled working set crosses
+                # whole every round and B2 reads it in place
+                t1 = time.perf_counter()
+                kg, vg, _ = self.store.fetch_chunks_batch(li, sels,
+                                                          pad_to=nmax)
+                prof["gather_s"] += time.perf_counter() - t1
+                t1 = time.perf_counter()
+                kgd = torch.from_numpy(kg).to(dev)
+                vgd = torch.from_numpy(vg).to(dev)
+                prof["upload_s"] += time.perf_counter() - t1
+                o = sparse_decode_workingset(
+                    q[:, 0], kgd, vgd, torch.from_numpy(chunk_ids).to(dev),
+                    lengths_dev, k_new, v_new, cfg.attn_softcap,
+                    impl=self.impl)
             y = o.reshape(B, 1, H * hd) @ blk["core"]["wo"]
             self.store.append_tokens_batch(li, lengths, _to_host(k_new[:, 0]),
                                            _to_host(v_new[:, 0]), seqs=order)
@@ -827,10 +872,11 @@ class BatchedLeoAMEngine:
             s.length += 1
             s.stats.append(round_stats[sid])
             out[sid] = int(np.argmax(logits[i]))
-        if ecfg.sidecar_requant and ecfg.pq_abstracts:
-            # background re-encode of append-dirtied PQ codes (chunks quiet
-            # for a full round): long-running sequences regain ADC scoring
-            # instead of the min/max box forever
+        if ecfg.sidecar_requant and (ecfg.disk_sidecar or ecfg.pq_abstracts):
+            # background repack of append-dirtied sidecars and re-encode of
+            # their PQ codes (chunks quiet for a full round): long-running
+            # sequences regain packed disk->host promotions and ADC scoring
+            # instead of fp16 and the min/max box forever
             self.store.requant_sweep(executor=_prefetch_executor())
         return out
 

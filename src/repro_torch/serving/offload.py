@@ -29,12 +29,30 @@ demotions are metadata-only, promotions read the abstract or the chunk.
   B5, ``repro_torch.kernels.pq``), uint8 codes per chunk on disk with a
   CRC each, and a requant sweep that re-encodes append-dirtied chunks once
   they go quiet.  The min/max boxes stay as the fallback for chunks whose
-  codes are stale or corrupt.
+  codes are stale or corrupt;
+* **packed disk sidecar** (``disk_sidecar=True``): beside the fp16 replica
+  the store keeps ``kv_q.bin`` (int payload, two nibbles a byte for int4)
+  and ``kv_scale.bin`` (one f32 scale per channel per chunk plane), the
+  layout of ``compression.quantize_chunks`` with group == chunk, so one
+  chunk's K+V sidecar is EXACTLY ``chunk_bytes * codec_ratio(codec,
+  chunk)``.  Replica writes and disk→host promotions move (and bill) the
+  packed bytes, dequantized on the host; a decode append invalidates the
+  chunk's sidecar and the fp16 replica serves it (``kv_fallback`` when a
+  CRC quarantines it) until the requant sweep repacks the quiet chunk.
+  ``sidecar_lossless=True`` always reads the replica;
+* the **legacy device tier** (``use_pool=False``, the reference's
+  default): a dict of host numpy chunks capped by ``device_budget`` and
+  evicted LRU, a tier label in the ledger, served by ``fetch_chunks`` /
+  ``fetch_chunks_batch``, which assemble a round's working set on the host
+  for the engine to upload whole;
+* ``reopen=True`` re-attaches to a root after a crash: the memmaps open
+  read-write, every chunk starts on DISK, and a chunk whose replica CRC
+  never landed is rejected as disk-lost; ``checksums=False`` keeps no CRCs.
 
 Host-side state and billing are the reference's numpy code, so disk bytes,
 abstracts and the traffic log are bitwise equal to ``repro``'s for the same
-script (tested).  Options of the reference that this slice leaves out
-raise ``NotImplementedError`` at construction, naming their ROADMAP item.
+script (tested).  Options of the reference that the port leaves out raise
+``NotImplementedError`` at construction, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -77,6 +95,14 @@ class TrafficLog:
     def record(self, src: str, dst: str, kind: str, nbytes: float) -> None:
         self.bytes[(src, dst, kind)] += nbytes
         self.ops[(src, dst, kind)] += 1
+
+    def total(self, src: Optional[str] = None, kind: Optional[str] = None
+              ) -> float:
+        """Bytes recorded, summed over every entry from ``src`` of ``kind``
+        (None matches any)."""
+        return sum(v for (s, _d, k), v in self.bytes.items()
+                   if (src is None or s == src)
+                   and (kind is None or k == kind))
 
 
 @dataclass
@@ -224,26 +250,29 @@ class TieredKVStore:
     """Multi-sequence chunked K/V with device/host/disk placement.
 
     K/V chunks are (chunk, Hkv, hd) numpy arrays keyed by (seq, layer,
-    chunk); ``_disk`` is a real memory-mapped file shared by all sequences;
-    the device tier is the per-layer :class:`DeviceChunkPool` on
-    ``device`` (default: the CUDA card).  Mutating entry points take an
-    RLock so the engine's prefetch thread can stage disk reads while the
-    main thread decodes.  ``impl="ref"`` runs the plain versions of the
-    dequant and k-means kernels even on the card."""
+    chunk); ``_disk`` is a real memory-mapped file shared by all sequences.
+    The device tier has two representations, as in the reference: the
+    legacy dicts capped by ``device_budget`` (``use_pool=False``, served by
+    ``fetch_chunks`` / ``fetch_chunks_batch``) and, with ``use_pool=True``,
+    the per-layer :class:`DeviceChunkPool` slabs on ``device`` (default:
+    the CUDA card), served by ``fetch_chunks_pooled``.  Mutating entry
+    points take an RLock so the engine's prefetch thread can stage disk
+    reads while the main thread decodes.  ``impl="ref"`` runs the plain
+    versions of the dequant and k-means kernels even on the card."""
 
     def __init__(self, n_layers: int, n_chunks: int, chunk: int, kv_heads: int,
                  head_dim: int, *, n_seqs: int = 1, dtype=np.float16,
                  transit_codec="int4", root: Optional[str] = None,
-                 use_pool: bool = True, pool_slots: Optional[int] = None,
+                 device_budget: Optional[int] = None,
+                 use_pool: bool = False, pool_slots: Optional[int] = None,
                  real_codec: bool = False, disk_sidecar: bool = False,
-                 latent: bool = False, prefix_rows: int = 0,
-                 debug_sync: bool = False, faults=None,
+                 sidecar_lossless: bool = False, latent: bool = False,
+                 prefix_rows: int = 0, debug_sync: bool = False,
+                 checksums: bool = True, faults=None, reopen: bool = False,
                  abstract_kind: str = "minmax", pq_m: Optional[int] = None,
                  pq_centroids: int = 256, pq_train_iters: int = 4,
                  device: DeviceLike = None, impl: Optional[str] = None):
         for bad, opt, item in (
-                (not use_pool, "use_pool=False", "A5"),
-                (disk_sidecar, "disk_sidecar=True", "A4"),
                 (latent, "latent=True", "A7"),
                 (prefix_rows, "prefix_rows>0", "A8"),
                 (faults is not None, "faults=", "A9"),
@@ -262,6 +291,9 @@ class TieredKVStore:
         self.torch_dtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
         self.transit_codec = transit_codec
         self.real_codec = real_codec and transit_codec is not None
+        self.disk_sidecar = disk_sidecar and transit_codec is not None
+        self.sidecar_lossless = sidecar_lossless
+        self.device_budget = device_budget
         self.tier: np.ndarray = np.full((n_seqs, n_layers, n_chunks), HOST,
                                         object)
         self.access: np.ndarray = np.zeros((n_seqs, n_layers, n_chunks))
@@ -271,6 +303,11 @@ class TieredKVStore:
         Key = Tuple[int, int, int]
         self._host_k: Dict[Key, np.ndarray] = {}
         self._host_v: Dict[Key, np.ndarray] = {}
+        # the legacy device tier: host numpy chunks standing for the card,
+        # in LRU order (OrderedDict front == least recent)
+        self._dev_k: Dict[Key, np.ndarray] = {}
+        self._dev_v: Dict[Key, np.ndarray] = {}
+        self._lru: "OrderedDict[Key, None]" = OrderedDict()
         # persistent stacked abstracts: one (n_seqs, n_chunks, Hkv, hd)
         # fancy-index per (layer, round)
         self._abs_km = np.full((n_seqs, n_layers, n_chunks, kv_heads,
@@ -279,24 +316,57 @@ class TieredKVStore:
         self._lock = threading.RLock()
         self.codec_uploads = 0         # pooled H2D chunks sent packed
         self.plain_uploads = 0         # pooled H2D chunks sent fp16
-        slots = pool_slots if pool_slots is not None else n_seqs * n_chunks
-        self.pools: List[DeviceChunkPool] = [
-            DeviceChunkPool(slots, chunk, kv_heads, head_dim,
-                            self.torch_dtype, self.device)
-            for _ in range(n_layers)]
+        self.pools: List[Optional[DeviceChunkPool]] = [None] * n_layers
+        if use_pool:
+            slots = pool_slots if pool_slots is not None \
+                else n_seqs * n_chunks
+            self.pools = [DeviceChunkPool(slots, chunk, kv_heads, head_dim,
+                                          self.torch_dtype, self.device)
+                          for _ in range(n_layers)]
         shape = (n_seqs, n_layers, n_chunks, self.planes, chunk, kv_heads,
                  head_dim)
         self._root = root or tempfile.mkdtemp(prefix="leoam_kv_")
         os.makedirs(self._root, exist_ok=True)
+        # reopen=True re-attaches to the root after a crash: the memmaps
+        # open read-write over whatever bytes survived, every chunk starts
+        # on DISK, and a chunk whose cold ingest never landed (CRC state
+        # NONE) is rejected as disk-lost instead of served torn
+        self._reopened = bool(reopen)
+        mode = "r+" if reopen else "w+"
         self._disk = np.memmap(os.path.join(self._root, "kv.bin"),
-                               dtype=self.dtype, mode="w+", shape=shape)
-        # per-chunk CRC32 of the replica, verified at every promotion
-        self._crc = np.memmap(
-            os.path.join(self._root, "kv_crc.bin"), dtype=np.uint32,
-            mode="w+", shape=(n_seqs, n_layers, n_chunks))
-        self._crc_state = np.memmap(
-            os.path.join(self._root, "kv_crc_state.bin"),
-            dtype=np.uint8, mode="w+", shape=(n_seqs, n_layers, n_chunks))
+                               dtype=self.dtype, mode=mode, shape=shape)
+        # packed sidecar: quantize_chunks(group=chunk) layout per (seq,
+        # layer, chunk, K|V plane) — int payload + f32 per-channel scales.
+        # _sidecar_valid gates reads: decode appends invalidate the chunk
+        # (its scales go stale) and the fp16 replica serves as fallback
+        self._disk_q = self._disk_scale = None
+        self._sidecar_valid = np.zeros((n_seqs, n_layers, n_chunks), bool)
+        if self.disk_sidecar:
+            d = kv_heads * head_dim
+            dq = compression.packed_dim(transit_codec, d)
+            self._disk_q = np.memmap(
+                os.path.join(self._root, "kv_q.bin"), dtype=np.int8,
+                mode=mode, shape=(n_seqs, n_layers, n_chunks, self.planes,
+                                  chunk, dq))
+            self._disk_scale = np.memmap(
+                os.path.join(self._root, "kv_scale.bin"), dtype=np.float32,
+                mode=mode, shape=(n_seqs, n_layers, n_chunks, self.planes, d))
+        # per-chunk CRC32s of the replica and of the packed sidecar,
+        # persisted beside them and verified at every promotion
+        self.checksums = bool(checksums)
+        self._crc = self._crc_state = self._q_crc = None
+        if self.checksums:
+            self._crc = np.memmap(
+                os.path.join(self._root, "kv_crc.bin"), dtype=np.uint32,
+                mode=mode, shape=(n_seqs, n_layers, n_chunks))
+            self._crc_state = np.memmap(
+                os.path.join(self._root, "kv_crc_state.bin"),
+                dtype=np.uint8, mode=mode, shape=(n_seqs, n_layers, n_chunks))
+            if self.disk_sidecar:
+                self._q_crc = np.memmap(
+                    os.path.join(self._root, "kv_q_crc.bin"),
+                    dtype=np.uint32, mode=mode,
+                    shape=(n_seqs, n_layers, n_chunks))
         # PQ abstract plane (abstract_kind="pq"): per-layer product-
         # quantization codebooks learned online from ingested key chunks,
         # plus per-(seq, layer, chunk) uint8 codes on disk — the SECOND
@@ -322,21 +392,25 @@ class TieredKVStore:
             dsub = head_dim // self.pq_m
             self._pq_codes = np.memmap(
                 os.path.join(self._root, "kv_pq.bin"), dtype=np.uint8,
-                mode="w+", shape=(n_seqs, n_layers, n_chunks, chunk,
+                mode=mode, shape=(n_seqs, n_layers, n_chunks, chunk,
                                   kv_heads, self.pq_m))
             self._pq_codebook = np.memmap(
                 os.path.join(self._root, "kv_pq_cb.bin"), dtype=np.float32,
-                mode="w+", shape=(n_layers, self.pq_m, self.pq_centroids,
+                mode=mode, shape=(n_layers, self.pq_m, self.pq_centroids,
                                   dsub))
-            self._pq_crc = np.memmap(
-                os.path.join(self._root, "kv_pq_crc.bin"), dtype=np.uint32,
-                mode="w+", shape=(n_seqs, n_layers, n_chunks))
             # RAM mirrors: codebook reads (selection, encode) never touch
-            # the memmap; counts make the online k-means a running mean
+            # the memmap; counts make the online k-means a running mean.
+            # A reopened store starts with every code invalid but keeps
+            # the persisted codebook
             self._pq_cb = np.array(self._pq_codebook)
             self._pq_counts = np.zeros((n_layers, self.pq_m,
                                         self.pq_centroids), np.float64)
             self._pq_valid = np.zeros((n_seqs, n_layers, n_chunks), bool)
+            if self.checksums:
+                self._pq_crc = np.memmap(
+                    os.path.join(self._root, "kv_pq_crc.bin"),
+                    dtype=np.uint32, mode=mode,
+                    shape=(n_seqs, n_layers, n_chunks))
         # codebook mutations (train/merge) serialize on a leaf lock so
         # cold-ingest workers never hold the store lock across them; the
         # k-means kernels themselves run OUTSIDE any lock
@@ -346,19 +420,27 @@ class TieredKVStore:
                                                "pq_fallbacks": 0}
         self._stats_lock = threading.Lock()   # counters only; leaf lock
         self._disk_lost: Set[Tuple[int, int, int]] = set()
+        # sequences served degraded numerics: a quarantined sidecar fell
+        # back to the lossless fp16 replica
+        self.degraded_seqs: Set[int] = set()
+        if reopen:
+            # the hot tiers died with the process; all that survives is disk
+            self.tier[:] = DISK
         # write-behind ingest: per-seq in-flight cold-write futures; the
         # fence pops under _futs_lock and waits OUTSIDE the store lock
         self._ingest_futs: Dict[int, List] = defaultdict(list)
         self._futs_lock = threading.Lock()
-        # requant sweep (PQ store): append-dirtied chunks keyed to the
-        # sweep round of their LAST append; a chunk quiet for a full round
-        # is re-encoded in the background.  The per-chunk version aborts a
-        # re-encode that raced a newer append (or a slot reuse).
+        # requant sweep: append-dirtied chunks keyed to the sweep round of
+        # their LAST append; a chunk quiet for a full round is repacked
+        # (sidecar) and re-encoded (PQ codes) in the background.  The
+        # per-chunk version aborts a repack that raced a newer append (or
+        # a slot reuse).
         self._requant_pending: Dict[Tuple[int, int, int], int] = {}
         self._chunk_version: Dict[Tuple[int, int, int], int] = \
             defaultdict(int)
         self._requant_futs: List = []
         self._sweep_round = 0
+        self.sidecar_repacks = 0
 
     # ------------------------------------------------------------------
     @property
@@ -386,7 +468,7 @@ class TieredKVStore:
 
     @property
     def use_pool(self) -> bool:
-        return True
+        return self.pools[0] is not None
 
     def _bill_flushed_rows(self, applied: List[Tuple[int, int]]) -> None:
         """Bill the HOST→DEVICE append rows a slab flush actually carried."""
@@ -407,24 +489,40 @@ class TieredKVStore:
         return nbytes
 
     def _packed_bytes(self) -> float:
-        """Actual packed payload bytes of one chunk through the real codec."""
+        """Actual packed payload bytes of one chunk through the real codec
+        (per-chunk grouping, so the ratio is exact)."""
         return float(self.chunk_bytes) * compression.codec_ratio(
             self.transit_codec, group=self.chunk)
 
     def _disk_read_bytes(self) -> float:
         """Disk→host promotion bytes of one chunk read off the fp16
-        replica: the full read with the real codec, the ledger-only codec
-        scaling otherwise (as the reference bills)."""
-        return float(self.chunk_bytes) if self.real_codec \
+        replica: the full read in a real-codec or sidecar store, the
+        ledger-only codec scaling otherwise (as the reference bills).
+        Sidecar-valid chunks move :meth:`_packed_bytes` instead (decided
+        per key in :meth:`_stage_disk`)."""
+        return float(self.chunk_bytes) if (self.real_codec
+                                           or self.disk_sidecar) \
             else self._transit_bytes()
 
     def _plane_stack(self, kc: np.ndarray, vc: np.ndarray) -> np.ndarray:
         """One chunk's storage planes: (2, chunk, Hkv, hd)."""
         return np.stack((kc, vc))
 
+    def _sidecar_ok(self, seq: int, layer: int, c: int) -> bool:
+        """True when the packed sidecar serves this chunk's disk reads."""
+        return (self.disk_sidecar and not self.sidecar_lossless
+                and bool(self._sidecar_valid[seq, layer, c]))
+
     @staticmethod
     def _crc32(arr: np.ndarray) -> int:
         return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+
+    def _sidecar_crc(self, data: np.ndarray, scale: np.ndarray) -> int:
+        """One chunk's packed-sidecar CRC: payload planes then scales, in
+        the (planes, chunk, dq) / (planes, d) read layout."""
+        z = zlib.crc32(np.ascontiguousarray(data).tobytes())
+        return zlib.crc32(np.ascontiguousarray(scale).tobytes(), z) \
+            & 0xFFFFFFFF
 
     def _count(self, name: str, n: int = 1) -> None:
         """Bump a fault counter (worker and decode threads both count)."""
@@ -432,24 +530,60 @@ class TieredKVStore:
             self.fault_counters[name] = \
                 self.fault_counters.get(name, 0) + n
 
-    def _replica_read_verified(self, layer: int,  # leolint: waive[billlint] reason=coalesced verified-read helper: its caller (_stage_disk) bills every chunk it promotes at the promotion site, where the per-seq attribution is known
+    def _read_sidecar(self, layer: int,  # leolint: waive[billlint] reason=coalesced read helper: every caller (_stage_disk, fetch_chunks) bills _packed_bytes() (or the fp16 fallback) per key at its own promotion site
+                      keys: Sequence[Tuple[int, int]]
+                      ) -> Tuple[np.ndarray, Set[int]]:
+        """Coalesced packed-sidecar read, dequantized on the host: every
+        storage plane of every (seq, chunk) key.  Returns ``(out, bad)``:
+        out is (n, planes, chunk, Hkv, hd) in store dtype; ``bad`` holds
+        the positions whose payload failed its CRC — those rows are
+        garbage, the sidecar is quarantined (valid bit cleared, counted)
+        and the caller falls back to the fp16 replica."""
+        sq = np.array([s for s, _ in keys])
+        cq = np.array([c for _, c in keys])
+        data = np.asarray(self._disk_q[sq, layer, cq])  # (n, planes, c, dq)
+        scale = np.asarray(self._disk_scale[sq, layer, cq])  # (n, planes, d)
+        bad: Set[int] = set()
+        if self._q_crc is not None:
+            for i, (p, c) in enumerate(keys):
+                if self._sidecar_crc(data[i], scale[i]) != \
+                        int(self._q_crc[p, layer, c]):
+                    bad.add(i)
+                    self._sidecar_valid[p, layer, c] = False
+                    self._count("checksum_failures")
+        out = np.empty((len(keys), self.planes, self.chunk, self.kv_heads,
+                        self.head_dim), self.dtype)
+        for plane in range(self.planes):
+            out[:, plane] = compression.dequantize_chunks(
+                data[:, plane], scale[:, plane], self.transit_codec,
+                self.kv_heads, self.head_dim, dtype=self.dtype)
+        return out, bad
+
+    def _replica_read_verified(self, layer: int,  # leolint: waive[billlint] reason=coalesced verified-read helper: its callers (_stage_disk, fetch_chunks) bill every chunk they promote at the promotion site, where the per-seq attribution and the fallback kind are known
                                entries: Sequence[Tuple[int, int, int]]
                                ) -> Tuple[np.ndarray, Set[int]]:
         """Coalesced fp16-replica gather plus CRC verification.  ``entries``
         is (bill seq, row, chunk).  Returns (blk, lost): blk is (n, planes,
-        chunk, Hkv, hd); ``lost`` positions failed verification and are
-        marked disk-lost."""
+        chunk, Hkv, hd); ``lost`` positions failed verification (replica
+        corrupt or, in a reopened store, never landed) and are marked
+        disk-lost."""
         sq = np.array([p for _, p, _ in entries])
         cq = np.array([c for _, _, c in entries])
         blk = np.asarray(self._disk[sq, layer, cq])
         lost: Set[int] = set()
-        for i, (_, p, c) in enumerate(entries):
-            if int(self._crc_state[p, layer, c]) == _CRC_VALID and \
-                    self._crc32(blk[i]) != int(self._crc[p, layer, c]):
-                lost.add(i)
-                if (p, layer, c) not in self._disk_lost:
-                    self._disk_lost.add((p, layer, c))
-                    self._count("checksum_failures")
+        if self._crc is not None:
+            for i, (_, p, c) in enumerate(entries):
+                state = int(self._crc_state[p, layer, c])
+                ok = True
+                if state == _CRC_VALID:
+                    ok = self._crc32(blk[i]) == int(self._crc[p, layer, c])
+                elif state == _CRC_NONE and self._reopened:
+                    ok = False       # torn ingest: the cold write never landed
+                if not ok:
+                    lost.add(i)
+                    if (p, layer, c) not in self._disk_lost:
+                        self._disk_lost.add((p, layer, c))
+                        self._count("checksum_failures")
         return blk, lost
 
     # ------------------------------------------------------------------
@@ -461,15 +595,16 @@ class TieredKVStore:
                executor=None, pool_place: bool = True,
                start: int = 0) -> None:
         """Store prefill KV.  k/v: (S, Hkv, hd).  Every chunk is replicated
-        to disk (with its abstract); ``placement`` assigns the hot tier.
-        With ``executor`` the cold half (disk replica + abstract writes and
-        their billing) runs write-behind; reads of the disk tier or the
-        abstracts need :meth:`ingest_fence` first.
+        to disk (with its abstract, and its packed sidecar in a sidecar
+        store); ``placement`` assigns the hot tier.  With ``executor`` the
+        cold half (disk replica, sidecar and abstract writes and their
+        billing) runs write-behind; reads of the disk tier or the abstracts
+        need :meth:`ingest_fence` first.
 
         ``pool_place=False`` (ingest on a thread other than the decode
         thread, whose attention reads the pool slab) defers each would-be
-        DEVICE chunk into the pool's ``pending_place`` and tiers it HOST;
-        the next :meth:`fetch_chunks_pooled` places it.  ``start`` (a
+        DEVICE chunk of a pooled store into the pool's ``pending_place``
+        and tiers it HOST; the next :meth:`fetch_chunks_pooled` places it.  ``start`` (a
         chunk-aligned token position) ingests a PART of the sequence: rows
         land in chunks ``start // chunk`` onward, ``placement`` stays keyed
         by global chunk id, and every call's cold writes join the same
@@ -501,7 +636,7 @@ class TieredKVStore:
                 kcs.append(kc)
                 vcs.append(vc)
                 where = placement.get(c, HOST)
-                if where == DEVICE and not pool_place:
+                if where == DEVICE and self.use_pool and not pool_place:
                     # the decode thread reads the slab outside the lock:
                     # queue the placement for its next pooled fetch
                     self.pools[layer].pending_place[(seq, c)] = \
@@ -512,7 +647,10 @@ class TieredKVStore:
                 if where in (HOST, DEVICE):
                     self._host_k[key], self._host_v[key] = kc, vc
                 if where == DEVICE:
-                    to_pool.append((c, kc, vc))
+                    if self.use_pool:
+                        to_pool.append((c, kc, vc))
+                    else:
+                        self._promote_device(key, kc, vc)
             if to_pool:
                 # leolint: waive[locklint,threadlint] reason=decode-thread ingest only: to_pool fills only when pool_place=True, which the admission worker never passes (it defers via pending_place), and the slab update is an eager in-place device write, not a compiled dispatch
                 self._pool_place(layer, seq, to_pool)
@@ -529,13 +667,27 @@ class TieredKVStore:
     @worker_thread
     def _ingest_cold(self, layer: int, seq: int, cids: List[int],
                      kcs: np.ndarray, vcs: np.ndarray) -> None:
-        """The write-behind half of :meth:`ingest`: fp16 replica, CRC and
-        abstract writes (and, in a PQ store, the codebook update and the
-        chunks' codes), with their billing.  kcs/vcs: (n, chunk, Hkv, hd)
-        in store dtype, rows matching ``cids``."""
-        crcs = [self._crc32(self._plane_stack(kc, vc))
-                for kc, vc in zip(kcs, vcs)]
+        """The write-behind half of :meth:`ingest`: fp16 replica, packed
+        sidecar, CRC and abstract writes (and, in a PQ store, the codebook
+        update and the chunks' codes), with their billing.  kcs/vcs: (n,
+        chunk, Hkv, hd) in store dtype, rows matching ``cids``."""
         n = len(cids)
+        packed = None
+        if self.disk_sidecar:
+            # quantize OUTSIDE the lock (pure compute on private arrays):
+            # holding it here would stall the decode thread's fetches
+            packed = tuple(compression.quantize_chunks(p, self.transit_codec)
+                           for p in (kcs, vcs))
+        # checksums over the exact bytes about to land, computed outside
+        # the lock; CRC rows are metadata (4 B a chunk), not billed
+        crcs = q_crcs = None
+        if self._crc is not None:
+            crcs = [self._crc32(self._plane_stack(kcs[i], vcs[i]))
+                    for i in range(n)]
+        if packed is not None and self._q_crc is not None:
+            q_crcs = [self._sidecar_crc(np.stack([pd[i] for pd, _ in packed]),
+                                        np.stack([ps[i] for _, ps in packed]))
+                      for i in range(n)]
         # PQ plane: fold this batch's key vectors into the layer's online
         # codebook and encode every chunk.  The k-means kernels and the
         # device->host copies that end them run OUTSIDE any lock; the
@@ -560,27 +712,38 @@ class TieredKVStore:
                 self._pq_cb[layer] = cb1
                 self._pq_counts[layer] = cnt1
                 self._pq_codebook[layer] = cb1
-            pq_crcs = [self._crc32(pq_codes_arr[i]) for i in range(n)]
+            if self._pq_crc is not None:
+                pq_crcs = [self._crc32(pq_codes_arr[i]) for i in range(n)]
         with self._lock:
             idx = np.asarray(cids, np.int64)
             self._disk[seq, layer, idx, 0] = kcs
             self._disk[seq, layer, idx, 1] = vcs
             self._abs_km[seq, layer, idx] = kcs.max(1)
             self._abs_kn[seq, layer, idx] = kcs.min(1)
-            self._crc[seq, layer, idx] = crcs
-            self._crc_state[seq, layer, idx] = _CRC_VALID
+            if crcs is not None:
+                self._crc[seq, layer, idx] = crcs
+                self._crc_state[seq, layer, idx] = _CRC_VALID
+            rep_bytes = float(self.chunk_bytes)
+            if packed is not None:
+                for pl, (pd, ps) in enumerate(packed):
+                    self._disk_q[seq, layer, idx, pl] = pd
+                    self._disk_scale[seq, layer, idx, pl] = ps
+                self._sidecar_valid[seq, layer, idx] = True
+                if q_crcs is not None:
+                    self._q_crc[seq, layer, idx] = q_crcs
+                rep_bytes = self._packed_bytes()
             if pq_codes_arr is not None:
                 self._pq_codes[seq, layer, idx] = pq_codes_arr
                 self._pq_valid[seq, layer, idx] = True
-                self._pq_crc[seq, layer, idx] = pq_crcs
+                if pq_crcs is not None:
+                    self._pq_crc[seq, layer, idx] = pq_crcs
                 # write-through codebook persistence, billed once per cold
                 # batch (it is shared state, K * head_dim floats)
                 self._record(seq, HOST, DISK, "pq_codes_write",
                              4.0 * self.pq_m * self.pq_centroids
                              * (self.head_dim // self.pq_m))
             for _c in cids:
-                self._record(seq, HOST, DISK, "kv_replica",
-                             float(self.chunk_bytes))
+                self._record(seq, HOST, DISK, "kv_replica", rep_bytes)
                 self._record(seq, HOST, DISK, "abstract", self.abstract_bytes)
                 if pq_codes_arr is not None:
                     self._record(seq, HOST, DISK, "pq_codes_write",
@@ -635,7 +798,27 @@ class TieredKVStore:
             pool.scatter(slots, np.stack([self._plane_stack(kc, vc)
                                           for _, kc, vc in items])))
 
+    @any_thread
+    def tier_view(self, seq: int, layer: int) -> np.ndarray:
+        """A copy of the sequence's tier row for one layer (what the
+        engine's prefetch planner reads)."""
+        with self._lock:
+            return np.array(self.tier[seq, layer], copy=True)
+
     # ------------------------------------------------------------------
+    def read_abstracts(self, layer: int, chunks: Sequence[int], *,
+                       seq: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """LKA: fetch (kmax, kmin) for one sequence's chunks; each disk
+        chunk costs one abstract read."""
+        with self._lock:
+            idx = np.asarray(list(chunks), np.int64)
+            for c in idx:
+                if self.tier[seq, layer, c] == DISK:
+                    self._record(seq, DISK, HOST, "abstract",
+                                 self.abstract_bytes)
+            return (self._abs_km[seq, layer, idx].copy(),
+                    self._abs_kn[seq, layer, idx].copy())
+
     @any_thread
     def read_abstracts_batch(self, layer: int,
                              chunks_by_seq: Dict[int, Sequence[int]]
@@ -727,15 +910,145 @@ class TieredKVStore:
             return km, kn, codes, valid, cb, billed
 
     # ------------------------------------------------------------------
+    # Legacy device tier: host-assembled working sets
+    # ------------------------------------------------------------------
+    def _promote_device(self, key: Tuple[int, int, int], kc: np.ndarray,
+                        vc: np.ndarray) -> None:
+        """Pin a chunk in the legacy device tier, demoting LRU chunks past
+        the shared budget to HOST (free: the host copies and disk replicas
+        survive)."""
+        self._dev_k[key], self._dev_v[key] = kc, vc
+        self.tier[key[0], key[1], key[2]] = DEVICE
+        self._lru[key] = None
+        self._lru.move_to_end(key)
+        if self.device_budget is not None:
+            while len(self._dev_k) > self.device_budget:
+                victim, _ = self._lru.popitem(last=False)
+                self._dev_k.pop(victim, None)
+                self._dev_v.pop(victim, None)
+                self.tier[victim[0], victim[1], victim[2]] = HOST
+
+    def _touch(self, key: Tuple[int, int, int]) -> None:
+        self._lru.move_to_end(key)
+
+    @decode_thread_only
+    def fetch_chunks(self, layer: int, chunks: Sequence[int], *,
+                     seq: int = 0, to_device: bool = True
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Promote one sequence's chunks into the legacy device tier;
+        returns stacked K/V (n, chunk, Hkv, hd).  A disk chunk is read off
+        its packed sidecar when that is valid, else off the fp16 replica;
+        a lost replica raises :class:`ChunkLostError`."""
+        with self._lock:
+            ks, vs = [], []
+            for c in chunks:
+                key = (seq, layer, c)
+                self.access[seq, layer, c] += 1
+                if key in self._dev_k:
+                    self._touch(key)
+                    ks.append(self._dev_k[key])
+                    vs.append(self._dev_v[key])
+                    continue
+                if self.tier[seq, layer, c] == DISK or key not in self._host_k:
+                    kc = vc = None
+                    fell_back = False
+                    if self._sidecar_ok(seq, layer, c):
+                        # leolint: waive[locklint] reason=decode-thread fetch path: the sidecar dequant runs under the short fetch critical section, as in the reference (tier tables must not move mid-fetch)
+                        kv, bad = self._read_sidecar(layer, [(seq, c)])
+                        if bad:
+                            # quarantined (CRC mismatch): degrade to the
+                            # lossless fp16 replica below
+                            fell_back = True
+                        else:
+                            kc, vc = kv[0][0], kv[0][1]
+                            nb = self._packed_bytes()
+                    if kc is None:
+                        blk, lost = self._replica_read_verified(
+                            layer, [(seq, seq, c)])
+                        if lost:
+                            raise ChunkLostError(layer, [(seq, seq, c)])
+                        kc, vc = blk[0][0], blk[0][1]
+                        nb = (self._disk_read_bytes() if self.disk_sidecar
+                              else self._transit_bytes())
+                    if fell_back:
+                        self.degraded_seqs.add(seq)
+                        self._record(seq, DISK, HOST, "kv_fallback", nb)
+                    else:
+                        self._record(seq, DISK, HOST, "kv", nb)
+                    self._host_k[key], self._host_v[key] = kc, vc
+                kc, vc = self._host_k[key], self._host_v[key]
+                self._record(seq, HOST, DEVICE, "kv", self._transit_bytes())
+                if to_device:
+                    self._promote_device(key, kc, vc)
+                ks.append(kc)
+                vs.append(vc)
+            return np.stack(ks), np.stack(vs)
+
+    @decode_thread_only
+    def fetch_chunks_batch(self, layer: int,
+                           chunks_by_seq: Dict[int, Sequence[int]], *,
+                           pad_to: Optional[int] = None, to_device: bool = True
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batch-coalesced promotion for one decode round of one layer on
+        the legacy path: every disk-resident (seq, chunk) pair of the batch
+        is read in ONE gather, then each sequence's ragged selection is
+        padded to ``pad_to`` (default: the round's max).
+
+        Returns (kg, vg, nsel): kg/vg (B, pad_to, chunk, Hkv, hd) in store
+        dtype with zero padding — the working set the engine uploads whole
+        — and nsel (B,) the valid chunk counts.  Rows follow dict order.
+        Every chunk not in the legacy device tier bills a host→device
+        upload, as in the reference."""
+        with self._lock:
+            items = list(chunks_by_seq.items())
+            B = len(items)
+            nsel = np.array([len(c) for _, c in items], np.int32)
+            nmax = int(pad_to if pad_to is not None
+                       else (nsel.max() if B else 0))
+            # leolint: waive[locklint] reason=decode-thread batch fetch: disk staging (and its sidecar dequant) stays under _lock so the gathered tier view is atomic, as in the reference
+            self._stage_disk(layer, [(seq, c) for seq, chunks in items
+                                     for c in chunks],
+                             nbytes=(self._disk_read_bytes()
+                                     if self.disk_sidecar
+                                     else self._transit_bytes()),
+                             skip_pool=False)
+            kg = np.zeros((B, nmax, self.chunk, self.kv_heads, self.head_dim),
+                          self.dtype)
+            vg = np.zeros_like(kg)
+            for i, (seq, chunks) in enumerate(items):
+                for j, c in enumerate(chunks):
+                    key = (seq, layer, c)
+                    self.access[seq, layer, c] += 1
+                    if key in self._dev_k:
+                        self._touch(key)
+                        kg[i, j] = self._dev_k[key]
+                        vg[i, j] = self._dev_v[key]
+                        continue
+                    self._record(seq, HOST, DEVICE, "kv",
+                                 self._transit_bytes())
+                    if to_device:
+                        self._promote_device(key, self._host_k[key],
+                                             self._host_v[key])
+                    kg[i, j] = self._host_k[key]
+                    vg[i, j] = self._host_v[key]
+            return kg, vg, nsel
+
+    # ------------------------------------------------------------------
     # Pooled path: device-resident slab, delta uploads, real codec
     # ------------------------------------------------------------------
     def _stage_disk(self, layer: int, keys: Sequence[Tuple[int, int]], *,
-                    nbytes: float, retier: bool = False) -> Tuple[int, float]:
-        """Coalesce disk→host reads for every key lacking a host copy (pool
-        residents need none): one fancy-indexed memmap gather, CRC-verified,
-        each chunk billed ``nbytes``.  ``retier`` marks staged chunks HOST
-        so a later fetch sees the copy instead of re-reading.  Returns
-        (chunks read, bytes billed); a failed checksum raises
+                    nbytes: float, skip_pool: bool,
+                    retier: bool = False) -> Tuple[int, float]:
+        """Coalesce disk→host reads for every key lacking a host copy: one
+        gather per representation.  Sidecar-valid chunks move packed bytes
+        (dequantized on the host, billed :meth:`_packed_bytes`); the rest
+        read the fp16 replica, CRC-verified, and bill ``nbytes``.  A
+        sidecar that fails its CRC falls back to the replica on its own,
+        billed ``kv_fallback``, and marks its sequence degraded.
+        ``skip_pool``: pool residents need no host copy (else the legacy
+        device tier's residents need none).  ``retier`` marks staged
+        chunks HOST so a later fetch sees the copy instead of re-reading.
+        Returns (chunks read, bytes billed); a lost replica raises
         :class:`ChunkLostError`."""
         need: List[Tuple[int, int, int]] = []   # (billed seq, row, c)
         seen = set()
@@ -745,26 +1058,53 @@ class TieredKVStore:
             if key in seen:
                 continue
             seen.add(key)
-            if (seq, c) in pool.slot_of:
+            if skip_pool and pool is not None and (seq, c) in pool.slot_of:
+                continue
+            if not skip_pool and key in self._dev_k:
                 continue
             if key in self._host_k and self.tier[seq, layer, c] != DISK:
                 continue
             need.append((seq, seq, c))
         billed = 0.0
-        if not need:
-            return 0, billed
-        blk, bad = self._replica_read_verified(layer, need)
+        need_q = [e for e in need if self._sidecar_ok(e[1], layer, e[2])]
+        need_fp = [e for e in need if not self._sidecar_ok(e[1], layer,
+                                                           e[2])]
+        # sidecar group first: a CRC-quarantined key degrades into the
+        # fp16 group below and bills kv_fallback — the read that actually
+        # happened, at its full-chunk cost
+        fallback: Set[Tuple[int, int]] = set()
+        if need_q:
+            per_chunk = self._packed_bytes()
+            blk, bad = self._read_sidecar(layer,
+                                          [(p, c) for _, p, c in need_q])
+            for i, (seq, p, c) in enumerate(need_q):
+                if i in bad:
+                    fallback.add((p, c))
+                    need_fp.append((seq, p, c))
+                    continue
+                self._record(seq, DISK, HOST, "kv", per_chunk)
+                billed += per_chunk
+                key = (p, layer, c)
+                self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
+                if retier:
+                    self.tier[p, layer, c] = HOST
         lost: List[Tuple[int, int, int]] = []
-        for i, (seq, p, c) in enumerate(need):
-            if i in bad:
-                lost.append((seq, p, c))
-                continue
-            self._record(seq, DISK, HOST, "kv", nbytes)
-            billed += nbytes
-            key = (p, layer, c)
-            self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
-            if retier:
-                self.tier[p, layer, c] = HOST
+        if need_fp:
+            blk, bad = self._replica_read_verified(layer, need_fp)
+            for i, (seq, p, c) in enumerate(need_fp):
+                if i in bad:
+                    lost.append((seq, p, c))
+                    continue
+                if (p, c) in fallback:
+                    self.degraded_seqs.add(seq)
+                    self._record(seq, DISK, HOST, "kv_fallback", nbytes)
+                else:
+                    self._record(seq, DISK, HOST, "kv", nbytes)
+                billed += nbytes
+                key = (p, layer, c)
+                self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
+                if retier:
+                    self.tier[p, layer, c] = HOST
         if lost:
             raise ChunkLostError(layer, lost)
         return len(need), billed
@@ -783,7 +1123,7 @@ class TieredKVStore:
             try:
                 n, _ = self._stage_disk(layer, keys,
                                         nbytes=self._disk_read_bytes(),
-                                        retier=True)
+                                        skip_pool=True, retier=True)
             except ChunkLostError:
                 return 0
             return n
@@ -822,6 +1162,11 @@ class TieredKVStore:
         Returns (slots, nsel, stats): slots (B, pad_to) int32 indices into
         ``pools[layer]`` (padding rows point at slot 0 — the engine masks
         them), nsel (B,) valid counts.  Rows follow dict order."""
+        if not self.use_pool:
+            raise ValueError(
+                "fetch_chunks_pooled requires a pooled store — construct "
+                "TieredKVStore(use_pool=True, ...) or use fetch_chunks / "
+                "fetch_chunks_batch on the legacy host-assembled path")
         with self._lock:
             st = FetchStats()
             pool = self.pools[layer]
@@ -834,7 +1179,7 @@ class TieredKVStore:
             t0 = time.perf_counter()
             st.disk_reads, st.disk_bytes = self._stage_disk(
                 layer, [(seq, c) for seq, chunks in items for c in chunks],
-                nbytes=self._disk_read_bytes())
+                nbytes=self._disk_read_bytes(), skip_pool=True)
             st.gather_s = time.perf_counter() - t0
 
             slots = np.zeros((B, nmax), np.int32)
@@ -937,7 +1282,7 @@ class TieredKVStore:
 
     def pool_stats(self) -> Dict[str, float]:
         """Aggregate pool residency counters across layers."""
-        pools = self.pools
+        pools = [p for p in self.pools if p is not None]
         hits = sum(p.hits for p in pools)
         misses = sum(p.misses for p in pools)
         uploads = sum(p.uploads for p in pools)
@@ -951,13 +1296,51 @@ class TieredKVStore:
 
     # ------------------------------------------------------------------
     @decode_thread_only
+    def demote(self, layer: int, chunks: Sequence[int], to: str = HOST, *,
+               seq: int = 0) -> None:
+        """Eviction is free toward disk (replicas, §4.3): no bytes move."""
+        with self._lock:
+            for c in chunks:
+                key = (seq, layer, c)
+                self._dev_k.pop(key, None)
+                self._dev_v.pop(key, None)
+                self._lru.pop(key, None)
+                if self.pools[layer] is not None:
+                    self.pools[layer].evict((seq, c))
+                if to == DISK:
+                    self._host_k.pop(key, None)
+                    self._host_v.pop(key, None)
+                self.tier[seq, layer, c] = to
+
+    @any_thread
+    def host_bytes(self) -> int:
+        """Live host-tier copy bytes."""
+        with self._lock:
+            return len(self._host_k) * self.chunk_bytes
+
+    def device_bytes(self) -> int:
+        """Chunk bytes resident in the device tier (legacy dicts and pool
+        slots)."""
+        resident = len(self._dev_k) + sum(
+            len(p.slot_of) for p in self.pools if p is not None)
+        return resident * self.chunk_bytes
+
+    def append_token(self, layer: int, pos: int, k_new: np.ndarray,
+                     v_new: np.ndarray, *, seq: int = 0) -> None:
+        """Decode-step cache append: update chunk + abstract in place."""
+        self.append_tokens_batch(layer, np.asarray([pos]), k_new[None],
+                                 v_new[None], seqs=[seq])
+
+    @decode_thread_only
     def append_tokens_batch(self, layer: int, positions: np.ndarray,
                             k_news: np.ndarray, v_news: np.ndarray, *,
                             seqs: Sequence[int]) -> None:
         """One round's appends for a layer: vectorized disk writes +
-        abstract updates, host mirror updates, and the pool rows queued
-        for the next slab flush.  positions: (B,), k_news/v_news:
-        (B, Hkv, hd) (f32 or the store dtype), seqs: (B,)."""
+        abstract updates, host and legacy-device mirror updates, and the
+        pool rows queued for the next slab flush.  positions: (B,),
+        k_news/v_news: (B, Hkv, hd) (f32 or the store dtype), seqs: (B,).
+        An append stales the chunk's sidecar scales and PQ codes: both are
+        invalidated until the requant sweep repacks the quiet chunk."""
         with self._lock:
             sq = np.asarray(list(seqs), np.int64)
             pos = np.asarray(positions, np.int64)
@@ -966,13 +1349,20 @@ class TieredKVStore:
             vd = v_news.astype(self.dtype)
             self._disk[sq, layer, cs, 0, offs] = kd
             self._disk[sq, layer, cs, 1, offs] = vd
-            # append-dirtied: the replica changed under its checksum
-            self._crc_state[sq, layer, cs] = _CRC_DIRTY
+            if self._crc_state is not None:
+                # append-dirtied: the replica changed under its checksum
+                # (served unverified until the sweep re-checksums it)
+                self._crc_state[sq, layer, cs] = _CRC_DIRTY
+            if self.disk_sidecar:
+                # the chunk's per-channel scales no longer cover the new
+                # row: reads fall back to the lossless fp16 replica
+                self._sidecar_valid[sq, layer, cs] = False
             if self.pq:
                 # the appended row is not in the codes: importance falls
                 # back to the chunk's min/max box — bitwise the minmax
                 # score — until the sweep re-encodes the quiet chunk
                 self._pq_valid[sq, layer, cs] = False
+            if self.disk_sidecar or self.pq:
                 for i in range(len(sq)):
                     key = (int(sq[i]), layer, int(cs[i]))
                     self._requant_pending[key] = self._sweep_round
@@ -989,27 +1379,31 @@ class TieredKVStore:
                 if key in self._host_k:
                     self._host_k[key][off] = kd[i]
                     self._host_v[key][off] = vd[i]
-                if (seq, c) in pool.slot_of:
+                if key in self._dev_k:
+                    self._dev_k[key][off] = kd[i]
+                    self._dev_v[key][off] = vd[i]
+                if pool is not None and (seq, c) in pool.slot_of:
                     # H2D billing happens when the flush carries the row
                     pool.queue_row((seq, c), off,
                                    self._plane_stack(kd[i], vd[i]))
                 self._record(seq, HOST, DISK, "kv_append", row_bytes)
 
     # ------------------------------------------------------------------
-    # Requant sweep (PQ codes of append-dirtied chunks)
+    # Requant sweep: sidecar repack and PQ re-encode of quiet chunks
     # ------------------------------------------------------------------
     @decode_thread_only
     def requant_sweep(self, executor=None) -> int:
-        """Advance the sweep clock one decode round and re-encode every
-        append-dirtied chunk that stayed quiet for at least one FULL round
-        since its last append (the live tail chunk refreshes its entry
-        every round, so it is never re-encoded while appends land in it).
-        With ``executor`` the re-encode runs write-behind on that worker; a
-        concurrent append (or slot reuse) bumps the chunk's version and
-        aborts that chunk.  Returns the number of chunks submitted."""
-        if not self.pq:
+        """Advance the sweep clock one decode round and repack (sidecar)
+        and re-encode (PQ codes) every append-dirtied chunk that stayed
+        quiet for at least one FULL round since its last append (the live
+        tail chunk refreshes its entry every round, so it is never
+        repacked while appends land in it).  With ``executor`` the work
+        runs write-behind on that worker; a concurrent append (or slot
+        reuse) bumps the chunk's version and aborts that chunk.  Returns
+        the number of chunks submitted."""
+        if not (self.disk_sidecar or self.pq):
             return 0
-        # prune landed re-encodes so the in-flight list stays bounded,
+        # prune landed repacks so the in-flight list stays bounded,
         # surfacing a worker exception instead of swallowing it: the whole
         # list is pruned first, then the first failure re-raises
         still, first = [], None
@@ -1045,10 +1439,12 @@ class TieredKVStore:
     @worker_thread
     def _requant_chunks(self, keys: List[Tuple[int, int, int]],
                         vers: Dict[Tuple[int, int, int], int]) -> None:
-        """Re-encode each chunk's PQ codes off its current fp16 replica.
-        The encode (kernel B4) runs OUTSIDE the locks on a private copy;
-        the write re-validates the chunk's version under the lock, so codes
-        are never marked valid over rows they did not see."""
+        """Repack each chunk's fp16 replica into its int sidecar and/or
+        re-encode its PQ codes (kernel B4) off the current replica bytes.
+        Quantization and the encode run OUTSIDE the locks on private
+        copies; the write re-validates the chunk's version under the lock,
+        so a repack never marks a sidecar (or codes) valid over rows it
+        did not see."""
         for seq, layer, c in keys:
             key = (seq, layer, c)
             with self._lock:
@@ -1056,35 +1452,63 @@ class TieredKVStore:
                     continue            # a newer append re-dirtied it
                 planes = [np.array(self._disk[seq, layer, c, pl])
                           for pl in range(self.planes)]
-                # the re-encode READS the fp16 replica off disk before it
-                # writes fresh codes back — both directions bill
+                # the repack READS the fp16 replica off disk before it
+                # writes the packed sidecar / fresh codes back — both
+                # directions bill
                 self._record(seq, DISK, HOST, "sidecar_repack_read",
                              float(self.chunk_bytes))
-            with self._pq_lock:
-                cb = self._pq_cb[layer].copy()
-            codes_c = pq_encode(
-                planes[0].reshape(-1, self.head_dim).astype(np.float32), cb,
-                impl=self.impl, device=self.device).reshape(
-                    self.chunk, self.kv_heads, self.pq_m)
+            packed = None
+            if self.disk_sidecar:
+                packed = [compression.quantize_chunks(p[None],
+                                                      self.transit_codec)
+                          for p in planes]
+            codes_c = None
+            if self.pq:
+                with self._pq_lock:
+                    cb = self._pq_cb[layer].copy()
+                codes_c = pq_encode(
+                    planes[0].reshape(-1, self.head_dim).astype(np.float32),
+                    cb, impl=self.impl, device=self.device).reshape(
+                        self.chunk, self.kv_heads, self.pq_m)
             # the read already paid for the whole replica: refresh its CRC
-            # (append-dirtied -> valid) and checksum the fresh codes
-            rep_crc = self._crc32(np.stack(planes))
-            codes_crc = self._crc32(codes_c)
+            # (append-dirtied -> valid) and checksum the fresh derived bytes
+            rep_crc = self._crc32(np.stack(planes)) \
+                if self._crc is not None else None
+            side_crc = None
+            if packed is not None and self._q_crc is not None:
+                side_crc = self._sidecar_crc(
+                    np.stack([pd[0] for pd, _ in packed]),
+                    np.stack([ps[0] for _, ps in packed]))
+            codes_crc = self._crc32(codes_c) \
+                if codes_c is not None and self._pq_crc is not None else None
             with self._lock:
                 if self._chunk_version[key] != vers[key]:
-                    continue            # raced an append mid-encode
-                self._crc[seq, layer, c] = rep_crc
-                self._crc_state[seq, layer, c] = _CRC_VALID
-                self._pq_codes[seq, layer, c] = codes_c
-                self._pq_valid[seq, layer, c] = True
-                self._pq_crc[seq, layer, c] = codes_crc
-                self.pq_reencodes += 1
-                self._record(seq, HOST, DISK, "pq_codes_write",
-                             float(self.pq_bytes))
+                    continue            # raced an append mid-repack
+                if packed is not None:
+                    for pl, (pd, ps) in enumerate(packed):
+                        self._disk_q[seq, layer, c, pl] = pd[0]
+                        self._disk_scale[seq, layer, c, pl] = ps[0]
+                    self._sidecar_valid[seq, layer, c] = True
+                    if side_crc is not None:
+                        self._q_crc[seq, layer, c] = side_crc
+                    self.sidecar_repacks += 1
+                    self._record(seq, HOST, DISK, "sidecar_repack",
+                                 self._packed_bytes())
+                if rep_crc is not None:
+                    self._crc[seq, layer, c] = rep_crc
+                    self._crc_state[seq, layer, c] = _CRC_VALID
+                if codes_c is not None:
+                    self._pq_codes[seq, layer, c] = codes_c
+                    self._pq_valid[seq, layer, c] = True
+                    if codes_crc is not None:
+                        self._pq_crc[seq, layer, c] = codes_crc
+                    self.pq_reencodes += 1
+                    self._record(seq, HOST, DISK, "pq_codes_write",
+                                 float(self.pq_bytes))
 
     @any_thread
     def requant_fence(self) -> None:
-        """Drain in-flight background re-encodes (shutdown / test
+        """Drain in-flight background repacks (shutdown / test
         ordering).  Every future is awaited even when one raises; the
         first failure re-raises."""
         futs, self._requant_futs = self._requant_futs, []
@@ -1104,27 +1528,34 @@ class TieredKVStore:
         """Retire a sequence: free its hot-tier entries so the slot can be
         reused; its traffic log moves to ``retired_logs``."""
         with self._lock:
-            for d in (self._host_k, self._host_v):
+            for d in (self._host_k, self._host_v, self._dev_k, self._dev_v,
+                      self._lru):
                 for key in [k for k in d if k[0] == seq]:
                     d.pop(key, None)
             for pool in self.pools:
-                pool.evict_seq(seq)
+                if pool is not None:
+                    pool.evict_seq(seq)
             self._abs_km[seq] = -np.inf
             self._abs_kn[seq] = np.inf
             self.tier[seq] = HOST
             self.access[seq] = 0.0
+            self._sidecar_valid[seq] = False
             if self._pq_valid is not None:
                 self._pq_valid[seq] = False
             # retire the slot's requant state: pending entries drop and the
-            # version bump aborts any in-flight re-encode of the old data
+            # version bump aborts any in-flight repack of the old data
             for key in [k for k in self._requant_pending if k[0] == seq]:
                 self._requant_pending.pop(key)
             for key in [k for k in self._chunk_version if k[0] == seq]:
                 self._chunk_version[key] += 1
             if seq in self.seq_logs:
                 self.retired_logs.append(self.seq_logs.pop(seq))
+            # fault-domain state is per slot: a reused slot inherits no
+            # degradation or lost-chunk marks
+            self.degraded_seqs.discard(seq)
             self._disk_lost = {k for k in self._disk_lost if k[0] != seq}
-            self._crc_state[seq] = _CRC_NONE
+            if self._crc_state is not None:
+                self._crc_state[seq] = _CRC_NONE
 
     @any_thread
     def disk_lost_keys(self) -> Set[Tuple[int, int, int]]:
@@ -1138,6 +1569,7 @@ class TieredKVStore:
             out = {k: float(v) for k, v in self.fault_counters.items()}
         with self._lock:
             out["disk_lost"] = float(len(self._disk_lost))
+            out["degraded_seqs"] = float(len(self.degraded_seqs))
             out["pq_reencodes"] = float(self.pq_reencodes)
         return out
 
@@ -1149,9 +1581,9 @@ class TieredKVStore:
         return dict(out)
 
     def close(self) -> None:
-        """Drain in-flight writes and re-encodes, then drop the memmaps
-        (best-effort: a failed worker must not block shutdown of the
-        survivors)."""
+        """Drain in-flight writes and repacks, then drop the memmaps, which
+        flushes them (best-effort: a failed worker must not block shutdown
+        of the survivors)."""
         try:
             self.ingest_fence_all()
         except Exception:
@@ -1160,5 +1592,6 @@ class TieredKVStore:
             self.requant_fence()
         except Exception:
             pass
-        del self._disk, self._crc, self._crc_state
+        self._disk = self._disk_q = self._disk_scale = None
+        self._crc = self._crc_state = self._q_crc = None
         self._pq_codes = self._pq_codebook = self._pq_crc = None

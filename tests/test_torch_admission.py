@@ -620,8 +620,8 @@ def _store_pair(tmp_path, **kw):
     (tmp_path / "jax").mkdir()
     js = JStore(1, 4, 16, 2, 8, n_seqs=1, use_pool=True,
                 root=str(tmp_path / "jax"), **kw)
-    ts = TStore(1, 4, 16, 2, 8, n_seqs=1, root=str(tmp_path / "torch"),
-                device="cpu", **kw)
+    ts = TStore(1, 4, 16, 2, 8, n_seqs=1, use_pool=True,
+                root=str(tmp_path / "torch"), device="cpu", **kw)
     return js, ts
 
 
@@ -723,7 +723,8 @@ def test_partial_ingest_matches_whole(tmp_path, rng):
 
 @pytest.mark.parametrize("start", [8, 1, 17])
 def test_unaligned_partial_ingest_refused(rng, start):
-    st = TStore(1, 4, 16, 2, 8, n_seqs=1, transit_codec=None, device="cpu")
+    st = TStore(1, 4, 16, 2, 8, n_seqs=1, transit_codec=None, use_pool=True,
+                device="cpu")
     k = rng.randn(16, 2, 8).astype(np.float16)
     with pytest.raises(ValueError, match="multiple of the store chunk"):
         st.ingest(0, k, k, {}, start=start)

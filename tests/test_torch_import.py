@@ -87,4 +87,4 @@ def test_entry_points_raise_instead_of_running_on_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchedLeoAMEngine(cfg, params, EngineCfg(max_len=64))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        TieredKVStore(1, 4, 16, 2, 8)
+        TieredKVStore(1, 4, 16, 2, 8, use_pool=True)

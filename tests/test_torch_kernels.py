@@ -19,6 +19,7 @@ from repro.kernels.chunk_bounds.ops import chunk_bounds as j_chunk_bounds
 from repro.kernels.kv_quant.ops import kv_dequant as j_kv_dequant
 from repro.kernels.sparse_decode.ops import sparse_decode as j_sparse_decode
 from repro.serving.engine import _attend_pooled as j_attend_pooled
+from repro.serving.engine import _attend_workingset as j_attend_workingset
 from repro_torch.core import compression as tcomp
 from repro_torch.core.bounds import chunk_bounds_gqa_matmul as t_bounds_gqa
 from repro_torch.kernels.chunk_bounds.ops import chunk_bounds as t_chunk_bounds
@@ -27,10 +28,11 @@ from repro_torch.kernels.sparse_decode.ops import (BLOCKS_PER_SM,
                                                    sparse_decode as
                                                    t_sparse_decode,
                                                    sparse_decode_pooled,
+                                                   sparse_decode_workingset,
                                                    split_plan, split_rows)
 from repro_torch.kernels.sparse_decode.ref import (
     BF16_MAX_MISMATCH, bf16_agreement, model_scale,
-    sparse_decode_pooled_split_ref)
+    sparse_decode_pooled_split_ref, workingset_slab)
 
 _TDT = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -153,6 +155,53 @@ def test_sparse_decode_engine_entry_matches_attend_pooled(rng, dtype,
                                    rtol=1e-5, atol=1e-5)
     else:
         assert_bf16_close(_np(y_t).reshape(B, 1, H * hd), _np(y_j))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_sparse_decode_workingset_entry_matches_attend_workingset(
+        rng, dtype, softcap):
+    """The legacy engine's entry against repro.serving.engine.
+    _attend_workingset (the reference's host-assembled working set,
+    zero-padded, with the engine's position mask; output projection =
+    identity), and bitwise against the pooled entry over the same rows."""
+    B, H, Hkv, hd, chunk, nmax = 3, 4, 2, 16, 8, 4
+    kg = rng.randn(B, nmax, chunk, Hkv, hd).astype(np.float16)
+    vg = rng.randn(B, nmax, chunk, Hkv, hd).astype(np.float16)
+    cids = np.full((B, nmax), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b, n in enumerate((4, 2, 3)):
+        cids[b, :n] = np.sort(rng.choice(10, n, replace=False))
+        lengths[b] = cids[b, n - 1] * chunk + rng.randint(1, chunk)
+        kg[b, n:] = 0
+        vg[b, n:] = 0
+    pos = np.full((B, nmax * chunk + 1), np.iinfo(np.int64).max, np.int64)
+    for b in range(B):
+        sel = cids[b][cids[b] >= 0]
+        p = (sel[:, None] * chunk + np.arange(chunk)[None]).reshape(-1)
+        pos[b, :len(p)] = p
+    valid = pos < lengths[:, None]
+    valid[:, -1] = True
+    qj, qt = _both(rng.randn(B, 1, H, hd).astype(np.float32), dtype)
+    knj, knt = _both(rng.randn(B, 1, Hkv, hd).astype(np.float32), dtype)
+    vnj, vnt = _both(rng.randn(B, 1, Hkv, hd).astype(np.float32), dtype)
+    eye = jnp.eye(H * hd, dtype=qj.dtype)
+    y_j = j_attend_workingset(qj, jnp.asarray(kg), jnp.asarray(vg), knj,
+                              vnj, jnp.asarray(valid)[:, None, None], eye,
+                              attn_softcap=softcap)
+    args = (torch.from_numpy(cids), torch.from_numpy(lengths), knt, vnt,
+            softcap)
+    y_t = sparse_decode_workingset(qt[:, 0], torch.from_numpy(kg),
+                                   torch.from_numpy(vg), *args)
+    assert y_t.dtype == qt.dtype
+    if dtype == np.float32:
+        np.testing.assert_allclose(_np(y_t).reshape(B, 1, H * hd), _np(y_j),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert_bf16_close(_np(y_t).reshape(B, 1, H * hd), _np(y_j))
+    slab, slots = workingset_slab(torch.from_numpy(kg), torch.from_numpy(vg))
+    assert torch.equal(y_t, sparse_decode_pooled(qt[:, 0], slab, slots,
+                                                 *args))
 
 
 @pytest.mark.parametrize("nmax,B,Hkv,n_sm", [
@@ -431,6 +480,11 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting(rng):
     kq.kv_dequant_scatter(torch.zeros(2, 2, 4, dtype=torch.int8),
                           torch.ones(2, 8), torch.zeros(3, 2, 2, 2, 4),
                           [1], codec="int4")
+    kg = torch.zeros(1, 2, 4, 2, 8)
+    sd.sparse_decode_workingset(q[:, :, 0], kg, kg,
+                                torch.tensor([[0, -1]], dtype=torch.int32),
+                                torch.tensor([3], dtype=torch.int32),
+                                kg[:, 0, :1], kg[:, 0, :1])
     assert (cb.launches, kq.launches, sd.launches) == before
     with pytest.raises(ValueError):                  # neither CPU nor CUDA
         cb.chunk_bounds(q.to("meta"), km.to("meta"), km.to("meta"))

@@ -387,9 +387,9 @@ def test_fetch_chunks_pooled_cuda_matches_plain_scatter(cuda, tmp_path,
     from repro_torch.serving.offload import HOST, TieredKVStore
     L, NC, C, HKV, HD = 1, 8, 16, 4, 32
     stores = {impl: TieredKVStore(
-        L, NC, C, HKV, HD, n_seqs=2, transit_codec="int4", pool_slots=9,
-        real_codec=True, root=str(tmp_path / str(impl)), device="cuda",
-        impl=impl) for impl in (None, "ref")}
+        L, NC, C, HKV, HD, n_seqs=2, transit_codec="int4", use_pool=True,
+        pool_slots=9, real_codec=True, root=str(tmp_path / str(impl)),
+        device="cuda", impl=impl) for impl in (None, "ref")}
     out = {}
     before = kq_ops.launches
     for impl, store in stores.items():
@@ -442,7 +442,8 @@ def test_deferred_placements_fold_into_a_codec_upload_cuda(
     for impl in (None, "ref"):
         store = TieredKVStore(
             L, NC, C, HKV, HD, n_seqs=2, transit_codec="int4",
-            pool_slots=12, real_codec=True, root=str(tmp_path / str(impl)),
+            use_pool=True, pool_slots=12, real_codec=True,
+            root=str(tmp_path / str(impl)),
             device="cuda", impl=impl)
         rng = np.random.RandomState(0)
         place = {c: DEVICE if c < 2 else HOST for c in range(NC)}
@@ -511,6 +512,147 @@ def test_async_admission_on_its_stream_stores_the_sync_bytes(cuda, tmp_path):
         st.close()
     for a, b in zip(res["sync"], res["async"]):
         assert np.array_equal(a, b)
+
+
+def _sidecar_script(store, seed, theta):
+    """Two sequences ingested over DEVICE/HOST/DISK placements with the
+    packed sidecar, then four rounds of pooled promotion (packed disk
+    reads dequantized on the host, the θ-part of each upload by kernel B3
+    on the card) and appends, a sweep after each; returns the slots and
+    stats of every fetch."""
+    from repro_torch.serving.offload import DEVICE, DISK, HOST
+    rng = np.random.RandomState(seed)
+    nc, c = store.n_chunks, store.chunk
+    place = {i: (DEVICE, HOST, DISK, DISK)[i % 4] for i in range(nc)}
+    for seq in range(2):
+        k = rng.randn(nc * c, store.kv_heads, store.head_dim)
+        v = rng.randn(nc * c, store.kv_heads, store.head_dim)
+        store.ingest(0, k.astype(np.float32), v.astype(np.float32), place,
+                     seq=seq)
+    res = []
+    for rnd in range(4):
+        sels = {seq: sorted(rng.choice(nc, 4, replace=False).tolist())
+                for seq in range(2)}
+        slots, _, st = store.fetch_chunks_pooled(0, sels, theta=theta)
+        res.append((slots.tolist(), st.uploads, st.compressed,
+                    st.disk_reads, st.disk_bytes, st.upload_bytes))
+        store.append_tokens_batch(
+            0, np.array([nc * c - 8 + rnd] * 2),
+            rng.randn(2, store.kv_heads, store.head_dim).astype(np.float32),
+            rng.randn(2, store.kv_heads, store.head_dim).astype(np.float32),
+            seqs=[0, 1])
+        store.requant_sweep()
+    return res
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.5])
+def test_sidecar_promotion_into_the_pool_cuda(cuda, tmp_path, theta):
+    """Packed disk->host promotions of a CUDA store land in its pool (B3
+    for the codec part) bit for bit as a CPU store's running the same
+    script, with the same TrafficLog; disk->host kv bytes are packed."""
+    from repro_torch.serving.offload import DISK, HOST, TieredKVStore
+    out = {}
+    before = kq_ops.launches
+    for dev in ("cuda", "cpu"):
+        store = TieredKVStore(
+            1, 8, 16, 4, 32, n_seqs=2, transit_codec="int4", use_pool=True,
+            pool_slots=12, real_codec=True, disk_sidecar=True,
+            root=str(tmp_path / dev), device=dev)
+        res = _sidecar_script(store, 0, theta)
+        torch.cuda.synchronize()
+        out[dev] = (res, store.pools[0].kv.cpu(), dict(store.log.bytes),
+                    dict(store.log.ops), store.sidecar_repacks)
+        full, packed = store.chunk_bytes, store._packed_bytes()
+        store.close()
+    assert out["cuda"][0] == out["cpu"][0]
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2:] == out["cpu"][2:]
+    assert kq_ops.launches > before
+    log_b, log_o = out["cuda"][2], out["cuda"][3]
+    assert log_b[(DISK, HOST, "kv")] < log_o[(DISK, HOST, "kv")] * full
+    assert log_b[(HOST, DISK, "kv_replica")] == \
+        log_o[(HOST, DISK, "kv_replica")] * packed
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,chunk,nmax", [
+    (3, 4, 4, 16, 16, 8), (2, 8, 2, 64, 32, 5), (4, 32, 32, 128, 64, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_sparse_decode_workingset_cuda(cuda, rng, B, H, Hkv, hd, chunk, nmax,
+                                       dtype, softcap):
+    """B2 over a legacy working set uploaded whole, read in place: against
+    its plain version, and bitwise against the pooled call over the same
+    rows (same kernel, mask and split plan)."""
+    from repro_torch.kernels.sparse_decode.ref import workingset_slab
+    kg = _t(rng.randn(B, nmax, chunk, Hkv, hd).astype(np.float16), cuda)
+    vg = _t(rng.randn(B, nmax, chunk, Hkv, hd).astype(np.float16), cuda)
+    cids = np.full((B, nmax), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b in range(B):
+        n = rng.randint(1, nmax + 1)
+        cids[b, :n] = np.sort(rng.choice(4 * nmax, n, replace=False))
+        lengths[b] = cids[b, n - 1] * chunk + rng.randint(1, chunk + 1)
+    q = _t(rng.randn(B, H, hd).astype(np.float32), cuda, dtype)
+    k_new = _t(rng.randn(B, 1, Hkv, hd).astype(np.float32), cuda, dtype)
+    v_new = _t(rng.randn(B, 1, Hkv, hd).astype(np.float32), cuda, dtype)
+    args = (q, kg, vg, _t(cids, cuda), _t(lengths, cuda), k_new, v_new,
+            softcap)
+    before = sd_ops.launches
+    out = sd_ops.sparse_decode_workingset(*args)
+    assert sd_ops.launches == before + 1
+    ref = sd_ops.sparse_decode_workingset(*args, impl="ref")
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        err, bar, frac = bf16_agreement(out, ref)
+        assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+    slab, slots = workingset_slab(kg, vg)
+    pooled = sd_ops.sparse_decode_pooled(q, slab.contiguous(), slots,
+                                         _t(cids, cuda), _t(lengths, cuda),
+                                         k_new, v_new, softcap)
+    assert torch.equal(out, pooled)
+
+
+def test_reopened_store_fills_the_pool_cuda(cuda, tmp_path):
+    """A CUDA store with the sidecar and the real codec ingests one
+    sequence, is fenced, flushed and closed, and reopened; every chunk
+    then promotes into the pool bit for bit as in a CPU store
+    (``impl="ref"``) that ran the same script."""
+    from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
+    L, NC, C, HKV, HD = 2, 8, 16, 4, 32
+    kw = dict(n_seqs=1, transit_codec="int4", use_pool=True,
+              real_codec=True, disk_sidecar=True)
+    out = {}
+    for dev, impl in (("cuda", None), ("cpu", "ref")):
+        root = str(tmp_path / dev)
+        rng = np.random.RandomState(0)
+        st = TieredKVStore(L, NC, C, HKV, HD, root=root, device=dev,
+                           impl=impl, **kw)
+        place = {c: (DEVICE, HOST, DISK, DISK)[c % 4] for c in range(NC)}
+        for layer in range(L):
+            k = rng.randn(NC * C, HKV, HD).astype(np.float32)
+            v = rng.randn(NC * C, HKV, HD).astype(np.float32)
+            st.ingest(layer, k, v, place, seq=0)
+        st.ingest_fence(0)
+        for m in (st._disk, st._disk_q, st._disk_scale, st._crc,
+                  st._crc_state, st._q_crc):
+            m.flush()
+        st.close()
+        st = TieredKVStore(L, NC, C, HKV, HD, root=root, device=dev,
+                           impl=impl, reopen=True, **kw)
+        res = []
+        for layer in range(L):
+            slots, _, fs = st.fetch_chunks_pooled(layer, {0: list(range(NC))},
+                                                  theta=0.5)
+            res.append((slots.tolist(), fs.disk_reads, fs.compressed))
+        torch.cuda.synchronize()
+        out[dev] = (res, [p.kv.cpu() for p in st.pools],
+                    dict(st.log.bytes))
+        st.close()
+    assert out["cuda"][0] == out["cpu"][0]
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
+                                                 out["cpu"][1]))
+    assert out["cuda"][2] == out["cpu"][2]
 
 
 def test_launch_counters_count_kernel_launches_only(cuda, rng):
