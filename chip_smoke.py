@@ -45,7 +45,9 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    overlap_admission=True)``, then with ``chunked_admission=True``: 32
    valid tokens each, B1-B3 launched, every admission in its mode (and the
    chunked serve's ``stats()`` reporting ``chunk_step_ewma_s``), with the
-   decode rounds that overlapped an admission timed apart;
+   decode rounds that overlapped an admission timed apart; both at 8 of
+   the 32 layers (the early layers and the first body layers, full
+   width: a ``[depth]`` line says so) to keep the script in its budget;
    4e. the 4 requests served as in phase 4 with the packed int4 disk
    sidecar (``EngineCfg(disk_sidecar=True)``): every ``kv_replica`` write
    and every disk->host ``kv`` read off the sidecar billed exactly
@@ -63,6 +65,29 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    fenced, flushed, closed and reopened; every chunk promoted into the
    pool must equal, bit for bit, a CPU store's (``impl="ref"``) after the
    same script;
+   4h. the fault domain: the 1536- and 2048-token prompts admitted
+   chunked (``begin_admission(...).drain()``) with the packed int4 sidecar
+   and the real codec, once with no fault plan and once with explicit
+   events: a transient ``disk_read`` error (retried), two ``sidecar_read``
+   bitflips (CRC quarantine, fp16 fallback), a ``disk_read`` bitflip on the
+   fallback read of a prompt chunk (disk-lost, recomputed from the prompt
+   and restored) and a ``worker`` exception in a third, short admission
+   (that sequence fails alone); 16 tokens each.  Every restored chunk's
+   replica rows must equal the fault-free engine's bit for bit; counters,
+   terminal states, leaks and B1-B3 launches are gated; the token streams
+   against the fault-free ones, the recovery's wall time and the same
+   recovery of a synchronously admitted prompt (its restored replica's
+   largest difference from the original: ROADMAP C8) are printed;
+   4i. preemption: the 1536- and 2048-token prompts, 16 tokens each, with
+   ``real_codec=False, pipeline=False``; the 2048-token sequence suspended
+   after round 4 and resumed 4 rounds later, against a run that only
+   leaves it out of those rounds: token streams identical, logits bitwise
+   equal, pool slots freed on suspend, ``kv_swapout`` billed 0 bytes and
+   ``kv_swapin`` the swapped-in chunks' bytes, B1/B2 launched after the
+   resume; then the batcher (``max_active=2``, a pressure monitor) serves
+   the 1536-, 2048- and 1536-token prompts with the third a high-priority
+   request submitted after the first round: one request preempted and
+   resumed, all three finished with 16 tokens, nothing leaked;
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
@@ -73,6 +98,9 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
 lines of the named kernels only (``--b2`` is ``--only b2``), with no
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
+``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
+engine phases of phase 4 (4c-4i) only, with their gates and no result
+line.
 """
 
 from __future__ import annotations
@@ -123,6 +151,21 @@ KV_ROOT = ROOT / "build" / "chip_smoke_kv"
 CHUNKED_ROUND_TOKENS = 256
 # phase 4f: the legacy full re-upload against the pool, new tokens each
 LEGACY_NEW_TOKENS = 16
+# phases 4h and 4i: new tokens each, and 4h's third (failing) admission
+FAULT_NEW_TOKENS = 16
+FAULT_SHORT_PROMPT = 320
+# 4h's placement: host tier for chunks 9-14 and disk from chunk 15, so the
+# 1536- and 2048-token prompts have prompt chunks on disk (the default
+# 0.45 keeps every chunk below 37 on the host)
+FAULT_CPU_FRAC = 0.1
+# 4i: the 2048-token sequence leaves the batch after this many rounds, for
+# this many
+PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
+ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i")  # --phases
+# phase 4d's two serves run this many of longchat's 32 layers (its 2 early
+# layers and the first body layers, weights and widths unchanged) so that
+# the whole script stays inside its time budget
+SERVE_MODES_LAYERS = 8
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
 
@@ -1247,6 +1290,463 @@ def phase_admission(np, torch, cfg, params):
     return out
 
 
+def _launch_counts():
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    from repro_torch.kernels.kv_quant import ops as kq
+    from repro_torch.kernels.sparse_decode import ops as sd
+    return {"chunk_bounds": cb.launches, "sparse_decode": sd.launches,
+            "kv_dequant": kq.launches}
+
+
+def _zero_launches():
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    from repro_torch.kernels.kv_quant import ops as kq
+    from repro_torch.kernels.sparse_decode import ops as sd
+    cb.launches = sd.launches = kq.launches = 0
+
+
+def _engine_leaks(eng):
+    """What a released engine may not hold any more (the reference's
+    ``_assert_engine_clean``): [] when clean."""
+    st = eng.store
+    leaks = []
+    if sorted(eng._free) != list(range(eng.max_seqs)):
+        leaks.append(f"free slots {sorted(eng._free)}")
+    if eng.seqs or eng.suspended:
+        leaks.append(f"live {sorted(eng.seqs)} suspended "
+                     f"{sorted(eng.suspended)}")
+    if st._swapped:
+        leaks.append(f"swap ledger {sorted(st._swapped)}")
+    if any(st._ingest_futs.values()):
+        leaks.append("ingest futures in flight")
+    ps = st.pool_stats()
+    if ps["free_slots"] != ps["slots"]:
+        leaks.append(f"pool {ps}")
+    return leaks
+
+
+def _spy_recovery(eng):
+    """Record 4h's recovery on ``eng`` and return the record: every
+    ``_flip_bit`` of a replica (the chunk's bytes before the flip), every
+    ``restore_chunk`` (its key and the restored replica bytes), the wall
+    time of each ``_recover_lost`` (the prefill replay and the restores)
+    and each attempt of a round's body (``_decode_round_impl``: seconds,
+    and whether it returned)."""
+    import numpy as np
+    st = eng.store
+    rec = {"flipped": {}, "restored": {}, "recover_s": [], "attempts": []}
+    flip, restore = st._flip_bit, st.restore_chunk
+    recover, attempt = eng._recover_lost, eng._decode_round_impl
+
+    def flip_spy(site, key):
+        if site == "disk_read" and key:
+            p, layer, c = key[0]
+            rec["flipped"][(int(layer), int(p), int(c))] = np.array(
+                st._disk[p, layer, c])
+        return flip(site, key)
+
+    def restore_spy(layer, seq, c, k_rows, v_rows):
+        restore(layer, seq, c, k_rows, v_rows)
+        rec["restored"][(layer, seq, c)] = np.array(st._disk[seq, layer, c])
+
+    def recover_spy(e, live):
+        t0 = time.perf_counter()
+        try:
+            return recover(e, live)
+        finally:
+            rec["recover_s"].append(time.perf_counter() - t0)
+
+    def attempt_spy(live):
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            out = attempt(live)
+            ok = True
+            return out
+        finally:
+            rec["attempts"].append((time.perf_counter() - t0, ok))
+
+    st._flip_bit, st.restore_chunk = flip_spy, restore_spy
+    eng._recover_lost, eng._decode_round_impl = recover_spy, attempt_spy
+    return rec
+
+
+def _fault_engine(cfg, params, root, plan=None, max_seqs=3):
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+    # pipeline=False: no speculative staging on the worker, so each fault
+    # site sees its calls in one order and the explicit events land on
+    # the decode thread's reads
+    return BatchedLeoAMEngine(
+        cfg, params,
+        EngineCfg(max_len=MAX_LEN, real_codec=True, pipeline=False,
+                  disk_sidecar=True, cpu_chunk_frac=FAULT_CPU_FRAC,
+                  fault_plan=plan),
+        max_seqs=max_seqs, device="cuda", store_root=str(root))
+
+
+def _decode_rounds(eng, toks, n, rounds_s):
+    """``n`` decode rounds from ``toks``, each round's wall appended to
+    ``rounds_s``; returns the streams (first token included)."""
+    streams = {sid: [t] for sid, t in toks.items()}
+    for _ in range(n):
+        t0 = time.perf_counter()
+        toks = eng.decode_round(toks)
+        rounds_s.append(time.perf_counter() - t0)
+        for sid, t in toks.items():
+            streams[sid].append(t)
+    return streams
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_faults(np, torch, cfg, params):
+    """Phase 4h: the fault domain at full width (see the module
+    docstring).  The fault-free engine runs second, with one engine alive
+    at a time; the restored chunks' bytes are kept from the faulty run."""
+    from repro_torch.serving.faults import FaultPlan
+
+    prompts = serve_prompts(np, cfg)
+    prompts = [prompts[0], prompts[1]]
+    short = np.random.RandomState(5).randint(2, cfg.vocab_size,
+                                             FAULT_SHORT_PROMPT)
+    # read sites: the first disk->host gathers are the sidecar's (every
+    # prompt chunk has a valid sidecar); a sidecar bitflip quarantines the
+    # gather's first chunk (sequence 0's lowest selected disk chunk, a
+    # prompt chunk: the two recent chunks are always selected) and its
+    # fp16 fallback is the next replica read
+    plan = FaultPlan(schedule={
+        "sidecar_read": {2: "bitflip", 5: "bitflip"},
+        "disk_read": {0: "io_error", 2: "bitflip"},
+        "worker": {}})
+    rec = None
+    res = {}
+    for faulty in (True, False):
+        name = "faulty" if faulty else "clean"
+        root = KV_ROOT / f"faults_{name}"
+        eng = _fault_engine(cfg, params, root, plan if faulty else None)
+        if faulty:
+            rec = _spy_recovery(eng)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = {}
+        for p in prompts:
+            sid, tok = eng.begin_admission(p).drain()
+            toks[sid] = tok
+        for sid in toks:
+            eng.store.ingest_fence(sid)
+        failing = None
+        if faulty:
+            # the short admission's sixth layer write raises on the worker
+            plan.schedule["worker"][plan.calls()["worker"] + 5] = "exception"
+            failing, tok = eng.begin_admission(short).drain()
+            toks[failing] = tok
+        admit_s = time.perf_counter() - t0
+        rounds_s = []
+        streams = _decode_rounds(eng, toks, FAULT_NEW_TOKENS - 1, rounds_s)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        fs = eng.fault_stats()
+        failed = dict(eng.failed)
+        degraded = sorted(eng.store.degraded_seqs)
+        # the restored chunks' rows on this engine, before release (the
+        # fault-free run compares its own replica to the faulty one's)
+        mine = {key: np.array(eng.store._disk[key[1], key[0], key[2]])
+                for key in rec["restored"]}
+        for sid in list(streams):
+            if sid in eng.seqs:
+                eng.release(sid)
+        leaks = _engine_leaks(eng)
+        res[name] = dict(streams=streams, launches=launches, faults=fs,
+                         failed=failed, failing=failing, leaks=leaks,
+                         rows=mine, admit_s=admit_s, rounds_s=rounds_s,
+                         degraded=degraded)
+        eng.store.close()
+        del eng
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    f, c = res["faulty"], res["clean"]
+    restored_equal = all(np.array_equal(rows, c["rows"][key])
+                         for key, rows in rec["restored"].items())
+    flipped_back = {key: np.array_equal(rec["flipped"][key], rows)
+                    for key, rows in rec["restored"].items()
+                    if key in rec["flipped"]}
+    # the recovering round: the body's attempt that raised, the recovery
+    # (selection rollback, prefill replay, restores) and the attempt that
+    # then succeeded
+    att = rec["attempts"]
+    failed_at = [i for i, (_, ok) in enumerate(att) if not ok]
+    recovery = {
+        "failed_attempt_s": [att[i][0] for i in failed_at],
+        "recover_s": rec["recover_s"],
+        "retry_attempt_s": [att[i + 1][0] for i in failed_at
+                            if i + 1 < len(att)],
+        "median_attempt_s": float(np.median([t for t, ok in att if ok]))}
+    recovery["total_s"] = (sum(recovery["failed_attempt_s"])
+                           + sum(recovery["recover_s"])
+                           + sum(recovery["retry_attempt_s"]))
+    sync = _sync_recovery(np, torch, cfg, params, prompts[0])
+    fails = []
+    if set(f["streams"]) != {0, 1, 2} or any(
+            len(f["streams"][s]) != FAULT_NEW_TOKENS for s in (0, 1)):
+        fails.append(f"streams {f['streams']}")
+    if list(f["failed"]) != [f["failing"]]:
+        fails.append(f"failed {f['failed']} (want only {f['failing']})")
+    fsf = f["faults"]
+    if not (fsf["io_retries"] >= 1 and fsf["checksum_failures"] >= 2
+            and fsf["chunks_recomputed"] >= 1):
+        fails.append(f"fault counters {fsf}")
+    if not rec["restored"] or not restored_equal:
+        fails.append("restored replica rows differ from the fault-free "
+                     "engine's")
+    for name in ("faulty", "clean"):
+        if res[name]["leaks"]:
+            fails.append(f"{name} engine leaked {res[name]['leaks']}")
+    zero = [k for k, v in f["launches"].items() if v <= 0]
+    if zero:
+        fails.append(f"never launched {zero}")
+    row = {
+        "prompts": [len(p) for p in prompts],
+        "short_prompt": FAULT_SHORT_PROMPT, "new_tokens": FAULT_NEW_TOKENS,
+        "events": [(e.site, e.index, e.kind, list(e.key)
+                    if isinstance(e.key, tuple) else e.key)
+                   for e in plan.fired_events()],
+        "faults": fsf, "failed": {str(k): v for k, v in f["failed"].items()},
+        "degraded_seqs": f["degraded"],
+        "restored_chunks": [list(k) for k in rec["restored"]],
+        "restored_rows_bitwise_vs_fault_free": restored_equal,
+        "restored_rows_bitwise_vs_before_the_flip": list(
+            flipped_back.values()),
+        "recovery": recovery,
+        "first_round_s": {"faulty": f["rounds_s"][0],
+                          "fault_free": c["rounds_s"][0]},
+        "median_round_s": {"faulty": float(np.median(f["rounds_s"])),
+                           "fault_free": float(np.median(c["rounds_s"]))},
+        "admit_s": {"faulty": f["admit_s"], "fault_free": c["admit_s"]},
+        "streams_equal_fault_free": {
+            str(s): f["streams"][s] == c["streams"][s] for s in (0, 1)},
+        "first_differing_token": {
+            str(s): _first_diff(f["streams"][s], c["streams"][s])
+            for s in (0, 1)},
+        "launches": f["launches"], "sync_recovery": sync}
+    print(f"[faults] {json.dumps(row)}")
+    for s in (0, 1):
+        print(f"[faults] seq {s} stream {f['streams'][s]} against fault-free "
+              f"{c['streams'][s]}")
+    if fails:
+        raise SystemExit("chip_smoke: [faults] " + "; ".join(fails))
+    return row
+
+
+def _sync_recovery(np, torch, cfg, params, prompt):
+    """4h's recovery once more for a synchronously admitted prompt: the
+    first sidecar read's first chunk is quarantined and its fallback read
+    flips a replica bit, so round 1 recomputes the chunk by chunked
+    prefill; returns the restored rows' largest difference from the
+    original (ROADMAP C8: chunked prefill's bf16 K/V differ from
+    whole-prompt prefill's)."""
+    from repro_torch.serving.faults import FaultPlan
+    plan = FaultPlan(schedule={"sidecar_read": {0: "bitflip"},
+                               "disk_read": {0: "bitflip"}})
+    root = KV_ROOT / "faults_sync"
+    eng = _fault_engine(cfg, params, root, plan, max_seqs=1)
+    rec = _spy_recovery(eng)
+    sid, tok = eng.add_sequence(prompt)
+    t0 = time.perf_counter()
+    eng.decode_round({sid: tok})
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    fs = eng.fault_stats()
+    diffs, frac = [], []
+    for key, rows in rec["restored"].items():
+        orig = rec["flipped"].get(key)
+        if orig is not None:
+            d = np.abs(rows.astype(np.float32) - orig.astype(np.float32))
+            # the flipped word itself: the original holds the pre-flip value
+            diffs.append(float(d.max()))
+            frac.append(float((rows != orig).mean()))
+    eng.release(sid)
+    leaks = _engine_leaks(eng)
+    eng.store.close()
+    del eng
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prompt": len(prompt), "restored_chunks": [
+        list(k) for k in rec["restored"]], "chunks_recomputed":
+        fs["chunks_recomputed"], "recover_s": rec["recover_s"],
+        "attempts_s": rec["attempts"],
+        "round_with_recovery_s": round_s, "max_replica_diff": diffs,
+        "fraction_differ": frac, "leaks": leaks}
+
+
+def phase_preempt(np, torch, cfg, params):
+    """Phase 4i: whole-sequence preemption at full width (see the module
+    docstring)."""
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+
+    prompts = serve_prompts(np, cfg)
+    prompts = [prompts[0], prompts[1]]
+    ecfg = EngineCfg(max_len=MAX_LEN, real_codec=False, pipeline=False)
+    runs, batcher = {}, None
+    for suspend in (True, False):
+        name = "suspend" if suspend else "leave_out"
+        root = KV_ROOT / f"preempt_{name}"
+        eng = BatchedLeoAMEngine(cfg, params, ecfg, max_seqs=3,
+                                 device="cuda", store_root=str(root))
+        st = eng.store
+        cur = {}
+        for p in prompts:
+            sid, tok = eng.add_sequence(p)
+            cur[sid] = tok
+        victim = max(cur)              # the 2048-token sequence
+        streams = {sid: [tok] for sid, tok in cur.items()}
+        logits = []
+
+        def rounds(live, n):
+            for _ in range(n):
+                live = eng.decode_round(live)
+                logits.append({sid: eng.last_logits[i].copy()
+                               for i, sid in enumerate(sorted(live))})
+                for sid, t in live.items():
+                    streams[sid].append(t)
+            return live
+
+        cur = rounds(cur, PREEMPT_AFTER)
+        info = {}
+        if suspend:
+            held = lambda: sum(k[0] == victim for p in st.pools
+                               for k in p.slot_of)
+            info["victim_slots_before"] = held()
+            info["free_slots_before_suspend"] = st.pool_stats()["free_slots"]
+            eng.suspend_sequence(victim)
+            info["victim_slots_after"] = held()
+            info["free_slots_after_suspend"] = st.pool_stats()["free_slots"]
+        cur.update(rounds({s: t for s, t in cur.items() if s != victim},
+                          PREEMPT_ROUNDS))
+        if suspend:
+            eng.resume_sequence(victim)
+        _zero_launches()
+        while True:
+            live = {s: t for s, t in cur.items()
+                    if len(streams[s]) < FAULT_NEW_TOKENS}
+            if not live:
+                break
+            cur.update(rounds(live, 1))
+        torch.cuda.synchronize()
+        info["launches_after_resume"] = _launch_counts()
+        log = st.log
+        info.update(
+            swapouts=st.seq_swapouts, swapins=st.seq_swapins,
+            swapout_ops=log.ops.get(("host", "disk", "kv_swapout"), 0),
+            swapout_bytes=log.bytes.get(("host", "disk", "kv_swapout"), 0.0),
+            swapin_ops=log.ops.get(("disk", "host", "kv_swapin"), 0),
+            swapin_bytes=log.bytes.get(("disk", "host", "kv_swapin"), 0.0),
+            chunk_bytes=st.chunk_bytes)
+        for sid in list(streams):
+            eng.release(sid)
+        info["leaks"] = _engine_leaks(eng)
+        runs[name] = (streams, logits, info)
+        if suspend:
+            batcher = _preempting_batcher(torch, eng, prompts)
+        st.close()
+        del eng, st, rounds
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (sa, la, ia), (sb, lb, ib) = runs["suspend"], runs["leave_out"]
+    same = sa == sb
+    bitwise = len(la) == len(lb) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(la, lb))
+    diff = max((float(np.abs(a[k] - b[k]).max()) for a, b in zip(la, lb)
+                for k in a if k in b), default=None)
+    fails = []
+    if not (same and bitwise):
+        fails.append(f"suspend/resume differs from leaving the sequence out "
+                     f"(streams equal {same}, max logit diff {diff!r})")
+    if not (ia["victim_slots_before"] > 0 and ia["victim_slots_after"] == 0
+            and ia["free_slots_after_suspend"]
+            > ia["free_slots_before_suspend"]):
+        fails.append("suspend did not free the sequence's pool slots")
+    if ia["swapout_ops"] <= 0 or ia["swapout_bytes"] != 0.0:
+        fails.append("kv_swapout not billed as zero-byte ops")
+    if ia["swapin_ops"] <= 0 or \
+            ia["swapin_bytes"] != ia["swapin_ops"] * ia["chunk_bytes"]:
+        fails.append("kv_swapin not billed at the chunk bytes")
+    if not ia["swapouts"] == ia["swapins"] == 1:
+        fails.append(f"swap counts {ia['swapouts']} / {ia['swapins']}")
+    after = ia["launches_after_resume"]
+    if after["chunk_bounds"] <= 0 or after["sparse_decode"] <= 0:
+        fails.append(f"B1/B2 not launched after the resume: {after}")
+    for name, (_, _, info) in runs.items():
+        if info["leaks"]:
+            fails.append(f"{name} leaked {info['leaks']}")
+    fails += batcher.pop("fails")
+    row = {"prompts": [len(p) for p in prompts],
+           "new_tokens": FAULT_NEW_TOKENS,
+           "suspended_after_round": PREEMPT_AFTER,
+           "rounds_left_out": PREEMPT_ROUNDS,
+           "streams_identical": same, "logits_bitwise": bitwise,
+           "max_logit_diff": diff, "suspend_run": ia,
+           "leave_out_run": {k: ib[k] for k in ("launches_after_resume",
+                                                "leaks")},
+           "batcher": batcher}
+    print(f"[preempt] {json.dumps(row)}")
+    if fails:
+        raise SystemExit("chip_smoke: [preempt] " + "; ".join(fails))
+    return row
+
+
+def _preempting_batcher(torch, eng, prompts):
+    """4i's batcher: the 1536- and 2048-token requests, then a
+    high-priority 1536-token request after the first round, with a
+    pressure monitor whose queue watermark is 0 (any queued request is
+    yellow): the batcher suspends a victim for it and resumes the victim
+    once it is done."""
+    from repro_torch.serving.overload import PressureMonitor, WatermarkCfg
+    from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
+                                               SchedulerCfg)
+    mon = PressureMonitor(eng, WatermarkCfg(queue_yellow=0, queue_red=99))
+    b = ContinuousBatcher(engine=eng, monitor=mon,
+                          cfg=SchedulerCfg(max_active=2, chunk=64))
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        b.submit(Request(rid=i, prompt=p, max_new=FAULT_NEW_TOKENS))
+    n0 = len(eng.round_profiles)
+    for _ in range(100):               # both admitted, one round decoded
+        if len(eng.round_profiles) > n0 and len(b.active) == 2:
+            break
+        b.step()
+    b.submit(Request(rid=2, prompt=prompts[0], max_new=FAULT_NEW_TOKENS,
+                     priority=5))
+    done = b.run()
+    torch.cuda.synchronize()
+    st = b.stats()
+    fails = []
+    if not (st["suspensions"] >= 1 and st["resumes"] >= 1):
+        fails.append(f"batcher did not preempt and resume: {st}")
+    by = {r.rid: r for r in done}
+    if sorted(by) != [0, 1, 2] or any(
+            r.error or len(r.out) != FAULT_NEW_TOKENS for r in done):
+        fails.append("batcher requests "
+                     f"{[(r.rid, r.error, len(r.out)) for r in done]}")
+    leaks = _engine_leaks(eng)
+    if leaks:
+        fails.append(f"batcher leaked {leaks}")
+    return {"wall_s": time.perf_counter() - t0,
+            "suspensions": st["suspensions"], "resumes": st["resumes"],
+            "finished": sorted(by), "vip_done_before_its_victim": bool(
+                2 in by and all(by[2].t_done <= r.t_done for r in done
+                                if r.suspended_s > 0)),
+            "suspended_s": {str(r.rid): r.suspended_s for r in done},
+            "leaks": leaks, "fails": fails}
+
+
 def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
@@ -1328,8 +1828,47 @@ def only_kernels(argv):
     return names
 
 
+def only_phases(argv):
+    """The engine phases that ``--phases 4h,4i`` names; empty for the
+    whole run."""
+    names = set()
+    for i, a in enumerate(argv):
+        if a == "--phases" and i + 1 < len(argv):
+            names.update(argv[i + 1].split(","))
+        elif a.startswith("--phases="):
+            names.update(a.split("=", 1)[1].split(","))
+    unknown = names - set(ENGINE_PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: --phases takes {ENGINE_PHASES}, not "
+                         f"{sorted(unknown)}")
+    return names
+
+
+def run_phases(np, torch, cfg, params, names):
+    """``--phases``: the named engine phases alone, with their gates."""
+    runners = {
+        "4c": lambda: phase_admission(np, torch, cfg, params),
+        "4d": lambda: _serve_modes(np, torch, cfg, params),
+        "4e": lambda: phase_serve(np, torch, cfg, params, sidecar=True),
+        "4f": lambda: phase_legacy(np, torch, cfg, params),
+        "4g": lambda: phase_reopen(np, torch),
+        "4h": lambda: phase_faults(np, torch, cfg, params),
+        "4i": lambda: phase_preempt(np, torch, cfg, params)}
+    try:
+        for name in ENGINE_PHASES:
+            if name in names:
+                t0 = time.perf_counter()
+                runners[name]()
+                print(f"[time] phase {name} {time.perf_counter() - t0!r} s")
+    finally:
+        shutil.rmtree(KV_ROOT, ignore_errors=True)
+    print(f"[time] chip_smoke {time.perf_counter() - T_START!r} s")
+    return 0
+
+
 def main() -> int:
     only = only_kernels(sys.argv[1:])
+    phases = only_phases(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1384,8 +1923,9 @@ def main() -> int:
                       b5_row(torch, *clustered_update_inputs(np, torch),
                              flush))
         return 0
-    rows, long_row, clustered, b3_48 = phase_kernels(np, torch, rng)
-    pq_train_res = phase_pq_train(np, torch)
+    if not phases:
+        rows, long_row, clustered, b3_48 = phase_kernels(np, torch, rng)
+        pq_train_res = phase_pq_train(np, torch)
 
     cfg = get_config("longchat-7b-32k")
     t0 = time.perf_counter()
@@ -1395,18 +1935,21 @@ def main() -> int:
           f"d_model {cfg.d_model}, {cfg.dtype}, "
           f"{sum(p.numel() for p in _leaves(params)) / 1e9!r} G params in "
           f"{time.perf_counter() - t0!r} s")
+    if phases:
+        return run_phases(np, torch, cfg, params, phases)
     try:
         serve = phase_serve(np, torch, cfg, params)
         serve_pq = phase_serve(np, torch, cfg, params, pq=True)
         admission = phase_admission(np, torch, cfg, params)
-        serve_async = phase_serve(np, torch, cfg, params, mode="async")
-        serve_chunked = phase_serve(np, torch, cfg, params, mode="chunked")
+        serve_async, serve_chunked = _serve_modes(np, torch, cfg, params)
         serve_sidecar = phase_serve(np, torch, cfg, params, sidecar=True)
         print(f"[serve-sidecar] disk->host kv beside phase 4's: "
               f"{json.dumps(serve_sidecar['disk_kv'])} against "
               f"{json.dumps(serve['disk_kv'])}")
         legacy = phase_legacy(np, torch, cfg, params)
         reopen = phase_reopen(np, torch)
+        faults = phase_faults(np, torch, cfg, params)
+        preempt = phase_preempt(np, torch, cfg, params)
         e2e = phase_e2e(np, torch, cfg, params)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
@@ -1453,7 +1996,8 @@ def main() -> int:
                       "admission": admission, "serve_async": serve_async,
                       "serve_chunked": serve_chunked,
                       "serve_sidecar": serve_sidecar, "legacy": legacy,
-                      "reopen": reopen,
+                      "reopen": reopen, "faults": faults,
+                      "preempt": preempt,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,
@@ -1462,6 +2006,34 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def cut_depth(cfg, params, n_layers):
+    """longchat at ``n_layers`` of its depth: the same widths, its early
+    (prologue) layers and the first body layers' weights (views of the
+    full model's stacked leaves, no copy)."""
+    import dataclasses
+    from repro_torch.models import lm
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    repeats = lm._layer_plan(cut)[2]
+
+    def head(tree):
+        if isinstance(tree, dict):
+            return {k: head(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(head(v) for v in tree)
+        return tree[:repeats]
+
+    return cut, {**params, "body": head(params["body"])}
+
+
+def _serve_modes(np, torch, cfg, params):
+    """Phase 4d's two serves at ``SERVE_MODES_LAYERS`` layers."""
+    cut, cut_params = cut_depth(cfg, params, SERVE_MODES_LAYERS)
+    print(f"[depth] phase 4d (serve-async, serve-chunked): "
+          f"{SERVE_MODES_LAYERS} of {cfg.n_layers} layers, full width")
+    return [phase_serve(np, torch, cut, cut_params, mode=m)
+            for m in ("async", "chunked")]
 
 
 def _leaves(tree):

@@ -58,12 +58,22 @@ prefill runs other GEMM shapes (M = chunk rows), so in bf16 its K/V may
 round differently; in f32 all three modes store the same bytes and give
 the same token streams, as in the reference (tested).
 
+Failure containment: a sequence whose write-behind ingest failed is failed
+alone at its fence, and a disk-lost chunk (a replica that fails its CRC or
+stays unreadable past the store's retry budget) is recomputed from the
+prompt by replaying chunked prefill, or fails its sequence alone when it
+holds decode appends; the round then re-runs.  ``EngineCfg.fault_plan``
+injects such faults at the store's choke points.  Overload control:
+:meth:`BatchedLeoAMEngine.suspend_sequence` swaps a live sequence's working
+set down to its disk replica and parks it, and ``resume_sequence`` re-stages
+it — the identity on its token stream.
+
 Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.  Options of the reference
 that the port leaves out so far raise ``NotImplementedError`` naming
-their ROADMAP item: MLA, non-attention layers, the prefix cache, fault
-injection, recompute-from-prompt recovery and whole-sequence preemption.
+their ROADMAP item: MLA, non-attention layers, the prefix cache and the
+sync sanitizer.
 """
 
 from __future__ import annotations
@@ -148,7 +158,11 @@ class EngineCfg:
     checksums: bool = True           # per-chunk CRC32 on disk replicas +
                                      # packed sidecars, verified at every
                                      # promotion
-    fault_plan: Optional[Any] = None  # not ported (ROADMAP A9)
+    fault_plan: Optional[Any] = None  # serving.faults.FaultPlan consulted
+                                     # at the store's I/O choke points
+                                     # (chaos tests and chip_smoke only)
+    io_retries: int = 3              # bounded retry budget on transient
+    io_backoff_s: float = 1e-4       # disk errors, exponential backoff
     # measured-cost θ balance (paper §4.4); defaults mirror TierBW
     pcie_bw: float = 16e9
     disk_bw: float = 3.5e9
@@ -200,6 +214,12 @@ class _SeqState:
     prefill_logits: Optional[np.ndarray] = None  # (V,) behind the first
                                      # token, for end-to-end checks
     stats: List[StepStats] = field(default_factory=list)
+    tokens: Optional[np.ndarray] = None  # prompt tokens (recompute source
+                                     # for disk-lost prompt-span chunks)
+    prompt_len: int = 0              # tokens covered by the prompt: only
+                                     # chunks entirely within it are
+                                     # recomputable (decode appends exist
+                                     # nowhere but the lost replica)
 
 
 def group_sum(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
@@ -236,8 +256,7 @@ class BatchedLeoAMEngine:
         lm.check_supported(cfg)
         for bad, opt, item in (
                 (ecfg.prefix_cache, "prefix_cache=True", "A8"),
-                (ecfg.debug_sync, "debug_sync=True", "A13"),
-                (ecfg.fault_plan is not None, "fault_plan=", "A9")):
+                (ecfg.debug_sync, "debug_sync=True", "A13")):
             if bad:
                 raise NotImplementedError(
                     f"EngineCfg({opt}) is not ported yet (ROADMAP {item})")
@@ -266,10 +285,14 @@ class BatchedLeoAMEngine:
             pool_slots=device_chunk_budget, real_codec=ecfg.real_codec,
             disk_sidecar=ecfg.disk_sidecar,
             sidecar_lossless=ecfg.sidecar_lossless, checksums=ecfg.checksums,
+            faults=ecfg.fault_plan, io_retries=ecfg.io_retries,
+            io_backoff_s=ecfg.io_backoff_s,
             abstract_kind=("pq" if ecfg.pq_abstracts else "minmax"),
             pq_m=ecfg.pq_m, pq_centroids=ecfg.pq_centroids,
             pq_train_iters=ecfg.pq_train_iters, device=self.device, impl=impl)
         self.seqs: Dict[int, _SeqState] = {}
+        # preempted sequences (suspend_sequence): their slot stays reserved
+        self.suspended: Dict[int, _SeqState] = {}
         self._free: List[int] = list(range(max_seqs - 1, -1, -1))
         # DTP state: prefetch executor, per-(seq, layer) previous-round
         # selections, per-layer abstract cache, per-layer measured costs;
@@ -403,7 +426,8 @@ class BatchedLeoAMEngine:
         first = _to_host(logits)[0]
         self.seqs[sid] = _SeqState(length=S,
                                    access=AccessTable(self.n_chunks),
-                                   prefill_logits=first)
+                                   prefill_logits=first,
+                                   tokens=np.asarray(tokens), prompt_len=S)
         self.admit_profiles.append({
             "total_s": time.perf_counter() - t0, "prefill_s": prefill_s,
             "ingest_s": ingest_s, "overlapped": 1.0})
@@ -496,9 +520,11 @@ class BatchedLeoAMEngine:
         return dict(placement)
 
     def _forget(self, sid: int) -> None:
-        """Drop every per-sequence record and recycle the slot."""
+        """Drop every per-sequence record (a suspended sequence's parked
+        state too) and recycle the slot."""
         self.store.clear_seq(sid)
         self.seqs.pop(sid, None)
+        self.suspended.pop(sid, None)
         for key in [k for k in self._prev_sels if k[0] == sid]:
             self._prev_sels.pop(key, None)
         if sid not in self._free:
@@ -549,19 +575,46 @@ class BatchedLeoAMEngine:
         self.failed[sid] = reason
         self.seqs_failed += 1
 
+    # ------------------------------------------------------------------
+    # Whole-sequence preemption (overload control)
+    # ------------------------------------------------------------------
     @decode_thread_only
     def suspend_sequence(self, sid: int) -> None:
-        """Whole-sequence preemption (swap a live sequence down-tier) is
-        not ported yet; the scheduler's pressure policy calls it."""
-        raise NotImplementedError(
-            "suspend_sequence (preemption with swap_out_seq) is not ported "
-            "yet (ROADMAP A9)")
+        """Preempt ONE live sequence: fence its write-behind ingest, drop
+        its speculative prefetch state, swap its whole hot working set
+        down to the disk tier (pool slots and host copies released —
+        :meth:`TieredKVStore.swap_out_seq`) and park its decode state in
+        :attr:`suspended`.
+
+        The slot stays reserved (the sequence's only full replica lives in
+        that store row), so preemption relieves pool slots, host bytes and
+        the scheduler's batch seat, never ``free_slots``.  The host-side
+        state and the store's access, abstract and CRC state are kept, and
+        the write-through replica holds every appended row, so suspend +
+        resume is the identity on the token stream."""
+        if sid not in self.seqs:
+            raise KeyError(f"suspend_sequence: seq {sid} is not live "
+                           f"(live={sorted(self.seqs)})")
+        self._drain_seq(sid)
+        self._abs_cache.clear()
+        for key in [k for k in self._prev_sels if k[0] == sid]:
+            self._prev_sels.pop(key, None)
+        st = self.seqs.pop(sid)
+        self.store.swap_out_seq(sid)
+        self.suspended[sid] = st
 
     @decode_thread_only
     def resume_sequence(self, sid: int) -> None:
-        """The other half of :meth:`suspend_sequence`; not ported yet."""
-        raise NotImplementedError(
-            "resume_sequence (swap_in_seq) is not ported yet (ROADMAP A9)")
+        """Un-park a suspended sequence: re-stage its remembered working
+        set on the host off the disk replica (``swap_in_seq``; a chunk
+        that fails verification takes the usual disk-lost recovery at its
+        next fetch) and rejoin the live set."""
+        st = self.suspended.pop(sid, None)
+        if st is None:
+            raise KeyError(f"resume_sequence: seq {sid} is not suspended "
+                           f"(suspended={sorted(self.suspended)})")
+        self.store.swap_in_seq(sid)
+        self.seqs[sid] = st
 
     def fault_stats(self) -> Dict[str, float]:
         out = self.store.fault_stats()
@@ -731,13 +784,23 @@ class BatchedLeoAMEngine:
     # ------------------------------------------------------------------
     # Decode round
     # ------------------------------------------------------------------
+    # decode_round allows this many ChunkLostError recoveries: each one
+    # restores chunks or removes a sequence, so reaching the bound means a
+    # fault injector scheduling back-to-back losses
+    _MAX_ROUND_RETRIES = 8
+
     @decode_thread_only
     def decode_round(self, tokens: Dict[int, int]) -> Dict[int, int]:
         """One token for every sequence in ``tokens`` ({seq id: last
-        token}); returns {seq id: next token}.  A sequence whose
-        write-behind ingest failed is failed alone (its reason lands in
-        :attr:`failed`); a disk-lost chunk raises ``NotImplementedError``
-        — recompute-from-prompt recovery is not ported (ROADMAP A9)."""
+        token}); returns {seq id: next token}.
+
+        A failure on one sequence never takes the batch down.  A sequence
+        whose write-behind ingest failed is failed alone (its reason lands
+        in :attr:`failed`).  A disk-lost chunk (:class:`ChunkLostError`)
+        rolls the round's selection state back and recomputes exactly the
+        lost span from the prompt when it lies inside the prompt, else
+        fails the owning sequence; the round then re-runs with the
+        survivors.  Returns {} when every sequence failed."""
         if not tokens:
             raise ValueError(
                 "decode_round needs at least one sequence: pass "
@@ -751,16 +814,116 @@ class BatchedLeoAMEngine:
                 self.ingest_errors += 1
                 self.fail_sequence(sid, f"cold ingest failed: {e!r}")
                 live.pop(sid)
-        if not live:
-            return {}
-        try:
-            with torch.no_grad():
-                return self._decode_round_impl(live)
-        except ChunkLostError as e:
-            raise NotImplementedError(
-                f"disk-lost chunks {e.keys} at layer {e.layer}: "
-                f"recompute-from-prompt recovery is not ported yet "
-                f"(ROADMAP A9)") from e
+        for _ in range(self._MAX_ROUND_RETRIES):
+            if not live:
+                return {}
+            snap = self._snapshot_round(live)
+            try:
+                with torch.no_grad():
+                    return self._decode_round_impl(live)
+            except ChunkLostError as e:
+                self._restore_round(snap)
+                self._recover_lost(e, live)
+        raise RuntimeError(
+            f"decode round failed to converge after "
+            f"{self._MAX_ROUND_RETRIES} chunk-loss recoveries — the disk "
+            f"is losing chunks faster than recompute restores them")
+
+    def _snapshot_round(self, live: Dict[int, int]) -> Dict[str, Any]:
+        """The host-side state a partial round mutates before a fetch can
+        raise, so a retry re-runs from a clean slate.  Residency and
+        billing need no rollback: residency moves bytes, never values, and
+        a retried read honestly re-bills."""
+        return {"access": {sid: self.seqs[sid].access.counts.copy()
+                           for sid in live},
+                "prev_sels": dict(self._prev_sels)}
+
+    def _restore_round(self, snap: Dict[str, Any]) -> None:
+        """Roll back the selection state a failed round half-mutated and
+        drain its speculative prefetch: a future may hold stale layer
+        predictions (or the same ChunkLostError), and one left running
+        would race the retried round's reads."""
+        for sid, counts in snap["access"].items():
+            if sid in self.seqs:
+                self.seqs[sid].access.counts[:] = counts
+        self._prev_sels.clear()
+        self._prev_sels.update(snap["prev_sels"])
+        for li in list(self._pf_futs):
+            fut = self._pf_futs.pop(li, None)
+            if fut is not None:
+                try:
+                    fut.result()
+                except Exception:
+                    pass
+        self._abs_cache.clear()
+
+    def _recover_lost(self, e: ChunkLostError, live: Dict[int, int]) -> None:
+        """Handle one ChunkLostError: recompute every affected sequence
+        whose lost chunks all lie inside its prompt span; fail the rest.
+        Recompute covers every chunk the store marks lost for the sequence
+        (a speculative prefetch may have found more than this gather did):
+        one prefill replay restores the whole set."""
+        by_seq: Dict[int, set] = {}
+        for seq, _p, c in e.keys:
+            by_seq.setdefault(seq, set()).add(c)
+        lost_all = self.store.disk_lost_keys()
+        for sid, cs in by_seq.items():
+            if sid not in live:
+                continue
+            cs = cs | {c for (p, _li, c) in lost_all if p == sid}
+            s = self.seqs.get(sid)
+            recomputable = (
+                s is not None and s.tokens is not None
+                and all(min((c + 1) * self.chunk, s.length) <= s.prompt_len
+                        for c in cs))
+            if not recomputable:
+                # the lost span holds decode appends: that K/V exists
+                # nowhere else — terminal for this sequence alone
+                self.fail_sequence(
+                    sid, f"disk-lost chunks {sorted(cs)} at layer "
+                         f"{e.layer} not recomputable from prompt")
+                live.pop(sid)
+                continue
+            self._recompute_chunks(sid, cs)
+
+    def _recompute_chunks(self, sid: int, cs) -> None:
+        """Recompute-from-prompt for one sequence's disk-lost prompt-span
+        chunks: replay chunked prefill (``prefill_chunk_tokens`` a step,
+        from a zeroed decode cache) through the last lost chunk and re-land
+        every (layer, chunk) the store still marks lost through
+        :meth:`TieredKVStore.restore_chunk` — replica, abstracts and CRC
+        rebuilt; the quarantined sidecar repacks lazily.  In f32 the replay
+        stores the admission's bytes; in bf16 on the card it does so for a
+        sequence admitted chunked with the same step, while a whole-prompt
+        admission's GEMM shapes differ (ROADMAP C8)."""
+        s = self.seqs[sid]
+        toks = np.asarray(s.tokens)
+        C = self.ecfg.prefill_chunk_tokens
+        end = min(len(toks), (max(cs) + 1) * self.chunk)
+        end = min(-(-end // C) * C, self.ecfg.max_len)
+        cache = lm.init_decode_cache(self.cfg, 1, self.ecfg.max_len,
+                                     device=self.device)
+        pos = 0
+        with torch.no_grad():
+            while pos < end:
+                chunk_toks = np.zeros(C, np.int64)
+                take = min(C, len(toks) - pos)
+                if take > 0:
+                    chunk_toks[:take] = toks[pos:pos + take]
+                batch = {"tokens": torch.from_numpy(
+                    chunk_toks[None]).to(self.device),
+                         "start": pos, "length": len(toks)}
+                _, cache = lm.prefill_chunk(self.params, self.cfg, batch,
+                                            cache, max_len=self.ecfg.max_len)
+                pos += C
+        lost_now = self.store.disk_lost_keys()
+        for li, layer in enumerate(self.attn_layers):
+            for c in sorted(set(cs)):
+                if (sid, li, c) not in lost_now:
+                    continue
+                k, v = self._layer_kv_slice(cache, layer, c * self.chunk,
+                                            self.chunk)
+                self.store.restore_chunk(li, sid, c, k, v)
 
     @decode_thread_only
     def _decode_round_impl(self, tokens: Dict[int, int]) -> Dict[int, int]:
@@ -995,7 +1158,9 @@ class ChunkedAdmission:
         self.cache = None              # the store holds every row now
         eng.seqs[self.sid] = _SeqState(length=self.S,
                                        access=AccessTable(eng.n_chunks),
-                                       prefill_logits=first)
+                                       prefill_logits=first,
+                                       tokens=np.asarray(self.tokens),
+                                       prompt_len=self.S)
         eng.last_logits = first
         eng.admit_profiles.append({
             "total_s": time.perf_counter() - self._t0,

@@ -47,7 +47,18 @@ demotions are metadata-only, promotions read the abstract or the chunk.
   for the engine to upload whole;
 * ``reopen=True`` re-attaches to a root after a crash: the memmaps open
   read-write, every chunk starts on DISK, and a chunk whose replica CRC
-  never landed is rejected as disk-lost; ``checksums=False`` keeps no CRCs.
+  never landed is rejected as disk-lost; ``checksums=False`` keeps no CRCs;
+* the **fault domain**: every physical disk, sidecar, PQ-code and worker
+  attempt passes one choke point (``_fault_point``) that consults an
+  optional :class:`~repro_torch.serving.faults.FaultPlan`; transient disk
+  errors retry with bounded back-off (``io_retries``, ``io_backoff_s``),
+  and an exhausted budget degrades (sidecar → fp16 replica, PQ codes →
+  min/max, replica → disk-lost for the engine to recompute).
+  :meth:`TieredKVStore.restore_chunk` re-lands a recomputed chunk;
+* **whole-sequence preemption**: :meth:`TieredKVStore.swap_out_seq` frees a
+  suspended sequence's pool slots and host copies (the write-through
+  replica already holds every row) and :meth:`TieredKVStore.swap_in_seq`
+  re-stages the same set on the host off the replica.
 
 Host-side state and billing are the reference's numpy code, so disk bytes,
 abstracts and the traffic log are bitwise equal to ``repro``'s for the same
@@ -73,7 +84,9 @@ from repro_torch.core import compression
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.kv_quant.ops import kv_dequant_scatter
 from repro_torch.kernels.pq.ops import pq_encode, pq_train
-from repro_torch.serving.faults import ChunkLostError, IngestError
+from repro_torch.serving.faults import (ChunkLostError, DiskIOExhausted,
+                                        IngestError, TransientDiskError,
+                                        WorkerFault)
 from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
                                            worker_thread)
 
@@ -268,14 +281,15 @@ class TieredKVStore:
                  real_codec: bool = False, disk_sidecar: bool = False,
                  sidecar_lossless: bool = False, latent: bool = False,
                  prefix_rows: int = 0, debug_sync: bool = False,
-                 checksums: bool = True, faults=None, reopen: bool = False,
+                 checksums: bool = True, faults=None,
+                 io_retries: int = 3, io_backoff_s: float = 1e-4,
+                 reopen: bool = False,
                  abstract_kind: str = "minmax", pq_m: Optional[int] = None,
                  pq_centroids: int = 256, pq_train_iters: int = 4,
                  device: DeviceLike = None, impl: Optional[str] = None):
         for bad, opt, item in (
                 (latent, "latent=True", "A7"),
                 (prefix_rows, "prefix_rows>0", "A8"),
-                (faults is not None, "faults=", "A9"),
                 (debug_sync, "debug_sync=True", "A13")):
             if bad:
                 raise _unsupported(opt, item)
@@ -352,8 +366,13 @@ class TieredKVStore:
                 os.path.join(self._root, "kv_scale.bin"), dtype=np.float32,
                 mode=mode, shape=(n_seqs, n_layers, n_chunks, self.planes, d))
         # per-chunk CRC32s of the replica and of the packed sidecar,
-        # persisted beside them and verified at every promotion
+        # persisted beside them and verified at every promotion.
+        # ``faults`` is an optional serving.faults.FaultPlan consulted at
+        # the single I/O choke points (tests and the chaos harness only)
         self.checksums = bool(checksums)
+        self.faults = faults
+        self.io_retries = int(io_retries)
+        self.io_backoff_s = float(io_backoff_s)
         self._crc = self._crc_state = self._q_crc = None
         if self.checksums:
             self._crc = np.memmap(
@@ -416,13 +435,19 @@ class TieredKVStore:
         # k-means kernels themselves run OUTSIDE any lock
         # (snapshot-compute-merge)
         self._pq_lock = threading.Lock()
-        self.fault_counters: Dict[str, int] = {"checksum_failures": 0,
-                                               "pq_fallbacks": 0}
+        self.fault_counters: Dict[str, int] = {
+            "io_retries": 0, "checksum_failures": 0, "chunks_recomputed": 0,
+            "pq_fallbacks": 0}
         self._stats_lock = threading.Lock()   # counters only; leaf lock
         self._disk_lost: Set[Tuple[int, int, int]] = set()
         # sequences served degraded numerics: a quarantined sidecar fell
         # back to the lossless fp16 replica
         self.degraded_seqs: Set[int] = set()
+        # whole-sequence preemption: each suspended sequence's resident set
+        # at swap-out, {seq: {layer: [chunks]}}, which swap_in_seq restores
+        self._swapped: Dict[int, Dict[int, List[int]]] = {}
+        self.seq_swapouts = 0
+        self.seq_swapins = 0
         if reopen:
             # the hot tiers died with the process; all that survives is disk
             self.tier[:] = DISK
@@ -530,6 +555,71 @@ class TieredKVStore:
             self.fault_counters[name] = \
                 self.fault_counters.get(name, 0) + n
 
+    def _fault_point(self, site: str, key=None) -> None:
+        """The injection choke point: every physical disk, sidecar, PQ-code
+        and worker attempt consults the plan here exactly once.  ``key``
+        for read sites is the list of (row, layer, chunk) the attempt
+        covers — a scheduled bitflip corrupts the first one's stored
+        bytes."""
+        plan = self.faults
+        if plan is None:
+            return
+        kind = plan.check(site, key)
+        if kind is None:
+            return
+        if kind == "latency":
+            time.sleep(plan.latency_s)
+        elif kind == "io_error":
+            raise TransientDiskError(f"injected transient {site} error")
+        elif kind == "exception":
+            raise WorkerFault(f"injected worker fault at {site}")
+        elif kind == "bitflip" and site in ("disk_read", "sidecar_read",
+                                            "pq_read"):
+            self._flip_bit(site, key)
+
+    def _flip_bit(self, site: str, key) -> None:  # leolint: waive[billlint] reason=fault-injection hook: corrupts stored bytes in place to model silent media corruption; no tier transfer occurs, nothing is promoted or billed
+        """Flip one stored bit of the first targeted chunk — silent media
+        corruption the checksum layer must catch at the next promotion.
+        The same bit as the reference's: the first byte's 0x01 of the PQ
+        codes, 0x40 of the sidecar payload, and bit 10 of the replica's
+        first fp16 word."""
+        if not key:
+            return
+        p, layer, c = key[0]
+        if site == "pq_read" and self._pq_codes is not None:
+            buf = self._pq_codes[p, layer, c].reshape(-1)
+            buf[0] = np.uint8(int(buf[0]) ^ 0x01)
+        elif site == "sidecar_read" and self._disk_q is not None:
+            buf = self._disk_q[p, layer, c].reshape(-1)
+            buf[0] = np.int8(int(buf[0]) ^ 0x40)
+        else:
+            flat = self._disk[p, layer, c].reshape(-1)
+            word = np.uint16 if self.dtype.itemsize == 2 else np.uint32
+            cell = flat[:1].view(word)
+            cell[0] ^= np.asarray(1 << 10, word)
+        if hasattr(self.faults, "record_key"):
+            self.faults.record_key((int(p), int(layer), int(c)))
+
+    def _with_retries(self, fn):
+        """Run one physical I/O attempt with bounded retry-with-backoff on
+        transient errors.  Each retry re-consults the fault plan at the
+        NEXT call index, so one scheduled ``io_error`` is a transient blip
+        (value-identical after the retry) and ``io_retries + 1``
+        consecutive ones a persistent failure, raised as
+        :class:`DiskIOExhausted` for the caller to degrade on."""
+        last: Optional[BaseException] = None
+        for attempt in range(self.io_retries + 1):
+            try:
+                return fn()
+            except TransientDiskError as e:
+                last = e
+                self._count("io_retries")
+                if attempt < self.io_retries:
+                    time.sleep(self.io_backoff_s * (2 ** attempt))
+        raise DiskIOExhausted(
+            f"disk I/O failed after {self.io_retries + 1} attempts: "
+            f"{last}") from last
+
     def _read_sidecar(self, layer: int,  # leolint: waive[billlint] reason=coalesced read helper: every caller (_stage_disk, fetch_chunks) bills _packed_bytes() (or the fp16 fallback) per key at its own promotion site
                       keys: Sequence[Tuple[int, int]]
                       ) -> Tuple[np.ndarray, Set[int]]:
@@ -538,11 +628,19 @@ class TieredKVStore:
         out is (n, planes, chunk, Hkv, hd) in store dtype; ``bad`` holds
         the positions whose payload failed its CRC — those rows are
         garbage, the sidecar is quarantined (valid bit cleared, counted)
-        and the caller falls back to the fp16 replica."""
+        and the caller falls back to the fp16 replica.  The gather runs
+        through the ``sidecar_read`` choke point with bounded retry."""
         sq = np.array([s for s, _ in keys])
         cq = np.array([c for _, c in keys])
-        data = np.asarray(self._disk_q[sq, layer, cq])  # (n, planes, c, dq)
-        scale = np.asarray(self._disk_scale[sq, layer, cq])  # (n, planes, d)
+
+        def read():  # leolint: waive[billlint] reason=retryable attempt body of the coalesced helper; billing happens at the callers' promotion sites
+            self._fault_point("sidecar_read",
+                              [(p, layer, c) for p, c in keys])
+            return (np.asarray(self._disk_q[sq, layer, cq]),
+                    np.asarray(self._disk_scale[sq, layer, cq]))
+
+        # (n, planes, chunk, dq) payload and (n, planes, d) scales
+        data, scale = self._with_retries(read)
         bad: Set[int] = set()
         if self._q_crc is not None:
             for i, (p, c) in enumerate(keys):
@@ -562,14 +660,21 @@ class TieredKVStore:
     def _replica_read_verified(self, layer: int,  # leolint: waive[billlint] reason=coalesced verified-read helper: its callers (_stage_disk, fetch_chunks) bill every chunk they promote at the promotion site, where the per-seq attribution and the fallback kind are known
                                entries: Sequence[Tuple[int, int, int]]
                                ) -> Tuple[np.ndarray, Set[int]]:
-        """Coalesced fp16-replica gather plus CRC verification.  ``entries``
-        is (bill seq, row, chunk).  Returns (blk, lost): blk is (n, planes,
+        """Coalesced fp16-replica gather through the ``disk_read`` choke
+        point with bounded retry, plus CRC verification.  ``entries`` is
+        (bill seq, row, chunk).  Returns (blk, lost): blk is (n, planes,
         chunk, Hkv, hd); ``lost`` positions failed verification (replica
         corrupt or, in a reopened store, never landed) and are marked
         disk-lost."""
         sq = np.array([p for _, p, _ in entries])
         cq = np.array([c for _, _, c in entries])
-        blk = np.asarray(self._disk[sq, layer, cq])
+
+        def read():  # leolint: waive[billlint] reason=retryable attempt body of the coalesced helper; billing happens at the callers' promotion sites
+            self._fault_point("disk_read",
+                              [(p, layer, c) for _, p, c in entries])
+            return np.asarray(self._disk[sq, layer, cq])
+
+        blk = self._with_retries(read)
         lost: Set[int] = set()
         if self._crc is not None:
             for i, (_, p, c) in enumerate(entries):
@@ -671,6 +776,10 @@ class TieredKVStore:
         sidecar, CRC and abstract writes (and, in a PQ store, the codebook
         update and the chunks' codes), with their billing.  kcs/vcs: (n,
         chunk, Hkv, hd) in store dtype, rows matching ``cids``."""
+        # an injected worker fault (an arbitrary bug in this work item)
+        # propagates through the future and surfaces at the sequence's
+        # ingest fence as IngestError: that sequence's terminal state alone
+        self._fault_point("worker", (layer, seq))
         n = len(cids)
         packed = None
         if self.disk_sidecar:
@@ -714,6 +823,10 @@ class TieredKVStore:
                 self._pq_codebook[layer] = cb1
             if self._pq_crc is not None:
                 pq_crcs = [self._crc32(pq_codes_arr[i]) for i in range(n)]
+        # transient write errors retry here, outside the lock; exhaustion
+        # (DiskIOExhausted) surfaces at the fence, not in a decode round
+        self._with_retries(
+            lambda: self._fault_point("disk_write", (layer, seq)))
         with self._lock:
             idx = np.asarray(cids, np.int64)
             self._disk[seq, layer, idx, 0] = kcs
@@ -860,7 +973,10 @@ class TieredKVStore:
         chunk: ``pq_codes_read`` when its codes serve, ``abstract`` when it
         degrades.  Each code block is CRC-verified; a mismatch quarantines
         the chunk's codes into the requant queue (the sweep re-encodes it
-        off the replica)."""
+        off the replica).  The code gather runs through the ``pq_read``
+        choke point with bounded retry; an exhausted budget degrades the
+        whole gather to min/max (counted in ``pq_fallbacks``) — selection
+        is an estimator, never worth failing a round over."""
         if not self.pq:
             raise ValueError("store built with abstract_kind='minmax'")
         with self._lock:
@@ -878,8 +994,23 @@ class TieredKVStore:
                 km[i, :len(idx)] = self._abs_km[seq, layer, idx]
                 kn[i, :len(idx)] = self._abs_kn[seq, layer, idx]
                 pqv = np.array(self._pq_valid[seq, layer, idx])
+
+                def read():
+                    self._fault_point("pq_read", [(seq, layer, int(c))
+                                                  for c in idx])
+                    return np.asarray(self._pq_codes[seq, layer, idx])
+
+                blk = None
                 if pqv.any():
-                    blk = np.asarray(self._pq_codes[seq, layer, idx])
+                    try:
+                        blk = self._with_retries(read)
+                    except DiskIOExhausted:
+                        # persistent code-read failure: every chunk of
+                        # this gather degrades to its min/max box
+                        self._count("pq_fallbacks",
+                                    int(np.count_nonzero(pqv)))
+                        pqv[:] = False
+                if blk is not None and self._pq_crc is not None:
                     for j in np.nonzero(pqv)[0]:
                         c = int(idx[j])
                         if self._crc32(blk[j]) != int(
@@ -892,6 +1023,7 @@ class TieredKVStore:
                                 (seq, layer, c), self._sweep_round)
                             self._count("checksum_failures")
                             self._count("pq_fallbacks")
+                if blk is not None:
                     codes[i, :len(idx)][pqv] = blk[pqv]
                 valid[i, :len(idx)] = pqv
                 disk = np.asarray(self.tier[seq, layer, idx] == DISK)
@@ -953,19 +1085,28 @@ class TieredKVStore:
                     kc = vc = None
                     fell_back = False
                     if self._sidecar_ok(seq, layer, c):
-                        # leolint: waive[locklint] reason=decode-thread fetch path: the sidecar dequant runs under the short fetch critical section, as in the reference (tier tables must not move mid-fetch)
-                        kv, bad = self._read_sidecar(layer, [(seq, c)])
+                        try:
+                            # leolint: waive[locklint] reason=decode-thread fetch path: the sidecar dequant runs under the short fetch critical section, as in the reference (tier tables must not move mid-fetch)
+                            kv, bad = self._read_sidecar(layer, [(seq, c)])
+                        except DiskIOExhausted:
+                            kv, bad = None, {0}
                         if bad:
-                            # quarantined (CRC mismatch): degrade to the
-                            # lossless fp16 replica below
+                            # quarantined (CRC mismatch) or unreadable:
+                            # degrade to the lossless fp16 replica below
                             fell_back = True
                         else:
                             kc, vc = kv[0][0], kv[0][1]
                             nb = self._packed_bytes()
                     if kc is None:
-                        blk, lost = self._replica_read_verified(
-                            layer, [(seq, seq, c)])
-                        if lost:
+                        try:
+                            blk, lost = self._replica_read_verified(
+                                layer, [(seq, seq, c)])
+                        except DiskIOExhausted:
+                            blk, lost = None, {0}
+                            self._disk_lost.add((seq, layer, c))
+                        if blk is None or lost:
+                            # the replica is gone too: the typed loss for
+                            # the engine to recompute or contain
                             raise ChunkLostError(layer, [(seq, seq, c)])
                         kc, vc = blk[0][0], blk[0][1]
                         nb = (self._disk_read_bytes() if self.disk_sidecar
@@ -1043,8 +1184,9 @@ class TieredKVStore:
         gather per representation.  Sidecar-valid chunks move packed bytes
         (dequantized on the host, billed :meth:`_packed_bytes`); the rest
         read the fp16 replica, CRC-verified, and bill ``nbytes``.  A
-        sidecar that fails its CRC falls back to the replica on its own,
-        billed ``kv_fallback``, and marks its sequence degraded.
+        sidecar that fails its CRC (or stays unreadable past the retry
+        budget) falls back to the replica on its own, billed
+        ``kv_fallback``, and marks its sequence degraded.
         ``skip_pool``: pool residents need no host copy (else the legacy
         device tier's residents need none).  ``retier`` marks staged
         chunks HOST so a later fetch sees the copy instead of re-reading.
@@ -1075,10 +1217,13 @@ class TieredKVStore:
         fallback: Set[Tuple[int, int]] = set()
         if need_q:
             per_chunk = self._packed_bytes()
-            blk, bad = self._read_sidecar(layer,
-                                          [(p, c) for _, p, c in need_q])
+            try:
+                blk, bad = self._read_sidecar(
+                    layer, [(p, c) for _, p, c in need_q])
+            except DiskIOExhausted:
+                blk, bad = None, set(range(len(need_q)))
             for i, (seq, p, c) in enumerate(need_q):
-                if i in bad:
+                if blk is None or i in bad:
                     fallback.add((p, c))
                     need_fp.append((seq, p, c))
                     continue
@@ -1090,9 +1235,17 @@ class TieredKVStore:
                     self.tier[p, layer, c] = HOST
         lost: List[Tuple[int, int, int]] = []
         if need_fp:
-            blk, bad = self._replica_read_verified(layer, need_fp)
+            try:
+                blk, bad = self._replica_read_verified(layer, need_fp)
+            except DiskIOExhausted:
+                # unreadable past the retry budget: the whole gather is
+                # disk-lost — the engine recomputes the span from the
+                # prompt or fails just the affected sequence
+                blk, bad = None, set(range(len(need_fp)))
+                for _, p, c in need_fp:
+                    self._disk_lost.add((p, layer, c))
             for i, (seq, p, c) in enumerate(need_fp):
-                if i in bad:
+                if blk is None or i in bad:
                     lost.append((seq, p, c))
                     continue
                 if (p, c) in fallback:
@@ -1114,9 +1267,11 @@ class TieredKVStore:
                    chunks_by_seq: Dict[int, Sequence[int]]) -> int:
         """Speculative disk→host staging (DTP prefetch): pulls predicted
         chunks off disk and re-tiers them HOST so the true fetch finds
-        them; a wrong prediction costs only this read.  A lost chunk is
-        left for the decode thread's own fetch to detect.  Returns the
-        number of chunks staged."""
+        them; a wrong prediction costs only this read.  Faults are
+        swallowed here by design: a lost or unreadable chunk is left for
+        the decode thread's own fetch to detect and recover (the disk-lost
+        marks this call made are kept).  Returns the number of chunks
+        staged."""
         with self._lock:
             keys = [(seq, c) for seq, chunks in chunks_by_seq.items()
                     for c in chunks]
@@ -1124,7 +1279,7 @@ class TieredKVStore:
                 n, _ = self._stage_disk(layer, keys,
                                         nbytes=self._disk_read_bytes(),
                                         skip_pool=True, retier=True)
-            except ChunkLostError:
+            except (ChunkLostError, DiskIOExhausted):
                 return 0
             return n
 
@@ -1311,6 +1466,91 @@ class TieredKVStore:
                     self._host_k.pop(key, None)
                     self._host_v.pop(key, None)
                 self.tier[seq, layer, c] = to
+
+    # ------------------------------------------------------------------
+    # Whole-sequence preemption (overload control)
+    # ------------------------------------------------------------------
+    @decode_thread_only
+    def swap_out_seq(self, seq: int) -> int:
+        """Demote a preempted sequence's whole hot working set.
+
+        The disk replica is write-through (appends land every round), so
+        swap-out moves no payload bytes: like :meth:`demote` it releases
+        resources — the pool slots and legacy device entries free, and
+        every host copy drops.  Each chunk that had a host copy is billed
+        as a zero-byte ``kv_swapout`` op (the ledger records the op
+        without claiming traffic that never crossed).  The resident set is
+        remembered so :meth:`swap_in_seq` restores exactly it.  The caller
+        (the engine) fences the sequence's write-behind ingest first.
+        Unlike :meth:`clear_seq` this keeps the slot's access counts,
+        abstracts, logs and CRC state: the sequence is paused, not retired.
+        Returns the number of chunks swapped out."""
+        with self._lock:
+            resident: Dict[int, List[int]] = {}
+            n = 0
+            for layer in range(self.n_layers):
+                pool = self.pools[layer]
+                cs = {c for (s, l, c) in self._host_k
+                      if s == seq and l == layer}
+                cs |= {c for (s, l, c) in self._dev_k
+                       if s == seq and l == layer}
+                if pool is not None:
+                    cs |= {c for (s, c) in pool.slot_of if s == seq}
+                    pool.evict_seq(seq)
+                for c in sorted(cs):
+                    key = (seq, layer, c)
+                    host = key in self._host_k
+                    self._host_k.pop(key, None)
+                    self._host_v.pop(key, None)
+                    self._dev_k.pop(key, None)
+                    self._dev_v.pop(key, None)
+                    self._lru.pop(key, None)
+                    self.tier[seq, layer, c] = DISK
+                    if host:
+                        self._record(seq, HOST, DISK, "kv_swapout", 0.0)
+                if cs:
+                    resident[layer] = sorted(cs)
+                    n += len(cs)
+            self._swapped[seq] = resident
+            self.seq_swapouts += 1
+            return n
+
+    @decode_thread_only
+    def swap_in_seq(self, seq: int) -> int:
+        """Re-stage a suspended sequence's remembered working set on the
+        host off the disk replica (CRC-verified coalesced read per layer;
+        ``kv_swapin`` bills ``chunk_bytes`` a chunk — these bytes really
+        cross).  The next pooled fetch uploads them as any host chunk.
+
+        A chunk that fails verification stays disk-tier and is marked
+        lost, so the next decode fetch routes it through the engine's
+        recompute or containment path like any other disk-lost chunk; an
+        exhausted retry budget likewise leaves the layer to lazy re-reads
+        instead of failing the resume.  Returns the number of chunks
+        restored on the host."""
+        with self._lock:
+            resident = self._swapped.pop(seq, {})
+            n = 0
+            for layer, cs in resident.items():
+                entries = [(seq, seq, c) for c in cs]
+                try:
+                    blk, lost = self._replica_read_verified(layer, entries)
+                except (TransientDiskError, DiskIOExhausted):
+                    # stays disk-tier: the decode fetch re-reads it (and
+                    # retries or degrades) through its containment path
+                    continue
+                for i, c in enumerate(cs):
+                    if i in lost:
+                        continue
+                    key = (seq, layer, c)
+                    self._host_k[key], self._host_v[key] = \
+                        blk[i][0], blk[i][1]
+                    self.tier[seq, layer, c] = HOST
+                    self._record(seq, DISK, HOST, "kv_swapin",
+                                 float(self.chunk_bytes))
+                    n += 1
+            self.seq_swapins += 1
+            return n
 
     @any_thread
     def host_bytes(self) -> int:
@@ -1551,14 +1791,62 @@ class TieredKVStore:
             if seq in self.seq_logs:
                 self.retired_logs.append(self.seq_logs.pop(seq))
             # fault-domain state is per slot: a reused slot inherits no
-            # degradation or lost-chunk marks
+            # swap record, degradation or lost-chunk marks
+            self._swapped.pop(seq, None)
             self.degraded_seqs.discard(seq)
             self._disk_lost = {k for k in self._disk_lost if k[0] != seq}
             if self._crc_state is not None:
                 self._crc_state[seq] = _CRC_NONE
 
+    # ------------------------------------------------------------------
+    # Fault-domain recovery
+    # ------------------------------------------------------------------
+    @any_thread
+    def restore_chunk(self, layer: int, seq: int, c: int,
+                      k_rows: np.ndarray, v_rows: np.ndarray) -> None:
+        """Re-land one disk-lost chunk from recomputed prompt K/V.
+
+        ``k_rows``/``v_rows`` are the chunk's (chunk, Hkv, hd) rows
+        (possibly short for the tail chunk — zero-padded here exactly as
+        ingest pads, so the replica CRC matches a fresh ingest).  Rebuilds
+        the fp16 replica, the abstracts and the replica CRC; the packed
+        sidecar and the PQ codes stay quarantined for the requant sweep to
+        rebuild lazily off the restored replica.  Bumps the chunk's
+        version so that an in-flight repack of the old bytes aborts.
+        Billed as ``kv_recompute``."""
+        kc = np.asarray(k_rows, dtype=self.dtype)
+        vc = np.asarray(v_rows, dtype=self.dtype)
+        if kc.shape[0] < self.chunk:
+            pad = np.zeros((self.chunk - kc.shape[0],) + kc.shape[1:],
+                           dtype=self.dtype)
+            kc = np.concatenate([kc, pad], axis=0)
+            vc = np.concatenate([vc, pad], axis=0)
+        with self._lock:
+            self._disk[seq, layer, c, 0] = kc
+            self._disk[seq, layer, c, 1] = vc
+            self._abs_km[seq, layer, c] = kc.max(axis=0)
+            self._abs_kn[seq, layer, c] = kc.min(axis=0)
+            self._sidecar_valid[seq, layer, c] = False
+            if self._pq_valid is not None:
+                # restored bytes carry no fresh codes: min/max serves the
+                # chunk until the sweep re-encodes it
+                self._pq_valid[seq, layer, c] = False
+                self._requant_pending.setdefault((seq, layer, c),
+                                                 self._sweep_round)
+            if (seq, layer, c) in self._chunk_version:
+                self._chunk_version[(seq, layer, c)] += 1
+            if self._crc is not None:
+                self._crc[seq, layer, c] = self._crc32(
+                    self._plane_stack(kc, vc))
+                self._crc_state[seq, layer, c] = _CRC_VALID
+            self._disk_lost.discard((seq, layer, c))
+            self.fault_counters["chunks_recomputed"] += 1
+            self._record(seq, HOST, DISK, "kv_recompute",
+                         float(self.chunk_bytes))
+
     @any_thread
     def disk_lost_keys(self) -> Set[Tuple[int, int, int]]:
+        """Snapshot of the (row, layer, chunk) keys marked disk-lost."""
         with self._lock:
             return set(self._disk_lost)
 

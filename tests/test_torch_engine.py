@@ -169,7 +169,7 @@ def test_single_sequence_wrapper_and_release(setup):
 
 
 @pytest.mark.parametrize("opt", [
-    {"prefix_cache": True}, {"debug_sync": True}, {"fault_plan": object()}])
+    {"prefix_cache": True}, {"debug_sync": True}])
 def test_unported_engine_options_raise(setup, opt):
     _, tcfg, _, tparams, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -51,6 +51,28 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert n_modules >= 25, res.stdout
 
 
+_PROBE_ONE = """
+import sys
+import repro_torch.serving.overload, repro_torch.serving.trace
+from repro_torch.serving.overload import LoadHarness, PressureMonitor
+from repro_torch.serving.trace import gen_trace
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_overload_and_trace_copies_load_no_jax_and_no_repro():
+    """The framework-free copies of the reference's overload harness and
+    trace generator stand alone."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    res = subprocess.run([sys.executable, "-c", _PROBE_ONE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_no_source_imports_jax_or_repro():
     offenders = []
     for path in [*PORT.rglob("*.py"), *CARD_SCRIPTS]:

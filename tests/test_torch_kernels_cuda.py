@@ -655,6 +655,115 @@ def test_reopened_store_fills_the_pool_cuda(cuda, tmp_path):
     assert out["cuda"][2] == out["cpu"][2]
 
 
+def _lost_and_restored_script(st):
+    """One sequence over two layers with the real codec: a flipped
+    replica bit of a disk chunk raises ``ChunkLostError`` at the pooled
+    fetch; ``restore_chunk`` re-lands it from the original rows and the
+    fetch is retried, θ 1.0 (every missing chunk through B3).  Returns
+    the fault raised, the slot maps and the fetch stats."""
+    from repro_torch.serving.faults import ChunkLostError
+    from repro_torch.serving.offload import DEVICE, DISK, HOST
+    NC, C = st.n_chunks, st.chunk
+    rng = np.random.RandomState(4)
+    place = {c: (DEVICE, HOST, DISK, DISK)[c % 4] for c in range(NC)}
+    kv = []
+    for layer in range(st.n_layers):
+        k = rng.randn(NC * C, st.kv_heads, st.head_dim).astype(np.float16)
+        v = rng.randn(NC * C, st.kv_heads, st.head_dim).astype(np.float16)
+        st.ingest(layer, k, v, place, seq=0)
+        kv.append((k, v))
+    flat = st._disk[0, 1, 3].reshape(-1)
+    flat[:1].view(np.uint16)[0] ^= np.uint16(1 << 10)   # the _flip_bit bit
+    res = []
+    for layer in range(st.n_layers):
+        try:
+            slots, _, fs = st.fetch_chunks_pooled(
+                layer, {0: list(range(NC))}, theta=1.0)
+        except ChunkLostError as e:
+            res.append(("lost", e.layer, e.keys))
+            k, v = kv[layer]
+            for _, _, c in e.keys:
+                st.restore_chunk(layer, 0, c, k[c * C:(c + 1) * C],
+                                 v[c * C:(c + 1) * C])
+            slots, _, fs = st.fetch_chunks_pooled(
+                layer, {0: list(range(NC))}, theta=1.0)
+        res.append((slots.tolist(), fs.disk_reads, fs.compressed))
+    return res
+
+
+def test_restored_chunk_refills_the_pool_cuda(cuda, tmp_path):
+    """A card store whose replica lost a bit raises ``ChunkLostError``;
+    after ``restore_chunk`` its pool slots, filled through B3, equal a CPU
+    store's (``impl="ref"``) after the same script, bit for bit, with the
+    same TrafficLog and fault counters."""
+    from repro_torch.serving.offload import TieredKVStore
+    out = {}
+    before = kq_ops.launches
+    for dev, impl in (("cuda", None), ("cpu", "ref")):
+        st = TieredKVStore(2, 8, 16, 4, 32, n_seqs=1, transit_codec="int4",
+                           use_pool=True, real_codec=True,
+                           root=str(tmp_path / dev), device=dev, impl=impl)
+        res = _lost_and_restored_script(st)
+        torch.cuda.synchronize()
+        out[dev] = (res, [p.kv.cpu() for p in st.pools],
+                    dict(st.log.bytes), st.fault_stats())
+        st.close()
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][0][1][0] == "lost"
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
+                                                 out["cpu"][1]))
+    assert out["cuda"][2:] == out["cpu"][2:]
+    assert out["cuda"][3]["chunks_recomputed"] == 1
+    assert kq_ops.launches > before
+
+
+def test_swapped_sequence_refills_the_pool_cuda(cuda, tmp_path):
+    """``swap_out_seq`` on a card store frees the sequence's pool slots;
+    ``swap_in_seq`` re-stages its chunks on the host, and the next pooled
+    fetch (θ 0.5: half of the upload through B3) refills the slots bit
+    for bit as a CPU store's running the same script."""
+    from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
+    L, NC, C, HKV, HD = 2, 8, 16, 4, 32
+    out = {}
+    for dev, impl in (("cuda", None), ("cpu", "ref")):
+        st = TieredKVStore(L, NC, C, HKV, HD, n_seqs=2, transit_codec="int4",
+                           use_pool=True, real_codec=True,
+                           root=str(tmp_path / dev), device=dev, impl=impl)
+        rng = np.random.RandomState(5)
+        place = {c: (DEVICE, HOST, DISK, DEVICE)[c % 4] for c in range(NC)}
+        for seq in (0, 1):
+            for layer in range(L):
+                k = rng.randn(NC * C, HKV, HD).astype(np.float32)
+                st.ingest(layer, k, -k, place, seq=seq)
+        res = []
+        for layer in range(L):
+            st.fetch_chunks_pooled(layer, {0: [0, 2, 5], 1: [1, 3]},
+                                   theta=0.5)
+        resident = st.pool_stats()["resident"]
+        res.append(st.swap_out_seq(1))
+        res.append((resident, st.pool_stats()["resident"],
+                    [sorted(p.slot_of) for p in st.pools]))
+        res.append(st.swap_in_seq(1))
+        for layer in range(L):
+            slots, _, fs = st.fetch_chunks_pooled(
+                layer, {0: [0, 2, 5], 1: [1, 3, 4]}, theta=0.5)
+            res.append((slots.tolist(), fs.uploads, fs.compressed,
+                        fs.disk_reads))
+        torch.cuda.synchronize()
+        out[dev] = (res, [p.kv.cpu() for p in st.pools],
+                    dict(st.log.bytes), dict(st.log.ops))
+        st.close()
+    assert out["cuda"][0] == out["cpu"][0]
+    _, (before, after, slot_keys), _ = out["cuda"][0][:3]
+    assert after < before
+    assert all(s != 1 for keys in slot_keys for s, _ in keys)
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1],
+                                                 out["cpu"][1]))
+    assert out["cuda"][2:] == out["cpu"][2:]
+    assert out["cuda"][3][("disk", "host", "kv_swapin")] == \
+        out["cuda"][0][2]
+
+
 def test_launch_counters_count_kernel_launches_only(cuda, rng):
     data = _t(rng.randint(-128, 128, (2, 8, 8)).astype(np.int8), cuda)
     scale = _t(np.ones((2, 16), np.float32), cuda)
