@@ -49,7 +49,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    the 32 layers (the early layers and the first body layers, full
    width: a ``[depth]`` line says so) to keep the script in its budget;
    4e. the 4 requests served as in phase 4 with the packed int4 disk
-   sidecar (``EngineCfg(disk_sidecar=True)``): every ``kv_replica`` write
+   sidecar (``EngineCfg(disk_sidecar=True)``), at 8 of the 32 layers as
+   phase 4d (a ``[depth]`` line says so): every ``kv_replica`` write
    and every disk->host ``kv`` read off the sidecar billed exactly
    ``chunk_bytes * codec_ratio("int4", 64)``; the only fp16 reads are of
    chunks a decode append invalidated (the reference bills those at fp16)
@@ -88,6 +89,27 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    the 1536-, 2048- and 1536-token prompts with the third a high-priority
    request submitted after the first round: one request preempted and
    resumed, all three finished with 16 tokens, nothing leaked;
+   4j. the shared-prefix cache (``EngineCfg(prefix_cache=True,
+   prefill_chunk_tokens=512, prefix_arena_rows=4)``), full depth: four
+   prompts of one 3072-token head (48 chunks) and 100/228/356/484-token
+   suffixes, each ending mid-chunk.  A parity pair with
+   ``real_codec=False, pipeline=False``, 16 tokens: the cache-on engine
+   admits the first two prompts (the second adopts 48 chunks and resumes
+   at 3072), the cache-off engine admits them with
+   ``begin_admission(...).drain()`` at the same 512: token streams
+   identical, first-token and every round's logits bitwise equal, the
+   adopter's prefix replica rows (its arena row's) bitwise equal to the
+   cold engine's private rows, 48 zero-byte ``prefix_ref`` ops,
+   ``bytes_deduped`` 48 x 32 x (1 MiB + 16 KiB), two copy-on-writes
+   (each tail's first append) billed ``cow_read`` and ``cow_copy`` at 32
+   x 1 MiB each, B1/B2 launched.  Then the 4 prompts through the batcher
+   (``max_active=4``, real int4 codec, pipeline on, 32 tokens): three
+   warm admissions of 48 chunks, no private pool slot for an adopted
+   chunk and shared chunks resident once in every layer's pool, no slab
+   update that names a slot twice (B3's guard), no leak after release
+   (arena chunks stay as zero-reference cache), B1-B3 launched.  Prints
+   the warm and cold admission walls and TTFTs, ``prefix_stats()``, the
+   host bytes of the fidelity rows (bf16) and the pool slots saved;
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
@@ -99,7 +121,7 @@ lines of the named kernels only (``--b2`` is ``--only b2``), with no
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
-engine phases of phase 4 (4c-4i) only, with their gates and no result
+engine phases of phase 4 (4c-4j) only, with their gates and no result
 line.
 """
 
@@ -161,10 +183,15 @@ FAULT_CPU_FRAC = 0.1
 # 4i: the 2048-token sequence leaves the batch after this many rounds, for
 # this many
 PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
-ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i")  # --phases
-# phase 4d's two serves run this many of longchat's 32 layers (its 2 early
-# layers and the first body layers, weights and widths unchanged) so that
-# the whole script stays inside its time budget
+# phase 4j: a 3072-token shared head (48 chunks) and four suffixes that
+# end mid-chunk (prompts of 3172-3556 tokens), admitted chunked at 512
+# tokens a step into a store with 4 arena rows
+PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
+PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
+ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j")  # --phases
+# phase 4d's two serves and phase 4e's serve run this many of longchat's
+# 32 layers (its 2 early layers and the first body layers, weights and
+# widths unchanged) so that the whole script stays inside its time budget
 SERVE_MODES_LAYERS = 8
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
@@ -1747,6 +1774,308 @@ def _preempting_batcher(torch, eng, prompts):
             "leaks": leaks, "fails": fails}
 
 
+def prefix_prompts(np, cfg):
+    """Phase 4j's prompts: one ``PREFIX_TOKENS`` shared head, then each of
+    ``PREFIX_SUFFIXES`` fresh tokens (every prompt ends mid-chunk)."""
+    rng = np.random.RandomState(PREFIX_SEED)
+    head = rng.randint(2, cfg.vocab_size, PREFIX_TOKENS)
+    return [np.concatenate([head, rng.randint(2, cfg.vocab_size, n)])
+            for n in PREFIX_SUFFIXES]
+
+
+def _prefix_engine(cfg, params, root, *, cache, real_codec, pipeline,
+                   max_seqs):
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+    return BatchedLeoAMEngine(
+        cfg, params,
+        EngineCfg(max_len=MAX_LEN, real_codec=real_codec, pipeline=pipeline,
+                  prefix_cache=cache, prefill_chunk_tokens=PREFIX_CHUNK_TOKENS,
+                  prefix_arena_rows=PREFIX_ARENA_ROWS),
+        max_seqs=max_seqs, device="cuda", store_root=str(root))
+
+
+def _prefix_leaks(eng):
+    """``_engine_leaks`` for a prefix-cache engine: released arena chunks
+    stay in the pool as zero-reference cache, so the pool may hold arena
+    rows' chunks and nothing else."""
+    st = eng.store
+    leaks = [x for x in _engine_leaks(eng) if not x.startswith("pool")]
+    if st.prefix_stats().get("shared_refs", 0):
+        leaks.append(f"live refs {st.prefix_stats()['shared_refs']}")
+    private = sum(k[0] < st.n_seqs for p in st.pools for k in p.slot_of)
+    if private:
+        leaks.append(f"{private} private pool slots")
+    return leaks
+
+
+def _fidelity_bytes(st):
+    return sum(t.numel() * t.element_size()
+               for kv in st._fidelity.values() for t in kv)
+
+
+def _prefix_pair_run(np, torch, cfg, params, prompts, cache, ref_rows):
+    """One engine of 4j's parity pair: the first two prompts admitted
+    (chunked: through ``add_sequence`` with the cache on, through
+    ``begin_admission(...).drain()`` with it off), then decoded to
+    ``FAULT_NEW_TOKENS`` tokens with ``real_codec=False,
+    pipeline=False``.  With the cache on it returns the adopter's prefix
+    replica rows (its arena row's); with it off it compares its own rows
+    with ``ref_rows`` layer by layer."""
+    root = KV_ROOT / f"prefix_{'on' if cache else 'off'}"
+    eng = _prefix_engine(cfg, params, root, cache=cache, real_codec=False,
+                         pipeline=False, max_seqs=2)
+    st = eng.store
+    _zero_launches()
+    cur, first, admit_s = {}, {}, []
+    for p in prompts[:2]:
+        t0 = time.perf_counter()
+        sid, tok = eng.add_sequence(p) if cache else \
+            eng.begin_admission(p).drain()
+        torch.cuda.synchronize()
+        admit_s.append(time.perf_counter() - t0)
+        cur[sid] = tok
+        first[sid] = eng.seqs[sid].prefill_logits.copy()
+    streams = {sid: [t] for sid, t in cur.items()}
+    logits = []
+    while any(len(s) < FAULT_NEW_TOKENS for s in streams.values()):
+        cur = eng.decode_round(cur)
+        logits.append(eng.last_logits.copy())
+        for sid, t in cur.items():
+            streams[sid].append(t)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    st.ingest_fence_all()
+    adopter = max(streams)
+    n_shared = PREFIX_TOKENS // eng.chunk
+    log = st.log
+    info = {"admit_s": admit_s, "launches": launches,
+            "resident_slots": sum(len(p.slot_of) for p in st.pools),
+            "chunk_bytes": st.chunk_bytes,
+            "abstract_bytes": st.abstract_bytes}
+    rows = None
+    if cache:
+        row = st._shared_map[adopter][0]
+        info.update(
+            adopter_rows=sorted({st._shared_map[adopter].get(c)
+                                 for c in range(n_shared)}),
+            prefix_ref_ops=log.ops.get(("host", "disk", "prefix_ref"), 0),
+            prefix_ref_bytes=log.bytes.get(("host", "disk", "prefix_ref"),
+                                           0.0),
+            cow_copies=st.cow_copies,
+            cow_read=[log.ops.get(("disk", "host", "cow_read"), 0),
+                      log.bytes.get(("disk", "host", "cow_read"), 0.0)],
+            cow_copy=[log.ops.get(("host", "disk", "cow_copy"), 0),
+                      log.bytes.get(("host", "disk", "cow_copy"), 0.0)],
+            prefix_stats=st.prefix_stats(),
+            fidelity_bytes=_fidelity_bytes(st),
+            hit_tokens=[a.get("prefix_hit_tokens")
+                        for a in eng.admit_profiles])
+        rows = np.array(st._disk[row, :, :n_shared])
+    else:
+        info["rows_bitwise"] = all(
+            np.array_equal(ref_rows[li], st._disk[adopter, li, :n_shared])
+            for li in range(st.n_layers))
+    for sid in list(streams):
+        eng.release(sid)
+    info["leaks"] = _prefix_leaks(eng)
+    st.close()
+    del eng, st
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams, first, logits, info, rows
+
+
+def _prefix_serve(np, torch, cfg, params, prompts):
+    """4j's batcher serve: the 4 prompts through ``ContinuousBatcher(
+    SchedulerCfg(max_active=4, chunk=64))`` with the real int4 codec and
+    the pipeline on.  After every round, each live sequence's adopted
+    chunks must hold no private pool slot; every slab update must name
+    each slot once (the guard raises otherwise), and some carry arena
+    chunks."""
+    from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
+                                               SchedulerCfg)
+    root = KV_ROOT / "prefix_serve"
+    eng = _prefix_engine(cfg, params, root, cache=True, real_codec=True,
+                         pipeline=True, max_seqs=len(prompts))
+    st = eng.store
+    scat = {"calls": 0, "repeated": 0, "with_arena": 0, "arena_slots": 0}
+    for pool in st.pools:
+        def spy(slots, *a, _pool=pool, _scatter=pool.scatter, **kw):
+            if len(slots):
+                key_of = {s: k for k, s in _pool.slot_of.items()}
+                arena = sum(key_of[s][0] >= st.n_seqs for s in slots
+                            if s in key_of)
+                scat["calls"] += 1
+                scat["repeated"] += len(slots) - len(set(slots))
+                scat["with_arena"] += arena > 0
+                scat["arena_slots"] += arena
+            return _scatter(slots, *a, **kw)
+        pool.scatter = spy
+    # per round: private slots held for adopted chunks (must stay 0), the
+    # fewest shared arena chunks resident in any layer's pool (the best
+    # round kept), and the slots a store without sharing would add
+    check = {"rounds": 0, "private_adopted": 0, "shared_resident": 0,
+             "max_slots_saved": 0}
+    decode_round = eng.decode_round
+
+    def checked_round(tokens):
+        out = decode_round(tokens)
+        readers = {}
+        for sid in eng.seqs:
+            for c, row in (st._shared_map.get(sid) or {}).items():
+                readers[(row, c)] = readers.get((row, c), 0) + 1
+                check["private_adopted"] += sum(
+                    (sid, c) in p.slot_of for p in st.pools)
+        shared = [sum(n > 1 for k, n in readers.items() if k in p.slot_of)
+                  for p in st.pools]
+        saved = sum(n - 1 for p in st.pools for k, n in readers.items()
+                    if k in p.slot_of)
+        check["rounds"] += 1
+        check["shared_resident"] = max(check["shared_resident"], min(shared))
+        check["max_slots_saved"] = max(check["max_slots_saved"], saved)
+        return out
+
+    eng.decode_round = checked_round
+    b = ContinuousBatcher(engine=eng, cfg=SchedulerCfg(max_active=4, chunk=64))
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        b.submit(Request(rid=i, prompt=p, max_new=NEW_TOKENS))
+    done = b.run()
+    st.requant_fence()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    stats = b.stats()
+    pstats = st.prefix_stats()
+    res = {"wall_s": wall, "launches": launches,
+           "ttft_s": {str(r.rid): r.t_first - r.t_submit for r in done
+                      if r.t_first is not None},
+           "admissions": [{k: a.get(k) for k in
+                           ("total_s", "prefill_s", "ingest_s", "chunks",
+                            "prefix_hit_tokens")}
+                          for a in eng.admit_profiles],
+           "mean_ttft_s": stats.get("mean_ttft_s"),
+           "median_round_s": float(np.median(
+               [p["total_s"] for p in eng.round_profiles])),
+           "prefix_stats": pstats, "fidelity_bytes": _fidelity_bytes(st),
+           "cow_read_bytes": st.log.bytes.get(("disk", "host", "cow_read"),
+                                              0.0),
+           "scatter": scat, "pool_check": check,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    fails = []
+    if sorted(r.rid for r in done) != list(range(len(prompts))) or any(
+            r.error or len(r.out) != NEW_TOKENS for r in done):
+        fails.append(f"serve requests "
+                     f"{[(r.rid, r.error, len(r.out)) for r in done]}")
+    n_shared = PREFIX_TOKENS // eng.chunk
+    if pstats["warm_admissions"] != 3 or \
+            pstats["prefix_hit_chunks"] != 3 * n_shared:
+        fails.append(f"serve: not 3 warm admissions of {n_shared} chunks: "
+                     f"{pstats}")
+    if check["private_adopted"] or not check["shared_resident"]:
+        fails.append(f"serve: shared chunks not in one pool slot: {check}")
+    if scat["repeated"] or not scat["with_arena"]:
+        fails.append(f"serve: slab updates {scat}")
+    zero = [k for k, v in launches.items() if v <= 0]
+    if zero:
+        fails.append(f"serve: path never launched {zero}")
+    res["leaks"] = _prefix_leaks(eng)
+    if res["leaks"]:
+        fails.append(f"serve leaked {res['leaks']}")
+    st.close()
+    del eng, st, decode_round, checked_round
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, fails
+
+
+def phase_prefix(np, torch, cfg, params):
+    """Phase 4j: the shared-prefix cache at full width and full depth (see
+    the module docstring)."""
+    t_phase = time.perf_counter()
+    prompts = prefix_prompts(np, cfg)
+    sa, fa, la, ia, rows = _prefix_pair_run(np, torch, cfg, params, prompts,
+                                            True, None)
+    sb, fb, lb, ib, _ = _prefix_pair_run(np, torch, cfg, params, prompts,
+                                         False, rows)
+    del rows
+    gc.collect()
+    same = sa == sb
+    first_bitwise = fa.keys() == fb.keys() and all(
+        np.array_equal(fa[k], fb[k]) for k in fa)
+    rounds_bitwise = len(la) == len(lb) and all(
+        np.array_equal(a, b) for a, b in zip(la, lb))
+    diff = max([float(np.abs(a - b).max()) for a, b in zip(la, lb)]
+               + [float(np.abs(fa[k] - fb[k]).max()) for k in fa if k in fb],
+               default=None)
+    n_shared = PREFIX_TOKENS // cfg.leoam.chunk_size
+    layers = cfg.n_layers
+    cb, ab = ia["chunk_bytes"], ia["abstract_bytes"]
+    per_cow = layers * cb
+    fails = []
+    if not (same and first_bitwise and rounds_bitwise):
+        fails.append(f"warm/cold pair differs (streams equal {same}, first "
+                     f"logits bitwise {first_bitwise}, rounds bitwise "
+                     f"{rounds_bitwise}, max logit diff {diff!r})")
+    if not ib["rows_bitwise"]:
+        fails.append("the adopter's arena replica rows differ from the cold "
+                     "engine's private rows")
+    if len(ia["adopter_rows"]) != 1 or ia["adopter_rows"][0] < 2:
+        fails.append(f"the adopter's prefix is not in one arena row: "
+                     f"{ia['adopter_rows']}")
+    if ia["prefix_ref_ops"] != n_shared or ia["prefix_ref_bytes"] != 0.0:
+        fails.append(f"prefix_ref {ia['prefix_ref_ops']} ops, "
+                     f"{ia['prefix_ref_bytes']} B (want {n_shared}, 0)")
+    want_dedup = n_shared * layers * (cb + ab)
+    if ia["prefix_stats"]["bytes_deduped"] != want_dedup:
+        fails.append(f"bytes_deduped {ia['prefix_stats']['bytes_deduped']} "
+                     f"!= {want_dedup}")
+    n_cow = ia["cow_copies"]
+    if not (n_cow == 2 and ia["cow_read"] == [n_cow * layers, n_cow * per_cow]
+            and ia["cow_copy"] == ia["cow_read"]):
+        fails.append(f"COW billing {n_cow} copies, cow_read {ia['cow_read']},"
+                     f" cow_copy {ia['cow_copy']} (want 2 of {per_cow} B)")
+    for name, info in (("cache on", ia), ("cache off", ib)):
+        lc = info["launches"]
+        if lc["chunk_bounds"] <= 0 or lc["sparse_decode"] <= 0:
+            fails.append(f"{name}: B1/B2 not launched: {lc}")
+        if info["leaks"]:
+            fails.append(f"{name} leaked {info['leaks']}")
+    serve, serve_fails = _prefix_serve(np, torch, cfg, params, prompts)
+    fails += serve_fails
+    launches = {k: ia["launches"][k] + ib["launches"][k]
+                + serve["launches"][k] for k in serve["launches"]}
+    row = {"prompts": [len(p) for p in prompts],
+           "shared_tokens": PREFIX_TOKENS,
+           "prefill_chunk_tokens": PREFIX_CHUNK_TOKENS,
+           "pair": {"new_tokens": FAULT_NEW_TOKENS, "streams_identical": same,
+                    "first_logits_bitwise": first_bitwise,
+                    "round_logits_bitwise": rounds_bitwise,
+                    "max_logit_diff": diff,
+                    "adopter_rows_bitwise": ib["rows_bitwise"],
+                    "admit_s_warm": ia["admit_s"], "admit_s_cold": ib["admit_s"],
+                    "resident_slots_with_cache": ia["resident_slots"],
+                    "resident_slots_without": ib["resident_slots"],
+                    "pool_slots_saved": ib["resident_slots"]
+                    - ia["resident_slots"],
+                    **{k: ia[k] for k in (
+                        "prefix_ref_ops", "prefix_ref_bytes", "cow_copies",
+                        "cow_read", "cow_copy", "prefix_stats",
+                        "fidelity_bytes", "hit_tokens", "adopter_rows")},
+                    "launches_on": ia["launches"],
+                    "launches_off": ib["launches"]},
+           "serve": serve, "launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"[prefix] {json.dumps(row)}")
+    if fails:
+        raise SystemExit("chip_smoke: [prefix] " + "; ".join(fails))
+    return row
+
+
 def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
@@ -1849,11 +2178,12 @@ def run_phases(np, torch, cfg, params, names):
     runners = {
         "4c": lambda: phase_admission(np, torch, cfg, params),
         "4d": lambda: _serve_modes(np, torch, cfg, params),
-        "4e": lambda: phase_serve(np, torch, cfg, params, sidecar=True),
+        "4e": lambda: _serve_sidecar(np, torch, cfg, params),
         "4f": lambda: phase_legacy(np, torch, cfg, params),
         "4g": lambda: phase_reopen(np, torch),
         "4h": lambda: phase_faults(np, torch, cfg, params),
-        "4i": lambda: phase_preempt(np, torch, cfg, params)}
+        "4i": lambda: phase_preempt(np, torch, cfg, params),
+        "4j": lambda: phase_prefix(np, torch, cfg, params)}
     try:
         for name in ENGINE_PHASES:
             if name in names:
@@ -1942,14 +2272,16 @@ def main() -> int:
         serve_pq = phase_serve(np, torch, cfg, params, pq=True)
         admission = phase_admission(np, torch, cfg, params)
         serve_async, serve_chunked = _serve_modes(np, torch, cfg, params)
-        serve_sidecar = phase_serve(np, torch, cfg, params, sidecar=True)
-        print(f"[serve-sidecar] disk->host kv beside phase 4's: "
+        serve_sidecar = _serve_sidecar(np, torch, cfg, params)
+        print(f"[serve-sidecar] disk->host kv ({SERVE_MODES_LAYERS} of "
+              f"{cfg.n_layers} layers) beside phase 4's: "
               f"{json.dumps(serve_sidecar['disk_kv'])} against "
               f"{json.dumps(serve['disk_kv'])}")
         legacy = phase_legacy(np, torch, cfg, params)
         reopen = phase_reopen(np, torch)
         faults = phase_faults(np, torch, cfg, params)
         preempt = phase_preempt(np, torch, cfg, params)
+        prefix = phase_prefix(np, torch, cfg, params)
         e2e = phase_e2e(np, torch, cfg, params)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
@@ -1967,9 +2299,11 @@ def main() -> int:
         "pq_update": (src + "pq_kmeans.cu",
                       "src/repro/kernels/pq/pq_kmeans.py:65"),
     }
-    # launches: B1-B3 from the minmax serve, B4/B5 from the PQ serve (the
-    # path that runs them); each path's counts were zeroed just before it
-    launches = {**serve["launches"],
+    # launches: B1-B3 from the minmax serve plus phase 4j's three runs (the
+    # shared-prefix path), B4/B5 from the PQ serve (the path that runs
+    # them); each path's counts were zeroed just before it
+    launches = {**{k: serve["launches"][k] + prefix["launches"][k]
+                   for k in prefix["launches"]},
                 "pq_assign": serve_pq["launches"]["pq_assign"],
                 "pq_update": serve_pq["launches"]["pq_update"]}
     kernels = []
@@ -1997,7 +2331,7 @@ def main() -> int:
                       "serve_chunked": serve_chunked,
                       "serve_sidecar": serve_sidecar, "legacy": legacy,
                       "reopen": reopen, "faults": faults,
-                      "preempt": preempt,
+                      "preempt": preempt, "prefix": prefix,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,
@@ -2034,6 +2368,14 @@ def _serve_modes(np, torch, cfg, params):
           f"{SERVE_MODES_LAYERS} of {cfg.n_layers} layers, full width")
     return [phase_serve(np, torch, cut, cut_params, mode=m)
             for m in ("async", "chunked")]
+
+
+def _serve_sidecar(np, torch, cfg, params):
+    """Phase 4e's serve at ``SERVE_MODES_LAYERS`` layers."""
+    cut, cut_params = cut_depth(cfg, params, SERVE_MODES_LAYERS)
+    print(f"[depth] phase 4e (serve-sidecar): {SERVE_MODES_LAYERS} of "
+          f"{cfg.n_layers} layers, full width")
+    return phase_serve(np, torch, cut, cut_params, sidecar=True)
 
 
 def _leaves(tree):

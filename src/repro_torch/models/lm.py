@@ -11,7 +11,8 @@ the body is a Python loop over the repeat axis.
 Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
 ``prefill(params, cfg, batch, max_len)``, and chunked prefill:
 ``init_decode_cache(cfg, batch, max_len, device)`` then
-``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk.
+``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk, after
+``load_prefix_rows(cfg, cache, rows, n)`` for a warm shared prefix.
 Recurrent, MoE, MLA and encoder-decoder stacks raise
 ``NotImplementedError`` (ROADMAP A7, A11); ``decode_step`` with its
 in-model sparse path is a later slice.
@@ -140,6 +141,33 @@ def init_decode_cache(cfg, batch: int, max_len: int,
     dev = resolve_device(device)
     return init_tree(cache_defs(cfg, batch, max_len), None,
                      torch_dtype(cfg.dtype), dev)
+
+
+def load_prefix_rows(cfg, cache: Dict[str, Any], kv_rows,
+                     n_tokens: int) -> Dict[str, Any]:
+    """Seed a chunked-prefill cache with shared-prefix K/V rows.
+
+    ``kv_rows`` holds one ``(k_rows, v_rows)`` pair per attention layer
+    (store layer order), each ``(n_tokens, Hkv, hd)`` (tensors or arrays,
+    anywhere).  They are written into positions ``[0, n_tokens)`` of the
+    batch-1 cache from :func:`init_decode_cache`, layer by layer, in the
+    cache's dtype and IN PLACE, so chunked prefill resumes at ``start ==
+    n_tokens`` over the warm span without recomputing it.  Returns the
+    cache."""
+    check_supported(cfg)
+    prologue, period, repeats = _layer_plan(cfg)
+    slots = [cache["prologue"][i] for i in range(len(prologue))]
+    slots += [{name: leaf[r] for name, leaf in cache["body"][pi].items()}
+              for r in range(repeats) for pi in range(len(period))]
+    if len(kv_rows) != len(slots):
+        raise ValueError(f"load_prefix_rows: {len(kv_rows)} layers of rows "
+                         f"for a cache of {len(slots)} attention layers")
+    for c, (k_rows, v_rows) in zip(slots, kv_rows):
+        for name, rows in (("k", k_rows), ("v", v_rows)):
+            leaf = c[name]
+            leaf[0, :n_tokens] = torch.as_tensor(rows).to(
+                device=leaf.device, dtype=leaf.dtype)
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -68,12 +68,20 @@ injects such faults at the store's choke points.  Overload control:
 set down to its disk replica and parks it, and ``resume_sequence`` re-stages
 it — the identity on its token stream.
 
+With ``prefix_cache=True`` (the content-addressable shared-prefix cache)
+every admission is a chunked prefill: the prompt's chain-hashed chunk
+prefix is matched against the store's index of published chunks, the hits
+are adopted by reference (no prefill, no tier bytes), their rows are
+loaded into the admission's cache off the registrant's fidelity rows
+(``lm.load_prefix_rows``) and prefill resumes at the cold suffix — bitwise
+the cold chunked prefill it skips.  The chunks it misses are registered
+into an arena row and published once their writes have landed.
+
 Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.  Options of the reference
 that the port leaves out so far raise ``NotImplementedError`` naming
-their ROADMAP item: MLA, non-attention layers, the prefix cache and the
-sync sanitizer.
+their ROADMAP item: MLA, non-attention layers and the sync sanitizer.
 """
 
 from __future__ import annotations
@@ -100,6 +108,7 @@ from repro_torch.kernels.sparse_decode.ops import (sparse_decode_pooled,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.common import rms_norm
+from repro_torch.models.params import torch_dtype
 from repro_torch.serving.faults import AdmissionError, ChunkLostError
 from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
 from repro_torch.serving.sanitizer import decode_thread_only, worker_thread
@@ -153,7 +162,17 @@ class EngineCfg:
     pq_centroids: int = 256          # codebook entries per subspace (<= 256)
     pq_train_iters: int = 4          # Lloyd iterations on the first
                                      # (codebook-initializing) ingest
-    prefix_cache: bool = False       # not ported (ROADMAP A8)
+    prefix_cache: bool = False       # content-addressable cross-request
+                                     # shared-prefix reuse: warm prompts
+                                     # adopt matching chunk-aligned spans
+                                     # by reference (no prefill, no
+                                     # duplicate tier bytes) and resume
+                                     # chunked prefill at the cold suffix;
+                                     # every admission runs chunked
+    prefix_arena_rows: int = 8       # shared-chunk arena rows after the
+                                     # store's sequence rows: how many
+                                     # distinct prefix sets stay resident
+                                     # (LRU beyond that)
     debug_sync: bool = False         # not ported (ROADMAP A13)
     checksums: bool = True           # per-chunk CRC32 on disk replicas +
                                      # packed sidecars, verified at every
@@ -253,13 +272,29 @@ class BatchedLeoAMEngine:
                  device_chunk_budget: Optional[int] = None,
                  device: DeviceLike = None, impl: Optional[str] = None,
                  store_root: Optional[str] = None):
-        lm.check_supported(cfg)
-        for bad, opt, item in (
-                (ecfg.prefix_cache, "prefix_cache=True", "A8"),
-                (ecfg.debug_sync, "debug_sync=True", "A13")):
+        if ecfg.prefix_cache:
+            bad = sorted({k for k in cfg.layer_kinds()
+                          if not k.startswith("attn")})
             if bad:
-                raise NotImplementedError(
-                    f"EngineCfg({opt}) is not ported yet (ROADMAP {item})")
+                # recurrent blocks carry decode state outside the KV
+                # store, which an adoption by reference cannot rebuild
+                raise ValueError(
+                    f"prefix_cache requires an attention-only stack; "
+                    f"'{cfg.name}' has non-attention layers {bad} whose "
+                    f"recurrent decode state the shared-prefix cache "
+                    f"cannot adopt by reference")
+            C = ecfg.prefill_chunk_tokens
+            chunk = cfg.leoam.chunk_size
+            if C % chunk or ecfg.max_len % C:
+                raise ValueError(
+                    f"prefix_cache admissions run chunked prefill: "
+                    f"prefill_chunk_tokens={C} must be a multiple of the "
+                    f"store chunk ({chunk}) and divide max_len "
+                    f"({ecfg.max_len})")
+        lm.check_supported(cfg)
+        if ecfg.debug_sync:
+            raise NotImplementedError(
+                "EngineCfg(debug_sync=True) is not ported yet (ROADMAP A13)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -284,12 +319,16 @@ class BatchedLeoAMEngine:
             device_budget=budget, use_pool=ecfg.pooled,
             pool_slots=device_chunk_budget, real_codec=ecfg.real_codec,
             disk_sidecar=ecfg.disk_sidecar,
-            sidecar_lossless=ecfg.sidecar_lossless, checksums=ecfg.checksums,
+            sidecar_lossless=ecfg.sidecar_lossless,
+            prefix_rows=(max(1, ecfg.prefix_arena_rows)
+                         if ecfg.prefix_cache else 0),
+            checksums=ecfg.checksums,
             faults=ecfg.fault_plan, io_retries=ecfg.io_retries,
             io_backoff_s=ecfg.io_backoff_s,
             abstract_kind=("pq" if ecfg.pq_abstracts else "minmax"),
             pq_m=ecfg.pq_m, pq_centroids=ecfg.pq_centroids,
-            pq_train_iters=ecfg.pq_train_iters, device=self.device, impl=impl)
+            pq_train_iters=ecfg.pq_train_iters, device=self.device, impl=impl,
+            fidelity_dtype=torch_dtype(cfg.dtype))
         self.seqs: Dict[int, _SeqState] = {}
         # preempted sequences (suspend_sequence): their slot stays reserved
         self.suspended: Dict[int, _SeqState] = {}
@@ -406,7 +445,15 @@ class BatchedLeoAMEngine:
                pool_place: bool) -> Tuple[int, int]:
         """Whole-prompt admission into slot ``sid``, on the decode thread
         (``pool_place=True``) or the admission worker (``False``: device
-        placements deferred)."""
+        placements deferred).  With the prefix cache it is a chunked
+        admission run to its end: only that can skip a warm span."""
+        if self.ecfg.prefix_cache:
+            adm = ChunkedAdmission(self, sid, np.asarray(tokens),
+                                   self.ecfg.prefill_chunk_tokens,
+                                   pool_place=pool_place)
+            while not adm.done:
+                adm._step_impl()
+            return adm.result
         S = len(tokens)
         t0 = time.perf_counter()
         logits, cache = self._prefill(np.asarray(tokens))
@@ -685,7 +732,8 @@ class BatchedLeoAMEngine:
                 prev = [int(c) for c in
                         self.seqs[sid].access.hot_tokens(self.ecfg.hot_frac)]
             pred[sid] = [c for c in prev if c < nv]
-            tiers = self.store.tier[sid, li]
+            tiers = self.store.tier_view(sid, li) \
+                if self.ecfg.prefix_cache else self.store.tier[sid, li]
             if not any_disk and any(tiers[c] == DISK for c in pred[sid]):
                 any_disk = True
         if not any_disk:
@@ -870,7 +918,8 @@ class BatchedLeoAMEngine:
         for sid, cs in by_seq.items():
             if sid not in live:
                 continue
-            cs = cs | {c for (p, _li, c) in lost_all if p == sid}
+            cs = cs | {c for (p, _li, c) in lost_all
+                       if self.store._phys(sid, c) == p}
             s = self.seqs.get(sid)
             recomputable = (
                 s is not None and s.tokens is not None
@@ -919,7 +968,7 @@ class BatchedLeoAMEngine:
         lost_now = self.store.disk_lost_keys()
         for li, layer in enumerate(self.attn_layers):
             for c in sorted(set(cs)):
-                if (sid, li, c) not in lost_now:
+                if (self.store._phys(sid, c), li, c) not in lost_now:
                     continue
                 k, v = self._layer_kv_slice(cache, layer, c * self.chunk,
                                             self.chunk)
@@ -1055,15 +1104,24 @@ class ChunkedAdmission:
     rounds can run between a long prompt's chunks.  After the last prompt
     chunk the cache rows past it (zeros) are ingested too, so tiers,
     abstracts and replicas cover what whole-prompt admission covers.
-    ``result`` is (seq id, first token) once ``done``."""
+    ``result`` is (seq id, first token) once ``done``.
+
+    ``pool_place=False`` (the admission worker drives ``_step_impl``)
+    defers device placements as ``add_sequence_async`` does.  With the
+    prefix cache the admission first adopts the prompt's matched chunk
+    span by reference, loads its rows into the cache and resumes at the
+    cold suffix; the last prompt chunk is always recomputed (the first
+    token needs its logits) and ingest drops its adopted chunks."""
 
     def __init__(self, engine: BatchedLeoAMEngine, sid: int,
-                 tokens: np.ndarray, chunk_tokens: int):
+                 tokens: np.ndarray, chunk_tokens: int, *,
+                 pool_place: bool = True):
         self.engine = engine
         self.sid = sid
         self.tokens = np.asarray(tokens)
         self.S = len(self.tokens)
         self.C = int(chunk_tokens)
+        self.pool_place = pool_place
         self.pos = 0
         self.cache = lm.init_decode_cache(engine.cfg, 1, engine.ecfg.max_len,
                                           device=engine.device)
@@ -1074,6 +1132,17 @@ class ChunkedAdmission:
         self._t0 = time.perf_counter()
         self._prefill_s = 0.0
         self._ingest_s = 0.0
+        self._hit_tokens = 0
+        if engine.ecfg.prefix_cache:
+            hit = engine.store.prefix_admit(sid, self.tokens)
+            self._hit_tokens = int(hit)
+            resume = min((hit // self.C) * self.C,
+                         ((self.S - 1) // self.C) * self.C)
+            if resume > 0:
+                rows = engine.store.prefix_fill_rows(sid, resume)
+                self.cache = lm.load_prefix_rows(engine.cfg, self.cache,
+                                                 rows, resume)
+                self.pos = resume
 
     @property
     def done(self) -> bool:
@@ -1090,7 +1159,7 @@ class ChunkedAdmission:
         eng.store.ingest(li, k, v,
                          eng._layer_placement(layer, self.placement),
                          seq=self.sid, executor=eng._ingest_exec,
-                         start=start)
+                         pool_place=self.pool_place, start=start)
 
     @decode_thread_only
     def step(self) -> int:
@@ -1161,11 +1230,18 @@ class ChunkedAdmission:
                                        prefill_logits=first,
                                        tokens=np.asarray(self.tokens),
                                        prompt_len=self.S)
-        eng.last_logits = first
+        if self.pool_place:            # the decode thread's admission
+            eng.last_logits = first
+        if eng.ecfg.prefix_cache:
+            # publish the registered chunks only once their write-behind
+            # writes have landed: adopters read the arena row's replica
+            eng.store.ingest_fence(self.sid)
+            eng.store.finish_admission(self.sid)
         eng.admit_profiles.append({
             "total_s": time.perf_counter() - self._t0,
             "prefill_s": self._prefill_s, "ingest_s": self._ingest_s,
-            "overlapped": 1.0, "chunked": 1.0, "chunks": float(self.n_steps)})
+            "overlapped": 1.0, "chunked": 1.0, "chunks": float(self.n_steps),
+            "prefix_hit_tokens": float(self._hit_tokens)})
         self.result = (self.sid, int(np.argmax(first)))
 
     @decode_thread_only

@@ -58,7 +58,25 @@ demotions are metadata-only, promotions read the abstract or the chunk.
 * **whole-sequence preemption**: :meth:`TieredKVStore.swap_out_seq` frees a
   suspended sequence's pool slots and host copies (the write-through
   replica already holds every row) and :meth:`TieredKVStore.swap_in_seq`
-  re-stages the same set on the host off the replica.
+  re-stages the same set on the host off the replica;
+* the **content-addressable shared-prefix cache** (``prefix_rows > 0``):
+  chunk-aligned token prefixes are chain-hashed at admission
+  (``prefix_admit``) and matched against a refcounted index
+  (:class:`~repro_torch.serving.prefix.PrefixIndex`) of published chunks
+  that live in ARENA ROWS — extra rows after the sequences' rows in every
+  per-row array (disk replica, sidecar, CRCs, PQ codes, host copies, pool
+  slots, abstracts).  A hit is adopted BY REFERENCE: no bytes move (a
+  zero-byte ``prefix_ref`` op each), every read path resolves (seq,
+  chunk) → arena row through ``_phys``, a promotion of a shared chunk is
+  made once per arena key and billed ``kv_shared`` to the sequence that
+  triggered it (two sequences that miss one arena chunk in a pooled fetch
+  share ONE slot and ONE upload), and the first decode append into a
+  shared chunk privatizes it copy-on-write (``cow_read`` + ``cow_copy``,
+  one chunk a layer) so still-shared readers keep their bytes.  Missed
+  chunks register by REDIRECT: ingest writes them straight into a planned
+  arena row and keeps their pre-quantization rows (``_fidelity``, in
+  ``fidelity_dtype``) for a bitwise warm resume; ``finish_admission``
+  publishes them only after the ingest fence.
 
 Host-side state and billing are the reference's numpy code, so disk bytes,
 abstracts and the traffic log are bitwise equal to ``repro``'s for the same
@@ -81,12 +99,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import compression
+from repro_torch.core.tiers import shared_prefix_savings
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.kv_quant.ops import kv_dequant_scatter
 from repro_torch.kernels.pq.ops import pq_encode, pq_train
 from repro_torch.serving.faults import (ChunkLostError, DiskIOExhausted,
                                         IngestError, TransientDiskError,
                                         WorkerFault)
+from repro_torch.serving.prefix import PrefixIndex, chunk_hashes
 from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
                                            worker_thread)
 
@@ -220,7 +240,15 @@ class DeviceChunkPool:
         then any deferred placements — and the append rows follow, both by
         in-place index assignment.  Returns the (seq, chunk) keys
         whose append rows crossed to the device — the caller bills
-        those."""
+        those.  A slot may appear once: two writes of one slot in one
+        update would race inside kernel B3 (and leave the index
+        assignment's winner unspecified), so a repeated slot raises
+        before anything is written."""
+        if len(set(slots)) != len(slots):
+            dup = next(s for i, s in enumerate(slots) if s in slots[:i])
+            raise ValueError(
+                f"DeviceChunkPool.scatter: slot {dup} appears more than once "
+                f"in one update of {len(slots)} slots")
         dev = self.kv.device
         rows = [(key, slot, off, row)
                 for key, (off, row) in self.pending.items()
@@ -271,7 +299,10 @@ class TieredKVStore:
     the CUDA card), served by ``fetch_chunks_pooled``.  Mutating entry
     points take an RLock so the engine's prefetch thread can stage disk
     reads while the main thread decodes.  ``impl="ref"`` runs the plain
-    versions of the dequant and k-means kernels even on the card."""
+    versions of the dequant and k-means kernels even on the card.
+    ``prefix_rows`` arena rows follow the ``n_seqs`` sequence rows for the
+    shared-prefix cache; ``fidelity_dtype`` (the model's dtype) is what a
+    registered chunk's fidelity rows are kept in."""
 
     def __init__(self, n_layers: int, n_chunks: int, chunk: int, kv_heads: int,
                  head_dim: int, *, n_seqs: int = 1, dtype=np.float16,
@@ -286,10 +317,10 @@ class TieredKVStore:
                  reopen: bool = False,
                  abstract_kind: str = "minmax", pq_m: Optional[int] = None,
                  pq_centroids: int = 256, pq_train_iters: int = 4,
-                 device: DeviceLike = None, impl: Optional[str] = None):
+                 device: DeviceLike = None, impl: Optional[str] = None,
+                 fidelity_dtype: Optional[torch.dtype] = None):
         for bad, opt, item in (
                 (latent, "latent=True", "A7"),
-                (prefix_rows, "prefix_rows>0", "A8"),
                 (debug_sync, "debug_sync=True", "A13")):
             if bad:
                 raise _unsupported(opt, item)
@@ -298,6 +329,10 @@ class TieredKVStore:
         self.device = resolve_device(device)
         self.impl = impl
         self.n_seqs = n_seqs
+        # arena rows of the shared-prefix cache sit AFTER the sequences'
+        # rows in every per-row array; ``rows`` is the physical row count
+        self.prefix_rows = prefix_rows
+        rows = n_seqs + prefix_rows
         self.n_layers, self.n_chunks, self.chunk = n_layers, n_chunks, chunk
         self.kv_heads, self.head_dim = kv_heads, head_dim
         self.planes = 2
@@ -308,9 +343,9 @@ class TieredKVStore:
         self.disk_sidecar = disk_sidecar and transit_codec is not None
         self.sidecar_lossless = sidecar_lossless
         self.device_budget = device_budget
-        self.tier: np.ndarray = np.full((n_seqs, n_layers, n_chunks), HOST,
+        self.tier: np.ndarray = np.full((rows, n_layers, n_chunks), HOST,
                                         object)
-        self.access: np.ndarray = np.zeros((n_seqs, n_layers, n_chunks))
+        self.access: np.ndarray = np.zeros((rows, n_layers, n_chunks))
         self.log = TrafficLog()
         self.seq_logs: Dict[int, TrafficLog] = defaultdict(TrafficLog)
         self.retired_logs: List[TrafficLog] = []
@@ -322,9 +357,9 @@ class TieredKVStore:
         self._dev_k: Dict[Key, np.ndarray] = {}
         self._dev_v: Dict[Key, np.ndarray] = {}
         self._lru: "OrderedDict[Key, None]" = OrderedDict()
-        # persistent stacked abstracts: one (n_seqs, n_chunks, Hkv, hd)
+        # persistent stacked abstracts: one (rows, n_chunks, Hkv, hd)
         # fancy-index per (layer, round)
-        self._abs_km = np.full((n_seqs, n_layers, n_chunks, kv_heads,
+        self._abs_km = np.full((rows, n_layers, n_chunks, kv_heads,
                                 head_dim), -np.inf, np.float32)
         self._abs_kn = np.full_like(self._abs_km, np.inf)
         self._lock = threading.RLock()
@@ -337,7 +372,7 @@ class TieredKVStore:
             self.pools = [DeviceChunkPool(slots, chunk, kv_heads, head_dim,
                                           self.torch_dtype, self.device)
                           for _ in range(n_layers)]
-        shape = (n_seqs, n_layers, n_chunks, self.planes, chunk, kv_heads,
+        shape = (rows, n_layers, n_chunks, self.planes, chunk, kv_heads,
                  head_dim)
         self._root = root or tempfile.mkdtemp(prefix="leoam_kv_")
         os.makedirs(self._root, exist_ok=True)
@@ -354,17 +389,17 @@ class TieredKVStore:
         # _sidecar_valid gates reads: decode appends invalidate the chunk
         # (its scales go stale) and the fp16 replica serves as fallback
         self._disk_q = self._disk_scale = None
-        self._sidecar_valid = np.zeros((n_seqs, n_layers, n_chunks), bool)
+        self._sidecar_valid = np.zeros((rows, n_layers, n_chunks), bool)
         if self.disk_sidecar:
             d = kv_heads * head_dim
             dq = compression.packed_dim(transit_codec, d)
             self._disk_q = np.memmap(
                 os.path.join(self._root, "kv_q.bin"), dtype=np.int8,
-                mode=mode, shape=(n_seqs, n_layers, n_chunks, self.planes,
+                mode=mode, shape=(rows, n_layers, n_chunks, self.planes,
                                   chunk, dq))
             self._disk_scale = np.memmap(
                 os.path.join(self._root, "kv_scale.bin"), dtype=np.float32,
-                mode=mode, shape=(n_seqs, n_layers, n_chunks, self.planes, d))
+                mode=mode, shape=(rows, n_layers, n_chunks, self.planes, d))
         # per-chunk CRC32s of the replica and of the packed sidecar,
         # persisted beside them and verified at every promotion.
         # ``faults`` is an optional serving.faults.FaultPlan consulted at
@@ -377,18 +412,18 @@ class TieredKVStore:
         if self.checksums:
             self._crc = np.memmap(
                 os.path.join(self._root, "kv_crc.bin"), dtype=np.uint32,
-                mode=mode, shape=(n_seqs, n_layers, n_chunks))
+                mode=mode, shape=(rows, n_layers, n_chunks))
             self._crc_state = np.memmap(
                 os.path.join(self._root, "kv_crc_state.bin"),
-                dtype=np.uint8, mode=mode, shape=(n_seqs, n_layers, n_chunks))
+                dtype=np.uint8, mode=mode, shape=(rows, n_layers, n_chunks))
             if self.disk_sidecar:
                 self._q_crc = np.memmap(
                     os.path.join(self._root, "kv_q_crc.bin"),
                     dtype=np.uint32, mode=mode,
-                    shape=(n_seqs, n_layers, n_chunks))
+                    shape=(rows, n_layers, n_chunks))
         # PQ abstract plane (abstract_kind="pq"): per-layer product-
         # quantization codebooks learned online from ingested key chunks,
-        # plus per-(seq, layer, chunk) uint8 codes on disk — the SECOND
+        # plus per-(row, layer, chunk) uint8 codes on disk — the SECOND
         # abstract representation next to the min/max boxes, which stay as
         # the fallback for append-dirtied or corrupt codes.  ``_pq_valid``
         # gates ADC reads: any mutation of a chunk's replica clears it, and
@@ -411,7 +446,7 @@ class TieredKVStore:
             dsub = head_dim // self.pq_m
             self._pq_codes = np.memmap(
                 os.path.join(self._root, "kv_pq.bin"), dtype=np.uint8,
-                mode=mode, shape=(n_seqs, n_layers, n_chunks, chunk,
+                mode=mode, shape=(rows, n_layers, n_chunks, chunk,
                                   kv_heads, self.pq_m))
             self._pq_codebook = np.memmap(
                 os.path.join(self._root, "kv_pq_cb.bin"), dtype=np.float32,
@@ -424,12 +459,12 @@ class TieredKVStore:
             self._pq_cb = np.array(self._pq_codebook)
             self._pq_counts = np.zeros((n_layers, self.pq_m,
                                         self.pq_centroids), np.float64)
-            self._pq_valid = np.zeros((n_seqs, n_layers, n_chunks), bool)
+            self._pq_valid = np.zeros((rows, n_layers, n_chunks), bool)
             if self.checksums:
                 self._pq_crc = np.memmap(
                     os.path.join(self._root, "kv_pq_crc.bin"),
                     dtype=np.uint32, mode=mode,
-                    shape=(n_seqs, n_layers, n_chunks))
+                    shape=(rows, n_layers, n_chunks))
         # codebook mutations (train/merge) serialize on a leaf lock so
         # cold-ingest workers never hold the store lock across them; the
         # k-means kernels themselves run OUTSIDE any lock
@@ -466,6 +501,26 @@ class TieredKVStore:
         self._requant_futs: List = []
         self._sweep_round = 0
         self.sidecar_repacks = 0
+        # shared-prefix cache: the index and refcounts over arena rows
+        # n_seqs..rows-1 (PrefixIndex is bookkeeping only; every call is
+        # made under _lock).  _shared_map resolves (seq, chunk) → arena
+        # row; _reg_plan holds in-flight registrations (chunk → hash)
+        # until their publish; _fidelity keeps the registrant's
+        # pre-quantization rows per (arena row, layer, chunk) — CPU
+        # tensors in ``fidelity_dtype`` (the model's dtype: bf16 halves
+        # the host bytes of the f32 rows ingest is handed) — so that a
+        # warm resume is bitwise the cold chunked prefill it skips
+        self._prefix = PrefixIndex(range(n_seqs, rows)) if prefix_rows \
+            else None
+        self.fidelity_dtype = fidelity_dtype
+        self._shared_map: Dict[int, Dict[int, int]] = {}
+        self._reg_plan: Dict[int, Dict[int, bytes]] = {}
+        self._fidelity: Dict[Tuple[int, int, int],
+                             Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.bytes_deduped = 0.0
+        self.cow_copies = 0
+        self.warm_admissions = 0
+        self.prefix_admissions = 0
 
     # ------------------------------------------------------------------
     @property
@@ -528,6 +583,12 @@ class TieredKVStore:
         return float(self.chunk_bytes) if (self.real_codec
                                            or self.disk_sidecar) \
             else self._transit_bytes()
+
+    @staticmethod
+    def _kv_kind(seq: int, row: int) -> str:
+        """The billing kind of a chunk promotion: ``kv_shared`` for one
+        read under an arena row, ``kv`` for the sequence's own."""
+        return "kv" if row == seq else "kv_shared"
 
     def _plane_stack(self, kc: np.ndarray, vc: np.ndarray) -> np.ndarray:
         """One chunk's storage planes: (2, chunk, Hkv, hd)."""
@@ -713,7 +774,14 @@ class TieredKVStore:
         chunk-aligned token position) ingests a PART of the sequence: rows
         land in chunks ``start // chunk`` onward, ``placement`` stays keyed
         by global chunk id, and every call's cold writes join the same
-        per-sequence fence."""
+        per-sequence fence.
+
+        Under the shared-prefix cache, chunks ``seq`` adopted by reference
+        are SKIPPED (every tier already holds them under their arena row,
+        and recomputed K/V must never shadow the shared bytes), and chunks
+        it is registering are written straight into their planned arena
+        row, their rows kept as fidelity rows; the traffic is billed to
+        ``seq`` all the same."""
         if start % self.chunk:
             raise ValueError(
                 f"ingest start={start} must be a multiple of the store "
@@ -722,13 +790,19 @@ class TieredKVStore:
         c0 = start // self.chunk
         with self._lock:
             S = k.shape[0]
-            to_pool: List[Tuple[int, np.ndarray, np.ndarray]] = []
-            cids: List[int] = []
-            kcs: List[np.ndarray] = []
-            vcs: List[np.ndarray] = []
+            shared = self._shared_map.get(seq) or {}
+            plan = self._reg_plan.get(seq) or {}
+            to_pool: Dict[int, List[Tuple[int, np.ndarray, np.ndarray]]] = {}
+            # chunks group by their storage row: ``seq`` for its own
+            # chunks, the planned arena row for those it registers
+            groups: Dict[int, Tuple[List[int], List[np.ndarray],
+                                    List[np.ndarray]]] = {}
             for j in range(min(self.n_chunks - c0,
                                (S + self.chunk - 1) // self.chunk)):
                 c = c0 + j
+                if c in shared and c not in plan:
+                    continue               # adopted by reference
+                row = shared.get(c, seq)
                 kr = k[j * self.chunk: (j + 1) * self.chunk]
                 vr = v[j * self.chunk: (j + 1) * self.chunk]
                 if kr.shape[0] < self.chunk:
@@ -737,6 +811,12 @@ class TieredKVStore:
                     vr = np.pad(vr, ((0, pad), (0, 0), (0, 0)))
                 kc = kr.astype(self.dtype)
                 vc = vr.astype(self.dtype)
+                if c in plan:
+                    # the pre-quantization rows: a warm adopter replays
+                    # them into its cache, bitwise the cold prefill
+                    self._fidelity[(row, layer, c)] = (
+                        self._fidelity_rows(kr), self._fidelity_rows(vr))
+                cids, kcs, vcs = groups.setdefault(row, ([], [], []))
                 cids.append(c)
                 kcs.append(kc)
                 vcs.append(vc)
@@ -744,38 +824,50 @@ class TieredKVStore:
                 if where == DEVICE and self.use_pool and not pool_place:
                     # the decode thread reads the slab outside the lock:
                     # queue the placement for its next pooled fetch
-                    self.pools[layer].pending_place[(seq, c)] = \
+                    self.pools[layer].pending_place[(row, c)] = \
                         self._plane_stack(kc, vc)
                     where = HOST
-                self.tier[seq, layer, c] = where
-                key = (seq, layer, c)
+                self.tier[row, layer, c] = where
+                key = (row, layer, c)
                 if where in (HOST, DEVICE):
                     self._host_k[key], self._host_v[key] = kc, vc
                 if where == DEVICE:
                     if self.use_pool:
-                        to_pool.append((c, kc, vc))
+                        to_pool.setdefault(row, []).append((c, kc, vc))
                     else:
                         self._promote_device(key, kc, vc)
-            if to_pool:
+            for row, items in to_pool.items():
                 # leolint: waive[locklint,threadlint] reason=decode-thread ingest only: to_pool fills only when pool_place=True, which the admission worker never passes (it defers via pending_place), and the slab update is an eager in-place device write, not a compiled dispatch
-                self._pool_place(layer, seq, to_pool)
-        if not cids:
-            return
-        ks, vs = np.stack(kcs), np.stack(vcs)
-        if executor is None:
-            self._ingest_cold(layer, seq, cids, ks, vs)
-        else:
-            fut = executor.submit(self._ingest_cold, layer, seq, cids, ks, vs)
-            with self._futs_lock:
-                self._ingest_futs[seq].append(fut)
+                self._pool_place(layer, row, items)
+        for row, (cids, kcs, vcs) in groups.items():
+            ks, vs = np.stack(kcs), np.stack(vcs)
+            if executor is None:
+                self._ingest_cold(layer, row, cids, ks, vs, seq)
+            else:
+                fut = executor.submit(self._ingest_cold, layer, row, cids,
+                                      ks, vs, seq)
+                with self._futs_lock:
+                    self._ingest_futs[seq].append(fut)
+
+    def _fidelity_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """A registered chunk's pre-quantization rows as a CPU tensor in
+        ``fidelity_dtype`` (the rows as given when it is None).  Ingest is
+        handed bf16 values widened to f32, so the narrowing is exact."""
+        t = torch.from_numpy(np.array(rows))
+        return t if self.fidelity_dtype is None \
+            else t.to(self.fidelity_dtype)
 
     @worker_thread
     def _ingest_cold(self, layer: int, seq: int, cids: List[int],
-                     kcs: np.ndarray, vcs: np.ndarray) -> None:
+                     kcs: np.ndarray, vcs: np.ndarray,
+                     bill_seq: Optional[int] = None) -> None:
         """The write-behind half of :meth:`ingest`: fp16 replica, packed
         sidecar, CRC and abstract writes (and, in a PQ store, the codebook
         update and the chunks' codes), with their billing.  kcs/vcs: (n,
-        chunk, Hkv, hd) in store dtype, rows matching ``cids``."""
+        chunk, Hkv, hd) in store dtype, rows matching ``cids``.  ``seq``
+        is the STORAGE row (an arena row when a registration redirects);
+        ``bill_seq`` is the sequence the traffic is billed to."""
+        bill = seq if bill_seq is None else bill_seq
         # an injected worker fault (an arbitrary bug in this work item)
         # propagates through the future and surfaces at the sequence's
         # ingest fence as IngestError: that sequence's terminal state alone
@@ -852,14 +944,15 @@ class TieredKVStore:
                     self._pq_crc[seq, layer, idx] = pq_crcs
                 # write-through codebook persistence, billed once per cold
                 # batch (it is shared state, K * head_dim floats)
-                self._record(seq, HOST, DISK, "pq_codes_write",
+                self._record(bill, HOST, DISK, "pq_codes_write",
                              4.0 * self.pq_m * self.pq_centroids
                              * (self.head_dim // self.pq_m))
             for _c in cids:
-                self._record(seq, HOST, DISK, "kv_replica", rep_bytes)
-                self._record(seq, HOST, DISK, "abstract", self.abstract_bytes)
+                self._record(bill, HOST, DISK, "kv_replica", rep_bytes)
+                self._record(bill, HOST, DISK, "abstract",
+                             self.abstract_bytes)
                 if pq_codes_arr is not None:
-                    self._record(seq, HOST, DISK, "pq_codes_write",
+                    self._record(bill, HOST, DISK, "pq_codes_write",
                                  float(self.pq_bytes))
 
     @any_thread
@@ -911,26 +1004,263 @@ class TieredKVStore:
             pool.scatter(slots, np.stack([self._plane_stack(kc, vc)
                                           for _, kc, vc in items])))
 
+    # ------------------------------------------------------------------
+    # Content-addressable shared-prefix cache (cross-request KV reuse)
+    # ------------------------------------------------------------------
+    def _phys(self, seq: int, c: int) -> int:
+        """The storage row of (seq, chunk): the arena row of a chunk held
+        by reference, else the sequence's own row."""
+        m = self._shared_map.get(seq)
+        if m is None:
+            return seq
+        return m.get(c, seq)
+
+    def _phys_rows(self, seq: int, idx: np.ndarray):
+        """The storage rows of ``seq``'s chunks ``idx``: the scalar row
+        itself for a sequence that holds no shared chunk (the fancy-index
+        fast path), else one row per chunk."""
+        m = self._shared_map.get(seq)
+        return seq if m is None else np.asarray(
+            [m.get(int(c), seq) for c in idx], np.int64)
+
     @any_thread
     def tier_view(self, seq: int, layer: int) -> np.ndarray:
-        """A copy of the sequence's tier row for one layer (what the
-        engine's prefetch planner reads)."""
+        """A copy of the sequence's tier row for one layer, shared chunks
+        resolved to their arena row's tier (what the engine's prefetch
+        planner reads)."""
         with self._lock:
-            return np.array(self.tier[seq, layer], copy=True)
+            t = np.array(self.tier[seq, layer], copy=True)
+            m = self._shared_map.get(seq)
+            if m:
+                for c, row in m.items():
+                    t[c] = self.tier[row, layer, c]
+            return t
+
+    @any_thread
+    def prefix_probe(self, tokens) -> Dict[str, int]:
+        """Read-only warm-span prediction (the scheduler's admission
+        credit): how many chunks of ``tokens`` are adoptable now, and how
+        many of those already hold a device-pool slot.  Touches neither
+        refcounts nor the hit counters."""
+        if self._prefix is None:
+            return {"hit_chunks": 0, "hit_tokens": 0, "device_hits": 0}
+        hashes = chunk_hashes(np.asarray(tokens), self.chunk)
+        with self._lock:
+            matched = self._prefix.match(hashes, record=False)
+            pool = self.pools[0]
+            dev = sum(1 for row, c in matched
+                      if pool is not None and (row, c) in pool.slot_of)
+            ht = len(tokens) if len(matched) == len(hashes) \
+                else len(matched) * self.chunk
+            return {"hit_chunks": len(matched), "hit_tokens": int(ht),
+                    "device_hits": int(dev)}
+
+    @any_thread
+    def prefix_admit(self, seq: int, tokens) -> int:
+        """Content-addressable admission of ``seq``'s prompt.
+
+        Matches the chain-hashed chunk prefix against the index and
+        adopts every hit BY REFERENCE: one refcount per (arena row,
+        chunk), no bytes moved — a zero-byte ``prefix_ref`` op each.
+        Missed chunks are planned for registration into a free (or the
+        least recently used unreferenced) arena row: ingest writes them
+        straight into it and :meth:`finish_admission` publishes them.
+        Returns the prompt tokens the adopted chunks cover (the engine
+        resumes chunked prefill at the cold suffix)."""
+        if self._prefix is None:
+            return 0
+        toks = np.asarray(tokens)
+        hashes = chunk_hashes(toks, self.chunk)
+        with self._lock:
+            matched = self._prefix.match(hashes)
+            mapping = {c: row for c, (row, _rc) in enumerate(matched)}
+            self._prefix.acquire(matched)
+            for _ in mapping:
+                self._record(seq, HOST, DISK, "prefix_ref", 0.0)
+            self.bytes_deduped += shared_prefix_savings(
+                len(mapping), self.n_layers, self.chunk_bytes,
+                self.abstract_bytes)
+            miss = list(range(len(matched), len(hashes)))
+            if miss:
+                got = self._prefix.alloc_row()
+                if got is not None:       # None: every arena row is held
+                    row, scrub = got
+                    if scrub:
+                        self._scrub_row(row, scrub)
+                    self._prefix.plan(row, miss)
+                    self._prefix.acquire([(row, c) for c in miss])
+                    for c in miss:
+                        mapping[c] = row
+                    self._reg_plan[seq] = {c: hashes[c] for c in miss}
+            if mapping:
+                self._shared_map[seq] = mapping
+            self.prefix_admissions += 1
+            if matched:
+                self.warm_admissions += 1
+            return len(toks) if len(matched) == len(hashes) \
+                else len(matched) * self.chunk
+
+    @any_thread
+    def finish_admission(self, seq: int) -> None:
+        """Publish the chunks ``seq`` registered, making them adoptable.
+        MUST follow :meth:`ingest_fence`: adopters read the arena row's
+        replica, which is only written once the write-behind ingest has
+        landed.  Losing a publish race (identical content published
+        first) is benign: the row stays private to ``seq`` and is
+        reclaimed once released."""
+        with self._lock:
+            plan = self._reg_plan.pop(seq, None)
+            if not plan or self._prefix is None:
+                return
+            mapping = self._shared_map.get(seq, {})
+            for c, h in plan.items():
+                row = mapping.get(c)
+                if row is not None and row >= self.n_seqs:
+                    self._prefix.publish(row, c, h)
+
+    @any_thread
+    def prefix_fill_rows(self, seq: int, n_tokens: int
+                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """The adopted span's rows for the warm cache fill: one (k, v)
+        pair per layer, each (n_tokens, Hkv, hd), CPU tensors in
+        ``fidelity_dtype`` — the registrant's pre-quantization rows, so a
+        warm resume is bitwise the cold chunked prefill it skips.
+        ``n_tokens`` must be chunk-aligned and inside the adopted span."""
+        if n_tokens % self.chunk:
+            raise ValueError(f"prefix_fill_rows: n_tokens={n_tokens} is not "
+                             f"a multiple of the chunk ({self.chunk})")
+        nc = n_tokens // self.chunk
+        with self._lock:
+            mapping = self._shared_map.get(seq, {})
+            out: List[Tuple[torch.Tensor, torch.Tensor]] = []
+            for layer in range(self.n_layers):
+                rows = [self._fidelity[(mapping[c], layer, c)]
+                        for c in range(nc)]
+                out.append((torch.cat([k for k, _ in rows]),
+                            torch.cat([v for _, v in rows])))
+            return out
+
+    def _scrub_row(self, row: int, cs: Sequence[int]) -> None:
+        """Reclaim an evicted arena row's chunks ``cs`` in every tier view
+        (host copies, legacy device entries, pool slots, fidelity rows,
+        abstracts, sidecar, code and CRC state) before a new registration
+        reuses the row.  Caller holds ``_lock``.  Disk bytes need no
+        scrub: the new registration overwrites every chunk it publishes."""
+        for layer in range(self.n_layers):
+            pool = self.pools[layer]
+            for c in cs:
+                key = (row, layer, c)
+                self._host_k.pop(key, None)
+                self._host_v.pop(key, None)
+                self._dev_k.pop(key, None)
+                self._dev_v.pop(key, None)
+                self._lru.pop(key, None)
+                self._fidelity.pop(key, None)
+                if pool is not None:
+                    pool.evict((row, c))
+                self.tier[row, layer, c] = HOST
+                self._sidecar_valid[row, layer, c] = False
+                if self._pq_valid is not None:
+                    self._pq_valid[row, layer, c] = False
+                if self._crc_state is not None:
+                    self._crc_state[row, layer, c] = _CRC_NONE
+                self._disk_lost.discard(key)
+                self._abs_km[row, layer, c] = -np.inf
+                self._abs_kn[row, layer, c] = np.inf
+                self._requant_pending.pop(key, None)
+                if key in self._chunk_version:
+                    self._chunk_version[key] += 1
+
+    def _cow(self, seq: int, c: int) -> None:
+        """Copy-on-write: privatize a shared chunk ``seq`` is about to
+        append into.  Copies the arena row's replica, sidecar, abstracts,
+        codes, CRCs and host copy into the sequence's own row and drops
+        the reference — one chunk copy a layer, billed ``cow_read``
+        (disk→host) + ``cow_copy`` (host→disk).  The arena chunk is
+        untouched: still-shared readers keep their bytes.  Caller holds
+        ``_lock``."""
+        mapping = self._shared_map.get(seq)
+        if not mapping or c not in mapping:
+            return
+        row = mapping.pop(c)
+        if not mapping:
+            self._shared_map.pop(seq, None)
+        cb = float(self.chunk_bytes)
+        for layer in range(self.n_layers):
+            self._record(seq, DISK, HOST, "cow_read", cb)
+            self._disk[seq, layer, c] = self._disk[row, layer, c]
+            self._abs_km[seq, layer, c] = self._abs_km[row, layer, c]
+            self._abs_kn[seq, layer, c] = self._abs_kn[row, layer, c]
+            if self.disk_sidecar:
+                self._disk_q[seq, layer, c] = self._disk_q[row, layer, c]
+                self._disk_scale[seq, layer, c] = \
+                    self._disk_scale[row, layer, c]
+                self._sidecar_valid[seq, layer, c] = \
+                    self._sidecar_valid[row, layer, c]
+            if self.pq:
+                # the private copy inherits the arena chunk's codes, their
+                # validity and CRC: same bytes, same codes
+                self._pq_codes[seq, layer, c] = self._pq_codes[row, layer, c]
+                self._pq_valid[seq, layer, c] = \
+                    self._pq_valid[row, layer, c]
+                if self._pq_crc is not None:
+                    self._pq_crc[seq, layer, c] = self._pq_crc[row, layer, c]
+            if self._crc is not None:
+                # and its checksum state: same bytes, same CRC
+                self._crc[seq, layer, c] = self._crc[row, layer, c]
+                self._crc_state[seq, layer, c] = \
+                    self._crc_state[row, layer, c]
+                if self._q_crc is not None:
+                    self._q_crc[seq, layer, c] = self._q_crc[row, layer, c]
+            src = (row, layer, c)
+            dst = (seq, layer, c)
+            if src in self._host_k:
+                self._host_k[dst] = np.array(self._host_k[src])
+                self._host_v[dst] = np.array(self._host_v[src])
+                self.tier[seq, layer, c] = HOST
+            else:
+                self.tier[seq, layer, c] = DISK
+            self._record(seq, HOST, DISK, "cow_copy", cb)
+        if self._prefix is not None:
+            self._prefix.decref([(row, c)])
+        self.cow_copies += 1
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """Cross-request reuse counters (merged into the scheduler's
+        stats); {} without the cache."""
+        if self._prefix is None:
+            return {}
+        with self._lock:
+            px = self._prefix
+            total = px.hit_chunks + px.miss_chunks
+            return {"prefix_hit_rate": px.hit_chunks / max(1, total),
+                    "prefix_hit_chunks": float(px.hit_chunks),
+                    "prefix_miss_chunks": float(px.miss_chunks),
+                    "prefix_lookups": float(px.lookups),
+                    "shared_chunks": float(px.shared_chunks()),
+                    "shared_refs": float(px.live_refs()),
+                    "bytes_deduped": float(self.bytes_deduped),
+                    "cow_copies": float(self.cow_copies),
+                    "warm_admissions": float(self.warm_admissions),
+                    "prefix_admissions": float(self.prefix_admissions),
+                    "arena_evictions": float(px.evicted_rows)}
 
     # ------------------------------------------------------------------
     def read_abstracts(self, layer: int, chunks: Sequence[int], *,
                        seq: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """LKA: fetch (kmax, kmin) for one sequence's chunks; each disk
-        chunk costs one abstract read."""
+        chunk costs one abstract read.  A shared chunk reads its arena
+        row's."""
         with self._lock:
             idx = np.asarray(list(chunks), np.int64)
-            for c in idx:
-                if self.tier[seq, layer, c] == DISK:
+            rows = np.asarray([self._phys(seq, int(c)) for c in idx],
+                              np.int64)
+            for r, c in zip(rows, idx):
+                if self.tier[r, layer, c] == DISK:
                     self._record(seq, DISK, HOST, "abstract",
                                  self.abstract_bytes)
-            return (self._abs_km[seq, layer, idx].copy(),
-                    self._abs_kn[seq, layer, idx].copy())
+            return (self._abs_km[rows, layer, idx].copy(),
+                    self._abs_kn[rows, layer, idx].copy())
 
     @any_thread
     def read_abstracts_batch(self, layer: int,
@@ -939,7 +1269,9 @@ class TieredKVStore:
                                         Dict[int, float]]:
         """Batched LKA read: one padded (B, ncmax, Hkv, hd) fancy-index into
         the persistent abstract stack.  Returns (kmax, kmin, abstract bytes
-        billed per sequence); rows follow dict order, padded with zeros."""
+        billed per sequence); rows follow dict order, padded with zeros.
+        Shared chunks read their arena row's abstracts (computed once, by
+        the registrant)."""
         with self._lock:
             B = len(chunks_by_seq)
             ncmax = max((len(c) for c in chunks_by_seq.values()), default=0)
@@ -948,10 +1280,11 @@ class TieredKVStore:
             billed: Dict[int, float] = {}
             for i, (seq, chunks) in enumerate(chunks_by_seq.items()):
                 idx = np.asarray(list(chunks), np.int64)
-                km[i, :len(idx)] = self._abs_km[seq, layer, idx]
-                kn[i, :len(idx)] = self._abs_kn[seq, layer, idx]
+                rows = self._phys_rows(seq, idx)
+                km[i, :len(idx)] = self._abs_km[rows, layer, idx]
+                kn[i, :len(idx)] = self._abs_kn[rows, layer, idx]
                 n_disk = int(np.count_nonzero(
-                    self.tier[seq, layer, idx] == DISK))
+                    self.tier[rows, layer, idx] == DISK))
                 for _ in range(n_disk):
                     self._record(seq, DISK, HOST, "abstract",
                                  self.abstract_bytes)
@@ -991,14 +1324,18 @@ class TieredKVStore:
             billed: Dict[int, float] = {}
             for i, (seq, chunks) in enumerate(chunks_by_seq.items()):
                 idx = np.asarray(list(chunks), np.int64)
-                km[i, :len(idx)] = self._abs_km[seq, layer, idx]
-                kn[i, :len(idx)] = self._abs_kn[seq, layer, idx]
-                pqv = np.array(self._pq_valid[seq, layer, idx])
+                # shared chunks read the arena row's codes
+                rows = self._phys_rows(seq, idx)
+                km[i, :len(idx)] = self._abs_km[rows, layer, idx]
+                kn[i, :len(idx)] = self._abs_kn[rows, layer, idx]
+                pqv = np.array(self._pq_valid[rows, layer, idx])
+                rlist = np.broadcast_to(rows, idx.shape)
 
                 def read():
-                    self._fault_point("pq_read", [(seq, layer, int(c))
-                                                  for c in idx])
-                    return np.asarray(self._pq_codes[seq, layer, idx])
+                    self._fault_point("pq_read",
+                                      [(int(p), layer, int(c))
+                                       for p, c in zip(rlist, idx)])
+                    return np.asarray(self._pq_codes[rows, layer, idx])
 
                 blk = None
                 if pqv.any():
@@ -1012,21 +1349,21 @@ class TieredKVStore:
                         pqv[:] = False
                 if blk is not None and self._pq_crc is not None:
                     for j in np.nonzero(pqv)[0]:
-                        c = int(idx[j])
+                        p, c = int(rlist[j]), int(idx[j])
                         if self._crc32(blk[j]) != int(
-                                self._pq_crc[seq, layer, c]):
+                                self._pq_crc[p, layer, c]):
                             # silent media corruption: min/max serves the
                             # chunk until the sweep re-encodes it
                             pqv[j] = False
-                            self._pq_valid[seq, layer, c] = False
+                            self._pq_valid[p, layer, c] = False
                             self._requant_pending.setdefault(
-                                (seq, layer, c), self._sweep_round)
+                                (p, layer, c), self._sweep_round)
                             self._count("checksum_failures")
                             self._count("pq_fallbacks")
                 if blk is not None:
                     codes[i, :len(idx)][pqv] = blk[pqv]
                 valid[i, :len(idx)] = pqv
-                disk = np.asarray(self.tier[seq, layer, idx] == DISK)
+                disk = np.asarray(self.tier[rows, layer, idx] == DISK)
                 n_pq = int(np.count_nonzero(disk & pqv))
                 n_mm = int(np.count_nonzero(disk & ~pqv))
                 for _ in range(n_pq):
@@ -1070,24 +1407,26 @@ class TieredKVStore:
         """Promote one sequence's chunks into the legacy device tier;
         returns stacked K/V (n, chunk, Hkv, hd).  A disk chunk is read off
         its packed sidecar when that is valid, else off the fp16 replica;
-        a lost replica raises :class:`ChunkLostError`."""
+        a lost replica raises :class:`ChunkLostError`.  A shared chunk is
+        read under its arena row and billed ``kv_shared``."""
         with self._lock:
             ks, vs = [], []
             for c in chunks:
-                key = (seq, layer, c)
+                p = self._phys(seq, c)
+                key = (p, layer, c)
                 self.access[seq, layer, c] += 1
                 if key in self._dev_k:
                     self._touch(key)
                     ks.append(self._dev_k[key])
                     vs.append(self._dev_v[key])
                     continue
-                if self.tier[seq, layer, c] == DISK or key not in self._host_k:
+                if self.tier[p, layer, c] == DISK or key not in self._host_k:
                     kc = vc = None
                     fell_back = False
-                    if self._sidecar_ok(seq, layer, c):
+                    if self._sidecar_ok(p, layer, c):
                         try:
                             # leolint: waive[locklint] reason=decode-thread fetch path: the sidecar dequant runs under the short fetch critical section, as in the reference (tier tables must not move mid-fetch)
-                            kv, bad = self._read_sidecar(layer, [(seq, c)])
+                            kv, bad = self._read_sidecar(layer, [(p, c)])
                         except DiskIOExhausted:
                             kv, bad = None, {0}
                         if bad:
@@ -1100,14 +1439,14 @@ class TieredKVStore:
                     if kc is None:
                         try:
                             blk, lost = self._replica_read_verified(
-                                layer, [(seq, seq, c)])
+                                layer, [(seq, p, c)])
                         except DiskIOExhausted:
                             blk, lost = None, {0}
-                            self._disk_lost.add((seq, layer, c))
+                            self._disk_lost.add((p, layer, c))
                         if blk is None or lost:
                             # the replica is gone too: the typed loss for
                             # the engine to recompute or contain
-                            raise ChunkLostError(layer, [(seq, seq, c)])
+                            raise ChunkLostError(layer, [(seq, p, c)])
                         kc, vc = blk[0][0], blk[0][1]
                         nb = (self._disk_read_bytes() if self.disk_sidecar
                               else self._transit_bytes())
@@ -1115,10 +1454,12 @@ class TieredKVStore:
                         self.degraded_seqs.add(seq)
                         self._record(seq, DISK, HOST, "kv_fallback", nb)
                     else:
-                        self._record(seq, DISK, HOST, "kv", nb)
+                        self._record(seq, DISK, HOST,
+                                     self._kv_kind(seq, p), nb)
                     self._host_k[key], self._host_v[key] = kc, vc
                 kc, vc = self._host_k[key], self._host_v[key]
-                self._record(seq, HOST, DEVICE, "kv", self._transit_bytes())
+                self._record(seq, HOST, DEVICE, self._kv_kind(seq, p),
+                             self._transit_bytes())
                 if to_device:
                     self._promote_device(key, kc, vc)
                 ks.append(kc)
@@ -1139,7 +1480,8 @@ class TieredKVStore:
         dtype with zero padding — the working set the engine uploads whole
         — and nsel (B,) the valid chunk counts.  Rows follow dict order.
         Every chunk not in the legacy device tier bills a host→device
-        upload, as in the reference."""
+        upload, as in the reference; a shared chunk is read under its
+        arena row."""
         with self._lock:
             items = list(chunks_by_seq.items())
             B = len(items)
@@ -1158,14 +1500,18 @@ class TieredKVStore:
             vg = np.zeros_like(kg)
             for i, (seq, chunks) in enumerate(items):
                 for j, c in enumerate(chunks):
-                    key = (seq, layer, c)
+                    p = self._phys(seq, c)
+                    key = (p, layer, c)
                     self.access[seq, layer, c] += 1
                     if key in self._dev_k:
                         self._touch(key)
                         kg[i, j] = self._dev_k[key]
                         vg[i, j] = self._dev_v[key]
                         continue
-                    self._record(seq, HOST, DEVICE, "kv",
+                    # the working set is assembled per sequence, so a
+                    # shared chunk crosses the link once per reader:
+                    # billed so, as ``kv_shared`` (the pool dedupes)
+                    self._record(seq, HOST, DEVICE, self._kv_kind(seq, p),
                                  self._transit_bytes())
                     if to_device:
                         self._promote_device(key, self._host_k[key],
@@ -1188,7 +1534,8 @@ class TieredKVStore:
         budget) falls back to the replica on its own, billed
         ``kv_fallback``, and marks its sequence degraded.
         ``skip_pool``: pool residents need no host copy (else the legacy
-        device tier's residents need none).  ``retier`` marks staged
+        device tier's residents need none).  Keys resolve to their storage
+        row, so a chunk shared by several keys is read once.  ``retier`` marks staged
         chunks HOST so a later fetch sees the copy instead of re-reading.
         Returns (chunks read, bytes billed); a lost replica raises
         :class:`ChunkLostError`."""
@@ -1196,17 +1543,18 @@ class TieredKVStore:
         seen = set()
         pool = self.pools[layer]
         for seq, c in keys:
-            key = (seq, layer, c)
+            p = self._phys(seq, c)
+            key = (p, layer, c)
             if key in seen:
-                continue
+                continue            # shared chunks dedupe on the arena key
             seen.add(key)
-            if skip_pool and pool is not None and (seq, c) in pool.slot_of:
+            if skip_pool and pool is not None and (p, c) in pool.slot_of:
                 continue
             if not skip_pool and key in self._dev_k:
                 continue
-            if key in self._host_k and self.tier[seq, layer, c] != DISK:
+            if key in self._host_k and self.tier[p, layer, c] != DISK:
                 continue
-            need.append((seq, seq, c))
+            need.append((seq, p, c))
         billed = 0.0
         need_q = [e for e in need if self._sidecar_ok(e[1], layer, e[2])]
         need_fp = [e for e in need if not self._sidecar_ok(e[1], layer,
@@ -1227,7 +1575,10 @@ class TieredKVStore:
                     fallback.add((p, c))
                     need_fp.append((seq, p, c))
                     continue
-                self._record(seq, DISK, HOST, "kv", per_chunk)
+                # a shared chunk is read once per arena key, billed to the
+                # sequence that triggered the read
+                self._record(seq, DISK, HOST, self._kv_kind(seq, p),
+                             per_chunk)
                 billed += per_chunk
                 key = (p, layer, c)
                 self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
@@ -1252,7 +1603,8 @@ class TieredKVStore:
                     self.degraded_seqs.add(seq)
                     self._record(seq, DISK, HOST, "kv_fallback", nbytes)
                 else:
-                    self._record(seq, DISK, HOST, "kv", nbytes)
+                    self._record(seq, DISK, HOST, self._kv_kind(seq, p),
+                                 nbytes)
                 billed += nbytes
                 key = (p, layer, c)
                 self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
@@ -1314,6 +1666,10 @@ class TieredKVStore:
         (``pool.pending_place``) take slots first and are written in the
         same update as plain rows, billed nothing.
 
+        A shared chunk takes its arena row's slot: sequences that read it
+        share that slot, and one that several sequences miss is uploaded
+        once, billed ``kv_shared`` to the first of them.
+
         Returns (slots, nsel, stats): slots (B, pad_to) int32 indices into
         ``pools[layer]`` (padding rows point at slot 0 — the engine masks
         them), nsel (B,) valid counts.  Rows follow dict order."""
@@ -1338,7 +1694,8 @@ class TieredKVStore:
             st.gather_s = time.perf_counter() - t0
 
             slots = np.zeros((B, nmax), np.int32)
-            pinned = {(seq, c) for seq, chunks in items for c in chunks}
+            pinned = {(self._phys(seq, c), c)
+                      for seq, chunks in items for c in chunks}
             # fold deferred prefill placements (admission on a worker) into
             # this round's slab update — unbilled; the decode thread is the
             # only slab writer, so attention never races a placement
@@ -1356,13 +1713,14 @@ class TieredKVStore:
                 place_keys.append(key)
                 place_slots.append(slot)
                 place_kv.append(kv)
-            missing: List[Tuple[int, int, int, int]] = []
+            missing: List[Tuple[int, int, int, int, int]] = []
             for i, (seq, chunks) in enumerate(items):
                 for j, c in enumerate(chunks):
                     self.access[seq, layer, c] += 1
-                    slot = pool.lookup((seq, c))
+                    p = self._phys(seq, c)
+                    slot = pool.lookup((p, c))
                     if slot is None:
-                        missing.append((i, j, seq, c))
+                        missing.append((i, j, seq, p, c))
                     else:
                         slots[i, j] = slot
                         st.hits += 1
@@ -1383,27 +1741,35 @@ class TieredKVStore:
                 pool.pending_place.update(zip(place_keys, place_kv))
 
             if missing:
-                up_keys: List[Tuple[int, int]] = []
+                # shared chunks dedupe here too: sequences that miss one
+                # arena chunk share ONE slot and ONE upload (billed to the
+                # first); allocating the key twice would orphan a slot and
+                # hand kernel B3 the same chunk twice
+                up_keys: List[Tuple[int, int, int]] = []  # (seq, row, c)
                 try:
-                    for i, j, seq, c in missing:
-                        slot, evicted = pool.alloc((seq, c), pinned)
-                        if evicted is not None:
-                            self.tier[evicted[0], layer, evicted[1]] = HOST
-                        self.tier[seq, layer, c] = DEVICE
-                        fresh[(seq, c)] = slot
-                        up_keys.append((seq, c))
+                    for i, j, seq, p, c in missing:
+                        slot = fresh.get((p, c))
+                        if slot is None:
+                            slot, evicted = pool.alloc((p, c), pinned)
+                            if evicted is not None:
+                                self.tier[evicted[0], layer,
+                                          evicted[1]] = HOST
+                            self.tier[p, layer, c] = DEVICE
+                            fresh[(p, c)] = slot
+                            up_keys.append((seq, p, c))
                         slots[i, j] = slot
                     kv_stack = np.stack(
-                        [self._plane_stack(self._host_k[(s, layer, c)],
-                                           self._host_v[(s, layer, c)])
-                         for s, c in up_keys])  # (m, planes, c, Hkv, hd)
+                        [self._plane_stack(self._host_k[(p, layer, c)],
+                                           self._host_v[(p, layer, c)])
+                         for _, p, c in up_keys])  # (m, planes, c, Hkv, hd)
                     m = len(up_keys)
                     n_comp = int(round(min(1.0, max(0.0, theta)) * m)) \
                         if self.real_codec else 0
                     # deferred placements ride along as plain rows after
                     # the delta; B3's slot list stays the codec part
                     self._bill_flushed_rows(pool.scatter(
-                        [fresh[k] for k in up_keys] + place_slots,
+                        [fresh[(p, c)] for _, p, c in up_keys]
+                        + place_slots,
                         np.concatenate([kv_stack[n_comp:], *(
                             [np.stack(place_kv)] if place_kv else [])]),
                         self._pack_upload(kv_stack[:n_comp]),
@@ -1415,9 +1781,9 @@ class TieredKVStore:
                     else self._transit_bytes()
                 per_plain = float(self.chunk_bytes) if self.real_codec \
                     else self._transit_bytes()
-                for idx, (seq, _c) in enumerate(up_keys):
+                for idx, (seq, p, _c) in enumerate(up_keys):
                     nb = per_comp if idx < n_comp else per_plain
-                    self._record(seq, HOST, DEVICE, "kv", nb)
+                    self._record(seq, HOST, DEVICE, self._kv_kind(seq, p), nb)
                     st.upload_bytes += nb
                 st.uploads = m
                 st.compressed = n_comp
@@ -1453,19 +1819,21 @@ class TieredKVStore:
     @decode_thread_only
     def demote(self, layer: int, chunks: Sequence[int], to: str = HOST, *,
                seq: int = 0) -> None:
-        """Eviction is free toward disk (replicas, §4.3): no bytes move."""
+        """Eviction is free toward disk (replicas, §4.3): no bytes move.
+        A shared chunk is demoted under its arena row, for every reader."""
         with self._lock:
             for c in chunks:
-                key = (seq, layer, c)
+                p = self._phys(seq, c)
+                key = (p, layer, c)
                 self._dev_k.pop(key, None)
                 self._dev_v.pop(key, None)
                 self._lru.pop(key, None)
                 if self.pools[layer] is not None:
-                    self.pools[layer].evict((seq, c))
+                    self.pools[layer].evict((p, c))
                 if to == DISK:
                     self._host_k.pop(key, None)
                     self._host_v.pop(key, None)
-                self.tier[seq, layer, c] = to
+                self.tier[p, layer, c] = to
 
     # ------------------------------------------------------------------
     # Whole-sequence preemption (overload control)
@@ -1476,8 +1844,10 @@ class TieredKVStore:
 
         The disk replica is write-through (appends land every round), so
         swap-out moves no payload bytes: like :meth:`demote` it releases
-        resources — the pool slots and legacy device entries free, and
-        every host copy drops.  Each chunk that had a host copy is billed
+        resources — shared prefix chunks privatize first (copy-on-write,
+        so a suspended sequence holds no arena references), the pool
+        slots and legacy device entries free, and every host copy
+        drops.  Each chunk that had a host copy is billed
         as a zero-byte ``kv_swapout`` op (the ledger records the op
         without claiming traffic that never crossed).  The resident set is
         remembered so :meth:`swap_in_seq` restores exactly it.  The caller
@@ -1486,6 +1856,9 @@ class TieredKVStore:
         abstracts, logs and CRC state: the sequence is paused, not retired.
         Returns the number of chunks swapped out."""
         with self._lock:
+            if self._prefix is not None:
+                for c in list(self._shared_map.get(seq) or {}):
+                    self._cow(seq, c)
             resident: Dict[int, List[int]] = {}
             n = 0
             for layer in range(self.n_layers):
@@ -1580,11 +1953,16 @@ class TieredKVStore:
         pool rows queued for the next slab flush.  positions: (B,),
         k_news/v_news: (B, Hkv, hd) (f32 or the store dtype), seqs: (B,).
         An append stales the chunk's sidecar scales and PQ codes: both are
-        invalidated until the requant sweep repacks the quiet chunk."""
+        invalidated until the requant sweep repacks the quiet chunk.  The
+        first append into a chunk held by reference privatizes it first
+        (copy-on-write, every layer at once)."""
         with self._lock:
             sq = np.asarray(list(seqs), np.int64)
             pos = np.asarray(positions, np.int64)
             cs, offs = pos // self.chunk, pos % self.chunk
+            if self._prefix is not None:
+                for i in range(len(sq)):
+                    self._cow(int(sq[i]), int(cs[i]))
             kd = k_news.astype(self.dtype)
             vd = v_news.astype(self.dtype)
             self._disk[sq, layer, cs, 0, offs] = kd
@@ -1766,8 +2144,17 @@ class TieredKVStore:
     @decode_thread_only
     def clear_seq(self, seq: int) -> None:
         """Retire a sequence: free its hot-tier entries so the slot can be
-        reused; its traffic log moves to ``retired_logs``."""
+        reused; its traffic log moves to ``retired_logs``.  Its shared-chunk
+        references drop first: a zero-reference arena chunk stays as warm
+        cache (evicted only when a registration needs its row), so N
+        sharers released leave the arena as one owner would."""
         with self._lock:
+            if self._prefix is not None:
+                mapping = self._shared_map.pop(seq, None)
+                if mapping:
+                    self._prefix.decref([(row, c)
+                                         for c, row in mapping.items()])
+                self._reg_plan.pop(seq, None)
             for d in (self._host_k, self._host_v, self._dev_k, self._dev_v,
                       self._lru):
                 for key in [k for k in d if k[0] == seq]:
@@ -1809,7 +2196,8 @@ class TieredKVStore:
         ``k_rows``/``v_rows`` are the chunk's (chunk, Hkv, hd) rows
         (possibly short for the tail chunk — zero-padded here exactly as
         ingest pads, so the replica CRC matches a fresh ingest).  Rebuilds
-        the fp16 replica, the abstracts and the replica CRC; the packed
+        the fp16 replica (under the chunk's arena row when it is shared),
+        the abstracts and the replica CRC; the packed
         sidecar and the PQ codes stay quarantined for the requant sweep to
         rebuild lazily off the restored replica.  Bumps the chunk's
         version so that an in-flight repack of the old bytes aborts.
@@ -1822,24 +2210,25 @@ class TieredKVStore:
             kc = np.concatenate([kc, pad], axis=0)
             vc = np.concatenate([vc, pad], axis=0)
         with self._lock:
-            self._disk[seq, layer, c, 0] = kc
-            self._disk[seq, layer, c, 1] = vc
-            self._abs_km[seq, layer, c] = kc.max(axis=0)
-            self._abs_kn[seq, layer, c] = kc.min(axis=0)
-            self._sidecar_valid[seq, layer, c] = False
+            p = self._phys(seq, c)
+            self._disk[p, layer, c, 0] = kc
+            self._disk[p, layer, c, 1] = vc
+            self._abs_km[p, layer, c] = kc.max(axis=0)
+            self._abs_kn[p, layer, c] = kc.min(axis=0)
+            self._sidecar_valid[p, layer, c] = False
             if self._pq_valid is not None:
                 # restored bytes carry no fresh codes: min/max serves the
                 # chunk until the sweep re-encodes it
-                self._pq_valid[seq, layer, c] = False
-                self._requant_pending.setdefault((seq, layer, c),
+                self._pq_valid[p, layer, c] = False
+                self._requant_pending.setdefault((p, layer, c),
                                                  self._sweep_round)
-            if (seq, layer, c) in self._chunk_version:
-                self._chunk_version[(seq, layer, c)] += 1
+            if (p, layer, c) in self._chunk_version:
+                self._chunk_version[(p, layer, c)] += 1
             if self._crc is not None:
-                self._crc[seq, layer, c] = self._crc32(
+                self._crc[p, layer, c] = self._crc32(
                     self._plane_stack(kc, vc))
-                self._crc_state[seq, layer, c] = _CRC_VALID
-            self._disk_lost.discard((seq, layer, c))
+                self._crc_state[p, layer, c] = _CRC_VALID
+            self._disk_lost.discard((p, layer, c))
             self.fault_counters["chunks_recomputed"] += 1
             self._record(seq, HOST, DISK, "kv_recompute",
                          float(self.chunk_bytes))

@@ -30,8 +30,9 @@ preempt/shed/resume path deterministically that way.
 :class:`~repro_torch.serving.scheduler.ContinuousBatcher` in wall-clock time
 and reports p50/p99 TTFT, throughput and **goodput** — the fraction of
 submitted requests that completed within their deadline.  Its numbers are
-meant to be held against an analytic replay of the same trace (the JAX
-package's ``simulate_trace_goodput``, not ported yet: ROADMAP A14).
+meant to be held against the analytic
+:func:`repro_torch.serving.simulator.simulate_trace_goodput` run on the
+same trace.
 """
 
 from __future__ import annotations

@@ -7,10 +7,9 @@ calm and a burst state captures the on/off character real traces show)
 and prompt lengths are heavy-tailed (most requests are short chat turns,
 a zipfian tail stretches to RAG contexts and whole-document prompts).
 This module generates such traces deterministically from one integer
-seed, so an analytic simulator (the JAX package's ``serving/simulator.py``,
-not ported yet: ROADMAP A14) and the measured
-:class:`~repro_torch.serving.overload.LoadHarness` replay the *same*
-arrival sequence and compare like with like.
+seed, so the analytic simulator (:mod:`repro_torch.serving.simulator`) and
+the measured :class:`~repro_torch.serving.overload.LoadHarness` replay the
+*same* arrival sequence and compare like with like.
 
 Scenarios shape the prompt-length mix:
 

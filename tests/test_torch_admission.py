@@ -278,11 +278,13 @@ def test_admission_mode_matches_reference(setup, mode, codec):
     assert np.array_equal(t_dec["tier"], sync_dec["tier"])
     keys = {"total_s", "prefill_s", "ingest_s", "overlapped"}
     if mode == "chunked":
-        keys |= {"chunked", "chunks"}
+        # a chunked admission records its warm span, 0 without the cache
+        keys |= {"chunked", "chunks", "prefix_hit_tokens"}
         assert [p["chunks"] for p in t_prof] == \
             [float(-(-n // 32)) for n in LENS]
+        assert all(p["prefix_hit_tokens"] == 0.0 for p in t_prof)
     assert all(set(p) == keys for p in t_prof)
-    assert all(set(p) - {"prefix_hit_tokens"} == keys for p in j_prof)
+    assert all(set(p) == keys for p in j_prof)
 
 
 def test_async_admission_runs_on_the_admission_worker(setup):

@@ -1,9 +1,7 @@
 """Chaos tests of the port's engine: seeded fault injection against
 ``BatchedLeoAMEngine`` and ``ContinuousBatcher`` on the CPU.  Ported from
-``tests/test_chaos_engine.py`` (all but
-``test_failed_seq_releases_prefix_refcounts``, which waits for the prefix
-cache, ROADMAP A8); the port's engines run with ``debug_sync=False`` (the
-sync sanitizer is A13).
+``tests/test_chaos_engine.py`` (every test); the port's engines run with
+``debug_sync=False`` (the sync sanitizer is A13).
 
 - a seeded :class:`FaultPlan` (disk I/O errors, latency, sidecar
   bit-flips, worker exceptions) may degrade or fail single sequences, but
@@ -13,11 +11,17 @@ sync sanitizer is A13).
 - each containment path once: replica loss recomputed from the prompt
   (token-identical), an ingest failure contained to its sequence, release
   after a failed ingest, ``pq_read`` errors and bitflips, a deadline and a
-  bounded queue.
+  bounded queue, and a failed sequence's shared-prefix references
+  dropped (no arena chunk stays referenced).
 
-The last test runs one fixed chaos seed through both packages' engines
-(same weights via ``params_from_jax``): terminal states, fault counters,
-fired events, TrafficLogs and token streams must be equal.
+The parity tests run one script through both packages' engines (same
+weights via ``params_from_jax``): one fixed chaos seed (terminal states,
+fault counters, fired events, TrafficLogs and token streams equal), the
+recompute-from-prompt path, and, with the shared-prefix cache on, the
+failure containment of a sequence that holds shared chunks and the
+suspend/resume of one (its shared chunks privatized copy-on-write at the
+swap-out): streams, TrafficLogs, ``prefix_stats()``, refcounts and shared
+maps equal after every step.
 """
 
 import dataclasses
@@ -101,6 +105,9 @@ def _assert_no_leaks(b, eng):
     ps = eng.store.pool_stats()
     if ps.get("slots"):
         assert ps["free_slots"] == ps["slots"], ps
+    # every sequence retired: no shared-arena chunk is still referenced
+    # (resident zero-reference rows are cache)
+    assert eng.store.prefix_stats().get("shared_refs", 0) == 0
     stats = b.stats()
     assert stats["requests_cancelled"] == float(b._requests_cancelled)
     assert stats["requests_rejected"] == float(b._requests_rejected)
@@ -490,3 +497,145 @@ def test_replica_loss_recovery_matches_reference():
     # prefill: within one fp16 ulp plus the 1e-5 prefill tolerance
     ulp = np.spacing(np.abs(j["disk"]).astype(np.float16)).astype(np.float32)
     assert np.all(np.abs(t["disk"] - j["disk"]) <= ulp + 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the shared-prefix cache under containment and preemption
+# ---------------------------------------------------------------------------
+
+
+def _prefix_engine(port):
+    """A prefix-cache engine of either package (sidecar on, no prefetch),
+    for scripts that must run alike in both."""
+    _setup()
+    s = _SETUP
+    kw = dict(max_len=128, selection="tree", disk_sidecar=True,
+              pipeline=False, prefix_cache=True, prefill_chunk_tokens=64)
+    if port:
+        return BatchedLeoAMEngine(s["cfg"], s["params"], EngineCfg(**kw),
+                                  max_seqs=2, device="cpu")
+    return JEngine(s["jcfg"], s["jparams"], JCfg(**kw), max_seqs=2)
+
+
+def _prefix_state(eng):
+    """The prefix state after the write-behind ingest and the requant
+    sweep's background repacks have landed (so neither races a read)."""
+    st = eng.store
+    st.ingest_fence_all()
+    st.requant_fence()
+    return dict(stats=st.prefix_stats(), refs=dict(st._prefix.refs),
+                shared={s: dict(m) for s, m in st._shared_map.items()},
+                bytes=dict(st.log.bytes), ops=dict(st.log.ops),
+                free=sorted(eng._free))
+
+
+def _failed_sharer_script(port):
+    """Two admissions of one prompt share its arena chunks; the second's
+    write-behind ingest fails at the next round's fence."""
+    eng = _prefix_engine(port)
+    prompt = _SETUP["prompts"][2]
+    sid0, t0 = eng.add_sequence(prompt)
+    sid1, t1 = eng.add_sequence(prompt)         # adopts by reference
+    states = [_prefix_state(eng)]
+    f = Future()
+    f.set_exception(RuntimeError("cold ingest died"))
+    with eng.store._futs_lock:
+        eng.store._ingest_futs[sid1].append(f)
+    toks = eng.decode_round({sid0: t0, sid1: t1})
+    states.append(_prefix_state(eng))
+    eng.release(sid0)
+    states.append(_prefix_state(eng))
+    res = dict(sids=(sid0, sid1), toks=toks, states=states,
+               failed=sorted(eng.failed), free=sorted(eng._free),
+               max_seqs=eng.max_seqs)
+    eng.store.close()
+    return res
+
+
+@pytest.mark.chaos
+def test_failed_seq_releases_prefix_refcounts():
+    """Containment drops a failed sequence's shared-prefix references:
+    failing one of two sharers decrefs only its holds, and releasing the
+    other drains them to zero — as in ``repro``."""
+    t = _failed_sharer_script(True)
+    sid0, sid1 = t["sids"]
+    before, after_fail, after_release = t["states"]
+    assert before["stats"]["shared_refs"] > 0
+    assert sid1 not in t["toks"] and sid0 in t["toks"]   # contained
+    assert t["failed"] == [sid1]
+    assert 0 < after_fail["stats"]["shared_refs"] < \
+        before["stats"]["shared_refs"]
+    assert after_release["stats"]["shared_refs"] == 0
+    assert t["free"] == list(range(t["max_seqs"]))
+    j = _failed_sharer_script(False)
+    assert t["toks"] == j["toks"] and t["failed"] == j["failed"]
+    assert t["states"] == j["states"]
+
+
+def _suspended_sharer_script(port):
+    """Two admissions of one 57-token prompt (its tail chunk partial):
+    the second adopts every chunk.  Two rounds together, the sharer
+    suspended for two rounds (its shared chunks privatized at the
+    swap-out), resumed, and two more rounds together."""
+    eng = _prefix_engine(port)
+    prompt = _SETUP["prompts"][1]
+    sid0, t0 = eng.add_sequence(prompt)
+    sid1, t1 = eng.add_sequence(prompt)
+    cur = {sid0: t0, sid1: t1}
+    out = {sid0: [t0], sid1: [t1]}
+    states = [_prefix_state(eng)]
+
+    def rounds(live, n):
+        for _ in range(n):
+            live = eng.decode_round(live)
+            for sid, t in live.items():
+                out[sid].append(t)
+        states.append(_prefix_state(eng))
+        return live
+
+    cur = rounds(cur, 2)
+    eng.suspend_sequence(sid1)
+    states.append(_prefix_state(eng))
+    held = cur.pop(sid1)
+    cur = rounds(cur, 2)
+    eng.resume_sequence(sid1)
+    cur[sid1] = held
+    cur = rounds(cur, 2)
+    st = eng.store
+    res = dict(sids=(sid0, sid1), out=out, states=states,
+               swaps=(st.seq_swapouts, st.seq_swapins),
+               cow=st.cow_copies, n_layers=st.n_layers,
+               chunk_bytes=float(st.chunk_bytes))
+    for sid in (sid0, sid1):
+        eng.release(sid)
+    res["final"] = _prefix_state(eng)
+    st.close()
+    return res
+
+
+@pytest.mark.chaos
+def test_swap_of_a_sharer_matches_reference():
+    """Suspending a sequence that holds shared chunks privatizes each one
+    copy-on-write (so a parked sequence pins no arena row), and the
+    resumed sequence decodes on as before; the whole script gives the
+    same streams, TrafficLogs, prefix counters, refcounts and shared maps
+    as ``repro``'s."""
+    t = _suspended_sharer_script(True)
+    sid0, sid1 = t["sids"]
+    shared_before = t["states"][1]["shared"]
+    assert shared_before[sid1]               # the sharer still holds chunks
+    after_swap = t["states"][2]
+    assert sid1 not in after_swap["shared"]
+    n_priv = len(shared_before[sid1])
+    cow_ops = after_swap["ops"][("disk", "host", "cow_read")] - \
+        t["states"][1]["ops"].get(("disk", "host", "cow_read"), 0)
+    assert cow_ops == n_priv * t["n_layers"]
+    assert t["swaps"] == (1, 1)
+    # the same prompt on the same weights: the resumed sharer's stream is
+    # the owner's
+    assert t["out"][sid1] == t["out"][sid0][:len(t["out"][sid1])]
+    assert t["final"]["stats"]["shared_refs"] == 0
+    j = _suspended_sharer_script(False)
+    assert t["out"] == j["out"] and t["swaps"] == j["swaps"]
+    assert t["cow"] == j["cow"]
+    assert t["states"] == j["states"] and t["final"] == j["final"]

@@ -169,9 +169,15 @@ def test_single_sequence_wrapper_and_release(setup):
 
 
 @pytest.mark.parametrize("opt", [
-    {"prefix_cache": True}, {"debug_sync": True}])
+    {"prefix_cache": True, "config": "deepseek-v2-lite-16b"},
+    {"debug_sync": True}])
 def test_unported_engine_options_raise(setup, opt):
+    """The prefix cache runs now (tests/test_torch_prefix_cache.py); on an
+    MLA model it still refuses, naming MLA's item."""
     _, tcfg, _, tparams, _ = setup
+    opt = dict(opt)
+    if "config" in opt:
+        tcfg = t_get_config(opt.pop("config"), smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(tcfg, tparams, TCfg(max_len=128, **opt), device="cpu")
 

@@ -207,6 +207,36 @@ def test_sparse_decode_pooled_cuda(cuda, rng, B, H, Hkv, hd, chunk, nmax,
         assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_decode_pooled_cuda_shared_slots(cuda, rng, dtype):
+    """The shared-prefix cache's slot table: sequences that adopted one
+    prefix read the same pool slots for its chunks (a shared head of
+    chunk ids and slots, private tails) — B2 against its plain version."""
+    B, H, Hkv, hd, chunk, nmax, shared = 4, 32, 32, 128, 64, 24, 16
+    q, pool, _, _, _, k_new, v_new = _pooled_inputs(
+        rng, cuda, B, H, Hkv, hd, chunk, 3 * nmax, nmax, dtype)
+    head = rng.choice(3 * nmax, shared, replace=False)
+    rest = np.setdiff1d(np.arange(3 * nmax), head)
+    slots = np.zeros((B, nmax), np.int32)
+    cids = np.full((B, nmax), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b in range(B):
+        n = nmax - b                        # ragged private tails
+        tail = rng.choice(rest, n - shared, replace=False)
+        slots[b, :n] = np.concatenate([head, tail])
+        cids[b, :n] = np.arange(n)
+        lengths[b] = (n - 1) * chunk + rng.randint(1, chunk + 1)
+    args = (q, pool, _t(slots, cuda), _t(cids, cuda), _t(lengths, cuda),
+            k_new, v_new)
+    ref = sd_ops.sparse_decode_pooled(*args, impl="ref")
+    out = sd_ops.sparse_decode_pooled(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        err, bar, frac = bf16_agreement(out, ref)
+        assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+
+
 def _long_inputs(rng, dev, B, H, Hkv, hd, chunk, nmax, live, length,
                  dtype=torch.bfloat16):
     """Pool inputs of ``B`` sequences of ``length`` tokens, each with
@@ -415,6 +445,54 @@ def test_fetch_chunks_pooled_cuda_matches_plain_scatter(cuda, tmp_path,
     assert out[None][0] == out["ref"][0]
     assert torch.equal(out[None][1], out["ref"][1])
     assert out[None][2] == out["ref"][2] > 0
+    assert kq_ops.launches > before
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.5])
+def test_shared_prefix_fetch_dedupes_b3_slots_cuda(cuda, tmp_path, theta):
+    """A pooled fetch where two sequences miss the same arena chunks
+    (one registered them, the other adopted them): each arena chunk gets
+    ONE slot and ONE upload, kernel B3 never sees a slot twice, and the
+    slab, slots and billing equal the same store's with ``impl="ref"``,
+    bit for bit."""
+    from repro_torch.serving.offload import HOST, TieredKVStore
+    L, NC, C, HKV, HD = 1, 8, 16, 4, 32
+    out = {}
+    before = kq_ops.launches
+    for impl in (None, "ref"):
+        st = TieredKVStore(L, NC, C, HKV, HD, n_seqs=2, prefix_rows=1,
+                           transit_codec="int4", use_pool=True,
+                           real_codec=True, root=str(tmp_path / str(impl)),
+                           device="cuda", impl=impl)
+        rng = np.random.RandomState(3)
+        toks = np.arange(2, 2 + 4 * C)
+        st.prefix_admit(0, toks)
+        k = rng.randn(NC * C, HKV, HD).astype(np.float32)
+        st.ingest(0, k, -k, {c: HOST for c in range(NC)}, seq=0)
+        st.finish_admission(0)
+        assert st.prefix_admit(1, toks) == 4 * C
+        k1 = rng.randn(NC * C, HKV, HD).astype(np.float32)
+        st.ingest(0, k1, -k1, {c: HOST for c in range(NC)}, seq=1)
+        pool = st.pools[0]
+        seen, scatter = [], pool.scatter
+
+        def spy(slots, *a, **kw):
+            seen.append(list(slots))
+            return scatter(slots, *a, **kw)
+
+        pool.scatter = spy
+        slots, _, fs = st.fetch_chunks_pooled(
+            0, {0: [0, 1, 2, 5], 1: [0, 1, 2, 3, 6]}, theta=theta)
+        torch.cuda.synchronize()
+        assert all(len(set(x)) == len(x) for x in seen)
+        assert fs.uploads == 6                # 4 arena + 1 + 1 private
+        assert slots[0, :3].tolist() == slots[1, :3].tolist()
+        out[impl] = (slots.tolist(), fs.compressed, pool.kv.clone(),
+                     dict(st.log.bytes), dict(st.log.ops))
+        st.close()
+    assert out[None][:2] == out["ref"][:2]
+    assert torch.equal(out[None][2], out["ref"][2])
+    assert out[None][3:] == out["ref"][3:]
     assert kq_ops.launches > before
 
 

@@ -137,7 +137,10 @@ def test_corrupt_replica_is_reported_lost(tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    {"prefix_rows": 2}, {"debug_sync": True}, {"latent": True}])
+    {"prefix_rows": 2, "latent": True}, {"debug_sync": True},
+    {"latent": True}])
 def test_unported_store_options_raise(tmp_path, opt):
+    """Arena rows run now (tests/test_torch_prefix_cache.py); with the
+    latent layout they still refuse, naming its item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TStore(L, NC, C, HKV, HD, root=str(tmp_path), device="cpu", **opt)
