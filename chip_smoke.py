@@ -20,7 +20,12 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    many output bytes and the host's packing and copy; the CUDA kernels
    one call launches and when each runs on the device
    (``torch.profiler``); the launch floor (a one-element fill, timed as
-   the kernels are);
+   the kernels are); and, at phase 4k's shapes (deepseek-v2-lite's widths,
+   no weights), B1's and B2's latent variants against their plain
+   versions (max error beside its tolerance, ms, bound, plain ms, the
+   library call: two q+/q- einsums for B1, gather + ``baddbmm`` + softmax
+   + ``bmm`` for B2; B2 two launches bitwise equal) and B3 into a
+   one-plane (257, 1, 64, 1, 576) slab, bitwise;
    3b. the PQ k-means (``pq_train`` + ``pq_encode``) through the kernels
    against the plain versions on clustered keys at one layer's size:
    codebooks, counts and codes byte-identical, and two kernel runs too,
@@ -32,7 +37,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    4b. the same 4 requests with the PQ abstract plane
    (``EngineCfg(pq_abstracts=True)``): B4 and B5 at ingest, ADC scoring,
    no PQ fallback;
-   4c. admission parity: the serve's 1536- and 3584-token prompts, each
+   4c. admission parity (8 of the 32 layers, a ``[depth]`` line): the
+   serve's 1536- and 3584-token prompts, each
    admitted on three fresh engines — ``add_sequence``,
    ``add_sequence_async(...).result()`` and ``begin_admission(...).drain()``
    — and fenced: the overlapped admission must store the synchronous
@@ -55,7 +61,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    ``chunk_bytes * codec_ratio("int4", 64)``; the only fp16 reads are of
    chunks a decode append invalidated (the reference bills those at fp16)
    and none falls back on a failed CRC;
-   4f. the 1536- and 3584-token prompts, 16 new tokens, served by the
+   4f. (8 of the 32 layers, a ``[depth]`` line) the 1536- and
+   3584-token prompts, 16 new tokens, served by the
    engine with ``pooled=False`` (each round's working set uploaded whole,
    B2 over it in place) and with ``pooled=True``, both with
    ``real_codec=False, pipeline=False``: the token streams must be
@@ -79,7 +86,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    against the fault-free ones, the recovery's wall time and the same
    recovery of a synchronously admitted prompt (its restored replica's
    largest difference from the original: ROADMAP C8) are printed;
-   4i. preemption: the 1536- and 2048-token prompts, 16 tokens each, with
+   4i. preemption (8 of the 32 layers, a ``[depth]`` line): the 1536-
+   and 2048-token prompts, 16 tokens each, with
    ``real_codec=False, pipeline=False``; the 2048-token sequence suspended
    after round 4 and resumed 4 rounds later, against a run that only
    leaves it out of those rounds: token streams identical, logits bitwise
@@ -113,7 +121,26 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
-6. a ``kernels`` JSON line, then the result line
+   4k. (after phase 5, longchat's parameters freed) the MLA latent path
+   with no-drop MoE: deepseek-v2-lite-16b at full width (27 layers,
+   d_model 2048, 16 heads, MLA 512 + 64, 64 experts top-6 + 2 shared,
+   bf16 random weights from seed 0), ``max_len`` 4096, chunk 64, all 27
+   layers: the 4 requests of phase 4 served as there (``[serve-mla]``:
+   min/max abstracts, real int4 codec, pipeline on; the latent B1/B2 and
+   B3 launch counters must move; init time and parameter count, peak
+   device memory, TTFT, the median round's split, bytes by tier and
+   kind); admission parity on the 1536- and 3584-token prompts as phase
+   4c (``[admit-mla]``, chunked at 512 tokens a step, gated with the
+   synchronous admission's expert choices replayed; the free-running
+   logits gated too unless a row routed otherwise, and then the routing
+   flips per layer must be shown to be rounding: the router inputs up to
+   the first flipping layer within 4 bf16 ulps of the synchronous run's,
+   every flipped row a near tie); ``pooled=False``
+   against ``pooled=True`` as phase 4f (``[serve-legacy-mla]``, identical
+   streams); end to end as phase 5 with the experts replayed too
+   (``[e2e-mla]``);
+6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
+   the launches of the paths that run it), then the result line
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only b1,b2,b3,b5`` runs phases 1-2 and the timing
@@ -121,12 +148,13 @@ lines of the named kernels only (``--b2`` is ``--only b2``), with no
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
-engine phases of phase 4 (4c-4j) only, with their gates and no result
-line.
+engine phases of phase 4 (4c-4k) only, with their gates and no result
+line (``--phases 4k`` alone never builds longchat).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -188,10 +216,16 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 # tokens a step into a store with 4 arena rows
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
-ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j")  # --phases
-# phase 4d's two serves and phase 4e's serve run this many of longchat's
-# 32 layers (its 2 early layers and the first body layers, weights and
-# widths unchanged) so that the whole script stays inside its time budget
+ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j",
+                 "4k")                                     # --phases
+# phase 4k: the MLA model, its chunked admission step, and the latent
+# rows' widths (kv_lora_rank + qk_rope_head_dim; values the first 512)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_CHUNK_TOKENS = 512
+# phases 4c, 4d, 4e, 4f and 4i run this many of longchat's 32 layers (its
+# 2 early layers and the first body layers, weights and widths unchanged)
+# so that the whole script, phase 4k included, stays inside its time
+# budget
 SERVE_MODES_LAYERS = 8
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
@@ -475,7 +509,8 @@ def b3_row(np, torch, flush, slab, n):
     S, planes, c, H, hd = slab.shape
     rng = np.random.RandomState(100 + n)
     kv = rng.randn(n, planes, c, H, hd).astype(np.float16)
-    kv[:, 1] *= 0.5                                  # V apart from K
+    if planes > 1:
+        kv[:, 1] *= 0.5                              # V apart from K
 
     def pack():
         pk = [quantize_chunks(kv[:, pl], "int4") for pl in range(planes)]
@@ -546,7 +581,8 @@ def b3_row(np, torch, flush, slab, n):
         host_pack_ms=host_pack_ms, h2d_ms=h2d_ms,
         cuda_per_call=_cuda_kernels_per_call(torch, call, flush),
         bound=(nbytes / HBM_BYTES_S, n * planes * c * H * hd / PEAK_F32),
-        shape=f"{n} chunks x K,V of c={c} d={H * hd} int4 -> fp16 into "
+        shape=f"{n} chunks x {planes} plane(s) of c={c} d={H * hd} int4 -> "
+              f"fp16 into "
               f"{n} permuted slots of a ({S}, {planes}, {c}, {H}, {hd}) "
               f"slab; {'fused' if fused else 'kv_dequant + index put'}")
 
@@ -801,7 +837,8 @@ def _spy_round_waits(eng, waits):
 
 
 def phase_serve(np, torch, cfg, params, pq: bool = False,
-                mode: str = "sync", sidecar: bool = False):
+                mode: str = "sync", sidecar: bool = False,
+                tag: str | None = None):
     """A main path: 4 requests through the batcher, counters checked.
     ``pq`` turns on the PQ abstract plane (phase 4b): B4 and B5 train and
     encode at ingest, evaluation scores code-valid chunks by ADC.
@@ -809,7 +846,8 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     ``SchedulerCfg(overlap_admission=True)``, ``"chunked"``
     ``chunked_admission=True`` with ``CHUNKED_ROUND_TOKENS`` prompt tokens
     between two rounds.  ``sidecar`` turns on the packed int4 disk
-    sidecar (phase 4e) and gates its billing."""
+    sidecar (phase 4e) and gates its billing.  An MLA model (phase 4k)
+    gates the latent variants of B1 and B2 in place of B1 and B2."""
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.pq import ops as pqk
@@ -818,8 +856,9 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
                                                SchedulerCfg)
 
-    tag = "[serve-pq]" if pq else "[serve-sidecar]" if sidecar else (
-        "[serve]" if mode == "sync" else f"[serve-{mode}]")
+    tag = tag or ("[serve-pq]" if pq else "[serve-sidecar]" if sidecar
+                  else "[serve]" if mode == "sync" else f"[serve-{mode}]")
+    mla = cfg.mla is not None
     ecfg = EngineCfg(max_len=MAX_LEN, real_codec=True, pooled=True,
                      pipeline=True, pq_abstracts=pq, disk_sidecar=sidecar)
     root = KV_ROOT / tag.strip("[]")
@@ -860,6 +899,7 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     log0 = dict(eng.store.log.bytes)
     ops0 = dict(eng.store.log.ops)
     cb.launches = sd.launches = kq.launches = 0
+    cb.latent_launches = sd.latent_launches = 0
     pqk.assign_launches = pqk.update_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -872,6 +912,9 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     launches = {"chunk_bounds": cb.launches, "sparse_decode": sd.launches,
                 "kv_dequant": kq.launches, "pq_assign": pqk.assign_launches,
                 "pq_update": pqk.update_launches}
+    if mla:
+        launches.update(chunk_bounds_latent=cb.latent_launches,
+                        sparse_decode_latent=sd.latent_launches)
     st = batcher.stats()
     rounds = len(eng.round_profiles)
     n_attn = len(eng.attn_layers)
@@ -957,8 +1000,7 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
         if len(r.out) != NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in r.out):
             raise SystemExit(f"chip_smoke: request {r.rid} gave {r.out}")
-    path = list(launches) if pq else ["chunk_bounds", "sparse_decode",
-                                      "kv_dequant"]
+    path = list(launches) if pq else [*_path_kernels(cfg), "kv_dequant"]
     zero = [k for k in path if launches[k] <= 0]
     if zero:
         raise SystemExit(f"chip_smoke: {tag} path never launched {zero}")
@@ -1054,12 +1096,31 @@ def sidecar_gate(store, tag, disk_kv, replica, fallback, replica_reads):
     return res
 
 
-def phase_legacy(np, torch, cfg, params):
+def _path_kernels(cfg):
+    """The evaluate and attend kernels of a model's decode round: B1 and
+    B2, or their latent variants for MLA."""
+    return (("chunk_bounds_latent", "sparse_decode_latent")
+            if cfg.mla is not None else ("chunk_bounds", "sparse_decode"))
+
+
+def _round_launches():
+    """B1, B2 (and their latent variants) and B3 since the last zeroing."""
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    from repro_torch.kernels.kv_quant import ops as kq
+    from repro_torch.kernels.sparse_decode import ops as sd
+    return {"chunk_bounds": cb.launches, "sparse_decode": sd.launches,
+            "kv_dequant": kq.launches,
+            "chunk_bounds_latent": cb.latent_launches,
+            "sparse_decode_latent": sd.latent_launches}
+
+
+def phase_legacy(np, torch, cfg, params, tag="[serve-legacy]"):
     """Phase 4f: the serve's shortest and longest prompts, driven through
     the engine with ``pooled=False`` (the working set assembled on the host
     and uploaded whole every round; B2 reads it in place) and with
     ``pooled=True``, both ``real_codec=False, pipeline=False``.  The two
-    must give identical token streams."""
+    must give identical token streams.  For MLA (phase 4k) the working set
+    is one latent plane, uploaded once."""
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.sparse_decode import ops as sd
@@ -1081,11 +1142,12 @@ def phase_legacy(np, torch, cfg, params):
 
             def counted(*a, _fetch=fetch, **kw):
                 kg, vg, nsel = _fetch(*a, **kw)
-                upload[0] += kg.nbytes + vg.nbytes
+                upload[0] += kg.nbytes + (0 if vg is kg else vg.nbytes)
                 return kg, vg, nsel
 
             eng.store.fetch_chunks_batch = counted
         cb.launches = sd.launches = kq.launches = 0
+        cb.latent_launches = sd.latent_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, streams = {}, {}
@@ -1108,9 +1170,8 @@ def phase_legacy(np, torch, cfg, params):
                 [p["total_s"] for p in eng.round_profiles])),
             "round_first_s": eng.round_profiles[0]["total_s"],
             "upload_bytes_per_round": upload[0] / max(1, rounds),
-            "launches": {"chunk_bounds": cb.launches,
-                         "sparse_decode": sd.launches,
-                         "kv_dequant": kq.launches},
+            "launches": {k: v for k, v in _round_launches().items()
+                         if k in (*_path_kernels(cfg), "kv_dequant")},
             "h2d_kv_bytes_per_round": eng.store.log.bytes.get(
                 ("host", "device", "kv"), 0.0) / max(1, rounds)}
         eng.store.close()
@@ -1129,17 +1190,16 @@ def phase_legacy(np, torch, cfg, params):
               for k in ("round_median_s", "round_first_s", "wall_s",
                         "upload_bytes_per_round", "h2d_kv_bytes_per_round",
                         "launches")}}
-    print(f"[serve-legacy] {json.dumps(row)}")
+    print(f"{tag} {json.dumps(row)}")
     bad = []
     if not same:
         bad.append(f"token streams differ: {leg['streams']} vs "
                    f"{poo['streams']}")
-    if leg["launches"]["chunk_bounds"] <= 0 or \
-            leg["launches"]["sparse_decode"] <= 0:
-        bad.append(f"the legacy serve did not launch B1 and B2: "
-                   f"{leg['launches']}")
+    if any(leg["launches"][k] <= 0 for k in _path_kernels(cfg)):
+        bad.append(f"the legacy serve did not launch "
+                   f"{_path_kernels(cfg)}: {leg['launches']}")
     if bad:
-        raise SystemExit("chip_smoke: [serve-legacy] " + "; ".join(bad))
+        raise SystemExit(f"chip_smoke: {tag} " + "; ".join(bad))
     return row
 
 
@@ -1210,37 +1270,167 @@ def phase_reopen(np, torch):
     return row
 
 
-def phase_admission(np, torch, cfg, params):
+@contextlib.contextmanager
+def _moe_routes(torch, record=None, replay=None, rows=None, flips=None,
+                inputs=None):
+    """Inside the block the MoE router (``mlp.moe_route``) records each
+    call's experts into ``record`` (and into ``inputs`` its input rows and
+    router probabilities, when given), or replays ``replay``: call k takes the
+    experts of recorded call ``rows(k)[0]``, rows ``rows(k)[1]`` (default:
+    call k, every row), with its own router probabilities renormalized over
+    them.  Random weights put many tokens' 6th and 7th experts within a
+    bf16 rounding of each other, so a GEMM of another shape can swap one;
+    replaying holds those discrete choices equal, as phase 5 does with the
+    chunk selections, so a comparison sees the arithmetic alone.
+    ``flips`` gets, per replayed call, the rows whose own choice would
+    differ."""
+    from repro_torch.models import mlp
+    own = mlp.moe_route
+    calls = [0]
+
+    def route(p, cfg, xf):
+        top_p, top_e = own(p, cfg, xf)
+        k = calls[0]
+        calls[0] += 1
+        if replay is None:
+            record.append(top_e.clone())
+            if inputs is not None:
+                inputs.append((xf.clone(), torch.softmax(
+                    xf.float() @ p["router"].float(), dim=-1)))
+            return top_p, top_e
+        j, sl = rows(k) if rows else (k, slice(None))
+        want = replay[j][sl]
+        if flips is not None:
+            flips.append(int((top_e.sort(-1).values != want.sort(-1).values)
+                             .any(-1).sum()))
+        w = torch.softmax(xf.float() @ p["router"].float(), dim=-1).gather(
+            1, want)
+        return w / w.sum(-1, keepdim=True), want
+
+    mlp.moe_route = route
+    try:
+        yield
+    finally:
+        mlp.moe_route = own
+
+
+def _route_flips(whole, chunked, n_moe, C, S):
+    """Rows of a chunked prefill whose experts differ from the whole
+    prompt's, per MoE layer (prompt rows only)."""
+    out = [0] * n_moe
+    for k, got in enumerate(chunked):
+        j, i = k % n_moe, k // n_moe
+        lo = i * C
+        n = max(0, min(C, S - lo))
+        want = whole[j][lo:lo + n].sort(-1).values
+        out[j] += int((got[:n].sort(-1).values != want).any(-1).sum())
+    return out
+
+
+def _route_witness(torch, routes, inputs, flips, n_moe, C, S):
+    """A second witness, beside the replay, that the free-running chunked
+    admission's routing flips are bf16 rounding.  Up to the first MoE
+    layer with a flip every earlier MoE layer routed each row alike, so
+    the router's input rows differ by arithmetic alone: their largest
+    difference in bf16 ulps of each row's largest value, per layer, held
+    to ``TOL_E2E_ULPS``.  At that layer: each flipped row's margin in the
+    synchronous run between its k-th and (k+1)-th router probabilities,
+    beside its largest change of a router probability (a swap needs
+    margin <= 2 x change: the records are checked against it), and the
+    median margin of all rows."""
+    first = next((j for j, f in enumerate(flips) if f), None)
+    if first is None:
+        return {"first_flip_moe_layer": None, "ok": False}
+
+    def layer(j):
+        ns = [min(C, S - i * C) for i in range(-(-S // C))]
+        parts = [(inputs["chunked"][i * n_moe + j],
+                  routes["chunked"][i * n_moe + j]) for i in range(len(ns))]
+        xc = torch.cat([x[:n] for n, ((x, _), _) in zip(ns, parts)])
+        pc = torch.cat([q[:n] for n, ((_, q), _) in zip(ns, parts)])
+        ec = torch.cat([e[:n] for n, (_, e) in zip(ns, parts)])
+        xs, ps = inputs["sync"][j]
+        return xs[:S], ps[:S], routes["sync"][j][:S], xc, pc, ec
+
+    ulps = []
+    for j in range(first + 1):
+        xs, ps, es, xc, pc, ec = layer(j)
+        xs = xs.float()
+        top = xs.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        ulps.append(float(((xc.float() - xs).abs().amax(-1) / ulp).max()))
+    K = es.shape[-1]
+    srt = ps.sort(-1, descending=True).values
+    margin = srt[:, K - 1] - srt[:, K]
+    flipped = (es.sort(-1).values != ec.sort(-1).values).any(-1)
+    dp = (pc - ps).abs().amax(-1)
+    consistent = bool((margin[flipped] <= 2 * dp[flipped]).all())
+    return {"first_flip_moe_layer": first, "input_max_ulps": ulps,
+            "input_ulps_bar": TOL_E2E_ULPS, "flipped_rows": int(flipped.sum()),
+            "flipped_margin_max": float(margin[flipped].max()),
+            "flipped_dprob_max": float(dp[flipped].max()),
+            "all_rows_margin_median": float(margin.median()),
+            "all_rows_dprob_max": float(dp.max()),
+            "consistent": consistent,
+            "ok": consistent and max(ulps) <= TOL_E2E_ULPS}
+
+
+def phase_admission(np, torch, cfg, params, tag="[admit]",
+                    chunk_tokens=None):
     """Phase 4c: two of the serve's prompts, each admitted on three fresh
-    engines (sync, async, chunked), every store fenced, then held against
-    the synchronous admission."""
+    engines (sync, async, chunked, ``chunk_tokens`` a step when given),
+    every store fenced, then held against the synchronous admission.  For
+    an MoE model the chunked admission runs twice: free, with the routing
+    flips against the whole prompt per layer, and with the synchronous
+    admission's expert choices replayed.  The replay's first-token logits
+    are gated; the free run's are too, unless it routed a row otherwise,
+    and then :func:`_route_witness` must show the flips are rounding."""
     from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
 
     prompts = serve_prompts(np, cfg)
+    moe = cfg.moe is not None
+    n_moe = sum(m == "moe" for m in cfg.mlp_kinds())
     out = []
     for p in (prompts[0], prompts[-1]):
         S = len(p)
         res = {}
-        for mode in ("sync", "async", "chunked"):
+        routes = {"sync": [], "chunked": []}
+        inputs = {"sync": [], "chunked": []}
+        for mode in ("sync", "async", "chunked") + (
+                ("chunked_replay",) if moe else ()):
             root = KV_ROOT / f"admit_{S}_{mode}"
+            step = {} if chunk_tokens is None else \
+                {"prefill_chunk_tokens": chunk_tokens}
             eng = BatchedLeoAMEngine(
                 cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=True,
-                                       pipeline=True),
+                                       pipeline=True, **step),
                 device="cuda", store_root=str(root))
             admits = []
             _spy_admissions(eng, admits)
+            C = eng.ecfg.prefill_chunk_tokens
+            if mode == "chunked_replay":
+                spy = _moe_routes(torch, replay=routes["sync"],
+                                  rows=lambda k, C=C: (
+                                      k % n_moe, slice(k // n_moe * C,
+                                                       (k // n_moe + 1) * C)))
+            elif moe and mode in routes:
+                spy = _moe_routes(torch, record=routes[mode],
+                                  inputs=inputs[mode])
+            else:
+                spy = contextlib.nullcontext()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if mode == "sync":
-                sid, tok = eng.add_sequence(p)
-                steps = None
-            elif mode == "async":
-                sid, tok = eng.add_sequence_async(p).result()
-                steps = None
-            else:
-                adm = eng.begin_admission(p)
-                sid, tok = adm.drain()
-                steps = adm.n_steps
+            with spy:
+                if mode == "sync":
+                    sid, tok = eng.add_sequence(p)
+                    steps = None
+                elif mode == "async":
+                    sid, tok = eng.add_sequence_async(p).result()
+                    steps = None
+                else:
+                    adm = eng.begin_admission(p)
+                    sid, tok = adm.drain()
+                    steps = adm.n_steps
             eng.store.ingest_fence(sid)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1280,7 +1470,16 @@ def phase_admission(np, torch, cfg, params):
         bar = TOL_E2E_ULPS * _bf16_ulp(float(np.abs(sync["logits"]).max()))
         ch_logit = float(np.abs(ch["logits"] - sync["logits"]).max())
         ov_logit = float(np.abs(ov["logits"] - sync["logits"]).max())
+        # the gated chunked admission: with routing replayed for MoE
+        gated = res.get("chunked_replay", ch)
+        gated_logit = float(np.abs(gated["logits"] - sync["logits"]).max())
         want_steps = -(-S // ch["C"])
+        if moe:
+            flips = _route_flips(routes["sync"], routes["chunked"], n_moe,
+                                 ch["C"], S)
+            witness = _route_witness(torch, routes, inputs, flips, n_moe,
+                                     ch["C"], S)
+        inputs.clear()
         row = {"prompt": S, "first_token": {m: r["tok"] for m, r in
                                             res.items()},
                "overlap_replica_bitwise": ov_equal,
@@ -1288,20 +1487,30 @@ def phase_admission(np, torch, cfg, params):
                "overlap_max_logit_diff": ov_logit,
                "chunked_max_logit_diff": ch_logit, "logit_tol": bar,
                "chunked_max_replica_diff": ch_diff,
+               **({"chunked_routing_flips_per_layer": flips,
+                   "chunked_witness": witness,
+                   "replayed_max_logit_diff": gated_logit,
+                   "replayed_first_token": gated["tok"]}
+                  if moe else {}),
                "chunked_replica_fraction_differ": ch_frac,
                "chunked_max_abstract_diff": ch_abs,
                "async_threads": ov["threads"], "chunked_steps": ch["steps"],
                "chunked_steps_expected": want_steps,
                "admit_wall_s": {m: r["wall"] for m, r in res.items()},
                "admit_profile": {m: r["profile"] for m, r in res.items()}}
-        print(f"[admit] {json.dumps(row)}")
+        print(f"{tag} {json.dumps(row)}")
         for m in res:
             shutil.rmtree(KV_ROOT / f"admit_{S}_{m}", ignore_errors=True)
         fails = []
         if not (ov_equal and abs_equal and ov["tok"] == sync["tok"]):
             fails.append("overlapped admission differs from synchronous")
-        if ch_logit > bar:
-            fails.append("chunked first-token logits beyond the bar")
+        if gated_logit > bar:
+            fails.append("chunked first-token logits beyond the bar"
+                         + (" with routing replayed" if moe else ""))
+        if moe and ch_logit > bar and not witness["ok"]:
+            fails.append("free-running chunked first-token logits beyond "
+                         "the bar, and the routing flips not shown to be "
+                         "rounding")
         if not (len(ov["threads"]) == 1
                 and ov["threads"][0].startswith("leoam-admit")):
             fails.append(f"async admission ran on {ov['threads']}")
@@ -1311,8 +1520,8 @@ def phase_admission(np, torch, cfg, params):
         if ch["steps"] != want_steps:
             fails.append(f"chunked admission took {ch['steps']} steps")
         if fails:
-            raise SystemExit(f"chip_smoke: admission parity at S={S}: "
-                             + "; ".join(fails))
+            raise SystemExit(f"chip_smoke: {tag} admission parity at "
+                             f"S={S}: " + "; ".join(fails))
         out.append(row)
     return out
 
@@ -2080,15 +2289,17 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def phase_e2e(np, torch, cfg, params):
+def phase_e2e(np, torch, cfg, params, tag="[e2e]"):
     """First request's prefill + 2 decode rounds: kernels vs plain.  The
-    plain run goes first and records each layer's chunk selection; the
-    kernel run replays them (B1 still runs), so only the kernels'
-    arithmetic differs and a near-tied chunk choice cannot flip."""
+    plain run goes first and records each layer's chunk selection (and an
+    MoE model's expert choices); the kernel run replays them (B1 still
+    runs), so only the kernels' arithmetic differs and a near-tied chunk
+    or expert choice cannot flip."""
     from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
 
     prompt = np.random.RandomState(0).randint(2, cfg.vocab_size, PROMPTS[0])
     out, recorded, flips = {}, [], [0, 0]
+    routes, route_flips = [], []
     for impl in ("ref", None):
         eng = BatchedLeoAMEngine(
             cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=True,
@@ -2109,12 +2320,19 @@ def phase_e2e(np, torch, cfg, params):
             return want, stats
 
         eng._select_chunks_batched = select_fn
-        sid, tok = eng.add_sequence(prompt)
-        logits = [eng.last_logits.copy()]
-        toks = {sid: tok}
-        for _ in range(2):
-            toks = eng.decode_round(toks)
-            logits.append(eng.last_logits[0].copy())
+        if cfg.moe is None:
+            spy = contextlib.nullcontext()
+        elif impl == "ref":
+            spy = _moe_routes(torch, record=routes)
+        else:
+            spy = _moe_routes(torch, replay=routes, flips=route_flips)
+        with spy:
+            sid, tok = eng.add_sequence(prompt)
+            logits = [eng.last_logits.copy()]
+            toks = {sid: tok}
+            for _ in range(2):
+                toks = eng.decode_round(toks)
+                logits.append(eng.last_logits[0].copy())
         out[impl] = logits
         eng.store.close()
         del eng, select, select_fn     # the patch closes a reference cycle
@@ -2126,13 +2344,16 @@ def phase_e2e(np, torch, cfg, params):
     differ = [float((a != b).mean()) for a, b in zip(out[None], out["ref"])]
     same = [int(np.argmax(a)) == int(np.argmax(b))
             for a, b in zip(out[None], out["ref"])]
-    print(f"[e2e] max |logit(kernels) - logit(plain)| prefill, round 1, "
+    print(f"{tag} max |logit(kernels) - logit(plain)| prefill, round 1, "
           f"round 2: {diffs!r} (tol {TOL_E2E_ULPS} bf16 ulps of max|logit|: "
           f"{bars!r}); fraction of logits that differ {differ!r}; layers "
           f"whose own chunk selection would differ, per round: {flips} "
-          f"(replayed); same argmax {same}")
+          f"(replayed); same argmax {same}"
+          + (f"; token rows whose own experts would differ: "
+             f"{sum(route_flips)} of {len(route_flips)} MoE calls "
+             f"(replayed)" if cfg.moe is not None else ""))
     if not all(d <= b for d, b in zip(diffs, bars)):
-        raise SystemExit("chip_smoke: end-to-end logits disagree")
+        raise SystemExit(f"chip_smoke: {tag} end-to-end logits disagree")
     return diffs
 
 
@@ -2173,20 +2394,31 @@ def only_phases(argv):
     return names
 
 
-def run_phases(np, torch, cfg, params, names):
-    """``--phases``: the named engine phases alone, with their gates."""
+def run_phases(np, torch, names):
+    """``--phases``: the named engine phases alone, with their gates
+    (longchat is built only for the phases that serve it, and freed
+    before 4k)."""
+    cfg = params = None
+    if names - {"4k"}:
+        cfg, params = init_longchat(torch)
     runners = {
-        "4c": lambda: phase_admission(np, torch, cfg, params),
+        "4c": lambda: phase_admission(np, torch,
+                                      *cut_for("4c", cfg, params)),
         "4d": lambda: _serve_modes(np, torch, cfg, params),
         "4e": lambda: _serve_sidecar(np, torch, cfg, params),
-        "4f": lambda: phase_legacy(np, torch, cfg, params),
+        "4f": lambda: phase_legacy(np, torch, *cut_for("4f", cfg, params)),
         "4g": lambda: phase_reopen(np, torch),
         "4h": lambda: phase_faults(np, torch, cfg, params),
-        "4i": lambda: phase_preempt(np, torch, cfg, params),
-        "4j": lambda: phase_prefix(np, torch, cfg, params)}
+        "4i": lambda: phase_preempt(np, torch, *cut_for("4i", cfg, params)),
+        "4j": lambda: phase_prefix(np, torch, cfg, params),
+        "4k": lambda: phase_mla(np, torch)}
     try:
         for name in ENGINE_PHASES:
             if name in names:
+                if name == "4k":
+                    params = None              # longchat leaves the card
+                    gc.collect()
+                    torch.cuda.empty_cache()
                 t0 = time.perf_counter()
                 runners[name]()
                 print(f"[time] phase {name} {time.perf_counter() - t0!r} s")
@@ -2204,9 +2436,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import lm
 
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
@@ -2255,34 +2485,36 @@ def main() -> int:
         return 0
     if not phases:
         rows, long_row, clustered, b3_48 = phase_kernels(np, torch, rng)
+        mla_rows = mla_kernel_rows(np, torch)
         pq_train_res = phase_pq_train(np, torch)
 
-    cfg = get_config("longchat-7b-32k")
-    t0 = time.perf_counter()
-    params = lm.init(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"[init] longchat-7b-32k full width: {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.dtype}, "
-          f"{sum(p.numel() for p in _leaves(params)) / 1e9!r} G params in "
-          f"{time.perf_counter() - t0!r} s")
     if phases:
-        return run_phases(np, torch, cfg, params, phases)
+        return run_phases(np, torch, phases)
+    cfg, params = init_longchat(torch)
     try:
         serve = phase_serve(np, torch, cfg, params)
         serve_pq = phase_serve(np, torch, cfg, params, pq=True)
-        admission = phase_admission(np, torch, cfg, params)
+        admission = phase_admission(np, torch,
+                                    *cut_for("4c", cfg, params))
         serve_async, serve_chunked = _serve_modes(np, torch, cfg, params)
         serve_sidecar = _serve_sidecar(np, torch, cfg, params)
         print(f"[serve-sidecar] disk->host kv ({SERVE_MODES_LAYERS} of "
               f"{cfg.n_layers} layers) beside phase 4's: "
               f"{json.dumps(serve_sidecar['disk_kv'])} against "
               f"{json.dumps(serve['disk_kv'])}")
-        legacy = phase_legacy(np, torch, cfg, params)
+        legacy = phase_legacy(np, torch, *cut_for("4f", cfg, params))
         reopen = phase_reopen(np, torch)
         faults = phase_faults(np, torch, cfg, params)
-        preempt = phase_preempt(np, torch, cfg, params)
+        preempt = phase_preempt(np, torch, *cut_for("4i", cfg, params))
         prefix = phase_prefix(np, torch, cfg, params)
         e2e = phase_e2e(np, torch, cfg, params)
+        # phase 4k: longchat's weights leave the card first
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mla = phase_mla(np, torch, mla_rows)
+        print(f"[time] phase 4k {time.perf_counter() - t0!r} s")
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
 
@@ -2298,16 +2530,26 @@ def main() -> int:
                       "src/repro/kernels/pq/pq_kmeans.py:32"),
         "pq_update": (src + "pq_kmeans.cu",
                       "src/repro/kernels/pq/pq_kmeans.py:65"),
+        # the latent variants replace jnp functions, not Pallas kernels
+        "chunk_bounds_latent": (src + "chunk_bounds_latent.cu",
+                                "src/repro/core/bounds.py:62"),
+        "sparse_decode_latent": (src + "sparse_decode_latent.cu",
+                                 "src/repro/serving/engine.py:341"),
     }
     # launches: B1-B3 from the minmax serve plus phase 4j's three runs (the
     # shared-prefix path), B4/B5 from the PQ serve (the path that runs
     # them); each path's counts were zeroed just before it
+    # B3 also from phase 4k's serve, the latent variants from it alone
+    mla_l = mla["serve"]["launches"]
     launches = {**{k: serve["launches"][k] + prefix["launches"][k]
                    for k in prefix["launches"]},
                 "pq_assign": serve_pq["launches"]["pq_assign"],
-                "pq_update": serve_pq["launches"]["pq_update"]}
+                "pq_update": serve_pq["launches"]["pq_update"],
+                "chunk_bounds_latent": mla_l["chunk_bounds_latent"],
+                "sparse_decode_latent": mla_l["sparse_decode_latent"]}
+    launches["kv_dequant"] += mla_l["kv_dequant"]
     kernels = []
-    for name, r in rows.items():
+    for name, r in {**rows, **mla["rows"]}.items():
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
@@ -2335,11 +2577,242 @@ def main() -> int:
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,
-                      "kv_dequant_48": b3_48c}))
+                      "kv_dequant_48": b3_48c,
+                      "mla": {k: v for k, v in mla.items()
+                              if k != "rows"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 4k: the MLA latent path with no-drop MoE (deepseek-v2-lite-16b)
+# ---------------------------------------------------------------------------
+
+
+def _latent_selections(np, rng, lengths, chunk=64, rate=0.10):
+    """Each sequence's chunk selection as b2_row draws it (the tree at
+    ``rate``, chunk 0, the last two, 5 % of MAX_LEN's chunks hot)."""
+    from repro_torch.core.adaptive import tree_select_chunks
+    sels = []
+    for L in lengths:
+        nv = -(-int(L) // chunk)
+        sel, _ = tree_select_chunks(rng.rand(nv), int(L),
+                                    max(chunk, math.ceil(L * rate)), chunk)
+        hot = rng.choice(nv, max(1, int(MAX_LEN // chunk * 0.05)),
+                         replace=False)
+        sels.append(sorted(set(sel) | {0} | {nv - 2, nv - 1}
+                           | {int(c) for c in hot}))
+    return sels
+
+
+def b1_latent_row(torch, cfg, flush):
+    """B1's latent variant at the MLA evaluate stage's shape: q (B, 16,
+    576) bf16 against (B, nc, 1, 576) f32 latent boxes of the serve's
+    lengths halfway through decode."""
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    dev = torch.device("cuda")
+    m = cfg.mla
+    B, H, D, chunk = len(PROMPTS), cfg.n_heads, \
+        m.kv_lora_rank + m.qk_rope_head_dim, 64
+    nc = max(-(-int(L) // chunk) for L in MAIN_LENGTHS)
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = (torch.randn(B, H, D, device=dev, generator=g)
+         / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)).bfloat16()
+    km = torch.randn(B, nc, 1, D, device=dev, generator=g)
+    kn = km - torch.randn(B, nc, 1, D, device=dev, generator=g).abs()
+    ub_k, lb_k = cb.chunk_bounds_latent(q, km, kn)
+    ub_r, lb_r = cb.chunk_bounds_latent(q, km, kn, impl="ref")
+    err = max((ub_k - ub_r).abs().max().item(),
+              (lb_k - lb_r).abs().max().item())
+    tol = TOL_BOUNDS_REL * max(ub_r.abs().max().item(),
+                               lb_r.abs().max().item())
+    qf = q.float()
+    qp, qn = qf.clamp(min=0), qf.clamp(max=0)
+    kmt, knt = km[:, :, 0], kn[:, :, 0]
+    nbytes = _nbytes(q, km, kn, ub_r, lb_r)
+    ops = 8 * B * H * nc * D
+    return dict(
+        max_abs_err=err, tol=tol,
+        ms=_time_ms(lambda: cb.chunk_bounds_latent(q, km, kn), flush),
+        plain_ms=_time_ms(
+            lambda: cb.chunk_bounds_latent(q, km, kn, impl="ref"), flush),
+        library_ms=_time_ms(lambda: torch.einsum("bhd,bcd->bc", qp, kmt)
+                            + torch.einsum("bhd,bcd->bc", qn, knt), flush),
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: cb.chunk_bounds_latent(q, km, kn), flush),
+        bound=(nbytes / HBM_BYTES_S, ops / PEAK_F32),
+        shape=f"q {tuple(q.shape)} bf16, latent boxes {tuple(km.shape)} f32")
+
+
+def b2_latent_row(np, torch, cfg, flush):
+    """B2's latent variant at the MLA serve's shape: 4 sequences of
+    MAIN_LENGTHS, the selection b2_row draws, a one-plane fp16 pool of
+    every chunk, q = concat(q_lat, q_rope) (4, 16, 576) bf16 pre-scaled
+    and the round's latent rows; against its plain version (the bar of
+    ``latent_agreement``: two probabilities rounded the other way), two
+    launches bitwise equal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.sparse_decode import ops as sd
+    from repro_torch.kernels.sparse_decode.ref import (latent_agreement,
+                                                       latent_pooled_den)
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(20)
+    m = cfg.mla
+    B, H, chunk = len(PROMPTS), cfg.n_heads, 64
+    r, D = m.kv_lora_rank, m.kv_lora_rank + m.qk_rope_head_dim
+    lengths = np.array(MAIN_LENGTHS, np.int32)
+    sels = _latent_selections(np, rng, lengths)
+    nmax = -(-max(len(x) for x in sels) // 4) * 4
+    n_slots = B * (MAX_LEN // chunk)
+    pool = torch.randn(n_slots + 1, 1, chunk, 1, D,
+                       device=dev).to(torch.float16)
+    slots = np.zeros((B, nmax), np.int32)
+    cids = np.full((B, nmax), -1, np.int32)
+    for b, x in enumerate(sels):
+        slots[b, :len(x)] = rng.choice(n_slots, len(x), replace=False)
+        cids[b, :len(x)] = x
+    slots_t = torch.from_numpy(slots).to(dev)
+    cids_t = torch.from_numpy(cids).to(dev)
+    len_t = torch.from_numpy(lengths).to(dev)
+    q = (torch.randn(B, H, D, device=dev)
+         / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)).bfloat16()
+    lat_new = torch.randn(B, D, device=dev).bfloat16()
+    args = (q, pool, slots_t, cids_t, len_t, lat_new, r)
+    o_k = sd.sparse_decode_latent_pooled(*args)
+    o_k2 = sd.sparse_decode_latent_pooled(*args)
+    o_r = sd.sparse_decode_latent_pooled(*args, impl="ref")
+    err, tol = latent_agreement(o_k, o_r, (pool, lat_new),
+                                latent_pooled_den(*args))
+    pos = (cids_t.long()[..., None] * chunk
+           + torch.arange(chunk, device=dev)).reshape(B, -1)
+    ok = (cids_t[..., None] >= 0).expand(B, nmax, chunk).reshape(B, -1) \
+        & (pos < len_t[:, None])
+    bias = torch.zeros(B, 1, nmax * chunk + 1, device=dev)
+    bias[:, 0, :-1].masked_fill_(~ok, float("-inf"))
+    bias = bias.expand(B, H, -1)
+
+    def library():
+        lat = pool[slots_t.long()][:, :, 0].reshape(B, -1, D)
+        lat = torch.cat([lat, lat_new[:, None].half()], 1).float()
+        s = torch.baddbmm(bias, q.float(), lat.transpose(1, 2))
+        return torch.bmm(F.softmax(s, dim=-1), lat[..., :r])
+
+    live_rows = sum(min(chunk, int(L) - c * chunk) for L, x in
+                    zip(lengths, sels) for c in x)
+    nbytes = (live_rows * D * 2 + _nbytes(q, lat_new, o_r)
+              + _nbytes(slots_t, cids_t, len_t))
+    # scores: bf16 q x fp16 row, both exact in TF32; P.V: fp16 p x fp16
+    # row with f32 sums, the fp16 tensor-core type
+    ops_s, ops_pv = (2 * H * w * (live_rows + B) for w in (D, r))
+    row = dict(
+        max_abs_err=err, tol=tol, bitwise=bool(torch.equal(o_k, o_k2)),
+        ms=_time_ms(lambda: sd.sparse_decode_latent_pooled(*args), flush),
+        plain_ms=_time_ms(
+            lambda: sd.sparse_decode_latent_pooled(*args, impl="ref"), flush),
+        library_ms=_time_ms(library, flush),
+        cuda_per_call=_cuda_kernels_per_call(
+            torch, lambda: sd.sparse_decode_latent_pooled(*args), flush),
+        bound=(nbytes / HBM_BYTES_S,
+               ops_s / PEAK_TF32 + ops_pv / PEAK_BF16),
+        shape=f"B={B} lengths={list(map(int, lengths))} nmax={nmax} live "
+              f"chunks={int((cids >= 0).sum())} live rows={live_rows} "
+              f"chunk={chunk} H={H} D={D} r={r} one fp16 plane, bf16 q")
+    del pool
+    torch.cuda.empty_cache()
+    return row
+
+
+def mla_kernel_rows(np, torch):
+    """B1-latent, B2-latent and B3 into one latent plane against their
+    plain versions at phase 4k's shapes (the model's widths, no weights):
+    run in phase 3, beside the other kernels' rows, or by ``--phases 4k``
+    alone.  Returns ({name: row}, B3's row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sparse_decode.ref import LATENT_FLIPS
+
+    cfg = get_config(MLA_ARCH)
+    m = cfg.mla
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = {"chunk_bounds_latent": b1_latent_row(torch, cfg, flush),
+            "sparse_decode_latent": b2_latent_row(np, torch, cfg, flush)}
+    slab = torch.zeros(len(PROMPTS) * (MAX_LEN // 64) + 1, 1, 64, 1,
+                       m.kv_lora_rank + m.qk_rope_head_dim,
+                       dtype=torch.float16, device="cuda")
+    b3_lat = b3_row(np, torch, flush, slab, 16)
+    del slab, flush
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        print_row(name, r)
+    print_row("kv_dequant on one latent plane", b3_lat)
+    print(f"[kernel] sparse_decode_latent tol: {LATENT_FLIPS} probabilities "
+          f"rounded the other way, 2^-11 x max|row| / min den each; "
+          f"chunk_bounds_latent tol: {TOL_BOUNDS_REL} of max|bound|")
+    bad = [n for n, r in {**rows, "kv_dequant on one plane": b3_lat}.items()
+           if not r["max_abs_err"] <= r["tol"] or not r.get("bitwise", True)
+           or not r.get("exact", True)]
+    if bad:
+        raise SystemExit(f"chip_smoke: latent kernels disagree with their "
+                         f"plain versions (or two launches differ): {bad}")
+    return rows, b3_lat
+
+
+def phase_mla(np, torch, kernel_rows=None):
+    """Phase 4k: deepseek-v2-lite-16b at full width through the latent
+    path: the serve, admission parity, legacy against pooled and end to
+    end, each gated as its longchat phase is.  ``kernel_rows`` are
+    :func:`mla_kernel_rows`' (measured in phase 3), else measured here."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    rows, b3_lat = kernel_rows or mla_kernel_rows(np, torch)
+    cfg = get_config(MLA_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    m = cfg.mla
+    print(f"[init] {MLA_ARCH} full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA {m.kv_lora_rank} + "
+          f"{m.qk_rope_head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, {cfg.dtype}, "
+          f"{n_params / 1e9!r} G params in {time.perf_counter() - t0!r} s, "
+          f"{torch.cuda.memory_allocated() / 2**30!r} GiB on the card")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        serve = phase_serve(np, torch, cfg, params, tag="[serve-mla]")
+        admission = phase_admission(np, torch, cfg, params, tag="[admit-mla]",
+                                    chunk_tokens=MLA_CHUNK_TOKENS)
+        legacy = phase_legacy(np, torch, cfg, params,
+                              tag="[serve-legacy-mla]")
+        e2e = phase_e2e(np, torch, cfg, params, tag="[e2e-mla]")
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    b3c = {k: v for k, v in b3_lat.items() if k != "bound"}
+    b3c["bound_ms"] = max(b3_lat["bound"]) * 1e3
+    return {"rows": rows, "serve": serve, "admission": admission,
+            "legacy": legacy, "e2e_max_diff": e2e,
+            "kv_dequant_one_plane": b3c,
+            "init": {"params": n_params}}
+
+
+def init_longchat(torch):
+    """longchat-7b-32k at full width, random weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("longchat-7b-32k")
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[init] longchat-7b-32k full width: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.dtype}, "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e9!r} G params in "
+          f"{time.perf_counter() - t0!r} s")
+    return cfg, params
 
 
 def cut_depth(cfg, params, n_layers):
@@ -2359,6 +2832,14 @@ def cut_depth(cfg, params, n_layers):
         return tree[:repeats]
 
     return cut, {**params, "body": head(params["body"])}
+
+
+def cut_for(phase, cfg, params):
+    """longchat at ``SERVE_MODES_LAYERS`` layers for one phase (4c, 4f,
+    4i), with its ``[depth]`` line."""
+    print(f"[depth] phase {phase}: {SERVE_MODES_LAYERS} of {cfg.n_layers} "
+          f"layers, full width")
+    return cut_depth(cfg, params, SERVE_MODES_LAYERS)
 
 
 def _serve_modes(np, torch, cfg, params):

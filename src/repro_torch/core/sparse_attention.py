@@ -1,9 +1,10 @@
 """Partial-softmax building blocks of the sparse decode attention.
 
-The plain side of kernel B2 (``repro_torch.kernels.sparse_decode``):
-masked scores become a stable partial-softmax triple (num, den, m) and
-:func:`_finish` normalizes it — the same arithmetic as
-``repro.core.sparse_attention``.
+The plain side of kernel B2 (``repro_torch.kernels.sparse_decode``) and of
+its latent variant: masked scores become a stable partial-softmax triple
+(num, den, m) and :func:`_finish` normalizes it — the same arithmetic as
+``repro.core.sparse_attention``, whose absorbed-MLA decode
+:func:`sparse_decode_mla` is here too.
 """
 
 from __future__ import annotations
@@ -42,3 +43,36 @@ def _masked_softmax_partials(scores: torch.Tensor, v: torch.Tensor,
     B, Hkv, G = m.shape
     return Partials(num.reshape(B, Hkv * G, -1), den.reshape(B, Hkv * G),
                     m.reshape(B, Hkv * G))
+
+
+def gather_chunk_tokens(ids: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(..., k) chunk ids -> (..., k * chunk) token positions."""
+    tok = ids.long()[..., None] * chunk + torch.arange(chunk,
+                                                       device=ids.device)
+    return tok.reshape(*ids.shape[:-1], -1)
+
+
+def sparse_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      ckv: torch.Tensor, krope: torch.Tensor,
+                      ids: torch.Tensor, chunk: int, *, length) -> Partials:
+    """Absorbed-MLA sparse decode in latent space.  q_lat: (B, H, r);
+    q_rope: (B, H, rope); ckv: (B, S, r); krope: (B, S, rope); ids: (B, 1,
+    nsel).  Returns Partials with num in latent space (B, H, r) — the
+    caller applies W_UV afterwards."""
+    S = ckv.shape[1]
+    tok = gather_chunk_tokens(ids[:, 0], chunk)                  # (B, T)
+    tok_c = torch.clamp(tok, max=S - 1)
+    cg = torch.gather(ckv, 1, tok_c[..., None].expand(-1, -1, ckv.shape[-1]))
+    rg = torch.gather(krope, 1,
+                      tok_c[..., None].expand(-1, -1, krope.shape[-1]))
+    scores = (torch.einsum("bhr,btr->bht", q_lat.float(), cg.float())
+              + torch.einsum("bhr,btr->bht", q_rope.float(), rg.float()))
+    len_b = torch.as_tensor(length, device=tok.device).reshape(-1, 1)
+    valid = ((tok < len_b) & (tok < S))[:, None, :]               # (B,1,T)
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(valid, torch.exp(scores - m_safe[..., None]),
+                    torch.zeros_like(scores))
+    num = torch.einsum("bht,btr->bhr", e, cg.float())
+    return Partials(num, e.sum(dim=-1), m)

@@ -37,12 +37,19 @@ _SIGNATURES = {
                                  _LL, _I, _P],
     "leoam_chunk_bounds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _P],
+    "leoam_chunk_bounds_latent": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _LL, _LL, _P],
+    "leoam_sparse_decode_latent": [_P, _P, _LL, _P, _P, _I, _P, _P, _I, _I,
+                                   _I, _I, _I, _P, _P, _I, _P],
     "leoam_sparse_decode": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _LL, _P,
                             _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                             _P, _P, _P, _P, _P, _I, _I, _P],
     "leoam_pq_assign": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "leoam_pq_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
+
+# entries that return a size (f32 elements of a kernel's scratch)
+_SIZES = {"leoam_sparse_decode_latent_scratch": [_I, _I, _I, _I, _I]}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -112,6 +119,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            for name, args in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_longlong
             lib.leoam_error_string.argtypes = [ctypes.c_int]
             lib.leoam_error_string.restype = ctypes.c_char_p
             _lib = lib

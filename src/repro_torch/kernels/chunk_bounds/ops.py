@@ -1,11 +1,15 @@
-"""Dispatching wrapper for the LKA chunk bounds (kernel B1).
+"""Dispatching wrappers for the LKA chunk bounds (kernel B1 and its latent
+variant).
 
 Two entries over one CUDA kernel (``csrc/chunk_bounds.cu``): the Pallas
 contract :func:`chunk_bounds` on (B, Hkv, nc, hd) abstracts, and the
 engine's :func:`chunk_bounds_gqa` on the tier store's (B, nc, Hkv, hd)
 stack, read in place through strides, and q in its own dtype: one CUDA
-launch a call.  A CUDA tensor launches the kernel; a CPU tensor takes the
-plain version in ``ref.py``.  ``launches`` counts kernel launches only."""
+launch a call.  :func:`chunk_bounds_latent` is B1's latent variant
+(``csrc/chunk_bounds_latent.cu``) for MLA: one logical kv head, many q
+heads, rows of 576.  A CUDA tensor launches the kernel; a CPU tensor takes
+the plain version in ``ref.py``.  ``launches`` and ``latent_launches``
+count kernel launches only."""
 
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ from repro_torch.kernels.chunk_bounds.ref import (chunk_bounds_gqa_ref,
                                                   chunk_bounds_ref)
 
 launches = 0
+latent_launches = 0
 MAX_HD = 256
+LAT_MAX_D = 1024             # the latent variant's row width (shared q)
 
 
 def _launch(q4: torch.Tensor, kmax: torch.Tensor, kmin: torch.Tensor,
@@ -84,3 +90,39 @@ def chunk_bounds_gqa(q: torch.Tensor, kmax: torch.Tensor, kmin: torch.Tensor,
     Hkv = kmax.shape[2]
     return _launch(q.reshape(B, Hkv, H // Hkv, hd), kmax, kmin,
                    h_dim=2, c_dim=1)
+
+
+def chunk_bounds_latent(q: torch.Tensor, kmax: torch.Tensor,
+                        kmin: torch.Tensor, *, impl: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, H, D) any float (pre-scaled); kmax/kmin: (B, nc, 1, D) f32
+    latent boxes -> (ub, lb) (B, 1, nc) f32, summed over the H heads: the
+    GQA bound at one kv head, on the latent variant of the kernel."""
+    global latent_launches
+    if not build.use_kernel(impl, q):
+        return chunk_bounds_gqa_ref(q, kmax, kmin)
+    B, H, D = q.shape
+    nc = kmax.shape[1]
+    if (kmax.dtype != torch.float32 or kmin.dtype != torch.float32
+            or kmax.shape != kmin.shape or kmax.dim() != 4
+            or tuple(kmax.shape[::2]) != (B, 1) or kmax.shape[3] != D
+            or not kmax.is_cuda or not kmin.is_cuda or D % 4
+            or not 4 <= D <= LAT_MAX_D):
+        raise ValueError(
+            f"chunk_bounds_latent: q {tuple(q.shape)}, kmax "
+            f"{tuple(kmax.shape)} {kmax.dtype}, kmin {tuple(kmin.shape)} "
+            f"{kmin.dtype} do not match the kernel's f32 CUDA contract "
+            f"(one kv head, D a multiple of 4 up to {LAT_MAX_D})")
+    kmax, kmin = build.aligned(kmax), build.aligned(kmin)
+    if q.dtype not in build.DTYPE_CODES:
+        q = q.float()
+    q = build.aligned(q)
+    ub = torch.empty((B, 1, nc), dtype=torch.float32, device=q.device)
+    lb = torch.empty_like(ub)
+    rc = build.library().leoam_chunk_bounds_latent(
+        q.data_ptr(), kmax.data_ptr(), kmin.data_ptr(), ub.data_ptr(),
+        lb.data_ptr(), B, H, nc, D, build.DTYPE_CODES[q.dtype],
+        kmax.stride(0), kmax.stride(1), build.stream_ptr(q))
+    build.check(rc, "chunk_bounds_latent")
+    latent_launches += 1
+    return ub, lb

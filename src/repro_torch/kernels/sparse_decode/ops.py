@@ -13,7 +13,15 @@ scores, then P.V with the combine).
 
 The kernel splits each (sequence, kv head)'s rows across blocks;
 :func:`split_plan` chooses the split and :func:`split_rows` says which
-rows each split covers."""
+rows each split covers.
+
+B2's latent variant (``csrc/sparse_decode_latent.cu``) serves MLA's
+absorbed decode: :func:`sparse_decode_latent_pooled` and
+:func:`sparse_decode_latent_workingset` attend the H query heads over one
+latent plane (scores over all D columns, values the first r columns of the
+same rows) and return the normalized out_lat (B, H, r) f32.
+``latent_launches`` counts its wrapper calls that launched it (three CUDA
+launches each: scores, P.V partials, their combine)."""
 
 from __future__ import annotations
 
@@ -24,10 +32,16 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.sparse_decode.ref import (
-    model_scale, sparse_decode_pooled_ref, sparse_decode_ref,
-    sparse_decode_workingset_ref)
+    model_scale, sparse_decode_latent_pooled_ref,
+    sparse_decode_latent_workingset_ref, sparse_decode_pooled_ref,
+    sparse_decode_ref, sparse_decode_workingset_ref)
 
 launches = 0
+latent_launches = 0
+LAT_MAX_H = 16               # q heads on the latent plane (one warp's lanes
+                             # hold two per head after the reduction)
+LAT_MAX_D = 704              # row width (the block's f32 copy of q)
+LAT_MAX_R = 512              # value width (two columns a thread, 256)
 
 H100_SMS = 132
 BLOCKS_PER_SM = 8       # blocks the split plan aims at, per SM
@@ -208,3 +222,86 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             G, hd, chunk, 1.0, 0.0, None, num, den, m, k.dtype,
             "sparse_decode")
     return num, den, m
+
+
+def _launch_latent(q, slab_ptr, slot_stride, slots, chunk_ids, lengths,
+                   lat_new, r, chunk, slab_dtype, name):
+    """One call of the latent kernel over slab rows ``slot * slot_stride +
+    row * D``: its f32 scratch (the size the library names), the entry.
+    Returns out_lat."""
+    global latent_launches
+    B, H, D = q.shape
+    nsel = slots.shape[1]
+    _check(H <= LAT_MAX_H and D % 2 == 0 and D <= LAT_MAX_D and r % 2 == 0
+           and 0 < r <= min(D, LAT_MAX_R) and slab_dtype == torch.float16,
+           f"q {tuple(q.shape)}, r {r}, slab {slab_dtype}: the latent kernel "
+           f"takes H <= {LAT_MAX_H}, even D <= {LAT_MAX_D}, even r <= "
+           f"{LAT_MAX_R} and an fp16 slab")
+    _check(q.dtype in build.DTYPE_CODES, f"q dtype {q.dtype}")
+    _check(all(t.is_cuda and t.dtype == torch.int32 for t in
+               (slots, chunk_ids, lengths)), "indices must be int32 on CUDA")
+    lib = build.library()
+    scratch = torch.empty(
+        lib.leoam_sparse_decode_latent_scratch(B, H, r, nsel, chunk),
+        dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, r), dtype=torch.float32, device=q.device)
+    q = q.contiguous()
+    lat_new = lat_new.reshape(B, D).to(q.dtype).contiguous()
+    rc = lib.leoam_sparse_decode_latent(
+        q.data_ptr(), slab_ptr, slot_stride, slots.contiguous().data_ptr(),
+        chunk_ids.contiguous().data_ptr(), nsel,
+        lengths.contiguous().data_ptr(), lat_new.data_ptr(), B, H, D, r,
+        chunk, scratch.data_ptr(), out.data_ptr(),
+        build.DTYPE_CODES[q.dtype], build.stream_ptr(q))
+    build.check(rc, name)
+    latent_launches += 1
+    return out
+
+
+def sparse_decode_latent_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
+                                slots: torch.Tensor, chunk_ids: torch.Tensor,
+                                lengths: torch.Tensor, lat_new: torch.Tensor,
+                                r: int, *, impl: Optional[str] = None
+                                ) -> torch.Tensor:
+    """The MLA round's latent attention over the one-plane pool slab.  See
+    ``ref.sparse_decode_latent_pooled_ref`` for the contract.  Returns
+    out_lat (B, H, r) f32."""
+    if not build.use_kernel(impl, q):
+        return sparse_decode_latent_pooled_ref(q, pool_kv, slots, chunk_ids,
+                                               lengths, lat_new, r)
+    _, planes, chunk, hkv, D = pool_kv.shape
+    _check(planes == 1 and hkv == 1 and D == q.shape[-1],
+           f"pool {tuple(pool_kv.shape)} is not one latent plane for q "
+           f"{tuple(q.shape)}")
+    _check(pool_kv.is_contiguous() and pool_kv.is_cuda,
+           "pool must be a contiguous CUDA tensor")
+    return _launch_latent(q, pool_kv.data_ptr(), chunk * D, slots,
+                          chunk_ids, lengths, lat_new, r, chunk,
+                          pool_kv.dtype, "sparse_decode_latent_pooled")
+
+
+def sparse_decode_latent_workingset(q: torch.Tensor, latg: torch.Tensor,
+                                    chunk_ids: torch.Tensor,
+                                    lengths: torch.Tensor,
+                                    lat_new: torch.Tensor, r: int, *,
+                                    impl: Optional[str] = None
+                                    ) -> torch.Tensor:
+    """The legacy MLA round's latent attention over the padded working set
+    latg (B, nmax, chunk, 1, D) uploaded whole, read in place as a slab of
+    one chunk a row (entry j of sequence b at row b * nmax + j), with the
+    pooled call's mask and split plan.  Returns out_lat (B, H, r) f32."""
+    if not build.use_kernel(impl, q):
+        return sparse_decode_latent_workingset_ref(q, latg, chunk_ids,
+                                                   lengths, lat_new, r)
+    B, nmax, chunk, hkv, D = latg.shape
+    _check(hkv == 1 and D == q.shape[-1] and B == q.shape[0]
+           and tuple(chunk_ids.shape) == (B, nmax),
+           f"working set {tuple(latg.shape)} does not fit q "
+           f"{tuple(q.shape)} and chunk ids {tuple(chunk_ids.shape)}")
+    _check(latg.is_contiguous() and latg.is_cuda,
+           "the working set must be a contiguous CUDA tensor")
+    slots = torch.arange(B * nmax, dtype=torch.int32,
+                         device=q.device).reshape(B, nmax)
+    return _launch_latent(q, latg.data_ptr(), chunk * D, slots, chunk_ids,
+                          lengths, lat_new, r, chunk, latg.dtype,
+                          "sparse_decode_latent_workingset")

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the sparse_decode kernel (both contracts)."""
+"""Plain PyTorch versions of the sparse_decode kernel (both contracts) and
+of its latent (MLA) variant."""
 
 from __future__ import annotations
 
@@ -187,3 +188,148 @@ def sparse_decode_pooled_split_ref(q: torch.Tensor, pool_kv: torch.Tensor,
         den = den + e.sum(-1)
     out = num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
     return out.reshape(q.shape).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The latent (MLA) variant
+# ---------------------------------------------------------------------------
+
+
+LATENT_FLIPS = 2            # bar on max |diff| of out_lat, in probabilities
+                            # that round to fp16 the other way
+
+
+def latent_agreement(out: torch.Tensor, ref: torch.Tensor, rows,
+                     den: torch.Tensor) -> Tuple[float, float]:
+    """How the latent kernel's out_lat agrees with its plain version: (max
+    |diff|, its bar).  Both round each probability p = exp(s - max) to
+    fp16 against the same global max; where their f32 scores differ in the
+    last bits, a p may round the other way.  p = 1 (the max row) is exact,
+    so a flipped p < 1 moves num by one fp16 ulp of p, at most 2^-11,
+    times a row value, and out_lat by that over den (>= 1).  The bar is
+    ``LATENT_FLIPS`` such flips at the largest row value (``rows``: a
+    tensor or a tuple of them, the rows read) over the smallest
+    denominator ``den`` (B, H), as :func:`latent_pooled_den` gives it."""
+    d = (out.float() - ref.float()).abs().max().item()
+    rows = rows if isinstance(rows, (tuple, list)) else (rows,)
+    top = max(x.float().abs().max().item() for x in rows)
+    return d, LATENT_FLIPS * 2.0 ** -11 * top / den.min().item()
+
+
+def tied_latent_case(device, B: int = 2, H: int = 16, D: int = 576,
+                     chunk: int = 64, nsel: int = 4, seed: int = 0):
+    """Inputs (q, pool_kv, slots, chunk_ids, lengths, lat_new) of the
+    pooled latent call on which :func:`latent_agreement`'s bar sees whether
+    P.V rounds each probability to fp16.  Every pool row is 1 at column 0
+    and in [-1, 1) elsewhere; the round's row is 2 at column 0 and 0
+    elsewhere; head h's query is delta_h at column 0 and 0 elsewhere.  So
+    a head's scores are delta_h exactly (the round's 2 delta_h), every
+    probability is the one value p = exp(-delta_h) in [0.5, 1), and
+    delta_h (a bf16 multiple of 2^-7) puts p at least a quarter fp16 ulp
+    from fp16 and 0.05 ulp from a rounding midpoint: two versions that
+    round p agree to f32 sums, and one that leaves p unrounded moves
+    out_lat[..., 0] by 2^-13 / p or more, against a bar of LATENT_FLIPS x
+    2^-11 x 2 / (N p + 1) for the N = nsel x chunk live rows."""
+    u = 2.0 ** -11
+    deltas = [k / 128 for k in range(1, 89)
+              if 0.05 <= abs((math.exp(-k / 128) / u) % 1.0 - 0.5) <= 0.25]
+    if len(deltas) < H:
+        raise ValueError(f"tied_latent_case: {len(deltas)} usable deltas "
+                         f"for {H} heads")
+    g = torch.Generator().manual_seed(seed)
+    pool = (torch.rand(B * nsel + 1, 1, chunk, 1, D, generator=g) * 2
+            - 1).half()
+    pool[..., 0] = 1
+    q = torch.zeros(B, H, D)
+    q[..., 0] = torch.tensor(deltas[:H])
+    lat_new = torch.zeros(B, D)
+    lat_new[:, 0] = 2
+    slots = torch.randperm(B * nsel, generator=g).reshape(B, nsel)
+    cids = torch.arange(nsel).repeat(B, 1)
+    lengths = torch.full((B,), nsel * chunk)
+    return (q.bfloat16().to(device), pool.to(device),
+            slots.int().to(device), cids.int().to(device),
+            lengths.int().to(device), lat_new.bfloat16().to(device))
+
+
+def _latent_rows(pool_kv: torch.Tensor, slots: torch.Tensor,
+                 chunk_ids: torch.Tensor, lengths: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gathered latent rows (B, nmax * chunk, D) in the pool's dtype
+    and the live-row mask (B, nmax * chunk): chunk id >= 0 and the STRICT
+    pos < length (this round's row rides in separately)."""
+    lat = pool_kv[slots.long()][:, :, 0]           # (B, nmax, c, 1, D)
+    B, nmax, chunk = lat.shape[:3]
+    lat = lat.reshape(B, nmax * chunk, -1)
+    cid = chunk_ids.long()
+    pos = (cid[..., None] * chunk
+           + torch.arange(chunk, device=lat.device)).reshape(B, -1)
+    ok = (cid[..., None] >= 0).expand(B, nmax, chunk).reshape(B, -1) \
+        & (pos < lengths.long()[:, None])
+    return lat, ok
+
+
+def sparse_decode_latent_pooled_ref(q: torch.Tensor, pool_kv: torch.Tensor,
+                                    slots: torch.Tensor,
+                                    chunk_ids: torch.Tensor,
+                                    lengths: torch.Tensor,
+                                    lat_new: torch.Tensor, r: int
+                                    ) -> torch.Tensor:
+    """Engine contract of the MLA round (``repro.serving.engine.
+    _attend_pooled_mla`` up to its ``_finish``: before W_UV and ``wo``).
+
+    q: (B, H, D) = concat(q_lat, q_rope), pre-scaled, model dtype;
+    pool_kv: (n_slots + 1, 1, chunk, 1, D) store dtype (one latent plane);
+    slots / chunk_ids: (B, nmax) (chunk id -1 on padding); lengths: (B,);
+    lat_new: (B, D) or (B, 1, D), the round's latent row, rounded to the
+    pool dtype before use; r: the value width (kv_lora_rank), the first r
+    columns of each row.  Scores are q_lat.ckv + q_rope.krope in f32, the
+    probabilities are rounded to the pool dtype for P.V, which accumulates
+    in f32, and the denominator sums the unrounded values.  Returns the
+    normalized out_lat (B, H, r) f32."""
+    lat, ok = _latent_rows(pool_kv, slots, chunk_ids, lengths)
+    return sa._finish(_latent_partials(q, lat, ok, lat_new, r))
+
+
+def latent_pooled_den(q: torch.Tensor, pool_kv: torch.Tensor,
+                      slots: torch.Tensor, chunk_ids: torch.Tensor,
+                      lengths: torch.Tensor, lat_new: torch.Tensor, r: int
+                      ) -> torch.Tensor:
+    """The plain version's unrounded softmax denominators (B, H) f32 of
+    :func:`sparse_decode_latent_pooled_ref` (same arguments): the divisor
+    of out_lat that :func:`latent_agreement`'s bar needs."""
+    lat, ok = _latent_rows(pool_kv, slots, chunk_ids, lengths)
+    return _latent_partials(q, lat, ok, lat_new, r).den
+
+
+def _latent_partials(q: torch.Tensor, lat: torch.Tensor, ok: torch.Tensor,
+                     lat_new: torch.Tensor, r: int) -> sa.Partials:
+    B = q.shape[0]
+    lat = torch.cat([lat, lat_new.reshape(B, 1, -1).to(lat.dtype)], dim=1)
+    valid = torch.cat([ok, torch.ones((B, 1), dtype=torch.bool,
+                                      device=ok.device)], dim=1)
+    ckv, krope = lat[..., :r], lat[..., r:]
+    scores = (torch.einsum("bhr,bsr->bhs", q[..., :r].float(), ckv.float())
+              + torch.einsum("bhr,bsr->bhs", q[..., r:].float(),
+                             krope.float()))
+    return sa._masked_softmax_partials(scores[:, None], ckv[:, None],
+                                       valid[:, None, None])
+
+
+def sparse_decode_latent_workingset_ref(q: torch.Tensor, latg: torch.Tensor,
+                                        chunk_ids: torch.Tensor,
+                                        lengths: torch.Tensor,
+                                        lat_new: torch.Tensor, r: int
+                                        ) -> torch.Tensor:
+    """Legacy engine contract of the MLA round (``_attend_workingset_mla``
+    up to its ``_finish``): the padded working set latg (B, nmax, chunk, 1,
+    D) uploaded whole, entry j of sequence b holding chunk
+    ``chunk_ids[b, j]``; otherwise as
+    :func:`sparse_decode_latent_pooled_ref`, which it is over the slab of
+    one chunk a row."""
+    B, nmax = latg.shape[:2]
+    slab = latg.reshape(B * nmax, 1, *latg.shape[2:])
+    slots = torch.arange(B * nmax, dtype=torch.int32,
+                         device=latg.device).reshape(B, nmax)
+    return sparse_decode_latent_pooled_ref(q, slab, slots, chunk_ids,
+                                           lengths, lat_new, r)

@@ -1,5 +1,4 @@
-"""Model assembly for dense decoder-only LMs, ported from
-``repro.models.lm``.
+"""Model assembly for decoder-only LMs, ported from ``repro.models.lm``.
 
 Layer organisation as in the JAX package: ``prologue`` layers (the first
 ``cfg.prologue()``) are kept one block each, and the remaining layers form
@@ -8,14 +7,17 @@ repeat axis — so a JAX parameter tree carries over leaf for leaf
 (:func:`repro_torch.models.params.params_from_jax`).  PyTorch runs eagerly:
 the body is a Python loop over the repeat axis.
 
-Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
+Attention is GQA/MHA or DeepSeek's MLA (whose decode cache is the latent
+``ckv`` / ``krope`` pair); feed-forward blocks are dense or
+mixture-of-experts, the latter with the inference dispatch (no capacity
+drops).  Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
 ``prefill(params, cfg, batch, max_len)``, and chunked prefill:
 ``init_decode_cache(cfg, batch, max_len, device)`` then
 ``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk, after
 ``load_prefix_rows(cfg, cache, rows, n)`` for a warm shared prefix.
-Recurrent, MoE, MLA and encoder-decoder stacks raise
-``NotImplementedError`` (ROADMAP A7, A11); ``decode_step`` with its
-in-model sparse path is a later slice.
+Recurrent and encoder-decoder stacks raise ``NotImplementedError``
+(ROADMAP A11); ``decode_step`` with its in-model sparse path is a later
+slice.
 """
 
 from __future__ import annotations
@@ -53,29 +55,26 @@ def check_supported(cfg) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"'{cfg.name}' is encoder-decoder; not ported yet (ROADMAP A11)")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"'{cfg.name}' uses MLA attention; not ported yet (ROADMAP A7)")
     bad = sorted({k for k in cfg.layer_kinds() if not k.startswith("attn")})
     if bad:
         raise NotImplementedError(
             f"'{cfg.name}' has non-attention layers {bad}; not ported yet "
             f"(ROADMAP A11)")
-    if any(m == "moe" for m in cfg.mlp_kinds()):
-        raise NotImplementedError(
-            f"'{cfg.name}' has MoE layers; not ported yet (ROADMAP A7)")
 
 
 def _block_defs(cfg, kind: str, mlp_kind: str) -> Dict[str, Any]:
     d = cfg.d_model
     blk: Dict[str, Any] = {
         "ln1": ParamDef((d,), (None,), init="ones"),
-        "core": attn.gqa_params(cfg),
+        "core": attn.attn_params(cfg),
     }
     if mlp_kind == "dense":
         ff = cfg.d_ff_dense if cfg.d_ff_dense else None
         blk["ln2"] = ParamDef((d,), (None,), init="ones")
         blk["mlp"] = mlp_mod.dense_params(cfg, ff=ff)
+    elif mlp_kind == "moe":
+        blk["ln2"] = ParamDef((d,), (None,), init="ones")
+        blk["mlp"] = mlp_mod.moe_params(cfg)
     return blk
 
 
@@ -121,14 +120,22 @@ def body_block(params, pi: int, r: int) -> Dict[str, Any]:
 
 def cache_defs(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     """The decode cache's leaves, as :func:`prefill` returns them: K and V
-    (batch, max_len, Hkv, hd) per attention layer, body layers stacked on
-    the repeat axis.  The JAX cache's abstract pyramid is left out: the
-    serving engine never reads it."""
+    (batch, max_len, Hkv, hd) per attention layer — for MLA the latent
+    ``ckv`` (batch, max_len, r) and ``krope`` (batch, max_len, rope) —
+    body layers stacked on the repeat axis.  The JAX cache's abstract
+    pyramid is left out: the serving engine never reads it."""
     check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
-    kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.hd),
-                  ("batch", None, "kv", None), init="zeros")
-    blk = {"k": kv, "v": kv}
+    if cfg.mla is not None:
+        m = cfg.mla
+        blk = {"ckv": ParamDef((batch, max_len, m.kv_lora_rank),
+                               ("batch", None, None), init="zeros"),
+               "krope": ParamDef((batch, max_len, m.qk_rope_head_dim),
+                                 ("batch", None, None), init="zeros")}
+    else:
+        kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.hd),
+                      ("batch", None, "kv", None), init="zeros")
+        blk = {"k": kv, "v": kv}
     return {"prologue": [dict(blk) for _ in prologue],
             "body": [_stack_defs(blk, repeats) for _ in period]
             if repeats else []}
@@ -149,11 +156,12 @@ def load_prefix_rows(cfg, cache: Dict[str, Any], kv_rows,
 
     ``kv_rows`` holds one ``(k_rows, v_rows)`` pair per attention layer
     (store layer order), each ``(n_tokens, Hkv, hd)`` (tensors or arrays,
-    anywhere).  They are written into positions ``[0, n_tokens)`` of the
-    batch-1 cache from :func:`init_decode_cache`, layer by layer, in the
-    cache's dtype and IN PLACE, so chunked prefill resumes at ``start ==
-    n_tokens`` over the warm span without recomputing it.  Returns the
-    cache."""
+    anywhere) — for MLA the latent plane ``(n_tokens, 1, r + rope)`` in
+    the first position, split into ``ckv`` and ``krope``.  They are
+    written into positions ``[0, n_tokens)`` of the batch-1 cache from
+    :func:`init_decode_cache`, layer by layer, in the cache's dtype and IN
+    PLACE, so chunked prefill resumes at ``start == n_tokens`` over the
+    warm span without recomputing it.  Returns the cache."""
     check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
     slots = [cache["prologue"][i] for i in range(len(prologue))]
@@ -163,7 +171,13 @@ def load_prefix_rows(cfg, cache: Dict[str, Any], kv_rows,
         raise ValueError(f"load_prefix_rows: {len(kv_rows)} layers of rows "
                          f"for a cache of {len(slots)} attention layers")
     for c, (k_rows, v_rows) in zip(slots, kv_rows):
-        for name, rows in (("k", k_rows), ("v", v_rows)):
+        if cfg.mla is not None:
+            lat = torch.as_tensor(k_rows)[:, 0]
+            r = cfg.mla.kv_lora_rank
+            pairs = (("ckv", lat[:, :r]), ("krope", lat[:, r:]))
+        else:
+            pairs = (("k", k_rows), ("v", v_rows))
+        for name, rows in pairs:
             leaf = c[name]
             leaf[0, :n_tokens] = torch.as_tensor(rows).to(
                 device=leaf.device, dtype=leaf.dtype)
@@ -178,9 +192,11 @@ def load_prefix_rows(cfg, cache: Dict[str, Any], kv_rows,
 def _apply_mlp(blk, cfg, mlp_kind: str, x: torch.Tensor) -> torch.Tensor:
     if mlp_kind == "none" or "mlp" not in blk:
         return x
-    if mlp_kind == "moe":
-        raise NotImplementedError("MoE is not ported yet (ROADMAP A7)")
     h = rms_norm(x, blk["ln2"], cfg.norm_eps)
+    if mlp_kind == "moe":
+        # the inference dispatch: a token's output never depends on the
+        # rows around it, so bucketed and chunked prefill stay token-exact
+        return x + mlp_mod.moe_apply(blk["mlp"], cfg, h, no_drop=True)
     return x + mlp_mod.dense_apply(blk["mlp"], cfg, h)
 
 
@@ -215,7 +231,7 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
     so one bucket serves every prompt length in it, token-identical to
     exact-length prefill.  The cache is ``{"prologue": [{"k", "v"}...],
     "body": [{"k", "v"} stacked on the repeat axis]}`` with K/V
-    (B, max_len, Hkv, hd)."""
+    (B, max_len, Hkv, hd), or the latent ``{"ckv", "krope"}`` for MLA."""
     check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
     x, B, S = _embed_in(params, cfg, batch)
@@ -224,6 +240,14 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
 
     def block_prefill(blk, kind, mlpk, x):
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if cfg.mla is not None:
+            # mla_train and mla_prefill_cache share their latent rows
+            p = blk["core"]
+            q_nope, q_rope = attn._mla_q(p, cfg, h, pos)
+            ckv, krope = attn.mla_latent(p, cfg, h, pos)
+            y = attn.mla_attend(p, cfg, q_nope, q_rope, ckv, krope)
+            cache = attn.mla_latent_cache(ckv, krope, max_len, length)
+            return _apply_mlp(blk, cfg, mlpk, x + y), cache
         q, k, v = attn._qkv(blk["core"], cfg, h, pos)
         window = cfg.window if kind == "attn_local" else None
         o = attn.blocked_attention(
@@ -245,7 +269,7 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
             x, c = block_prefill(body_block(params, pi, r), kind, mlpk, x)
             per_pos[pi].append(c)
     caches_body = [{name: torch.stack([c[name] for c in cs])
-                    for name in ("k", "v")} for cs in per_pos] \
+                    for name in cs[0]} for cs in per_pos] \
         if repeats else []
 
     if "length" in batch:
@@ -275,6 +299,10 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
     mask: rows not yet written sit at later positions, so the mask alone
     keeps them out.  The cache is updated IN PLACE and returned.
 
+    MLA chunks write the latent rows (``ckv`` / ``krope``, the same
+    zeroing) and attend non-absorbed over the whole latent cache, per-head
+    K/V re-expanded as in whole-prompt prefill.
+
     Returns (logits (B, V) f32 at position ``min(length, start + C) - 1``,
     cache); the final chunk's logits give the prompt's first token."""
     check_supported(cfg)
@@ -290,7 +318,21 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
     valid = (torch.arange(C, device=x.device) + start < length)[
         None, :, None, None]
 
+    def mla_attn_chunk(blk, x, c):
+        p = blk["core"]
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        q_nope, q_rope = attn._mla_q(p, cfg, h, pos)
+        ckv, krope = attn.mla_latent(p, cfg, h, pos)
+        c["ckv"][:, start:start + C] = torch.where(
+            valid[..., 0], ckv, 0).to(c["ckv"].dtype)
+        c["krope"][:, start:start + C] = torch.where(
+            valid[..., 0], krope, 0).to(c["krope"].dtype)
+        return x + attn.mla_attend(p, cfg, q_nope, q_rope, c["ckv"],
+                                   c["krope"], q_offset=start)
+
     def attn_chunk(blk, kind, mlpk, x, c):
+        if cfg.mla is not None:
+            return _apply_mlp(blk, cfg, mlpk, mla_attn_chunk(blk, x, c))
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         q, k, v = attn._qkv(blk["core"], cfg, h, pos)
         c["k"][:, start:start + C] = torch.where(valid, k, 0).to(c["k"].dtype)

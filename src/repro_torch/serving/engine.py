@@ -1,9 +1,10 @@
 """LeoAM serving engine: batched tiered decoding on a live model (PyTorch).
 
-The port of ``repro.serving.engine`` for dense attention-only decoders
-(the paper's own model, longchat-7b-32k).  Prefill populates the
-three-tier store; each decode round runs, per attention layer, the paper's
-Dynamic Three-tier Pipeline (§4.4):
+The port of ``repro.serving.engine`` for attention-only decoders: GQA/MHA
+(the paper's own model, longchat-7b-32k) and DeepSeek-class absorbed MLA
+with mixture-of-experts feed-forwards (deepseek-v2-lite).  Prefill
+populates the three-tier store; each decode round runs, per attention
+layer, the paper's Dynamic Three-tier Pipeline (§4.4):
 
 1. **Evaluate**: one bounds product over the stacked per-request queries
    and the layer's padded abstract stack — kernel B1
@@ -16,6 +17,16 @@ Dynamic Three-tier Pipeline (§4.4):
 3. **Attend**: sparse attention over the pool slots plus the new token —
    kernel B2 (``kernels.sparse_decode.sparse_decode_pooled``) — then the
    output projection and the append.
+
+An MLA model tiers ONE latent row per token (concat(c_kv, k_rope), one
+logical kv head of width kv_lora_rank + qk_rope_head_dim) in a
+``latent=True`` store.  Evaluate bounds concat(q_lat, q_rope) — W_UK
+absorbed into the query — against the latent boxes on B1's latent
+variant (``kernels.chunk_bounds.ops.chunk_bounds_latent``); attend runs
+B2's latent variant (``kernels.sparse_decode.sparse_decode_latent_pooled``)
+over the latent rows and applies W_UV and the output projection
+afterwards; admission in every mode streams latent rows through
+``ingest``.
 
 With ``pq_abstracts`` the store keeps a PQ abstract plane (codebooks
 trained at ingest on kernels B4 and B5); evaluate then scores chunks whose
@@ -81,7 +92,8 @@ Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.  Options of the reference
 that the port leaves out so far raise ``NotImplementedError`` naming
-their ROADMAP item: MLA, non-attention layers and the sync sanitizer.
+their ROADMAP item: non-attention layers, the sync sanitizer, and the PQ
+plane and the shared-prefix cache on an MLA model (A7b).
 """
 
 from __future__ import annotations
@@ -102,12 +114,14 @@ from repro_torch.core.adaptive import flat_select_chunks, tree_select_chunks
 from repro_torch.core.bounds import chunk_bounds_gqa_matmul
 from repro_torch.core.tiers import AccessTable
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.chunk_bounds.ops import chunk_bounds_latent
 from repro_torch.kernels.pq.ops import adc_chunk_scores
-from repro_torch.kernels.sparse_decode.ops import (sparse_decode_pooled,
-                                                   sparse_decode_workingset)
+from repro_torch.kernels.sparse_decode.ops import (
+    sparse_decode_latent_pooled, sparse_decode_latent_workingset,
+    sparse_decode_pooled, sparse_decode_workingset)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import rms_norm, scale_like
 from repro_torch.models.params import torch_dtype
 from repro_torch.serving.faults import AdmissionError, ChunkLostError
 from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
@@ -261,7 +275,7 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 class BatchedLeoAMEngine:
-    """Batched tiered-decoding engine over a dense decoder-only model.
+    """Batched tiered-decoding engine over an attention-only decoder.
 
     Sequences join via :meth:`add_sequence`, decode together via
     :meth:`decode_round`, and leave via :meth:`release` — the surface
@@ -309,17 +323,25 @@ class BatchedLeoAMEngine:
         self.max_seqs = max_seqs
         self.attn_layers = [i for i, k in enumerate(cfg.layer_kinds())
                             if k.startswith("attn")]
+        # absorbed-MLA stacks tier ONE latent row per token through the
+        # same store and selection machinery: the box over the
+        # concatenated latent IS the MLA bound (q_lat.ckv + q_rope.krope
+        # == q_cat.latent)
+        self.mla = cfg.mla is not None
+        kv_heads, kv_dim = (
+            (1, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) if self.mla
+            else (cfg.n_kv_heads, cfg.hd))
         # the legacy device tier's budget is per store, the pool's per layer
         budget = (device_chunk_budget * len(self.attn_layers)
                   if device_chunk_budget is not None else None)
         self.store = TieredKVStore(
             len(self.attn_layers), self.n_chunks, self.chunk,
-            cfg.n_kv_heads, cfg.hd, n_seqs=max_seqs,
+            kv_heads, kv_dim, n_seqs=max_seqs,
             transit_codec=ecfg.transit_codec, root=store_root,
             device_budget=budget, use_pool=ecfg.pooled,
             pool_slots=device_chunk_budget, real_codec=ecfg.real_codec,
             disk_sidecar=ecfg.disk_sidecar,
-            sidecar_lossless=ecfg.sidecar_lossless,
+            sidecar_lossless=ecfg.sidecar_lossless, latent=self.mla,
             prefix_rows=(max(1, ecfg.prefix_arena_rows)
                          if ecfg.prefix_cache else 0),
             checksums=ecfg.checksums,
@@ -546,15 +568,27 @@ class BatchedLeoAMEngine:
         return {k: v[bi] for k, v in cache["body"][pi].items()}
 
     def _layer_kv(self, cache, layer: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(k, v) (B, S, Hkv, hd) of one layer, on the host."""
+        """(k, v) (B, S, Hkv, hd) of one layer, on the host.  An MLA layer
+        yields its latent rows (B, S, 1, r + rope) in both positions (the
+        store keeps one latent plane)."""
         c = self._layer_cache(cache, layer)
+        if self.mla:
+            lat = _to_host(torch.cat([c["ckv"], c["krope"]], dim=-1))
+            lat = lat[:, :, None, :]
+            return lat, lat
         return _to_host(c["k"]), _to_host(c["v"])
 
     def _layer_kv_slice(self, cache, layer: int, start: int, n: int
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Rows [start, start + n) of one layer's (k, v), batch row 0, on
-        the host: a chunked admission's stream-out."""
+        the host: a chunked admission's stream-out (latent rows in both
+        positions for MLA)."""
         c = self._layer_cache(cache, layer)
+        if self.mla:
+            lat = _to_host(torch.cat([c["ckv"][0, start:start + n],
+                                      c["krope"][0, start:start + n]],
+                                     dim=-1))[:, None, :]
+            return lat, lat
         return (_to_host(c["k"][0, start:start + n]),
                 _to_host(c["v"][0, start:start + n]))
 
@@ -763,10 +797,12 @@ class BatchedLeoAMEngine:
                                ) -> Tuple[Dict[int, List[int]],
                                           Dict[int, StepStats]]:
         """One bounds product over the stacked batch (kernel B1 on the
-        card), with ADC scores off the PQ codes for code-valid chunks when
-        ``pq_abstracts`` is on, then per-sequence chunk-level adaptive
-        selection on the host.  q: (B, H, hd) PRE-SCALED queries, rows
-        matching ``order``."""
+        card, its latent variant for MLA), with ADC scores off the PQ codes
+        for code-valid chunks when ``pq_abstracts`` is on, then
+        per-sequence chunk-level adaptive selection on the host.  q: (B,
+        H, d) PRE-SCALED queries, rows matching ``order`` — GQA passes
+        q/sqrt(hd) against the per-head key boxes, MLA concat(q_lat,
+        q_rope)·scale against the latent boxes (one kv head)."""
         cfg = self.cfg
         chunk = self.chunk
         n_valid = {sid: (int(L) + chunk - 1) // chunk
@@ -786,9 +822,9 @@ class BatchedLeoAMEngine:
             km, kn, pq_codes, pq_valid, pq_cb, abs_billed = res
         else:
             km, kn, abs_billed = res
-        ub, _ = chunk_bounds_gqa_matmul(q, torch.from_numpy(km).to(q.device),
-                                        torch.from_numpy(kn).to(q.device),
-                                        impl=self.impl)
+        bounds = chunk_bounds_latent if self.mla else chunk_bounds_gqa_matmul
+        ub, _ = bounds(q, torch.from_numpy(km).to(q.device),
+                       torch.from_numpy(kn).to(q.device), impl=self.impl)
         ub = ub.cpu().numpy()                                # (B, Hkv, ncmax)
         adc = None
         if use_pq and pq_valid.any():
@@ -1000,8 +1036,22 @@ class BatchedLeoAMEngine:
         def run_attn(blk, mlpk, h, layer_idx):
             nonlocal li
             hln = rms_norm(h, blk["ln1"], cfg.norm_eps)
-            q, k_new, v_new = attn_mod._qkv(blk["core"], cfg, hln, pos)
-            qn = q[:, 0] / math.sqrt(hd)                         # (B, H, hd)
+            if self.mla:
+                # absorbed MLA: the query lives in latent space (q_lat =
+                # q_nope . W_UK, then q_rope) and the round's cache row is
+                # ONE latent vector; selection and attention both run over
+                # the store's latent plane
+                p = blk["core"]
+                sc = attn_mod.mla_scale(cfg)
+                q_nope, q_rope = attn_mod._mla_q(p, cfg, hln, pos)
+                q_lat = scale_like(torch.einsum("bhd,hrd->bhr", q_nope[:, 0],
+                                                p["wk_b"]), sc)
+                qn = torch.cat([q_lat, scale_like(q_rope[:, 0], sc)], dim=-1)
+                ckv_new, krope_new = attn_mod.mla_latent(p, cfg, hln, pos)
+                lat_new = torch.cat([ckv_new[:, 0], krope_new[:, 0]], dim=-1)
+            else:
+                q, k_new, v_new = attn_mod._qkv(blk["core"], cfg, hln, pos)
+                qn = q[:, 0] / math.sqrt(hd)                     # (B, H, hd)
             t0 = time.perf_counter()
             sels, sel_stats = self._select_chunks_batched(
                 li, layer_idx, qn, order, lengths)
@@ -1021,6 +1071,7 @@ class BatchedLeoAMEngine:
             chunk_ids = np.full((B, nmax), -1, np.int32)
             for i, sid in enumerate(order):
                 chunk_ids[i, :len(sels[sid])] = sels[sid]
+            cids_dev = torch.from_numpy(chunk_ids).to(dev)
             if ecfg.pooled:
                 slots, _, fst = self.store.fetch_chunks_pooled(
                     li, sels, pad_to=nmax, theta=self._theta(li))
@@ -1032,29 +1083,49 @@ class BatchedLeoAMEngine:
                     round_stats[sid].fetched_bytes += fst.upload_bytes / B
                 # overlap: next layer's reads under this layer's attention
                 self._submit_prefetch(li + 1, order, lengths)
-                o = sparse_decode_pooled(
-                    q[:, 0], self.store.pools[li].kv,
-                    torch.from_numpy(slots).to(dev),
-                    torch.from_numpy(chunk_ids).to(dev), lengths_dev, k_new,
-                    v_new, cfg.attn_softcap, impl=self.impl)
+                slots_dev = torch.from_numpy(slots).to(dev)
+                pool_kv = self.store.pools[li].kv
+                if self.mla:
+                    o = sparse_decode_latent_pooled(
+                        qn, pool_kv, slots_dev, cids_dev, lengths_dev,
+                        lat_new, cfg.mla.kv_lora_rank, impl=self.impl)
+                else:
+                    o = sparse_decode_pooled(
+                        q[:, 0], pool_kv, slots_dev, cids_dev, lengths_dev,
+                        k_new, v_new, cfg.attn_softcap, impl=self.impl)
             else:
                 # the legacy path: the host-assembled working set crosses
-                # whole every round and B2 reads it in place
+                # whole every round and B2 reads it in place (one plane for
+                # MLA: the latent stack sits in both positions)
                 t1 = time.perf_counter()
                 kg, vg, _ = self.store.fetch_chunks_batch(li, sels,
                                                           pad_to=nmax)
                 prof["gather_s"] += time.perf_counter() - t1
                 t1 = time.perf_counter()
                 kgd = torch.from_numpy(kg).to(dev)
-                vgd = torch.from_numpy(vg).to(dev)
+                vgd = None if self.mla else torch.from_numpy(vg).to(dev)
                 prof["upload_s"] += time.perf_counter() - t1
-                o = sparse_decode_workingset(
-                    q[:, 0], kgd, vgd, torch.from_numpy(chunk_ids).to(dev),
-                    lengths_dev, k_new, v_new, cfg.attn_softcap,
-                    impl=self.impl)
-            y = o.reshape(B, 1, H * hd) @ blk["core"]["wo"]
-            self.store.append_tokens_batch(li, lengths, _to_host(k_new[:, 0]),
-                                           _to_host(v_new[:, 0]), seqs=order)
+                if self.mla:
+                    o = sparse_decode_latent_workingset(
+                        qn, kgd, cids_dev, lengths_dev, lat_new,
+                        cfg.mla.kv_lora_rank, impl=self.impl)
+                else:
+                    o = sparse_decode_workingset(
+                        q[:, 0], kgd, vgd, cids_dev, lengths_dev, k_new,
+                        v_new, cfg.attn_softcap, impl=self.impl)
+            if self.mla:
+                # the absorbed value projection W_UV in f32 on out_lat,
+                # then the output projection in the model dtype
+                o = torch.einsum("bhr,hrv->bhv", o,
+                                 blk["core"]["wv_b"].float()).to(q_lat.dtype)
+                self.store.append_tokens_batch(
+                    li, lengths, _to_host(lat_new)[:, None, :], None,
+                    seqs=order)
+            else:
+                self.store.append_tokens_batch(
+                    li, lengths, _to_host(k_new[:, 0]),
+                    _to_host(v_new[:, 0]), seqs=order)
+            y = o.reshape(B, 1, -1) @ blk["core"]["wo"]
             li += 1
             return lm._apply_mlp(blk, cfg, mlpk, h + y)
 

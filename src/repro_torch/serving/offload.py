@@ -40,6 +40,14 @@ demotions are metadata-only, promotions read the abstract or the chunk.
   chunk's sidecar and the fp16 replica serves it (``kv_fallback`` when a
   CRC quarantines it) until the requant sweep repacks the quiet chunk.
   ``sidecar_lossless=True`` always reads the replica;
+* the **latent (absorbed-MLA) layout** (``latent=True``): DeepSeek-class
+  MLA models cache ONE latent row per token — concat(c_kv, k_rope), one
+  logical kv head of width kv_lora_rank + qk_rope_head_dim — so the store
+  keeps one storage plane: replica, sidecar, pool slab, chunk and row
+  bytes cover exactly the latent payload (no phantom V plane).  The (k, v)
+  entry points stay: callers pass the latent rows as ``k`` (``v`` is
+  ignored) and reads return them in both positions.  The PQ plane and the
+  shared-prefix cache on this layout raise (ROADMAP A7b);
 * the **legacy device tier** (``use_pool=False``, the reference's
   default): a dict of host numpy chunks capped by ``device_budget`` and
   evicted LRU, a tier label in the ledger, served by ``fetch_chunks`` /
@@ -320,7 +328,9 @@ class TieredKVStore:
                  device: DeviceLike = None, impl: Optional[str] = None,
                  fidelity_dtype: Optional[torch.dtype] = None):
         for bad, opt, item in (
-                (latent, "latent=True", "A7"),
+                (latent and prefix_rows, "latent=True, prefix_rows>0", "A7b"),
+                (latent and abstract_kind == "pq",
+                 "latent=True, abstract_kind='pq'", "A7b"),
                 (debug_sync, "debug_sync=True", "A13")):
             if bad:
                 raise _unsupported(opt, item)
@@ -335,7 +345,11 @@ class TieredKVStore:
         rows = n_seqs + prefix_rows
         self.n_layers, self.n_chunks, self.chunk = n_layers, n_chunks, chunk
         self.kv_heads, self.head_dim = kv_heads, head_dim
-        self.planes = 2
+        # latent (absorbed-MLA) layout: one storage plane of concat(ckv,
+        # krope) rows instead of the (K, V) pair — byte accounting, the
+        # disk replica, the sidecar and the pool slab all cover exactly
+        # the latent payload
+        self.planes = 1 if latent else 2
         self.dtype = np.dtype(dtype)
         self.torch_dtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
         self.transit_codec = transit_codec
@@ -370,7 +384,8 @@ class TieredKVStore:
             slots = pool_slots if pool_slots is not None \
                 else n_seqs * n_chunks
             self.pools = [DeviceChunkPool(slots, chunk, kv_heads, head_dim,
-                                          self.torch_dtype, self.device)
+                                          self.torch_dtype, self.device,
+                                          planes=self.planes)
                           for _ in range(n_layers)]
         shape = (rows, n_layers, n_chunks, self.planes, chunk, kv_heads,
                  head_dim)
@@ -525,13 +540,15 @@ class TieredKVStore:
     # ------------------------------------------------------------------
     @property
     def chunk_bytes(self) -> int:
-        """One chunk's stored payload (K+V planes)."""
+        """One chunk's stored payload: K+V planes, or the single latent
+        plane under the absorbed-MLA layout."""
         return (self.planes * self.chunk * self.kv_heads * self.head_dim
                 * self.dtype.itemsize)
 
     @property
     def abstract_bytes(self) -> int:
-        """One chunk's LKA abstract: the (min, max) box pair over the keys."""
+        """One chunk's LKA abstract: the (min, max) box pair over the key
+        plane (the latent plane for MLA) — the 2 is min+max, not planes."""
         return 2 * self.kv_heads * self.head_dim * self.dtype.itemsize
 
     @property
@@ -542,7 +559,7 @@ class TieredKVStore:
 
     @property
     def row_bytes(self) -> int:
-        """One appended token's stored bytes (K+V)."""
+        """One appended token's stored bytes (K+V, or one latent row)."""
         return (self.planes * self.kv_heads * self.head_dim
                 * self.dtype.itemsize)
 
@@ -591,8 +608,9 @@ class TieredKVStore:
         return "kv" if row == seq else "kv_shared"
 
     def _plane_stack(self, kc: np.ndarray, vc: np.ndarray) -> np.ndarray:
-        """One chunk's storage planes: (2, chunk, Hkv, hd)."""
-        return np.stack((kc, vc))
+        """One chunk's storage planes: (planes, chunk, Hkv, hd) — the K/V
+        pair, or just the latent plane under the MLA layout."""
+        return kc[None] if self.planes == 1 else np.stack((kc, vc))
 
     def _sidecar_ok(self, seq: int, layer: int, c: int) -> bool:
         """True when the packed sidecar serves this chunk's disk reads."""
@@ -756,11 +774,14 @@ class TieredKVStore:
     # Ingest (prefill) with write-behind cold half
     # ------------------------------------------------------------------
     @worker_thread
-    def ingest(self, layer: int, k: np.ndarray, v: np.ndarray,
+    def ingest(self, layer: int, k: np.ndarray,
+               v: Optional[np.ndarray] = None,
                placement: Optional[Dict[int, str]] = None, *, seq: int = 0,
                executor=None, pool_place: bool = True,
                start: int = 0) -> None:
-        """Store prefill KV.  k/v: (S, Hkv, hd).  Every chunk is replicated
+        """Store prefill KV.  k/v: (S, Hkv, hd); under the latent (MLA)
+        layout ``k`` carries the latent rows and ``v`` is ignored (may be
+        None).  Every chunk is replicated
         to disk (with its abstract, and its packed sidecar in a sidecar
         store); ``placement`` assigns the hot tier.  With ``executor`` the
         cold half (disk replica, sidecar and abstract writes and their
@@ -804,13 +825,15 @@ class TieredKVStore:
                     continue               # adopted by reference
                 row = shared.get(c, seq)
                 kr = k[j * self.chunk: (j + 1) * self.chunk]
-                vr = v[j * self.chunk: (j + 1) * self.chunk]
+                vr = kr if self.planes == 1 else \
+                    v[j * self.chunk: (j + 1) * self.chunk]
                 if kr.shape[0] < self.chunk:
                     pad = self.chunk - kr.shape[0]
                     kr = np.pad(kr, ((0, pad), (0, 0), (0, 0)))
-                    vr = np.pad(vr, ((0, pad), (0, 0), (0, 0)))
+                    vr = kr if self.planes == 1 else \
+                        np.pad(vr, ((0, pad), (0, 0), (0, 0)))
                 kc = kr.astype(self.dtype)
-                vc = vr.astype(self.dtype)
+                vc = kc if self.planes == 1 else vr.astype(self.dtype)
                 if c in plan:
                     # the pre-quantization rows: a warm adopter replays
                     # them into its cache, bitwise the cold prefill
@@ -840,7 +863,8 @@ class TieredKVStore:
                 # leolint: waive[locklint,threadlint] reason=decode-thread ingest only: to_pool fills only when pool_place=True, which the admission worker never passes (it defers via pending_place), and the slab update is an eager in-place device write, not a compiled dispatch
                 self._pool_place(layer, row, items)
         for row, (cids, kcs, vcs) in groups.items():
-            ks, vs = np.stack(kcs), np.stack(vcs)
+            ks = np.stack(kcs)
+            vs = ks if self.planes == 1 else np.stack(vcs)
             if executor is None:
                 self._ingest_cold(layer, row, cids, ks, vs, seq)
             else:
@@ -877,8 +901,9 @@ class TieredKVStore:
         if self.disk_sidecar:
             # quantize OUTSIDE the lock (pure compute on private arrays):
             # holding it here would stall the decode thread's fetches
+            planes = (kcs,) if self.planes == 1 else (kcs, vcs)
             packed = tuple(compression.quantize_chunks(p, self.transit_codec)
-                           for p in (kcs, vcs))
+                           for p in planes)
         # checksums over the exact bytes about to land, computed outside
         # the lock; CRC rows are metadata (4 B a chunk), not billed
         crcs = q_crcs = None
@@ -922,7 +947,8 @@ class TieredKVStore:
         with self._lock:
             idx = np.asarray(cids, np.int64)
             self._disk[seq, layer, idx, 0] = kcs
-            self._disk[seq, layer, idx, 1] = vcs
+            if self.planes == 2:
+                self._disk[seq, layer, idx, 1] = vcs
             self._abs_km[seq, layer, idx] = kcs.max(1)
             self._abs_kn[seq, layer, idx] = kcs.min(1)
             if crcs is not None:
@@ -1216,7 +1242,8 @@ class TieredKVStore:
             dst = (seq, layer, c)
             if src in self._host_k:
                 self._host_k[dst] = np.array(self._host_k[src])
-                self._host_v[dst] = np.array(self._host_v[src])
+                self._host_v[dst] = self._host_k[dst] if self.planes == 1 \
+                    else np.array(self._host_v[src])
                 self.tier[seq, layer, c] = HOST
             else:
                 self.tier[seq, layer, c] = DISK
@@ -1434,7 +1461,7 @@ class TieredKVStore:
                             # degrade to the lossless fp16 replica below
                             fell_back = True
                         else:
-                            kc, vc = kv[0][0], kv[0][1]
+                            kc, vc = kv[0][0], kv[0][-1]
                             nb = self._packed_bytes()
                     if kc is None:
                         try:
@@ -1447,7 +1474,7 @@ class TieredKVStore:
                             # the replica is gone too: the typed loss for
                             # the engine to recompute or contain
                             raise ChunkLostError(layer, [(seq, p, c)])
-                        kc, vc = blk[0][0], blk[0][1]
+                        kc, vc = blk[0][0], blk[0][-1]
                         nb = (self._disk_read_bytes() if self.disk_sidecar
                               else self._transit_bytes())
                     if fell_back:
@@ -1497,7 +1524,9 @@ class TieredKVStore:
                              skip_pool=False)
             kg = np.zeros((B, nmax, self.chunk, self.kv_heads, self.head_dim),
                           self.dtype)
-            vg = np.zeros_like(kg)
+            # latent layout: no V plane — the latent stack is returned in
+            # both positions instead of assembling a duplicate copy
+            vg = kg if self.planes == 1 else np.zeros_like(kg)
             for i, (seq, chunks) in enumerate(items):
                 for j, c in enumerate(chunks):
                     p = self._phys(seq, c)
@@ -1506,7 +1535,8 @@ class TieredKVStore:
                     if key in self._dev_k:
                         self._touch(key)
                         kg[i, j] = self._dev_k[key]
-                        vg[i, j] = self._dev_v[key]
+                        if self.planes == 2:
+                            vg[i, j] = self._dev_v[key]
                         continue
                     # the working set is assembled per sequence, so a
                     # shared chunk crosses the link once per reader:
@@ -1517,7 +1547,8 @@ class TieredKVStore:
                         self._promote_device(key, self._host_k[key],
                                              self._host_v[key])
                     kg[i, j] = self._host_k[key]
-                    vg[i, j] = self._host_v[key]
+                    if self.planes == 2:
+                        vg[i, j] = self._host_v[key]
             return kg, vg, nsel
 
     # ------------------------------------------------------------------
@@ -1581,7 +1612,7 @@ class TieredKVStore:
                              per_chunk)
                 billed += per_chunk
                 key = (p, layer, c)
-                self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
+                self._host_k[key], self._host_v[key] = blk[i][0], blk[i][-1]
                 if retier:
                     self.tier[p, layer, c] = HOST
         lost: List[Tuple[int, int, int]] = []
@@ -1607,7 +1638,7 @@ class TieredKVStore:
                                  nbytes)
                 billed += nbytes
                 key = (p, layer, c)
-                self._host_k[key], self._host_v[key] = blk[i][0], blk[i][1]
+                self._host_k[key], self._host_v[key] = blk[i][0], blk[i][-1]
                 if retier:
                     self.tier[p, layer, c] = HOST
         if lost:
@@ -1917,7 +1948,7 @@ class TieredKVStore:
                         continue
                     key = (seq, layer, c)
                     self._host_k[key], self._host_v[key] = \
-                        blk[i][0], blk[i][1]
+                        blk[i][0], blk[i][-1]
                     self.tier[seq, layer, c] = HOST
                     self._record(seq, DISK, HOST, "kv_swapin",
                                  float(self.chunk_bytes))
@@ -1946,16 +1977,18 @@ class TieredKVStore:
 
     @decode_thread_only
     def append_tokens_batch(self, layer: int, positions: np.ndarray,
-                            k_news: np.ndarray, v_news: np.ndarray, *,
+                            k_news: np.ndarray,
+                            v_news: Optional[np.ndarray], *,
                             seqs: Sequence[int]) -> None:
         """One round's appends for a layer: vectorized disk writes +
         abstract updates, host and legacy-device mirror updates, and the
         pool rows queued for the next slab flush.  positions: (B,),
-        k_news/v_news: (B, Hkv, hd) (f32 or the store dtype), seqs: (B,).
-        An append stales the chunk's sidecar scales and PQ codes: both are
-        invalidated until the requant sweep repacks the quiet chunk.  The
-        first append into a chunk held by reference privatizes it first
-        (copy-on-write, every layer at once)."""
+        k_news/v_news: (B, Hkv, hd) (f32 or the store dtype), seqs: (B,);
+        under the latent layout ``k_news`` carries the latent rows and
+        ``v_news`` is ignored.  An append stales the chunk's sidecar scales
+        and PQ codes: both are invalidated until the requant sweep repacks
+        the quiet chunk.  The first append into a chunk held by reference
+        privatizes it first (copy-on-write, every layer at once)."""
         with self._lock:
             sq = np.asarray(list(seqs), np.int64)
             pos = np.asarray(positions, np.int64)
@@ -1964,9 +1997,10 @@ class TieredKVStore:
                 for i in range(len(sq)):
                     self._cow(int(sq[i]), int(cs[i]))
             kd = k_news.astype(self.dtype)
-            vd = v_news.astype(self.dtype)
+            vd = kd if self.planes == 1 else v_news.astype(self.dtype)
             self._disk[sq, layer, cs, 0, offs] = kd
-            self._disk[sq, layer, cs, 1, offs] = vd
+            if self.planes == 2:
+                self._disk[sq, layer, cs, 1, offs] = vd
             if self._crc_state is not None:
                 # append-dirtied: the replica changed under its checksum
                 # (served unverified until the sweep re-checksums it)
@@ -1996,10 +2030,12 @@ class TieredKVStore:
                 key = (seq, layer, c)
                 if key in self._host_k:
                     self._host_k[key][off] = kd[i]
-                    self._host_v[key][off] = vd[i]
+                    if self.planes == 2:
+                        self._host_v[key][off] = vd[i]
                 if key in self._dev_k:
                     self._dev_k[key][off] = kd[i]
-                    self._dev_v[key][off] = vd[i]
+                    if self.planes == 2:
+                        self._dev_v[key][off] = vd[i]
                 if pool is not None and (seq, c) in pool.slot_of:
                     # H2D billing happens when the flush carries the row
                     pool.queue_row((seq, c), off,
@@ -2203,16 +2239,17 @@ class TieredKVStore:
         version so that an in-flight repack of the old bytes aborts.
         Billed as ``kv_recompute``."""
         kc = np.asarray(k_rows, dtype=self.dtype)
-        vc = np.asarray(v_rows, dtype=self.dtype)
+        vc = kc if self.planes == 1 else np.asarray(v_rows, dtype=self.dtype)
         if kc.shape[0] < self.chunk:
             pad = np.zeros((self.chunk - kc.shape[0],) + kc.shape[1:],
                            dtype=self.dtype)
             kc = np.concatenate([kc, pad], axis=0)
-            vc = np.concatenate([vc, pad], axis=0)
+            vc = kc if self.planes == 1 else np.concatenate([vc, pad], axis=0)
         with self._lock:
             p = self._phys(seq, c)
             self._disk[p, layer, c, 0] = kc
-            self._disk[p, layer, c, 1] = vc
+            if self.planes == 2:
+                self._disk[p, layer, c, 1] = vc
             self._abs_km[p, layer, c] = kc.max(axis=0)
             self._abs_kn[p, layer, c] = kc.min(axis=0)
             self._sidecar_valid[p, layer, c] = False

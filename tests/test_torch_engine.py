@@ -172,8 +172,10 @@ def test_single_sequence_wrapper_and_release(setup):
     {"prefix_cache": True, "config": "deepseek-v2-lite-16b"},
     {"debug_sync": True}])
 def test_unported_engine_options_raise(setup, opt):
-    """The prefix cache runs now (tests/test_torch_prefix_cache.py); on an
-    MLA model it still refuses, naming MLA's item."""
+    """The prefix cache and MLA models run now
+    (tests/test_torch_prefix_cache.py, tests/test_torch_mla_engine.py);
+    the prefix cache on an MLA model still refuses, naming its item
+    (A7b)."""
     _, tcfg, _, tparams, _ = setup
     opt = dict(opt)
     if "config" in opt:

@@ -26,8 +26,9 @@ from repro_torch.kernels.chunk_bounds import ops as cb_ops
 from repro_torch.kernels.kv_quant import ops as kq_ops
 from repro_torch.kernels.pq import ops as pq_ops
 from repro_torch.kernels.sparse_decode import ops as sd_ops
-from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
-                                                   bf16_agreement)
+from repro_torch.kernels.sparse_decode.ref import (
+    BF16_MAX_MISMATCH, bf16_agreement, latent_agreement, latent_pooled_den,
+    sparse_decode_latent_pooled_ref, tied_latent_case)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1011,3 +1012,211 @@ def test_pq_unsupported_cuda_shapes_raise(cuda, rng, case):
         with pytest.raises(ValueError, match="not a supported CUDA shape"):
             pq_ops.pq_update(x, codes, K)
     assert (pq_ops.assign_launches, pq_ops.update_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The latent (MLA) variants of B1 and B2, and B3 on one plane
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,D,nc", [
+    (1, 4, 40, 5), (2, 7, 64, 1), (3, 16, 576, 130),
+    (4, 16, 576, 57),               # deepseek-v2-lite's serve shape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_chunk_bounds_latent_cuda(cuda, rng, B, H, D, nc, dtype):
+    """B1's latent variant against its plain version (the GQA bound at one
+    kv head): f32 sums in another order."""
+    q = _t(rng.randn(B, H, D).astype(np.float32) / 8, cuda, dtype)
+    km = _t(rng.randn(B, nc, 1, D).astype(np.float32), cuda)
+    kn = km - _t(np.abs(rng.randn(B, nc, 1, D)).astype(np.float32), cuda)
+    ub_r, lb_r = cb_ops.chunk_bounds_latent(q, km, kn, impl="ref")
+    before = cb_ops.latent_launches
+    ub_k, lb_k = cb_ops.chunk_bounds_latent(q, km, kn)
+    assert cb_ops.latent_launches == before + 1
+    assert ub_k.shape == (B, 1, nc)
+    torch.testing.assert_close(ub_k, ub_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(lb_k, lb_r, rtol=1e-5, atol=1e-4)
+
+
+def test_chunk_bounds_latent_unsupported_shape_raises(cuda, rng):
+    """Two kv heads, or D not a multiple of 4, raise; never the plain
+    version instead."""
+    q = _t(rng.randn(1, 4, 40).astype(np.float32), cuda)
+    before = cb_ops.latent_launches
+    for shape in ((1, 3, 2, 40), (1, 3, 1, 42)):
+        km = _t(rng.randn(*shape).astype(np.float32), cuda)
+        qq = q if shape[-1] == 40 else _t(rng.randn(1, 4, 42).astype(
+            np.float32), cuda)
+        with pytest.raises(ValueError, match="CUDA contract"):
+            cb_ops.chunk_bounds_latent(qq, km, km - 1)
+    assert cb_ops.latent_launches == before
+
+
+def _latent_inputs(rng, dev, B, H, D, chunk, n_slots, nmax, dtype):
+    """A one-plane fp16 pool, pre-scaled queries, ragged selections with
+    padding (-1) and lengths inside each last chunk, the round's rows."""
+    pool = _t(rng.randn(n_slots + 1, 1, chunk, 1, D).astype(np.float16), dev)
+    q = _t(rng.randn(B, H, D).astype(np.float32) / np.sqrt(D), dev, dtype)
+    lat_new = _t(rng.randn(B, D).astype(np.float32), dev, dtype)
+    slots = np.zeros((B, nmax), np.int32)
+    cids = np.full((B, nmax), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b in range(B):
+        n = rng.randint(1, nmax + 1)
+        slots[b, :n] = rng.choice(n_slots, n, replace=False)
+        cids[b, :n] = np.sort(rng.choice(4 * nmax, n, replace=False))
+        lengths[b] = cids[b, n - 1] * chunk + rng.randint(1, chunk + 1)
+    return (q, pool, _t(slots, dev), _t(cids, dev), _t(lengths, dev),
+            lat_new)
+
+
+@pytest.mark.parametrize("B,H,D,r,chunk,nmax", [
+    (2, 4, 40, 32, 16, 6), (3, 8, 128, 96, 32, 9),
+    (4, 16, 576, 512, 64, 44),      # deepseek-v2-lite's serve shape
+    (1, 16, 576, 512, 64, 200),     # a long selection: many splits
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_decode_latent_pooled_cuda(cuda, rng, B, H, D, r, chunk, nmax,
+                                          dtype):
+    args = _latent_inputs(rng, cuda, B, H, D, chunk, 3 * nmax, nmax, dtype)
+    ref = sd_ops.sparse_decode_latent_pooled(*args, r, impl="ref")
+    before = sd_ops.latent_launches
+    out = sd_ops.sparse_decode_latent_pooled(*args, r)
+    assert sd_ops.latent_launches == before + 1
+    assert out.shape == (B, H, r) and out.dtype == torch.float32
+    err, bar = latent_agreement(out, ref, (args[1], args[5]),
+                                latent_pooled_den(*args, r))
+    assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize("B,H,D,r,chunk,nmax", [
+    (2, 4, 40, 32, 16, 6), (4, 16, 576, 512, 64, 12)])
+def test_sparse_decode_latent_workingset_cuda(cuda, rng, B, H, D, r, chunk,
+                                              nmax):
+    """The legacy working set read in place: against its plain version,
+    and bitwise against the pooled call over the same rows (same kernel,
+    mask and split plan)."""
+    q, pool, slots, cids, lengths, lat_new = _latent_inputs(
+        rng, cuda, B, H, D, chunk, 3 * nmax, nmax, torch.bfloat16)
+    latg = pool[slots.long()].reshape(B, nmax, chunk, 1, D).contiguous()
+    out = sd_ops.sparse_decode_latent_workingset(q, latg, cids, lengths,
+                                                 lat_new, r)
+    ref = sd_ops.sparse_decode_latent_workingset(q, latg, cids, lengths,
+                                                 lat_new, r, impl="ref")
+    err, bar = latent_agreement(out, ref, (latg, lat_new), latent_pooled_den(
+        q, pool, slots, cids, lengths, lat_new, r))
+    assert err <= bar, (err, bar)
+    pooled = sd_ops.sparse_decode_latent_pooled(q, pool, slots, cids,
+                                                lengths, lat_new, r)
+    assert torch.equal(out, pooled)
+
+
+def test_sparse_decode_latent_bar_sees_unrounded_p(cuda):
+    """The agreement bar is tight enough to see a P.V that does not round
+    each probability to fp16 (``tied_latent_case``: every probability of a
+    head is one value a quarter fp16 ulp or more from fp16): the kernel
+    passes it, and the plain version over an f32 pool, which leaves p
+    unrounded, fails it by more than four bars."""
+    q, pool, slots, cids, lengths, lat_new = tied_latent_case(cuda)
+    args = (slots, cids, lengths, lat_new, 512)
+    ref = sd_ops.sparse_decode_latent_pooled(q, pool, *args, impl="ref")
+    den = latent_pooled_den(q, pool, *args)
+    out = sd_ops.sparse_decode_latent_pooled(q, pool, *args)
+    err, bar = latent_agreement(out, ref, (pool, lat_new), den)
+    assert err <= bar, (err, bar)
+    unrounded = sparse_decode_latent_pooled_ref(q, pool.float(), *args)
+    err_u, _ = latent_agreement(unrounded, ref, (pool, lat_new), den)
+    assert err_u > 4 * bar, (err_u, bar)
+
+
+def test_sparse_decode_latent_two_launches_bitwise(cuda, rng):
+    """No float atomics: two calls give bitwise-equal outputs."""
+    args = _latent_inputs(rng, cuda, 4, 16, 576, 64, 132, 44,
+                          torch.bfloat16)
+    a = sd_ops.sparse_decode_latent_pooled(*args, 512)
+    b = sd_ops.sparse_decode_latent_pooled(*args, 512)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["H17", "D706", "r514", "bf16_pool",
+                                  "two_planes"])
+def test_sparse_decode_latent_unsupported_shapes_raise(cuda, rng, case):
+    """Shapes the latent kernel does not take raise; never the plain
+    version instead."""
+    H = 17 if case == "H17" else 4
+    D = 706 if case == "D706" else 576
+    r = 514 if case == "r514" else 512
+    q, pool, slots, cids, lengths, lat_new = _latent_inputs(
+        rng, cuda, 2, H, D, 16, 12, 4, torch.bfloat16)
+    if case == "bf16_pool":
+        pool = pool.to(torch.bfloat16)
+    if case == "two_planes":
+        pool = torch.cat([pool, pool], dim=1)
+    before = sd_ops.latent_launches
+    with pytest.raises(ValueError, match="sparse_decode"):
+        sd_ops.sparse_decode_latent_pooled(q, pool, slots, cids, lengths,
+                                           lat_new, r)
+    assert sd_ops.latent_launches == before
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("n", [1, 16])
+def test_kv_dequant_scatter_one_plane_cuda_bitwise(cuda, rng, codec, n):
+    """B3 into a one-plane latent slab (S, 1, 64, 1, 576), as the MLA
+    store's codec upload writes it: bitwise the plain version, the slots
+    it was not given untouched, two launches equal."""
+    d, c = 576, 64
+    dp = d if codec == "int8" else d // 2
+    data = _t(rng.randint(-128, 128, (n, c, dp)).astype(np.int8), cuda)
+    scale = _t(np.abs(rng.randn(n, d)).astype(np.float32) + 0.01, cuda)
+    slab = _t(rng.randn(n + 5, 1, c, 1, d).astype(np.float16), cuda)
+    slots = rng.permutation(n + 5)[:n].tolist()
+    _scatter_matches_plain(codec, data, scale, slab, slots)
+    other = slab.clone()
+    kq_ops.kv_dequant_scatter(data, scale, other, slots, codec=codec)
+    assert torch.equal(slab, other)
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.5])
+def test_fetch_chunks_pooled_latent_cuda_matches_plain_scatter(cuda, tmp_path,
+                                                               theta):
+    """The latent (one-plane) store's codec upload through B3 leaves the
+    same (S, 1, chunk, 1, 576) slab, slots and billing as the same store
+    with the plain scatter, over rounds with evictions and queued
+    decode-append rows (the latent rows in the K position, no V)."""
+    from repro_torch.serving.offload import HOST, TieredKVStore
+    L, NC, C, D = 1, 8, 16, 576
+    stores = {impl: TieredKVStore(
+        L, NC, C, 1, D, n_seqs=2, transit_codec="int4", use_pool=True,
+        pool_slots=9, real_codec=True, latent=True,
+        root=str(tmp_path / str(impl)), device="cuda", impl=impl)
+        for impl in (None, "ref")}
+    out = {}
+    before = kq_ops.launches
+    for impl, store in stores.items():
+        rng = np.random.RandomState(0)
+        for seq in range(2):
+            lat = rng.randn(NC * C, 1, D).astype(np.float32)
+            store.ingest(0, lat, None, {c: HOST for c in range(NC)}, seq=seq)
+        res = []
+        for rnd in range(4):
+            sels = {seq: sorted(rng.choice(NC, 4, replace=False).tolist())
+                    for seq in range(2)}
+            slots, nsel, st = store.fetch_chunks_pooled(0, sels, theta=theta)
+            res.append((slots.tolist(), st.uploads, st.compressed,
+                        st.upload_bytes))
+            store.append_tokens_batch(
+                0, np.array([NC * C - 8 + rnd] * 2),
+                rng.randn(2, 1, D).astype(np.float32), None, seqs=[0, 1])
+        torch.cuda.synchronize()
+        assert tuple(store.pools[0].kv.shape[1:]) == (1, C, 1, D)
+        out[impl] = (res, store.pools[0].kv.clone(), store.codec_uploads,
+                     dict(store.log.bytes))
+        store.close()
+    assert out[None][0] == out["ref"][0]
+    assert torch.equal(out[None][1], out["ref"][1])
+    assert out[None][2] == out["ref"][2] > 0
+    assert out[None][3] == out["ref"][3]
+    assert kq_ops.launches > before

@@ -1,0 +1,505 @@
+"""The port's MLA serving path against ``repro``: the latent (one-plane)
+tier store and the engine on the deepseek-v2-lite smoke config (latent
+width 40, MoE body layers), as ``tests/test_mla_chunked_admission.py``
+builds it, with the same weights (a JAX ``lm.init`` tree carried across)
+and the same numpy prompts.
+
+What must hold against the same mode of ``repro``: identical token streams,
+TrafficLogs (bytes and ops), tier labels and pool slot maps, for the
+synchronous, overlapped and chunked admissions, pooled (real int4 codec)
+and legacy (``pooled=False``).  The stored latent rows come out of each
+framework's own prefill (within 1e-5) and are rounded to fp16 once: they
+are held to one fp16 ulp plus 1e-5.  Store scripts fed the same latent
+rows give bitwise-equal replicas, abstracts and sidecars, and equal bills.
+
+C1 (ROADMAP): the reference's whole-prompt and chunked MLA admissions
+store replicas that differ by one fp16 ulp in a few elements
+(``test_mla_partial_engine_ingest_matches_whole_ingest`` fails on the
+reference side).  Here each of the port's modes is held against the same
+mode in ``repro``, and the port's own whole-vs-chunked gap is measured
+and held to one fp16 ulp.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro.core import compression as jcompression
+from repro.models import lm as jlm
+from repro.serving.engine import BatchedLeoAMEngine as JEngine
+from repro.serving.engine import EngineCfg as JCfg
+from repro.serving.offload import TieredKVStore as JStore
+from repro.serving.scheduler import ContinuousBatcher as JBatcher
+from repro.serving.scheduler import Request as JRequest
+from repro.serving.scheduler import SchedulerCfg as JSched
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.core import compression
+from repro_torch.models.params import params_from_jax
+from repro_torch.serving.engine import BatchedLeoAMEngine as TEngine
+from repro_torch.serving.engine import EngineCfg as TCfg
+from repro_torch.serving.offload import DEVICE, DISK, HOST
+from repro_torch.serving.offload import TieredKVStore as TStore
+from repro_torch.serving.scheduler import ContinuousBatcher as TBatcher
+from repro_torch.serving.scheduler import Request as TRequest
+from repro_torch.serving.scheduler import SchedulerCfg as TSched
+
+D = 40                                 # the smoke config's latent width
+LENS, THETA, KV_TOL = (48, 57, 64, 50), 0.5, 1e-5
+
+
+def _cfg(get):
+    cfg = get("deepseek-v2-lite-16b", smoke=True)
+    return dataclasses.replace(
+        cfg, leoam=dataclasses.replace(cfg.leoam, chunk_size=16,
+                                       importance_rate=0.4, early_rate=0.6,
+                                       min_seq_for_sparse=32))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg, tcfg = _cfg(get_config), _cfg(t_get_config)
+    params = jlm.init(cfg, jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), "cpu")
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(2, cfg.vocab_size, n) for n in LENS]
+    return cfg, tcfg, params, tparams, prompts
+
+
+def _engine(port, setup, max_seqs=1, **kw):
+    cfg, tcfg, params, tparams, _ = setup
+    kw.setdefault("max_len", 128)
+    if port:
+        eng = TEngine(tcfg, tparams, TCfg(selection="tree", **kw),
+                      max_seqs=max_seqs, device="cpu")
+    else:
+        eng = JEngine(cfg, params, JCfg(selection="tree", **kw),
+                      max_seqs=max_seqs)
+    eng._theta = lambda li: THETA      # θ comes from wall clock: pin it
+    return eng
+
+
+# ---------------------------------------------------------------------------
+# The latent store (ports of the reference's three store tests)
+# ---------------------------------------------------------------------------
+
+
+def _store(port, **kw):
+    return TStore(device="cpu", **kw) if port else JStore(**kw)
+
+
+def _both(**kw):
+    return (_store(False, **kw), _store(True, **kw))
+
+
+def _store_kw(**kw):
+    out = dict(n_layers=1, n_chunks=4, chunk=16, kv_heads=1, head_dim=D,
+               n_seqs=1, transit_codec="int4", latent=True)
+    out.update(kw)
+    return out
+
+
+def test_latent_store_single_plane_accounting(rng):
+    """ONE latent plane: chunk and row bytes cover exactly the latent
+    payload (no phantom V), abstracts are the min/max box over the latent
+    rows, the pool slab is (S, 1, chunk, 1, D), and the packed sidecar
+    obeys the one-plane codec identity — in the port as in ``repro``."""
+    lat = rng.randn(48, 1, D).astype(np.float16)
+    out = []
+    for st_ in _both(**_store_kw(use_pool=True, disk_sidecar=True)):
+        assert st_.planes == 1
+        assert st_.chunk_bytes == 16 * D * 2
+        assert st_.row_bytes == D * 2
+        assert st_.abstract_bytes == 2 * D * 2
+        st_.ingest(0, lat, None, {0: DEVICE, 1: HOST, 2: DISK})
+        km, kn = st_.read_abstracts(0, [2])
+        np.testing.assert_allclose(km[0], lat[32:48].max(0), atol=1e-3)
+        np.testing.assert_allclose(kn[0], lat[32:48].min(0), atol=1e-3)
+        assert tuple(st_.pools[0].kv.shape) == \
+            (st_.pools[0].n_slots + 1, 1, 16, 1, D)
+        st_.demote(0, [2], to=DISK)
+        _, _, fst = st_.fetch_chunks_pooled(0, {0: [2]})
+        packed = st_.chunk_bytes * compression.codec_ratio("int4", group=16)
+        assert fst.disk_bytes == pytest.approx(packed)
+        assert packed == st_.chunk_bytes * jcompression.codec_ratio(
+            "int4", group=16)
+        out.append((km, kn, dict(st_.log.bytes), dict(st_.log.ops),
+                    np.asarray(st_.pools[0].kv[:, 0]).astype(np.float32)))
+        st_.close()
+    (jkm, jkn, jb, jo, jpool), (tkm, tkn, tb, to, tpool) = out
+    np.testing.assert_array_equal(tkm, jkm)
+    np.testing.assert_array_equal(tkn, jkn)
+    assert tb == jb and to == jo
+    np.testing.assert_array_equal(tpool, jpool)
+
+
+def test_latent_partial_ingest_matches_whole(rng):
+    """Chunk-aligned partial ingest of LATENT rows lands the same replicas,
+    abstracts, tiers and bills as one whole-sequence ingest — and both
+    equal the reference's, byte for byte."""
+    lat = rng.randn(64, 1, D).astype(np.float16)
+    place = {0: DEVICE, 1: HOST, 2: DISK, 3: DISK}
+    res = []
+    for j in (0, 1):
+        whole = _store(j, **_store_kw())
+        whole.ingest(0, lat, None, place)
+        part = _store(j, **_store_kw())
+        for start in (0, 16, 32):
+            n = 16 if start < 32 else 32
+            part.ingest(0, lat[start:start + n], None, place, start=start)
+        for a, b in ((whole, part),):
+            np.testing.assert_array_equal(np.asarray(a._disk),
+                                          np.asarray(b._disk))
+            np.testing.assert_array_equal(a._abs_km, b._abs_km)
+            np.testing.assert_array_equal(a._abs_kn, b._abs_kn)
+            assert list(a.tier[0, 0]) == list(b.tier[0, 0])
+            assert a.log.total() == b.log.total()
+        res.append((np.asarray(whole._disk), whole._abs_km.copy(),
+                    dict(whole.log.bytes)))
+        whole.close()
+        part.close()
+    (jd, jk, jb), (td, tk, tb) = res
+    np.testing.assert_array_equal(td, jd)
+    np.testing.assert_array_equal(tk, jk)
+    assert tb == jb
+
+
+def test_latent_sidecar_partial_ingest_matches_whole(rng):
+    """Partial vs whole ingest parity extends to the packed int4 sidecar
+    (payload + scales) and its billing, and both equal the reference's."""
+    lat = rng.randn(64, 1, D).astype(np.float16)
+    res = []
+    for j in (0, 1):
+        stores = []
+        for starts in ((0,), (0, 32)):
+            s = _store(j, **_store_kw(disk_sidecar=True))
+            for start in starts:
+                n = 64 if len(starts) == 1 else 32
+                s.ingest(0, lat[start:start + n], None,
+                         {c: DISK for c in range(4)}, start=start)
+            stores.append(s)
+        whole, part = stores
+        np.testing.assert_array_equal(np.asarray(whole._disk_q),
+                                      np.asarray(part._disk_q))
+        np.testing.assert_array_equal(np.asarray(whole._disk_scale),
+                                      np.asarray(part._disk_scale))
+        assert whole.log.total() == part.log.total()
+        res.append((np.asarray(whole._disk_q), np.asarray(whole._disk_scale),
+                    dict(whole.log.bytes), int(whole._q_crc[0, 0, 1])))
+        whole.close()
+        part.close()
+    for t, j in zip(res[1], res[0]):
+        if isinstance(t, np.ndarray):
+            np.testing.assert_array_equal(t, j)
+        else:
+            assert t == j
+
+
+@pytest.mark.parametrize("pooled", [True, False], ids=["pooled", "legacy"])
+def test_latent_store_script_matches_reference(rng, pooled):
+    """One script over both stores (ingest, appends into a resident and a
+    disk chunk, fetches, a demotion, the legacy working set): bills,
+    tiers, replicas, abstracts and what the fetches return are equal; the
+    legacy gather returns the latent stack in both positions."""
+    lat = rng.randn(2, 60, 1, D).astype(np.float16)
+    rows = rng.randn(3, 2, 1, D).astype(np.float16)
+    outs = []
+    for st_ in _both(**_store_kw(use_pool=pooled, n_seqs=2, real_codec=True,
+                                 device_budget=None if pooled else 6)):
+        got = []
+        for s in (0, 1):
+            st_.ingest(0, lat[s], None, {0: DEVICE, 1: HOST, 2: DISK, 3: DISK},
+                       seq=s)
+        for i, pos in enumerate((60, 61, 62)):
+            st_.append_tokens_batch(0, np.array([pos, pos]), rows[i], None,
+                                    seqs=[0, 1])
+            if pooled:
+                slots, _, fst = st_.fetch_chunks_pooled(
+                    0, {0: [0, 2, 3], 1: [1, 3]}, theta=THETA)
+                got.append((slots.tolist(), fst.uploads, fst.disk_bytes))
+            else:
+                kg, vg, nsel = st_.fetch_chunks_batch(
+                    0, {0: [0, 2, 3], 1: [1, 3]})
+                assert vg is kg
+                got.append((kg.astype(np.float32), nsel.tolist()))
+            st_.demote(0, [2], to=DISK, seq=1)
+        outs.append((got, dict(st_.log.bytes), dict(st_.log.ops),
+                     st_.tier.copy(), np.asarray(st_._disk).copy(),
+                     st_._abs_km.copy(), st_._abs_kn.copy()))
+        st_.close()
+    (jg, *jrest), (tg, *trest) = outs
+    for a, b in zip(tg, jg):
+        for x, y in zip(a, b):
+            if isinstance(x, np.ndarray):
+                np.testing.assert_array_equal(x, y)
+            else:
+                assert x == y
+    assert trest[0] == jrest[0] and trest[1] == jrest[1]
+    for x, y in zip(trest[2:], jrest[2:]):
+        np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# Engine: the admission modes, pooled and legacy, against repro
+# ---------------------------------------------------------------------------
+
+
+def _snapshot(eng, out=None):
+    st = eng.store
+    st.ingest_fence_all()
+    st.requant_fence()
+    return dict(out=out, bytes=dict(st.log.bytes), ops=dict(st.log.ops),
+                disk=np.array(st._disk), km=st._abs_km.copy(),
+                kn=st._abs_kn.copy(), tier=st.tier.copy(),
+                slots=[dict(p.slot_of) for p in st.pools if p is not None])
+
+
+def _kv_close(t, j):
+    """Stored latent rows of the two frameworks: each one's prefill within
+    1e-5, then rounded to fp16 once."""
+    fin = np.isfinite(j)
+    assert np.array_equal(fin, np.isfinite(t))
+    t, j = t[fin].astype(np.float32), j[fin].astype(np.float32)
+    ulp = np.spacing(np.maximum(np.abs(t), np.abs(j)).astype(
+        np.float16)).astype(np.float32)
+    assert np.all(np.abs(t - j) <= ulp + KV_TOL), np.abs(t - j).max()
+
+
+def _admit_all(eng, prompts, mode):
+    toks = {}
+    for p in prompts:
+        if mode == "sync":
+            sid, tok = eng.add_sequence(p)
+        elif mode == "async":
+            sid, tok = eng.add_sequence_async(p).result(timeout=300)
+        else:
+            sid, tok = eng.begin_admission(p).drain()
+        toks[sid] = tok
+    return toks
+
+
+_RUNS = {}
+
+
+def _run(port, setup, mode, rounds=4, **kw):
+    key = (port, mode, tuple(sorted(kw.items())))
+    if key not in _RUNS:
+        eng = _engine(port, setup, max_seqs=len(LENS),
+                      prefill_chunk_tokens=32, **kw)
+        toks = _admit_all(eng, setup[4], mode)
+        admitted = _snapshot(eng, dict(toks))
+        out = {sid: [t] for sid, t in toks.items()}
+        for _ in range(rounds):
+            toks = eng.decode_round(toks)
+            for sid, t in toks.items():
+                out[sid].append(t)
+        _RUNS[key] = (admitted, _snapshot(eng, out))
+        eng.store.close()
+    return _RUNS[key]
+
+
+def _same(t, j, kv=True):
+    assert t["out"] == j["out"]
+    assert t["bytes"] == j["bytes"] and t["ops"] == j["ops"]
+    assert np.array_equal(t["tier"], j["tier"])
+    assert t["slots"] == j["slots"]
+    for k in ("disk", "km", "kn") if kv else ():
+        _kv_close(t[k], j[k])
+
+
+@pytest.mark.parametrize("mode", ["sync", "async", "chunked"])
+def test_engine_mode_matches_reference(setup, mode):
+    """Each admission mode, pooled with the real int4 codec: streams,
+    TrafficLogs, tiers and pool slots equal to ``repro``'s after admission
+    and after four decode rounds; the stored latent rows within one fp16
+    ulp."""
+    kw = dict(real_codec=True, cpu_chunk_frac=0.2)
+    jt, jd = _run(False, setup, mode, **kw)
+    tt, td = _run(True, setup, mode, **kw)
+    _same(tt, jt)
+    _same(td, jd, kv=False)
+
+
+@pytest.mark.parametrize("mode", ["sync", "chunked"])
+def test_engine_legacy_matches_reference(setup, mode):
+    """``pooled=False``: the latent working set assembled on the host and
+    uploaded whole, B2's latent variant reading it in place — streams and
+    bills equal to ``repro``'s legacy engine."""
+    kw = dict(pooled=False, pipeline=False)
+    jt, jd = _run(False, setup, mode, **kw)
+    tt, td = _run(True, setup, mode, **kw)
+    _same(tt, jt)
+    _same(td, jd, kv=False)
+
+
+def test_engine_sidecar_matches_reference(setup):
+    """The packed int4 disk sidecar on the latent layout: streams and bills
+    (``kv_replica`` at the packed one-plane size) equal to ``repro``'s."""
+    kw = dict(disk_sidecar=True, real_codec=True, cpu_chunk_frac=0.2)
+    jt, jd = _run(False, setup, "chunked", **kw)
+    tt, td = _run(True, setup, "chunked", **kw)
+    _same(tt, jt)
+    _same(td, jd, kv=False)
+
+
+def test_modes_store_the_same_rows_inside_the_port(setup):
+    """Overlapped admission stores the synchronous bytes bit for bit, and
+    every mode gives the synchronous token streams."""
+    kw = dict(real_codec=True, cpu_chunk_frac=0.2)
+    sync_t, sync_d = _run(True, setup, "sync", **kw)
+    async_t, async_d = _run(True, setup, "async", **kw)
+    for k in ("disk", "km", "kn"):
+        assert np.array_equal(sync_t[k], async_t[k]), k
+    chunk_t, chunk_d = _run(True, setup, "chunked", **kw)
+    assert sync_d["out"] == async_d["out"] == chunk_d["out"]
+
+
+def test_c1_whole_and_chunked_replicas_per_mode(setup, rng):
+    """C1: a 57-token prompt admitted whole and chunked (16-token steps).
+    Each of the port's modes equals the same mode of ``repro`` (one fp16
+    ulp), and the port's whole-vs-chunked gap stays within one fp16 ulp of
+    each element, as the reference's does (39 of 20 480 elements by at
+    most 0.000977 on this prompt, which its bitwise test refuses)."""
+    cfg = setup[0]
+    prompt = rng.randint(2, cfg.vocab_size, 57)
+    res = {}
+    for port in (False, True):
+        for chunked in (False, True):
+            eng = _engine(port, setup, prefill_chunk_tokens=16)
+            if chunked:
+                eng.begin_admission(prompt).drain()
+            else:
+                eng.add_sequence(prompt)
+            eng.store.ingest_fence(0)
+            res[port, chunked] = (np.array(eng.store._disk),
+                                  eng.store._abs_km.copy())
+            eng.store.close()
+    for chunked in (False, True):
+        _kv_close(res[True, chunked][0], res[False, chunked][0])
+        _kv_close(res[True, chunked][1], res[False, chunked][1])
+    whole, chunk = res[True, False][0], res[True, True][0]
+    _kv_close(chunk, whole)
+    gap = np.abs(whole.astype(np.float32) - chunk.astype(np.float32))
+    ref_gap = np.abs(res[False, False][0].astype(np.float32)
+                     - res[False, True][0].astype(np.float32))
+    assert int((gap > 0).sum()) <= int((ref_gap > 0).sum())
+
+
+def _corrupt_chunk(eng, sid, c):
+    """Change a latent replica value of ``sid``'s chunk ``c`` in every
+    layer and drop its hot copies, so the next fetch reads the replica."""
+    st = eng.store
+    for li in range(len(eng.attn_layers)):
+        st._disk[sid, li, c, 0].reshape(-1)[0] += np.float16(1.0)
+        st._host_k.pop((sid, li, c), None)
+        st._host_v.pop((sid, li, c), None)
+        st.tier[sid, li, c] = DISK
+        pool = st.pools[li]
+        slot = pool.slot_of.pop((sid, c), None)
+        if slot is not None:
+            pool.free.append(slot)
+
+
+def test_replica_loss_recovery_matches_reference(setup):
+    """Recompute-from-prompt on the latent layout: a prompt chunk's
+    corrupted replica is recomputed by replaying chunked MLA prefill and
+    re-landed on one plane (``restore_chunk``) — streams, counters and
+    TrafficLogs equal to ``repro``'s, the restored rows within one fp16
+    ulp of its."""
+    res = {}
+    for port in (True, False):
+        eng = _engine(port, setup, max_seqs=2, pipeline=False,
+                      prefill_chunk_tokens=32)
+        toks = {}
+        for p in setup[4][:2]:
+            sid, tok = eng.add_sequence(p)
+            toks[sid] = tok
+        out = {sid: [] for sid in toks}
+        for rnd in range(3):
+            if rnd == 1:
+                _corrupt_chunk(eng, 0, 0)
+            toks = eng.decode_round(toks)
+            for sid, t in toks.items():
+                out[sid].append(t)
+        st = eng.store
+        res[port] = dict(out=out, faults=eng.fault_stats(),
+                         bytes=dict(st.log.bytes), ops=dict(st.log.ops),
+                         restored=np.array(st._disk[0, :, 0]))
+        st.close()
+    t, j = res[True], res[False]
+    assert t["faults"]["chunks_recomputed"] >= 1
+    assert t["out"] == j["out"]
+    assert {k: j["faults"][k] for k in t["faults"]} == t["faults"]
+    assert t["bytes"] == j["bytes"] and t["ops"] == j["ops"]
+    # the restored chunk came out of each framework's chunked prefill
+    _kv_close(t["restored"], j["restored"])
+
+
+@pytest.mark.parametrize("L", [31, 32, 33, 63, 64, 65])
+def test_bucketed_prefill_token_identical_at_bucket_edges(setup, L):
+    """Bucket edges L, L±1: bucketed MLA admission decodes the exact token
+    stream of exact-length admission (the port of the reference test of
+    the same kind)."""
+    cfg = setup[0]
+    prompt = np.random.RandomState(100 + L).randint(2, cfg.vocab_size, L)
+    outs = []
+    for bucket in (False, True):
+        eng = _engine(True, setup, bucket_prefill=bucket)
+        sid, tok = eng.add_sequence(prompt)
+        out, toks = [tok], {sid: tok}
+        for _ in range(3):
+            toks = eng.decode_round(toks)
+            out.append(toks[sid])
+        eng.store.close()
+        outs.append(out)
+    assert outs[0] == outs[1]
+
+
+def _drive(port, setup, chunked, order, budget):
+    cfg, tcfg, params, tparams, prompts = setup
+    eng = _engine(port, setup, max_seqs=3, prefill_chunk_tokens=16)
+    Batcher, Sched, Req = (TBatcher, TSched, TRequest) if port else \
+        (JBatcher, JSched, JRequest)
+    b = Batcher(cfg=Sched(max_active=2, chunk=16, chunked_admission=chunked,
+                          prefill_round_tokens=budget), engine=eng)
+    for i in order:
+        b.submit(Req(i, prompts[i], max_new=4))
+    out = {r.rid: r.out for r in b.run()}
+    eng.store.close()
+    return out
+
+
+def test_batcher_chunked_admission_parity(setup):
+    """``ContinuousBatcher(chunked_admission=True)`` serves the MLA model
+    with the whole-prompt token streams, and with the reference's."""
+    order, budget = [2, 0, 3, 1], 32
+    got = _drive(True, setup, True, order, budget)
+    assert got == _drive(True, setup, False, order, budget)
+    assert got == _drive(False, setup, True, order, budget)
+
+
+def test_oversized_prompt_and_capacity_raise(setup):
+    """Admission guards raise actionable ValueErrors before a slot is
+    taken: an oversized prompt, capacity exhaustion."""
+    cfg = setup[0]
+    eng = _engine(True, setup)
+    with pytest.raises(ValueError, match="max_len"):
+        eng.add_sequence(np.arange(4000) % cfg.vocab_size)
+    assert eng.free_slots == 1            # no slot leaked
+    sid, _ = eng.add_sequence(np.arange(2, 50))
+    with pytest.raises(ValueError, match="capacity"):
+        eng.add_sequence(np.arange(2, 50))
+    eng.release(sid)
+    eng.store.close()
+
+
+@pytest.mark.parametrize("opt", [{"prefix_cache": True, "max_len": 128},
+                                 {"pq_abstracts": True}])
+def test_latent_options_still_refused(setup, opt):
+    """The shared-prefix cache and the PQ plane on the latent layout are
+    not ported yet; they refuse, naming their item."""
+    with pytest.raises(NotImplementedError, match="A7b"):
+        _engine(True, setup, **opt)

@@ -138,9 +138,11 @@ def test_corrupt_replica_is_reported_lost(tmp_path):
 
 @pytest.mark.parametrize("opt", [
     {"prefix_rows": 2, "latent": True}, {"debug_sync": True},
-    {"latent": True}])
+    {"latent": True, "abstract_kind": "pq"}])
 def test_unported_store_options_raise(tmp_path, opt):
-    """Arena rows run now (tests/test_torch_prefix_cache.py); with the
-    latent layout they still refuse, naming its item."""
+    """Arena rows and the latent layout run now
+    (tests/test_torch_prefix_cache.py, tests/test_torch_mla_engine.py);
+    together, or the latent layout with the PQ plane, they still refuse,
+    naming their item (A7b)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TStore(L, NC, C, HKV, HD, root=str(tmp_path), device="cpu", **opt)
