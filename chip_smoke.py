@@ -98,7 +98,9 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    request submitted after the first round: one request preempted and
    resumed, all three finished with 16 tokens, nothing leaked;
    4j. the shared-prefix cache (``EngineCfg(prefix_cache=True,
-   prefill_chunk_tokens=512, prefix_arena_rows=4)``), full depth: four
+   prefill_chunk_tokens=512, prefix_arena_rows=4)``), at 8 of the 32
+   layers (a ``[depth]`` line; the MLA model runs it at full depth in
+   phase 4k): four
    prompts of one 3072-token head (48 chunks) and 100/228/356/484-token
    suffixes, each ending mid-chunk.  A parity pair with
    ``real_codec=False, pipeline=False``, 16 tokens: the cache-on engine
@@ -108,9 +110,9 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    identical, first-token and every round's logits bitwise equal, the
    adopter's prefix replica rows (its arena row's) bitwise equal to the
    cold engine's private rows, 48 zero-byte ``prefix_ref`` ops,
-   ``bytes_deduped`` 48 x 32 x (1 MiB + 16 KiB), two copy-on-writes
-   (each tail's first append) billed ``cow_read`` and ``cow_copy`` at 32
-   x 1 MiB each, B1/B2 launched.  Then the 4 prompts through the batcher
+   ``bytes_deduped`` 48 x layers x (1 MiB + 16 KiB), two copy-on-writes
+   (each tail's first append) billed ``cow_read`` and ``cow_copy`` at
+   layers x 1 MiB each, B1/B2 launched.  Then the 4 prompts through the batcher
    (``max_active=4``, real int4 codec, pipeline on, 32 tokens): three
    warm admissions of 48 chunks, no private pool slot for an adopted
    chunk and shared chunks resident once in every layer's pool, no slab
@@ -121,6 +123,16 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
+   4l. ``lm.decode_step``, the in-model sparse decode, at full width and
+   depth (``[decode-step]``): 4 prompts of 3072 tokens prefilled into a
+   4096-token cache with its abstract pyramid (3 levels), then 16 greedy
+   steps with the plain versions (``impl="ref"``, each layer's chunk
+   selection recorded) and again with kernels B1 and B2 (the selections
+   replayed, the plain run's tokens fed): every step's logits within
+   ``TOL_E2E_ULPS`` bf16 ulps of max|logit|, the first tokens the same,
+   B2 launched once per layer and step and B1 at least as often; prints
+   the median step, the peak device memory and the sparse-against-dense
+   cosine of the first step's logits;
    4k. (after phase 5, longchat's parameters freed) the MLA latent path
    with no-drop MoE: deepseek-v2-lite-16b at full width (27 layers,
    d_model 2048, 16 heads, MLA 512 + 64, 64 experts top-6 + 2 shared,
@@ -138,9 +150,18 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    every flipped row a near tie); ``pooled=False``
    against ``pooled=True`` as phase 4f (``[serve-legacy-mla]``, identical
    streams); end to end as phase 5 with the experts replayed too
-   (``[e2e-mla]``);
+   (``[e2e-mla]``); and, on one latent plane, the PQ serve
+   (``[serve-pq-mla]``, gated as 4b; its streams printed beside the
+   min/max serve's, not gated: ROADMAP C12), the shared-prefix pair and
+   batcher serve as 4j (``[prefix-mla]``), the int4 sidecar serve with 4e's
+   billing gate (``[serve-sidecar-mla]``) and a fault run with the sync
+   sanitizer on (``[faults-mla]``, ``debug_sync=True``: a retried
+   ``disk_read`` error, a quarantined sidecar read and a recomputed
+   replica bitflip; counters, no failed sequence, no leak, the store's
+   locks tracked);
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
-   the launches of the paths that run it), then the result line
+   the launches of the paths that run it, B1's and B2's with 4l's), then
+   the result line
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only b1,b2,b3,b5`` runs phases 1-2 and the timing
@@ -148,7 +169,7 @@ lines of the named kernels only (``--b2`` is ``--only b2``), with no
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
-engine phases of phase 4 (4c-4k) only, with their gates and no result
+engine phases of phase 4 (4c-4l) only, with their gates and no result
 line (``--phases 4k`` alone never builds longchat).
 """
 
@@ -217,15 +238,25 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
 ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j",
-                 "4k")                                     # --phases
+                 "4l", "4k")                               # --phases
+# phase 4l: lm.decode_step on longchat at full width and depth, a batch of
+# prompts of one length (decode_step takes one length for the batch), in
+# a MAX_LEN cache (sparse: MAX_LEN >= min_seq_for_sparse, 3 pyramid
+# levels), greedy steps
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS, DECODE_SEED = 4, 3072, 16, 23
+# phase 4k's fault run (debug_sync=True): the first sidecar read's first
+# chunk is quarantined; its fp16 fallback read fails once (retried) and
+# then flips a bit, so the chunk is recomputed from the prompt
+MLA_FAULT_PLAN = {"sidecar_read": {0: "bitflip"},
+                  "disk_read": {0: "io_error", 1: "bitflip"}}
 # phase 4k: the MLA model, its chunked admission step, and the latent
 # rows' widths (kv_lora_rank + qk_rope_head_dim; values the first 512)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_CHUNK_TOKENS = 512
-# phases 4c, 4d, 4e, 4f and 4i run this many of longchat's 32 layers (its
-# 2 early layers and the first body layers, weights and widths unchanged)
-# so that the whole script, phase 4k included, stays inside its time
-# budget
+# phases 4c, 4d, 4e, 4f, 4i and 4j run this many of longchat's 32 layers
+# (its 2 early layers and the first body layers, weights and widths
+# unchanged) so that the whole script, phases 4l and 4k included, stays
+# inside its time budget
 SERVE_MODES_LAYERS = 8
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 
@@ -1000,7 +1031,8 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
         if len(r.out) != NEW_TOKENS or not all(
                 0 <= t < cfg.vocab_size for t in r.out):
             raise SystemExit(f"chip_smoke: request {r.rid} gave {r.out}")
-    path = list(launches) if pq else [*_path_kernels(cfg), "kv_dequant"]
+    path = [*_path_kernels(cfg), "kv_dequant"] + (
+        ["pq_assign", "pq_update"] if pq else [])
     zero = [k for k in path if launches[k] <= 0]
     if zero:
         raise SystemExit(f"chip_smoke: {tag} path never launched {zero}")
@@ -1039,7 +1071,8 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
             "throughput_tok_s": st.get("throughput_tok_s"),
             "contention": contention,
             "pq_fallbacks": faults["pq_fallbacks"],
-            "pq_reencodes": faults["pq_reencodes"]}
+            "pq_reencodes": faults["pq_reencodes"],
+            "streams": {str(r.rid): list(r.out) for r in finished}}
 
 
 def _spy_replica_reads(store):
@@ -1526,10 +1559,16 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
     return out
 
 
-def _launch_counts():
+def _launch_counts(cfg=None):
+    """B1, B2 and B3 launches since the last zeroing — for an MLA
+    ``cfg``, B1's and B2's latent variants in their place."""
     from repro_torch.kernels.chunk_bounds import ops as cb
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.sparse_decode import ops as sd
+    if cfg is not None and cfg.mla is not None:
+        return {"chunk_bounds_latent": cb.latent_launches,
+                "sparse_decode_latent": sd.latent_launches,
+                "kv_dequant": kq.launches}
     return {"chunk_bounds": cb.launches, "sparse_decode": sd.launches,
             "kv_dequant": kq.launches}
 
@@ -1539,6 +1578,7 @@ def _zero_launches():
     from repro_torch.kernels.kv_quant import ops as kq
     from repro_torch.kernels.sparse_decode import ops as sd
     cb.launches = sd.launches = kq.launches = 0
+    cb.latent_launches = sd.latent_launches = 0
 
 
 def _engine_leaks(eng):
@@ -2052,7 +2092,7 @@ def _prefix_pair_run(np, torch, cfg, params, prompts, cache, ref_rows):
         for sid, t in cur.items():
             streams[sid].append(t)
     torch.cuda.synchronize()
-    launches = _launch_counts()
+    launches = _launch_counts(cfg)
     st.ingest_fence_all()
     adopter = max(streams)
     n_shared = PREFIX_TOKENS // eng.chunk
@@ -2156,7 +2196,7 @@ def _prefix_serve(np, torch, cfg, params, prompts):
     st.requant_fence()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _launch_counts()
+    launches = _launch_counts(cfg)
     stats = b.stats()
     pstats = st.prefix_stats()
     res = {"wall_s": wall, "launches": launches,
@@ -2202,9 +2242,9 @@ def _prefix_serve(np, torch, cfg, params, prompts):
     return res, fails
 
 
-def phase_prefix(np, torch, cfg, params):
-    """Phase 4j: the shared-prefix cache at full width and full depth (see
-    the module docstring)."""
+def phase_prefix(np, torch, cfg, params, tag="[prefix]"):
+    """Phase 4j: the shared-prefix cache at full width (see the module
+    docstring); phase 4k runs it on the MLA model at full depth."""
     t_phase = time.perf_counter()
     prompts = prefix_prompts(np, cfg)
     sa, fa, la, ia, rows = _prefix_pair_run(np, torch, cfg, params, prompts,
@@ -2250,7 +2290,7 @@ def phase_prefix(np, torch, cfg, params):
                      f" cow_copy {ia['cow_copy']} (want 2 of {per_cow} B)")
     for name, info in (("cache on", ia), ("cache off", ib)):
         lc = info["launches"]
-        if lc["chunk_bounds"] <= 0 or lc["sparse_decode"] <= 0:
+        if any(lc[k] <= 0 for k in _path_kernels(cfg)):
             fails.append(f"{name}: B1/B2 not launched: {lc}")
         if info["leaks"]:
             fails.append(f"{name} leaked {info['leaks']}")
@@ -2279,9 +2319,9 @@ def phase_prefix(np, torch, cfg, params):
                     "launches_off": ib["launches"]},
            "serve": serve, "launches": launches,
            "wall_s": time.perf_counter() - t_phase}
-    print(f"[prefix] {json.dumps(row)}")
+    print(f"{tag} {json.dumps(row)}")
     if fails:
-        raise SystemExit("chip_smoke: [prefix] " + "; ".join(fails))
+        raise SystemExit(f"chip_smoke: {tag} " + "; ".join(fails))
     return row
 
 
@@ -2410,7 +2450,8 @@ def run_phases(np, torch, names):
         "4g": lambda: phase_reopen(np, torch),
         "4h": lambda: phase_faults(np, torch, cfg, params),
         "4i": lambda: phase_preempt(np, torch, *cut_for("4i", cfg, params)),
-        "4j": lambda: phase_prefix(np, torch, cfg, params),
+        "4j": lambda: phase_prefix(np, torch, *cut_for("4j", cfg, params)),
+        "4l": lambda: phase_decode_step(np, torch, cfg, params),
         "4k": lambda: phase_mla(np, torch)}
     try:
         for name in ENGINE_PHASES:
@@ -2506,8 +2547,11 @@ def main() -> int:
         reopen = phase_reopen(np, torch)
         faults = phase_faults(np, torch, cfg, params)
         preempt = phase_preempt(np, torch, *cut_for("4i", cfg, params))
-        prefix = phase_prefix(np, torch, cfg, params)
+        prefix = phase_prefix(np, torch, *cut_for("4j", cfg, params))
         e2e = phase_e2e(np, torch, cfg, params)
+        t0 = time.perf_counter()
+        decode = phase_decode_step(np, torch, cfg, params)
+        print(f"[time] phase 4l {time.perf_counter() - t0!r} s")
         # phase 4k: longchat's weights leave the card first
         del params
         gc.collect()
@@ -2537,11 +2581,13 @@ def main() -> int:
                                  "src/repro/serving/engine.py:341"),
     }
     # launches: B1-B3 from the minmax serve plus phase 4j's three runs (the
-    # shared-prefix path), B4/B5 from the PQ serve (the path that runs
-    # them); each path's counts were zeroed just before it
-    # B3 also from phase 4k's serve, the latent variants from it alone
+    # shared-prefix path), B1/B2 also from phase 4l (lm.decode_step), B4/B5
+    # from the PQ serve (the path that runs them); each path's counts were
+    # zeroed just before it.  B3 also from phase 4k's serve, the latent
+    # variants from it alone
     mla_l = mla["serve"]["launches"]
     launches = {**{k: serve["launches"][k] + prefix["launches"][k]
+                   + decode["launches"].get(k, 0)
                    for k in prefix["launches"]},
                 "pq_assign": serve_pq["launches"]["pq_assign"],
                 "pq_update": serve_pq["launches"]["pq_update"],
@@ -2574,6 +2620,7 @@ def main() -> int:
                       "serve_sidecar": serve_sidecar, "legacy": legacy,
                       "reopen": reopen, "faults": faults,
                       "preempt": preempt, "prefix": prefix,
+                      "decode_step": decode,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,
@@ -2584,6 +2631,232 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 4l: the in-model sparse decode (lm.decode_step) on longchat
+# ---------------------------------------------------------------------------
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _same_input_flips(torch, cfg, cache):
+    """For each layer of a decode ``cache``: ``pyramid_select_gqa`` with
+    B1 and with its plain version on one seeded q (bf16, scaled as the
+    model scales it) — the layers whose two selections differ as sets."""
+    from repro_torch.core.adaptive import pyramid_select_gqa
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm
+    dev = cache["prologue"][0]["k"].device
+    g = torch.Generator(device=dev).manual_seed(DECODE_SEED)
+    chunk, out = cfg.leoam.chunk_size, []
+    _, period, repeats = lm._layer_plan(cfg)
+    layers = list(cache["prologue"]) + [
+        {k: v[r] for k, v in cache["body"][pi].items()}
+        for r in range(repeats) for pi in range(len(period))]
+    for i, c in enumerate(layers):
+        B = c["k"].shape[0]
+        q = (torch.randn(B, cfg.n_heads, cfg.hd, device=dev, generator=g)
+             / math.sqrt(cfg.hd)).bfloat16()
+        pyr = attn._pyr_from_cache(c)
+        budget = attn._layer_budget(cfg, i if i < len(cache["prologue"])
+                                    else 10 ** 6, pyr.base_chunks)
+        nv = (DECODE_PROMPT + DECODE_STEPS + chunk) // chunk
+        a = pyramid_select_gqa(q, pyr, budget, n_valid0=nv)
+        b = pyramid_select_gqa(q, pyr, budget, n_valid0=nv, impl="ref")
+        out.append(int(not torch.equal(a.sort(-1).values,
+                                       b.sort(-1).values)))
+    return sum(out), len(out)
+
+
+def phase_decode_step(np, torch, cfg, params):
+    """Phase 4l: ``lm.decode_step``, the in-model LeoAM sparse decode, at
+    full width and depth: ``DECODE_BATCH`` prompts of ``DECODE_PROMPT``
+    tokens prefilled into a ``MAX_LEN`` cache (its abstract pyramid: 64,
+    32 and 16 nodes a layer), then ``DECODE_STEPS`` steps twice from the
+    same cache — the plain versions (``impl="ref"``) first, recording each
+    layer's chunk selection, then kernels B1 and B2, replaying those
+    selections and fed the plain run's tokens.  In the kernel run's first
+    step every kernel call is followed by its plain version on the same
+    inputs (``repro_torch.testing.check_decode_kernels``).  Gates: each
+    such call within its bar (B1 ``TOL_BOUNDS_REL`` and finite on the
+    pyramid's sentinel boxes, B2 ``contract_agreement``'s bf16 bar), the
+    descent with B1 and with its plain version on one input per layer
+    picking the same chunks in every layer, every step's logits within
+    ``TOL_E2E_ULPS`` bf16 ulps of max|logit| of the plain run's, the first
+    token the same, B2 launched once per layer and step and B1 at least
+    as often.  Prints the step time (median, min and max of the steps
+    after the checked one), the peak device memory and the
+    sparse-against-dense cosine of the first step's logits."""
+    import dataclasses
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    from repro_torch.kernels.sparse_decode import ops as sd
+    from repro_torch.models import lm
+    from repro_torch.core.abstracts import build_pyramid
+    from repro_torch.testing import check_decode_kernels, replay_selections
+
+    t_phase = time.perf_counter()
+    S, B, n = DECODE_PROMPT, DECODE_BATCH, DECODE_STEPS
+    rng = np.random.RandomState(DECODE_SEED)
+    prompts = torch.from_numpy(rng.randint(2, cfg.vocab_size, (B, S))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    dense = dataclasses.replace(cfg, leoam=dataclasses.replace(
+        cfg.leoam, min_seq_for_sparse=10 ** 9))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits0, cache = lm.prefill(params, cfg, {"tokens": prompts},
+                                    max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        # the abstract pyramid that every prefill builds now (an engine
+        # admission too, which never reads it): one layer's, at this batch,
+        # wall time a call with the device synchronized (median of 5)
+        pyr_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build_pyramid(cache["prologue"][0]["k"], cfg.leoam.chunk_size,
+                          cfg.leoam.pyramid_levels, length=S)
+            torch.cuda.synchronize()
+            pyr_s.append(time.perf_counter() - t0)
+        kcache = _clone_tree(cache)
+        levels = sum(k.startswith("kmax") for k in cache["prologue"][0])
+        tokens = [logits0.argmax(-1)]
+        sels, ref_logits, ref_s = [], [], []
+        with replay_selections(record=sels):
+            for step in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = lm.decode_step(params, cfg, cache,
+                                           {"token": tokens[-1]}, S + step,
+                                           impl="ref")
+                torch.cuda.synchronize()
+                ref_s.append(time.perf_counter() - t0)
+                ref_logits.append(lg.float().cpu().numpy())
+                tokens.append(lg.argmax(-1))
+        del cache
+        gc.collect()
+        # dense decode of the first step (writes the row the sparse step
+        # writes again, leaves the pyramid alone)
+        dense_logits, _ = lm.decode_step(params, dense, kcache,
+                                         {"token": tokens[0]}, S)
+        dense_logits = dense_logits.float().cpu().numpy()
+        pairs, out, kern_s, checks = [], [], [], {}
+        cb.launches = sd.launches = 0
+        with replay_selections(replay=sels, pairs=pairs):
+            for step in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (check_decode_kernels(checks) if step == 0
+                      else contextlib.nullcontext()):
+                    lg, kcache = lm.decode_step(params, cfg, kcache,
+                                                {"token": tokens[step]},
+                                                S + step)
+                torch.cuda.synchronize()
+                kern_s.append(time.perf_counter() - t0)
+                out.append(lg.float().cpu().numpy())
+        launches = {"chunk_bounds": cb.launches, "sparse_decode": sd.launches}
+        # a layer step whose own selection picked other chunks, and one
+        # that picked the same chunks in another order (B2 adds in the
+        # order of the ids)
+        flips = [int(not torch.equal(a.sort(-1).values, b.sort(-1).values))
+                 for a, b in pairs]
+        reordered = [int(not torch.equal(a, b)) for a, b in pairs]
+        L = cfg.n_layers
+        flips_by_layer = [sum(flips[i::L]) for i in range(L)]
+        # the descent with B1 and with its plain version on one input per
+        # layer (a seeded q, the cache's own pyramid): whether B1's sums
+        # alone move a selection, or only the drift of q between the runs
+        same_input_flips = _same_input_flips(torch, cfg, kcache)
+        # one more step under torch.profiler: CUDA kernels a step launches
+        # and the device time they take (busy share of the step's wall)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                            device=logits0.device)
+        try:
+            kernels = _cuda_kernels_per_call(
+                torch, lambda: lm.decode_step(params, cfg, kcache,
+                                              {"token": tokens[n]}, S + n),
+                flush, reps=1)
+            profile = {"cuda_kernels": len(kernels),
+                       "device_busy_ms": sum(e - b for _, b, e in kernels)
+                       / 1e3,
+                       "device_span_ms": kernels[-1][2] / 1e3}
+        except SystemExit as e:
+            profile = {"not_measured": str(e)[:200]}
+        del flush
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del kcache, pairs, sels
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(out, ref_logits)]
+    bars = [TOL_E2E_ULPS * _bf16_ulp(float(np.abs(b).max()))
+            for b in ref_logits]
+    same = [int(a.argmax(-1)[i]) == int(b.argmax(-1)[i])
+            for a, b in zip(out, ref_logits) for i in range(B)]
+    a, b = out[0].astype(np.float64), dense_logits.astype(np.float64)
+    cos = [float(a[i] @ b[i] / (np.linalg.norm(a[i]) * np.linalg.norm(b[i])))
+           for i in range(B)]
+    n_layers = cfg.n_layers
+    # each kernel call of the checked step against its plain version
+    kernel_checks = {name: {
+        "calls": len(rows),
+        "max_err": max(r.get("rel_err", r.get("err")) for r in rows),
+        "bar": max(r["bar"] for r in rows),
+        "all_ok": all(r["ok"] for r in rows)}
+        for name, rows in checks.items()}
+    if "sparse_decode" in checks:
+        kernel_checks["sparse_decode"]["max_triple_rel_err"] = max(
+            r["triple_rel_err"] for r in checks["sparse_decode"])
+    timed = kern_s[1:]          # the first step also ran the checks
+    row = {"batch": B, "prompt": S, "max_len": MAX_LEN, "steps": n,
+           "pyramid_levels": levels, "prefill_s": prefill_s,
+           "pyramid_build_ms_per_layer": float(np.median(pyr_s)) * 1e3,
+           "median_step_s": float(np.median(timed)),
+           "min_step_s": min(timed), "max_step_s": max(timed),
+           "median_step_plain_s": float(np.median(ref_s)),
+           "checked_first_step_s": kern_s[0], "peak_device_gib": peak,
+           "kernel_checks": kernel_checks,
+           "max_logit_diff": diffs, "bars": bars,
+           "argmax_agree": f"{sum(same)} of {len(same)}",
+           "first_token_same": same[:B],
+           "selection_flips": f"{sum(flips)} of {len(flips)} layer steps "
+           f"(replayed)",
+           "selection_reordered": f"{sum(reordered)} of {len(reordered)}",
+           "selection_flips_by_layer": flips_by_layer,
+           "same_input_flips": f"{same_input_flips[0]} of "
+           f"{same_input_flips[1]} layers", "step_profile": profile,
+           "sparse_vs_dense_cos": cos, "launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"[decode-step] {json.dumps(row)}")
+    fails = []
+    if not all(d <= t for d, t in zip(diffs, bars)):
+        fails.append(f"logits off the plain run's by {diffs} (bars {bars})")
+    if not all(same[:B]):
+        fails.append(f"first token differs: {same[:B]}")
+    if launches["sparse_decode"] != n * n_layers or \
+            launches["chunk_bounds"] < n * n_layers:
+        fails.append(f"launches {launches} (B2 {n * n_layers} wanted, B1 "
+                     f"at least as many)")
+    if not all(np.isfinite(x).all() for x in out):
+        fails.append("non-finite logits")
+    if set(kernel_checks) != {"chunk_bounds", "chunk_bounds_gqa",
+                              "sparse_decode"} or \
+            kernel_checks["sparse_decode"]["calls"] != n_layers or \
+            not all(c["all_ok"] for c in kernel_checks.values()):
+        fails.append(f"kernel calls against their plain versions: "
+                     f"{kernel_checks}")
+    if same_input_flips[0]:
+        fails.append(f"B1 moved the selection of {same_input_flips[0]} of "
+                     f"{same_input_flips[1]} layers on one input")
+    if fails:
+        raise SystemExit("chip_smoke: [decode-step] " + "; ".join(fails))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2783,6 +3056,16 @@ def phase_mla(np, torch, kernel_rows=None):
     torch.cuda.reset_peak_memory_stats()
     try:
         serve = phase_serve(np, torch, cfg, params, tag="[serve-mla]")
+        serve_pq = phase_serve(np, torch, cfg, params, pq=True,
+                               tag="[serve-pq-mla]")
+        # the PQ streams are printed, not gated (ROADMAP C12: the requant
+        # sweep races the next round's code reads)
+        print(f"[serve-pq-mla] streams {json.dumps(serve_pq['streams'])} "
+              f"against min/max {json.dumps(serve['streams'])}")
+        prefix = phase_prefix(np, torch, cfg, params, tag="[prefix-mla]")
+        sidecar = phase_serve(np, torch, cfg, params, sidecar=True,
+                              tag="[serve-sidecar-mla]")
+        faults = _mla_faults(np, torch, cfg, params)
         admission = phase_admission(np, torch, cfg, params, tag="[admit-mla]",
                                     chunk_tokens=MLA_CHUNK_TOKENS)
         legacy = phase_legacy(np, torch, cfg, params,
@@ -2794,10 +3077,91 @@ def phase_mla(np, torch, kernel_rows=None):
         torch.cuda.empty_cache()
     b3c = {k: v for k, v in b3_lat.items() if k != "bound"}
     b3c["bound_ms"] = max(b3_lat["bound"]) * 1e3
-    return {"rows": rows, "serve": serve, "admission": admission,
-            "legacy": legacy, "e2e_max_diff": e2e,
+    return {"rows": rows, "serve": serve, "serve_pq": serve_pq,
+            "prefix": prefix, "serve_sidecar": sidecar, "faults": faults,
+            "admission": admission, "legacy": legacy, "e2e_max_diff": e2e,
             "kv_dequant_one_plane": b3c,
             "init": {"params": n_params}}
+
+
+def _mla_faults(np, torch, cfg, params):
+    """Phase 4k's fault run, with the sync sanitizer on
+    (``debug_sync=True``): the 1536- and 2048-token prompts admitted
+    chunked with the sidecar and the real codec under ``MLA_FAULT_PLAN``,
+    ``FAULT_NEW_TOKENS`` tokens each.  Gates: ``io_retries`` >= 1,
+    ``checksum_failures`` >= 2, ``chunks_recomputed`` >= 1, no failed
+    sequence, the store's locks tracked, nothing leaked, B1-/B2-latent and
+    B3 launched."""
+    from repro_torch.serving import sanitizer
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+    from repro_torch.serving.faults import FaultPlan
+
+    prompts = serve_prompts(np, cfg)[:2]
+    plan = FaultPlan(schedule={k: dict(v) for k, v in
+                               MLA_FAULT_PLAN.items()})
+    root = KV_ROOT / "faults_mla"
+    eng = BatchedLeoAMEngine(
+        cfg, params,
+        EngineCfg(max_len=MAX_LEN, real_codec=True, pipeline=False,
+                  disk_sidecar=True, cpu_chunk_frac=FAULT_CPU_FRAC,
+                  fault_plan=plan, debug_sync=True),
+        max_seqs=2, device="cuda", store_root=str(root))
+    st = eng.store
+    tracked = all(isinstance(lk, sanitizer.TrackedLock)
+                  for lk in (st._lock, st._pq_lock, st._futs_lock))
+    active = sanitizer.active()
+    rec = _spy_recovery(eng)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = {}
+    for p in prompts:
+        sid, tok = eng.begin_admission(p).drain()
+        toks[sid] = tok
+    admit_s = time.perf_counter() - t0
+    rounds_s = []
+    streams = _decode_rounds(eng, toks, FAULT_NEW_TOKENS - 1, rounds_s)
+    torch.cuda.synchronize()
+    launches = _launch_counts(cfg)
+    fs = eng.fault_stats()
+    failed = dict(eng.failed)
+    for sid in list(streams):
+        eng.release(sid)
+    leaks = _engine_leaks(eng)
+    st.close()
+    del eng, st
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"prompts": [len(p) for p in prompts], "debug_sync": True,
+           "locks_tracked": tracked, "sanitizer_active": active,
+           "sanitizer_released": not sanitizer.active(),
+           "events": [(e.site, e.index, e.kind, list(e.key)
+                       if isinstance(e.key, tuple) else e.key)
+                      for e in plan.fired_events()],
+           "faults": fs, "failed": {str(k): v for k, v in failed.items()},
+           "restored_chunks": [list(k) for k in rec["restored"]],
+           "recover_s": rec["recover_s"], "admit_s": admit_s,
+           "median_round_s": float(np.median(rounds_s)),
+           "streams": {str(k): v for k, v in streams.items()},
+           "launches": launches, "leaks": leaks}
+    print(f"[faults-mla] {json.dumps(row)}")
+    fails = []
+    if not (tracked and active and row["sanitizer_released"]):
+        fails.append("the sanitizer was not on for the run, or stayed on")
+    if failed or any(len(v) != FAULT_NEW_TOKENS for v in streams.values()):
+        fails.append(f"streams {streams}, failed {failed}")
+    if not (fs["io_retries"] >= 1 and fs["checksum_failures"] >= 2
+            and fs["chunks_recomputed"] >= 1):
+        fails.append(f"fault counters {fs}")
+    if leaks:
+        fails.append(f"leaked {leaks}")
+    zero = [k for k, v in launches.items() if v <= 0]
+    if zero:
+        fails.append(f"never launched {zero}")
+    if fails:
+        raise SystemExit("chip_smoke: [faults-mla] " + "; ".join(fails))
+    return row
 
 
 def init_longchat(torch):
@@ -2836,7 +3200,7 @@ def cut_depth(cfg, params, n_layers):
 
 def cut_for(phase, cfg, params):
     """longchat at ``SERVE_MODES_LAYERS`` layers for one phase (4c, 4f,
-    4i), with its ``[depth]`` line."""
+    4i, 4j), with its ``[depth]`` line."""
     print(f"[depth] phase {phase}: {SERVE_MODES_LAYERS} of {cfg.n_layers} "
           f"layers, full width")
     return cut_depth(cfg, params, SERVE_MODES_LAYERS)

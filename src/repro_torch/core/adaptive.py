@@ -11,8 +11,19 @@ port never imports the JAX package:
   fast paths the serving engine runs, equal to the per-token forms
   (:func:`tree_select`, :func:`flat_chunk_select`) they are tested against.
 
-The device-side pyramid refinement (``pyramid_select_gqa``) belongs to
-``lm.decode_step``'s in-model sparse path, a later slice of the port.
+and the device-side pyramid refinement of ``lm.decode_step``'s in-model
+sparse path, in torch:
+
+* :func:`pyramid_select_gqa` / :func:`pyramid_select_mla` — the
+  fixed-shape equivalent: descend the abstract pyramid coarse→fine keeping
+  a bounded candidate beam per level.  Staying coarse == merge, descending
+  == split.  On a CUDA tensor the GQA bounds run on kernel B1: the
+  coarsest level through its strided entry on the cache's (B, nc, Hkv, hd)
+  leaves, the finer levels' gathered (B, Hkv, C, hd) boxes through its
+  Pallas-contract entry.  The top-k is a stable descending sort, so ties
+  (forced sink/recent nodes at +inf, sentinel chunks past the length) go
+  to the lower position, as ``jax.lax.top_k`` breaks them — the order of
+  the ids feeds the next level's children and B2's summation order.
 """
 
 from __future__ import annotations
@@ -20,9 +31,14 @@ from __future__ import annotations
 import heapq
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core.abstracts import Pyramid
+from repro_torch.core.bounds import chunk_bounds_gqa_matmul, chunk_bounds_mla
+from repro_torch.kernels.chunk_bounds import ops as b1
 
 
 # ---------------------------------------------------------------------------
@@ -199,3 +215,161 @@ def flat_chunk_select(scores: np.ndarray, budget: int, chunk: int
     hit = np.array(sorted(set(picked)), dtype=np.int64)
     res = TreeSelectResult(hit, n_chunks, chosen, transfer)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Device-side pyramid refinement (fixed shapes)
+# ---------------------------------------------------------------------------
+
+
+def _beam_sizes(levels: int, budget: int, nc: Sequence[int], rf: int,
+                forced: int) -> List[int]:
+    """Candidates kept per level (index 0 = finest)."""
+    out = []
+    for lvl in range(levels):
+        want = rf * max(1, -(-budget // (1 << lvl))) + forced
+        out.append(min(nc[lvl], want))
+    return out
+
+
+def _top_k(ub: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the ``k`` largest along the last axis, largest first,
+    ties to the lower position (``jax.lax.top_k``'s order)."""
+    return torch.sort(ub, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def _ub_gathered(q4: torch.Tensor, km: torch.Tensor, kn: torch.Tensor, *,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """ub for gathered boxes.  q4: (B, Hkv, G, hd); km/kn: (B, Hkv, C, hd)
+    -> (B, Hkv, C) f32, group-summed: kernel B1's Pallas-contract entry
+    (its plain version on the CPU is the reference's q⁺/q⁻ einsums)."""
+    return b1.chunk_bounds(q4, km.float(), kn.float(), impl=impl)[0]
+
+
+def _force_bias(ub: torch.Tensor, ids: torch.Tensor, lvl: int, nc0: int,
+                sink_chunks: int, recent_chunks: int, n_valid0
+                ) -> torch.Tensor:
+    """+inf bias for sink/recent nodes so they always survive the beam.
+    ``n_valid0`` is in base-chunk units."""
+    span = 1 << lvl
+    gids = ids.long() * span                    # first base chunk of node
+    forced = torch.zeros_like(ub, dtype=torch.bool)
+    if sink_chunks:
+        forced = forced | (gids < sink_chunks)
+    if recent_chunks:
+        # the node covers [gids, gids + span): force it if it meets the tail
+        forced = forced | ((gids + span) > (n_valid0 - recent_chunks))
+    forced = forced & (gids < n_valid0)
+    return torch.where(forced, torch.full_like(ub, float("inf")), ub)
+
+
+def _take(a: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` (B, Hkv, C) of a (B, Hkv, nc, hd) tensor."""
+    return torch.gather(a, 2, ids.long()[..., None].expand(
+        *ids.shape, a.shape[-1]))
+
+
+def pyramid_select_gqa(q: torch.Tensor, pyr: Pyramid, budget: int, *,
+                       rf: int = 2, sink_chunks: int = 1,
+                       recent_chunks: int = 2, n_valid0=None,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Select ``budget`` base chunks per (batch, kv head).
+
+    q: (B, H, hd) scaled and roped.  Returns int32 ids (B, Hkv, budget).
+    ``n_valid0``: the base chunks that hold a token."""
+    L = pyr.levels
+    B, H, hd = q.shape
+    Hkv = pyr.kmax[0].shape[2]
+    nc = [pyr.kmax[lvl].shape[1] for lvl in range(L)]
+    budget = min(budget, nc[0])
+    if n_valid0 is None:
+        n_valid0 = nc[0]
+    beams = _beam_sizes(L, budget, nc, rf, sink_chunks + recent_chunks)
+    q4 = q.reshape(B, Hkv, H // Hkv, hd)
+
+    # coarsest level: score everything
+    ub, _ = chunk_bounds_gqa_matmul(q, pyr.kmax[L - 1], pyr.kmin[L - 1],
+                                    impl=impl)
+    ids = torch.arange(nc[L - 1], dtype=torch.int32,
+                       device=q.device).expand(ub.shape)
+    ub = _force_bias(ub, ids, L - 1, nc[0], sink_chunks, recent_chunks,
+                     n_valid0)
+    ids = torch.gather(ids, -1, _top_k(ub, beams[L - 1]))
+
+    for lvl in range(L - 2, -1, -1):
+        ids = torch.cat([ids * 2, ids * 2 + 1], dim=-1)       # children
+        km = pyr.kmax[lvl].transpose(1, 2)                  # (B,Hkv,nc,hd)
+        kn = pyr.kmin[lvl].transpose(1, 2)
+        ub = _ub_gathered(q4, _take(km, ids), _take(kn, ids), impl=impl)
+        ub = _force_bias(ub, ids, lvl, nc[0], sink_chunks, recent_chunks,
+                         n_valid0)
+        width = beams[lvl] if lvl > 0 else budget
+        ids = torch.gather(ids, -1, _top_k(ub, min(width, ids.shape[-1])))
+    return ids.to(torch.int32)
+
+
+def flat_select_gqa(q: torch.Tensor, kmax0: torch.Tensor,
+                    kmin0: torch.Tensor, budget: int, *,
+                    sink_chunks: int = 1, recent_chunks: int = 2,
+                    n_valid0=None, impl: Optional[str] = None
+                    ) -> torch.Tensor:
+    """Quest-like baseline: score all base chunks, top-k.  Same
+    interface."""
+    ub, _ = chunk_bounds_gqa_matmul(q, kmax0, kmin0, impl=impl)
+    nc0 = ub.shape[-1]
+    if n_valid0 is None:
+        n_valid0 = nc0
+    ids = torch.arange(nc0, dtype=torch.int32, device=q.device).expand(
+        ub.shape)
+    ub = _force_bias(ub, ids, 0, nc0, sink_chunks, recent_chunks, n_valid0)
+    return _top_k(ub, min(budget, nc0)).to(torch.int32)
+
+
+def pyramid_select_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                       pyr_c: Pyramid, pyr_r: Pyramid, budget: int, *,
+                       rf: int = 2, sink_chunks: int = 1,
+                       recent_chunks: int = 2, n_valid0=None
+                       ) -> torch.Tensor:
+    """MLA variant: boxes over the compressed latent (+ rope key), the
+    reference's split bound in torch ops.  pyr_c levels: (B, nc, 1, r);
+    pyr_r: (B, nc, 1, rope).  Returns (B, 1, k) int32."""
+    L = pyr_c.levels
+    nc = [pyr_c.kmax[lvl].shape[1] for lvl in range(L)]
+    budget = min(budget, nc[0])
+    if n_valid0 is None:
+        n_valid0 = nc[0]
+    beams = _beam_sizes(L, budget, nc, rf, sink_chunks + recent_chunks)
+
+    def score(lvl, ids=None):
+        boxes = [pyr_c.kmax[lvl][:, :, 0], pyr_c.kmin[lvl][:, :, 0],
+                 pyr_r.kmax[lvl][:, :, 0], pyr_r.kmin[lvl][:, :, 0]]
+        if ids is not None:                               # (B, 1, C)
+            boxes = [_take(a[:, None], ids)[:, 0] for a in boxes]
+        ub, _ = chunk_bounds_mla(q_lat, q_rope, *boxes)
+        return ub[:, None]                                # (B, 1, nc)
+
+    ub = score(L - 1)
+    ids = torch.arange(nc[L - 1], dtype=torch.int32,
+                       device=q_lat.device).expand(ub.shape)
+    ub = _force_bias(ub, ids, L - 1, nc[0], sink_chunks, recent_chunks,
+                     n_valid0)
+    ids = torch.gather(ids, -1, _top_k(ub, beams[L - 1]))
+    for lvl in range(L - 2, -1, -1):
+        ids = torch.cat([ids * 2, ids * 2 + 1], dim=-1)
+        ub = _force_bias(score(lvl, ids), ids, lvl, nc[0], sink_chunks,
+                         recent_chunks, n_valid0)
+        width = beams[lvl] if lvl > 0 else budget
+        ids = torch.gather(ids, -1, _top_k(ub, min(width, ids.shape[-1])))
+    return ids.to(torch.int32)
+
+
+def pyramid_eval_count(levels: int, nc0: int, budget: int, rf: int = 2,
+                       forced: int = 3) -> int:
+    """Analytic number of chunk-bound evaluations for the pyramid
+    descent."""
+    nc = [max(1, nc0 >> lvl) for lvl in range(levels)]
+    beams = _beam_sizes(levels, budget, nc, rf, forced)
+    total = nc[levels - 1]
+    for lvl in range(levels - 2, -1, -1):
+        total += 2 * beams[lvl + 1]
+    return total

@@ -1,17 +1,27 @@
-"""Partial-softmax building blocks of the sparse decode attention.
+"""LeoAM sparse decode attention, ported from ``repro.core.sparse_attention``.
 
-The plain side of kernel B2 (``repro_torch.kernels.sparse_decode``) and of
-its latent variant: masked scores become a stable partial-softmax triple
-(num, den, m) and :func:`_finish` normalizes it — the same arithmetic as
-``repro.core.sparse_attention``, whose absorbed-MLA decode
-:func:`sparse_decode_mla` is here too.
+The decode path of ``lm.decode_step``: score chunk abstracts → adaptive
+(pyramid) selection → attention over the selected chunks.  Every function
+returns the stable partial-softmax triple (num, den, m), which
+:func:`_finish` normalizes; masked scores become the triple in
+:func:`_masked_softmax_partials`, the plain side of kernel B2
+(``repro_torch.kernels.sparse_decode``) and of its latent variant.
+
+:func:`sparse_decode_gqa` runs kernel B2 through its Pallas-contract entry
+on a CUDA tensor (the reference computes it in jnp); the dense and MLA
+decodes stay torch ops, as the reference's are jnp.  Sequence-parallel
+decode (``combine_partials`` over mesh axes) belongs to ROADMAP A12.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional, Sequence
 
 import torch
+
+from repro_torch.core.abstracts import Pyramid
+from repro_torch.core.adaptive import flat_select_gqa, pyramid_select_gqa
 
 NEG_INF = float("-inf")
 
@@ -25,6 +35,26 @@ class Partials(NamedTuple):
 def _finish(p: Partials) -> torch.Tensor:
     den = torch.where(p.den == 0.0, torch.ones_like(p.den), p.den)
     return p.num / den[..., None]
+
+
+def _lens(length, device, ndim: int):
+    """A length as a mask operand: a Python int as it is (no copy to the
+    device, so no wait for the stream), a tensor or array as (-1, 1, ...)
+    with ``ndim`` dims."""
+    if isinstance(length, int):
+        return length
+    return torch.as_tensor(length, device=device).reshape(-1,
+                                                          *[1] * (ndim - 1))
+
+
+def combine_partials(p: Partials, axes: Sequence[str]) -> torch.Tensor:
+    """Merge per-shard partial softmax over mesh ``axes``; with none, the
+    local normalization :func:`_finish`."""
+    if axes:
+        raise NotImplementedError(
+            "sequence-sharded decode (combine_partials over mesh axes) is "
+            "not ported yet (ROADMAP A12)")
+    return _finish(p)
 
 
 def _masked_softmax_partials(scores: torch.Tensor, v: torch.Tensor,
@@ -67,8 +97,8 @@ def sparse_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                       tok_c[..., None].expand(-1, -1, krope.shape[-1]))
     scores = (torch.einsum("bhr,btr->bht", q_lat.float(), cg.float())
               + torch.einsum("bhr,btr->bht", q_rope.float(), rg.float()))
-    len_b = torch.as_tensor(length, device=tok.device).reshape(-1, 1)
-    valid = ((tok < len_b) & (tok < S))[:, None, :]               # (B,1,T)
+    valid = ((tok < _lens(length, tok.device, 2))
+             & (tok < S))[:, None, :]                             # (B,1,T)
     scores = torch.where(valid, scores, NEG_INF)
     m = scores.amax(dim=-1)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -76,3 +106,103 @@ def sparse_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                     torch.zeros_like(scores))
     num = torch.einsum("bht,btr->bhr", e, cg.float())
     return Partials(num, e.sum(dim=-1), m)
+
+
+def sparse_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      ids: torch.Tensor, chunk: int, *, length,
+                      attn_softcap: Optional[float] = None,
+                      impl: Optional[str] = None) -> Partials:
+    """Attention over selected chunks.
+
+    q: (B, H, hd) scaled and roped; k/v: (B, S, Hkv, hd); ids: (B, Hkv,
+    nsel) base-chunk ids; length: the valid token count (an int).  q is
+    rounded to the cache dtype before the product, the scores accumulate
+    in f32 and the probabilities are rounded to the cache dtype for P·V
+    (the reference's cast points).  Kernel B2 on a CUDA tensor; the
+    wrapper's plain version on the CPU or with ``impl="ref"``."""
+    from repro_torch.kernels.sparse_decode import ops as b2
+    B, H, hd = q.shape
+    Hkv = k.shape[2]
+    q4 = q.reshape(B, Hkv, H // Hkv, hd).to(k.dtype)
+    num, den, m = b2.sparse_decode(q4, k, v, ids, length, chunk=chunk,
+                                   attn_softcap=attn_softcap, impl=impl)
+    return Partials(num.reshape(B, H, hd), den.reshape(B, H),
+                    m.reshape(B, H))
+
+
+def dense_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     length, attn_softcap: Optional[float] = None,
+                     window: Optional[int] = None,
+                     query_pos=None) -> Partials:
+    """Full (or sliding-window) decode attention over a KV cache (q and K
+    in f32, probabilities rounded to v's dtype for P·V)."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, hd)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg.float(),
+                          k.transpose(1, 2).float())
+    if attn_softcap is not None:
+        scores = attn_softcap * torch.tanh(scores / attn_softcap)
+    local_pos = torch.arange(S, device=q.device)[None, None, :]
+    valid = local_pos < _lens(length, q.device, 3)
+    if window is not None:
+        qp = _lens(query_pos if query_pos is not None else length, q.device,
+                   3)
+        valid = valid & (local_pos > (qp - window))
+    return _masked_softmax_partials(scores, v.transpose(1, 2), valid)
+
+
+def dense_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     ckv: torch.Tensor, krope: torch.Tensor, *,
+                     length) -> Partials:
+    """Absorbed-MLA decode over the whole latent cache (f32)."""
+    S = ckv.shape[1]
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+              + torch.einsum("bhr,bsr->bhs", q_rope.float(), krope.float()))
+    valid = (torch.arange(S, device=ckv.device)[None, :]
+             < _lens(length, ckv.device, 2))
+    valid = valid[:, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.where(valid, torch.exp(scores - m_safe[..., None]),
+                    torch.zeros_like(scores))
+    num = torch.einsum("bhs,bsr->bhr", e, ckv.float())
+    return Partials(num, e.sum(dim=-1), m)
+
+
+# ---------------------------------------------------------------------------
+# High-level entry: select + attend
+# ---------------------------------------------------------------------------
+
+
+def leoam_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pyr: Pyramid, *, chunk: int, budget: int, length,
+                       attn_softcap: Optional[float] = None,
+                       sink_chunks: int = 1, recent_chunks: int = 2,
+                       rf: int = 2, n_valid_chunks=None,
+                       impl: Optional[str] = None) -> Partials:
+    """LeoAM decode over one cache: pyramid-select (a one-level pyramid:
+    score every base chunk), then attend.  ``n_valid_chunks``: the base
+    chunks that hold a token."""
+    n_valid = n_valid_chunks if n_valid_chunks is not None \
+        else pyr.base_chunks
+    if pyr.levels > 1:
+        ids = pyramid_select_gqa(q, pyr, budget, rf=rf,
+                                 sink_chunks=sink_chunks,
+                                 recent_chunks=recent_chunks,
+                                 n_valid0=n_valid, impl=impl)
+    else:
+        ids = flat_select_gqa(q, pyr.kmax[0], pyr.kmin[0], budget,
+                              sink_chunks=sink_chunks,
+                              recent_chunks=recent_chunks, n_valid0=n_valid,
+                              impl=impl)
+    return sparse_decode_gqa(q, k, v, ids, chunk, length=length,
+                             attn_softcap=attn_softcap, impl=impl)
+
+
+def decode_budget_chunks(seq_len: int, chunk: int, rate: float,
+                         sink_chunks: int, recent_chunks: int) -> int:
+    nc = seq_len // chunk
+    return max(1, min(nc, int(math.ceil(nc * rate)) + sink_chunks
+                      + recent_chunks))

@@ -196,12 +196,18 @@ def sparse_decode_workingset(q: torch.Tensor, kg: torch.Tensor,
 
 def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ids: torch.Tensor, length, *, chunk: int,
+                  attn_softcap: Optional[float] = None,
                   impl: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pallas contract: q (B, Hkv, G, hd) pre-scaled; k/v (B, S, Hkv, hd);
-    ids (B, Hkv, nsel); scalar length -> (num, den, m) f32 triple."""
+    ids (B, Hkv, nsel); scalar length -> (num, den, m) f32 triple.  q in
+    the cache's dtype runs the kernel at that model dtype (probabilities
+    rounded to it for P·V, as ``lm.decode_step``'s sparse attention
+    rounds them); any other q runs in f32.  ``attn_softcap`` caps the
+    scores (gemma2)."""
     if not build.use_kernel(impl, q):
-        return sparse_decode_ref(q, k, v, ids, length, chunk=chunk)
+        return sparse_decode_ref(q, k, v, ids, length, chunk=chunk,
+                                 attn_softcap=attn_softcap)
     B, Hkv, G, hd = q.shape
     S = k.shape[1]
     nsel = ids.shape[-1]
@@ -209,18 +215,23 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            f"k {tuple(k.shape)} / chunk {chunk} do not fit q {tuple(q.shape)}")
     _check(k.dtype == v.dtype and k.dtype in build.DTYPE_CODES and k.is_cuda
            and v.is_cuda, f"k/v dtype {k.dtype}/{v.dtype}")
-    q = q.float().contiguous()
+    q = (q if q.dtype == k.dtype else q.float()).contiguous()
     k, v = k.contiguous(), v.contiguous()
     ids = ids.to(device=q.device, dtype=torch.int32).contiguous()
-    lens = torch.as_tensor(length, dtype=torch.int32,
-                           device=q.device).reshape(1)
+    # a Python length is filled on the device: no host-to-device copy, so
+    # no wait for the stream at every call
+    lens = (length.to(device=q.device, dtype=torch.int32).reshape(1)
+            if isinstance(length, torch.Tensor) else
+            torch.full((1,), int(length), dtype=torch.int32,
+                       device=q.device))
     num = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=q.device)
     den = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
     m = torch.empty_like(den)
     _launch(q, k.data_ptr(), v.data_ptr(), chunk * Hkv * hd, ids, ids,
             Hkv * nsel, nsel, nsel, S // chunk, lens, 0, None, None, B, Hkv,
-            G, hd, chunk, 1.0, 0.0, None, num, den, m, k.dtype,
-            "sparse_decode")
+            G, hd, chunk, 1.0,
+            float(attn_softcap) if attn_softcap is not None else 0.0, None,
+            num, den, m, k.dtype, "sparse_decode")
     return num, den, m
 
 

@@ -12,16 +12,25 @@ from repro_torch.core import sparse_attention as sa
 
 
 def sparse_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      ids: torch.Tensor, length, *, chunk: int
+                      ids: torch.Tensor, length, *, chunk: int,
+                      attn_softcap: Optional[float] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pallas contract.  q: (B, Hkv, G, hd) scaled; k/v: (B, S, Hkv, hd);
     ids: (B, Hkv, nsel); length: scalar valid token count.
 
     Returns the partial-softmax triple (num, den, m):
       num (B, Hkv, G, hd) f32; den/m (B, Hkv, G).
-    """
+
+    The model dtype TM is q's dtype when it is the cache's, else f32 (the
+    Pallas kernel's case, where every rounding below is exact): each
+    probability is rounded to TM before the P·V product, which
+    accumulates in f32, and the denominator sums the unrounded values —
+    ``repro.core.sparse_attention.sparse_decode_gqa``'s cast points, its
+    q having been rounded to the cache dtype.  ``attn_softcap`` caps the
+    f32 scores (``cap * tanh(s / cap)``) before the mask."""
     B, Hkv, G, hd = q.shape
     S = k.shape[1]
+    tm = q.dtype if q.dtype == k.dtype else torch.float32
     tok = ids.long()[..., None] * chunk + torch.arange(chunk, device=q.device)
     tok = tok.reshape(B, Hkv, -1)                           # (B,Hkv,T)
     tok_c = torch.clamp(tok, max=S - 1)
@@ -31,7 +40,10 @@ def sparse_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = torch.gather(kt, 2, idx).float()
     vg = torch.gather(vt, 2, idx).float()
     s = torch.einsum("bkgd,bktd->bkgt", q.float(), kg)
-    length = torch.as_tensor(length, device=q.device)
+    if attn_softcap is not None:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    if isinstance(length, torch.Tensor):
+        length = length.to(q.device)
     valid = (tok < length) & (tok < S)
     s = torch.where(valid[:, :, None], s, sa.NEG_INF)
     m = s.amax(dim=-1)
@@ -39,7 +51,7 @@ def sparse_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     e = torch.where(valid[:, :, None], torch.exp(s - m_safe[..., None]),
                     torch.zeros_like(s))
     den = e.sum(dim=-1)
-    num = torch.einsum("bkgt,bktd->bkgd", e, vg)
+    num = torch.einsum("bkgt,bktd->bkgd", e.to(tm).float(), vg)
     return num, den, m
 
 
@@ -62,6 +74,68 @@ def bf16_agreement(out: torch.Tensor, ref: torch.Tensor
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
     return (d.max().item(), BF16_MAX_ULPS * ulp,
             (d > 0).float().mean().item())
+
+
+CONTRACT_FLIPS = 2          # bar on the contract entry's output, in
+                            # probabilities rounded the other way
+_ULP_AT_ONE = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+               torch.float16: 2.0 ** -11}
+
+
+def contract_agreement(out: torch.Tensor, ref: torch.Tensor, v: torch.Tensor,
+                       den: torch.Tensor, dtype: torch.dtype
+                       ) -> Tuple[float, float]:
+    """How the contract entry's output num/den agrees with its plain
+    version's: (max |diff|, its bar).  At the model dtype ``dtype`` both
+    round each probability p <= 1 to it for P.V; where their f32 scores
+    differ in the last bits a p may round the other way, moving num by one
+    ulp of ``dtype`` at 1 times a value of V.  The bar is
+    ``CONTRACT_FLIPS`` such flips at max|v| over the smallest denominator
+    ``den``, plus 1e-5 for f32 sums in another order."""
+    d = (out.float() - ref.float()).abs().max().item()
+    bar = (CONTRACT_FLIPS * _ULP_AT_ONE[dtype] * v.float().abs().max().item()
+           / den.min().item() + 1e-5)
+    return d, bar
+
+
+def tied_contract_case(device, B: int = 2, Hkv: int = 4, G: int = 4,
+                       hd: int = 128, S: int = 1024, chunk: int = 64,
+                       nsel: int = 4, seed: int = 0):
+    """Inputs (q, k, v, ids, length) of the contract entry at bf16 on which
+    :func:`contract_agreement`'s bar sees whether P.V rounds each
+    probability to bf16.  Column 0 of every key is 1, except one key of
+    each (batch, kv head) — the first row of its first selected chunk —
+    where it is 2; column 0 of every value is 1; the rest is in [-1, 1).
+    q head h is delta_h at column 0 and 0 elsewhere, so its scores are
+    delta_h exactly (2 delta_h at the one key), and every other
+    probability is the one value p = exp(-delta_h) in [0.5, 1); delta_h (a
+    bf16 multiple of 2^-7) puts p at least a quarter bf16 ulp from bf16
+    and 0.05 ulp from a rounding midpoint.  Two versions that round p
+    agree to f32 sums; one that leaves p unrounded moves out[..., 0] by
+    2^-10 / p or more, against a bar of CONTRACT_FLIPS x 2^-8 / (N p + 1)
+    + 1e-5 for the N = nsel x chunk live keys."""
+    u = 2.0 ** -8
+    deltas = [k / 128 for k in range(1, 89)
+              if 0.05 <= abs((math.exp(-k / 128) / u) % 1.0 - 0.5) <= 0.25]
+    H = Hkv * G
+    if len(deltas) < H:
+        raise ValueError(f"tied_contract_case: {len(deltas)} usable deltas "
+                         f"for {H} heads")
+    g = torch.Generator().manual_seed(seed)
+    k = torch.rand(B, S, Hkv, hd, generator=g) * 2 - 1
+    v = torch.rand(B, S, Hkv, hd, generator=g) * 2 - 1
+    k[..., 0] = 1
+    v[..., 0] = 1
+    ids = torch.stack([torch.stack([
+        torch.randperm(S // chunk, generator=g)[:nsel] for _ in range(Hkv)])
+        for _ in range(B)])                                 # (B, Hkv, nsel)
+    for b in range(B):
+        for h in range(Hkv):
+            k[b, int(ids[b, h, 0]) * chunk, h, 0] = 2
+    q = torch.zeros(B, Hkv, G, hd)
+    q[..., 0] = torch.tensor(deltas[:H]).reshape(Hkv, G)
+    return (q.bfloat16().to(device), k.bfloat16().to(device),
+            v.bfloat16().to(device), ids.int().to(device), S)
 
 
 def model_scale(hd: int, dtype: torch.dtype) -> float:

@@ -1,27 +1,64 @@
-"""GQA and MLA attention for prefill, ported from
-``repro.models.attention``.
+"""GQA and MLA attention, ported from ``repro.models.attention``: prefill,
+the decode cache with its abstract pyramid, and the in-model LeoAM sparse
+decode of ``lm.decode_step``.
 
 ``blocked_attention`` is plain PyTorch (the JAX package wrote it in jnp,
 outside any Pallas kernel): query rows against KV blocks with an online
 softmax in f32.  MLA (DeepSeek) prefill is the reference's non-absorbed
 form: per-head K/V re-expanded from the latent ``ckv`` through ``wk_b`` /
 ``wv_b`` (:func:`mla_train`), with the latent decode cache
-(``ckv``, ``krope``) beside it (:func:`mla_prefill_cache`).  Decode
-attention runs in the serving engine through kernel B2 (GQA) or its latent
-variant (MLA, absorbed).  The in-model sparse decode with its abstract
-pyramid is a later slice (ROADMAP A2).
+(``ckv``, ``krope``) beside it (:func:`mla_prefill_cache`).
+
+The decode cache carries the abstract pyramid whenever
+``cfg.leoam.enabled``: f32 ``kmax{l}`` / ``kmin{l}`` (GQA) or ``cmax{l}``,
+``cmin{l}``, ``rmax{l}``, ``rmin{l}`` (MLA) per level.  :func:`gqa_decode`
+and :func:`mla_decode` write the new token's row and fold it into the
+pyramid IN PLACE, then attend: sparse (pyramid descent, then attention
+over the selected chunks) at a cache of ``min_seq_for_sparse`` or more,
+dense otherwise.  The GQA sparse path runs kernels B1 and B2 on a CUDA
+tensor; the MLA decode runs the reference's split bound and latent
+attention in torch ops (the reference computes both in jnp).  Only the
+local decode context is ported: a sequence-sharded ``DecodeCtx`` belongs
+to ROADMAP A12, cross-attention to A11.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import sparse_attention as sa
+from repro_torch.core.abstracts import (Pyramid, build_pyramid, num_levels,
+                                        update_pyramid)
+from repro_torch.core.adaptive import pyramid_select_mla
 from repro_torch.core.sparse_attention import NEG_INF
 from repro_torch.models.common import rms_norm, rotate, scale_like
 from repro_torch.models.params import ParamDef
+
+
+# ---------------------------------------------------------------------------
+# Decode context: how decode shards the cache
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DecodeCtx:
+    """How decode shards the cache: local (no ``seq_axes``) is the only
+    layout ported; mesh axes belong to ROADMAP A12."""
+    seq_axes: Tuple[str, ...] = ()
+
+
+LOCAL_CTX = DecodeCtx()
+
+
+def _local_only(ctx: DecodeCtx) -> None:
+    if ctx.seq_axes:
+        raise NotImplementedError(
+            "sequence-sharded decode (DecodeCtx with seq_axes) is not "
+            "ported yet (ROADMAP A12)")
 
 
 def gqa_params(cfg) -> Dict[str, ParamDef]:
@@ -63,6 +100,89 @@ def mla_params(cfg) -> Dict[str, ParamDef]:
 
 def attn_params(cfg) -> Dict[str, ParamDef]:
     return mla_params(cfg) if cfg.mla is not None else gqa_params(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Cache definitions
+# ---------------------------------------------------------------------------
+
+
+def gqa_cache_defs(cfg, batch: int, max_len: int) -> Dict[str, ParamDef]:
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    defs = {
+        "k": ParamDef((batch, max_len, Hkv, hd),
+                      ("batch", "kv_seq", "kv", None), init="zeros"),
+        "v": ParamDef((batch, max_len, Hkv, hd),
+                      ("batch", "kv_seq", "kv", None), init="zeros"),
+    }
+    if cfg.leoam.enabled:
+        nc0 = max_len // cfg.leoam.chunk_size
+        for lvl in range(num_levels(nc0, cfg.leoam.pyramid_levels)):
+            for nm in ("kmax", "kmin"):
+                defs[f"{nm}{lvl}"] = ParamDef(
+                    (batch, nc0 >> lvl, Hkv, hd),
+                    ("batch", "kv_seq", "kv", None), init="zeros",
+                    dtype="float32")
+    return defs
+
+
+def mla_cache_defs(cfg, batch: int, max_len: int) -> Dict[str, ParamDef]:
+    m = cfg.mla
+    defs = {
+        "ckv": ParamDef((batch, max_len, m.kv_lora_rank),
+                        ("batch", "kv_seq", None), init="zeros"),
+        "krope": ParamDef((batch, max_len, m.qk_rope_head_dim),
+                          ("batch", "kv_seq", None), init="zeros"),
+    }
+    if cfg.leoam.enabled:
+        nc0 = max_len // cfg.leoam.chunk_size
+        for lvl in range(num_levels(nc0, cfg.leoam.pyramid_levels)):
+            for nm, dim in (("cmax", m.kv_lora_rank),
+                            ("cmin", m.kv_lora_rank),
+                            ("rmax", m.qk_rope_head_dim),
+                            ("rmin", m.qk_rope_head_dim)):
+                defs[f"{nm}{lvl}"] = ParamDef(
+                    (batch, nc0 >> lvl, 1, dim),
+                    ("batch", "kv_seq", None, None), init="zeros",
+                    dtype="float32")
+    return defs
+
+
+def cache_defs(cfg, kind: str, batch: int, max_len: int):
+    if not kind.startswith("attn"):
+        return None
+    if cfg.mla is not None:
+        return mla_cache_defs(cfg, batch, max_len)
+    return gqa_cache_defs(cfg, batch, max_len)
+
+
+def _pyr_from_cache(cache: Dict[str, torch.Tensor], prefix: str = "k"
+                    ) -> Pyramid:
+    kmaxs, kmins, lvl = [], [], 0
+    while f"{prefix}max{lvl}" in cache:
+        kmaxs.append(cache[f"{prefix}max{lvl}"])
+        kmins.append(cache[f"{prefix}min{lvl}"])
+        lvl += 1
+    return Pyramid(tuple(kmaxs), tuple(kmins))
+
+
+def _pyramid_leaves(cfg, prefix_of, boxes, length
+                    ) -> Dict[str, torch.Tensor]:
+    """The pyramid leaves of a prefill cache: for each (box name, rows
+    (B, S, Hkv, w)) in ``boxes``, its f32 (max, min) pyramid with rows at
+    positions >= ``length`` as sentinels; ``prefix_of`` maps a box name to
+    its (max, min) leaf prefixes."""
+    out = {}
+    if not cfg.leoam.enabled:
+        return out
+    for name, rows in boxes:
+        pyr = build_pyramid(rows, cfg.leoam.chunk_size,
+                            cfg.leoam.pyramid_levels, length=length)
+        hi, lo = prefix_of[name]
+        for lvl in range(pyr.levels):
+            out[f"{hi}{lvl}"] = pyr.kmax[lvl]
+            out[f"{lo}{lvl}"] = pyr.kmin[lvl]
+    return out
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -142,9 +262,9 @@ def gqa_prefill_cache(cfg, k: torch.Tensor, v: torch.Tensor, max_len: int,
     """The decode cache after prefill: K/V padded to ``max_len``, with rows
     at positions >= ``length`` zeroed first (bucketed prefill pads the
     prompt, and the tier store ingests this cache — zeroing keeps stored
-    chunks and their abstracts equal to exact-length prefill).  The
-    abstract pyramid of the JAX cache is left out: the serving engine never
-    reads it."""
+    chunks and their abstracts equal to exact-length prefill), and the
+    abstract pyramid over the padded keys (f32, sentinels past
+    ``length``) when ``cfg.leoam.enabled``."""
     B, S, Hkv, hd = k.shape
     valid = (torch.arange(S, device=k.device) < int(length))[None, :, None,
                                                                None]
@@ -153,7 +273,9 @@ def gqa_prefill_cache(cfg, k: torch.Tensor, v: torch.Tensor, max_len: int,
     pad = max_len - S
     kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    return {"k": kp, "v": vp}
+    return {"k": kp, "v": vp,
+            **_pyramid_leaves(cfg, {"k": ("kmax", "kmin")}, [("k", kp)],
+                              length)}
 
 
 # ---------------------------------------------------------------------------
@@ -228,18 +350,146 @@ def mla_prefill_cache(p, cfg, x: torch.Tensor, pos, max_len: int,
     """The latent decode cache after prefill: ``ckv`` (B, max_len, r) and
     ``krope`` (B, max_len, rope), rows at positions >= ``length`` zeroed
     before the pad, as :func:`gqa_prefill_cache` does (the engine ingests
-    concat(ckv, krope) per token into its one-plane store).  The abstract
-    pyramid is left out, as for GQA."""
+    concat(ckv, krope) per token into its one-plane store), and the two
+    abstract pyramids (``cmax``/``cmin`` over ckv, ``rmax``/``rmin`` over
+    krope, one logical kv head) when ``cfg.leoam.enabled``."""
     ckv, krope = mla_latent(p, cfg, x, pos)
-    return mla_latent_cache(ckv, krope, max_len, length)
+    return mla_latent_cache(cfg, ckv, krope, max_len, length)
 
 
-def mla_latent_cache(ckv: torch.Tensor, krope: torch.Tensor, max_len: int,
-                     length) -> Dict[str, torch.Tensor]:
+def mla_latent_cache(cfg, ckv: torch.Tensor, krope: torch.Tensor,
+                     max_len: int, length) -> Dict[str, torch.Tensor]:
     """:func:`mla_prefill_cache` from latent rows already computed."""
     S = ckv.shape[1]
     valid = (torch.arange(S, device=ckv.device) < int(length))[None, :, None]
     pad = max_len - S
-    return {name: torch.nn.functional.pad(
+    c = {name: torch.nn.functional.pad(
         torch.where(valid, t, torch.zeros_like(t)), (0, 0, 0, pad))
         for name, t in (("ckv", ckv), ("krope", krope))}
+    c.update(_pyramid_leaves(
+        cfg, {"c": ("cmax", "cmin"), "r": ("rmax", "rmin")},
+        [("c", c["ckv"][:, :, None]), ("r", c["krope"][:, :, None])],
+        length))
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token, in place, sparse or dense
+# ---------------------------------------------------------------------------
+
+
+def _layer_budget(cfg, layer_idx: int, n_chunks: int) -> int:
+    """Chunks a layer attends: the early rate for the first
+    ``early_layers`` indices, ``importance_rate`` otherwise (body layers
+    decode with index 10**6, so every body layer takes the standard rate),
+    plus the forced sink and recent chunks."""
+    lcfg = cfg.leoam
+    rate = lcfg.early_rate if layer_idx < lcfg.early_layers \
+        else lcfg.importance_rate
+    want = (int(math.ceil(n_chunks * rate)) + lcfg.sink_chunks
+            + lcfg.recent_chunks)
+    return max(1, min(n_chunks, want))
+
+
+def _use_sparse(cfg, kind: str, S_total: int) -> bool:
+    return (cfg.leoam.enabled and kind != "attn_local"
+            and S_total >= cfg.leoam.min_seq_for_sparse)
+
+
+def gqa_decode(p, cfg, kind: str, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], length: int, *,
+               layer_idx: int, ctx: DecodeCtx = LOCAL_CTX,
+               cross_kv_cache=None, impl: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step.  x: (B, 1, d); length: the cache fill (an int), the
+    position the new token takes.  Writes the token's K/V row (and, on
+    the sparse path, folds its key into the pyramid) into ``cache`` IN
+    PLACE; returns (out (B, 1, d), cache)."""
+    if cross_kv_cache is not None:
+        raise NotImplementedError(
+            "cross-attention decode (encoder-decoder) is not ported yet "
+            "(ROADMAP A11)")
+    _local_only(ctx)
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.hd
+    length = int(length)
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, pos)
+    q = scale_like(q[:, 0], 1.0 / math.sqrt(hd))             # (B, H, hd)
+    k_new, v_new = k_new[:, 0], v_new[:, 0]                  # (B, Hkv, hd)
+
+    S = cache["k"].shape[1]
+    chunk = cfg.leoam.chunk_size
+    use_sparse = _use_sparse(cfg, kind, S)
+    cache["k"][:, length] = k_new.to(cache["k"].dtype)
+    cache["v"][:, length] = v_new.to(cache["v"].dtype)
+    n_valid = min(length + 1, S)
+    if use_sparse:
+        pyr = update_pyramid(_pyr_from_cache(cache), k_new, length, chunk)
+        part = sa.leoam_decode_shard(
+            q, cache["k"], cache["v"], pyr, chunk=chunk,
+            budget=_layer_budget(cfg, layer_idx, S // chunk),
+            length=n_valid, attn_softcap=cfg.attn_softcap,
+            sink_chunks=cfg.leoam.sink_chunks,
+            recent_chunks=cfg.leoam.recent_chunks,
+            rf=cfg.leoam.refine_factor,
+            n_valid_chunks=(length + chunk) // chunk, impl=impl)
+    else:
+        part = sa.dense_decode_gqa(
+            q, cache["k"], cache["v"], length=n_valid,
+            attn_softcap=cfg.attn_softcap,
+            window=cfg.window if kind == "attn_local" else None,
+            query_pos=length)
+    out = sa.combine_partials(part, ctx.seq_axes)
+    out = out.to(x.dtype).reshape(B, 1, H * hd)
+    return out @ p["wo"], cache
+
+
+def mla_decode(p, cfg, kind: str, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], length: int, *,
+               layer_idx: int, ctx: DecodeCtx = LOCAL_CTX,
+               impl: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-MLA decode step: the query absorbs W_UK (latent space),
+    the new latent row is written (and folded into both pyramids) IN
+    PLACE, the latent attention runs sparse or dense, and W_UV and ``wo``
+    project out.  Returns (out (B, 1, d), cache)."""
+    _local_only(ctx)
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    length = int(length)
+    pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos)
+    q_lat = torch.einsum("bhd,hrd->bhr", q_nope[:, 0], p["wk_b"])
+    scale = mla_scale(cfg)
+    q_lat, q_rope = scale_like(q_lat, scale), scale_like(q_rope[:, 0], scale)
+    ckv_new, krope_new = mla_latent(p, cfg, x, pos)
+    ckv_new, krope_new = ckv_new[:, 0], krope_new[:, 0]
+
+    S = cache["ckv"].shape[1]
+    chunk = cfg.leoam.chunk_size
+    use_sparse = cfg.leoam.enabled and S >= cfg.leoam.min_seq_for_sparse
+    cache["ckv"][:, length] = ckv_new.to(cache["ckv"].dtype)
+    cache["krope"][:, length] = krope_new.to(cache["krope"].dtype)
+    n_valid = min(length + 1, S)
+    if use_sparse:
+        pc = update_pyramid(_pyr_from_cache(cache, "c"), ckv_new[:, None],
+                            length, chunk)
+        pr = update_pyramid(_pyr_from_cache(cache, "r"), krope_new[:, None],
+                            length, chunk)
+        ids = pyramid_select_mla(
+            q_lat, q_rope, pc, pr, _layer_budget(cfg, layer_idx, S // chunk),
+            rf=cfg.leoam.refine_factor, sink_chunks=cfg.leoam.sink_chunks,
+            recent_chunks=cfg.leoam.recent_chunks,
+            n_valid0=(length + chunk) // chunk)
+        part = sa.sparse_decode_mla(q_lat, q_rope, cache["ckv"],
+                                    cache["krope"], ids, chunk,
+                                    length=n_valid)
+    else:
+        part = sa.dense_decode_mla(q_lat, q_rope, cache["ckv"],
+                                   cache["krope"], length=n_valid)
+    out_lat = sa.combine_partials(part, ctx.seq_axes)          # (B, H, r)
+    out = torch.einsum("bhr,hrv->bhv", out_lat.float(),
+                       p["wv_b"].float()).to(x.dtype)
+    return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache

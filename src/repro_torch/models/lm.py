@@ -11,13 +11,15 @@ Attention is GQA/MHA or DeepSeek's MLA (whose decode cache is the latent
 ``ckv`` / ``krope`` pair); feed-forward blocks are dense or
 mixture-of-experts, the latter with the inference dispatch (no capacity
 drops).  Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
-``prefill(params, cfg, batch, max_len)``, and chunked prefill:
+``prefill(params, cfg, batch, max_len)``, chunked prefill:
 ``init_decode_cache(cfg, batch, max_len, device)`` then
 ``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk, after
-``load_prefix_rows(cfg, cache, rows, n)`` for a warm shared prefix.
-Recurrent and encoder-decoder stacks raise ``NotImplementedError``
-(ROADMAP A11); ``decode_step`` with its in-model sparse path is a later
-slice.
+``load_prefix_rows(cfg, cache, rows, n)`` for a warm shared prefix, and
+``decode_step(params, cfg, cache, batch, length)``: one token for every
+sequence with the in-model LeoAM sparse decode (the abstract pyramid the
+cache carries, kernels B1 and B2 on the card; ``impl="ref"`` runs their
+plain versions there).  Recurrent and encoder-decoder stacks raise
+``NotImplementedError`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import LOCAL_CTX, DecodeCtx
 from repro_torch.models.common import (positions_for, rms_norm, scale_like,
                                        softcap)
 from repro_torch.models.params import (ParamDef, init_tree, is_def,
@@ -119,32 +122,27 @@ def body_block(params, pi: int, r: int) -> Dict[str, Any]:
 
 
 def cache_defs(cfg, batch: int, max_len: int) -> Dict[str, Any]:
-    """The decode cache's leaves, as :func:`prefill` returns them: K and V
-    (batch, max_len, Hkv, hd) per attention layer — for MLA the latent
-    ``ckv`` (batch, max_len, r) and ``krope`` (batch, max_len, rope) —
-    body layers stacked on the repeat axis.  The JAX cache's abstract
-    pyramid is left out: the serving engine never reads it."""
+    """The decode cache's leaves, as :func:`prefill` returns them: per
+    attention layer K and V (batch, max_len, Hkv, hd) — for MLA the latent
+    ``ckv`` (batch, max_len, r) and ``krope`` (batch, max_len, rope) — and,
+    with ``cfg.leoam.enabled``, the f32 abstract pyramid leaves
+    (``attention.gqa_cache_defs`` / ``mla_cache_defs``); body layers
+    stacked on the repeat axis."""
     check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
-    if cfg.mla is not None:
-        m = cfg.mla
-        blk = {"ckv": ParamDef((batch, max_len, m.kv_lora_rank),
-                               ("batch", None, None), init="zeros"),
-               "krope": ParamDef((batch, max_len, m.qk_rope_head_dim),
-                                 ("batch", None, None), init="zeros")}
-    else:
-        kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.hd),
-                      ("batch", None, "kv", None), init="zeros")
-        blk = {"k": kv, "v": kv}
-    return {"prologue": [dict(blk) for _ in prologue],
-            "body": [_stack_defs(blk, repeats) for _ in period]
+    return {"prologue": [attn.cache_defs(cfg, k, batch, max_len)
+                         for (_, k, _m) in prologue],
+            "body": [_stack_defs(attn.cache_defs(cfg, k, batch, max_len),
+                                 repeats) for (k, _m) in period]
             if repeats else []}
 
 
 def init_decode_cache(cfg, batch: int, max_len: int,
                       device: DeviceLike = None) -> Dict[str, Any]:
     """A zeroed decode cache on ``device``: the starting state of chunked
-    prefill, with the structure :func:`prefill` returns."""
+    prefill, with the structure :func:`prefill` returns, each leaf in its
+    ``ParamDef``'s dtype (the pyramid leaves f32, zeros as in the
+    reference)."""
     dev = resolve_device(device)
     return init_tree(cache_defs(cfg, batch, max_len), None,
                      torch_dtype(cfg.dtype), dev)
@@ -229,9 +227,10 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
     the token row is right-padded to a BUCKET size: the logits come from
     position ``length - 1`` and K/V cache rows past ``length`` are zeroed,
     so one bucket serves every prompt length in it, token-identical to
-    exact-length prefill.  The cache is ``{"prologue": [{"k", "v"}...],
-    "body": [{"k", "v"} stacked on the repeat axis]}`` with K/V
-    (B, max_len, Hkv, hd), or the latent ``{"ckv", "krope"}`` for MLA."""
+    exact-length prefill.  The cache is ``{"prologue": [{"k", "v", ...}],
+    "body": [{"k", "v", ...} stacked on the repeat axis]}`` with K/V
+    (B, max_len, Hkv, hd), or the latent ``{"ckv", "krope", ...}`` for
+    MLA, beside the f32 abstract pyramid leaves (:func:`cache_defs`)."""
     check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
     x, B, S = _embed_in(params, cfg, batch)
@@ -246,7 +245,7 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
             q_nope, q_rope = attn._mla_q(p, cfg, h, pos)
             ckv, krope = attn.mla_latent(p, cfg, h, pos)
             y = attn.mla_attend(p, cfg, q_nope, q_rope, ckv, krope)
-            cache = attn.mla_latent_cache(ckv, krope, max_len, length)
+            cache = attn.mla_latent_cache(cfg, ckv, krope, max_len, length)
             return _apply_mlp(blk, cfg, mlpk, x + y), cache
         q, k, v = attn._qkv(blk["core"], cfg, h, pos)
         window = cfg.window if kind == "attn_local" else None
@@ -297,7 +296,9 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
     chunk's K/V into it at ``start``, padding rows zeroed first, and
     attends the chunk's queries over the whole cache with an offset causal
     mask: rows not yet written sit at later positions, so the mask alone
-    keeps them out.  The cache is updated IN PLACE and returned.
+    keeps them out.  The cache is updated IN PLACE and returned.  Only
+    K/V are written: the pyramid leaves stay as they are (zeros from
+    :func:`init_decode_cache`), as in the reference.
 
     MLA chunks write the latent rows (``ckv`` / ``krope``, the same
     zeroing) and attend non-absorbed over the whole latent cache, per-head
@@ -356,3 +357,54 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
     # last valid row of THIS chunk (earlier chunks' logits are discarded)
     idx = min(max(min(length, start + C) - 1 - start, 0), C - 1)
     return _logits(params, cfg, x[:, idx:idx + 1])[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+
+
+def _block_decode(blk, cfg, kind: str, mlp_kind: str, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], length: int, *,
+                  layer_idx: int, ctx: DecodeCtx,
+                  impl=None) -> torch.Tensor:
+    h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+    if cfg.mla is not None:
+        y, _ = attn.mla_decode(blk["core"], cfg, kind, h, cache, length,
+                               layer_idx=layer_idx, ctx=ctx, impl=impl)
+    else:
+        y, _ = attn.gqa_decode(blk["core"], cfg, kind, h, cache, length,
+                               layer_idx=layer_idx, ctx=ctx, impl=impl)
+    return _apply_mlp(blk, cfg, mlp_kind, x + y)
+
+
+def decode_step(params, cfg, cache: Dict[str, Any], batch: Dict[str, Any],
+                length: int, ctx: DecodeCtx = LOCAL_CTX, *, impl=None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token for every sequence.  batch: ``{"token": (B,)}`` or
+    ``{"embeds": (B, 1, d)}``; length: the current cache fill (an int, one
+    for the batch).  Every layer writes the token's row into ``cache`` IN
+    PLACE (and folds its key into the pyramid on the sparse path) and
+    attends sparse or dense as :func:`attention.gqa_decode` decides.  The
+    prologue layers decode with their own index (the early budget), the
+    body layers with index 10**6 (the standard budget), as in the
+    reference.  ``impl="ref"`` runs the plain versions of kernels B1 and
+    B2 on the card.  Returns (logits (B, V) f32, cache)."""
+    check_supported(cfg)
+    prologue, period, repeats = _layer_plan(cfg)
+    if "token" in batch:
+        x = params["embed"][torch.as_tensor(batch["token"]).long().to(
+            params["embed"].device)][:, None]
+    else:
+        x = batch["embeds"].to(params["embed"].dtype)
+    length = int(length)
+    for blk, (idx, kind, mlpk), c in zip(params["prologue"], prologue,
+                                         cache["prologue"]):
+        x = _block_decode(blk, cfg, kind, mlpk, x, c, length, layer_idx=idx,
+                          ctx=ctx, impl=impl)
+    for r in range(repeats):
+        for pi, (kind, mlpk) in enumerate(period):
+            c = {name: leaf[r] for name, leaf in cache["body"][pi].items()}
+            x = _block_decode(body_block(params, pi, r), cfg, kind, mlpk, x,
+                              c, length, layer_idx=10**6, ctx=ctx, impl=impl)
+    return _logits(params, cfg, x)[:, 0], cache

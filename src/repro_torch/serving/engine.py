@@ -90,10 +90,10 @@ into an arena row and published once their writes have landed.
 
 Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
-asks for the plain versions on the card too.  Options of the reference
-that the port leaves out so far raise ``NotImplementedError`` naming
-their ROADMAP item: non-attention layers, the sync sanitizer, and the PQ
-plane and the shared-prefix cache on an MLA model (A7b).
+asks for the plain versions on the card too.  Non-attention layers raise
+``NotImplementedError`` naming their ROADMAP item (A11).
+``EngineCfg(debug_sync=True)`` turns on the runtime sync sanitizer
+(``serving/sanitizer.py``) through the store, as the reference does.
 """
 
 from __future__ import annotations
@@ -187,7 +187,8 @@ class EngineCfg:
                                      # store's sequence rows: how many
                                      # distinct prefix sets stay resident
                                      # (LRU beyond that)
-    debug_sync: bool = False         # not ported (ROADMAP A13)
+    debug_sync: bool = False         # runtime sync sanitizer: ownership
+                                     # assertions and TrackedLock order
     checksums: bool = True           # per-chunk CRC32 on disk replicas +
                                      # packed sidecars, verified at every
                                      # promotion
@@ -306,9 +307,6 @@ class BatchedLeoAMEngine:
                     f"store chunk ({chunk}) and divide max_len "
                     f"({ecfg.max_len})")
         lm.check_supported(cfg)
-        if ecfg.debug_sync:
-            raise NotImplementedError(
-                "EngineCfg(debug_sync=True) is not ported yet (ROADMAP A13)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -344,7 +342,7 @@ class BatchedLeoAMEngine:
             sidecar_lossless=ecfg.sidecar_lossless, latent=self.mla,
             prefix_rows=(max(1, ecfg.prefix_arena_rows)
                          if ecfg.prefix_cache else 0),
-            checksums=ecfg.checksums,
+            debug_sync=ecfg.debug_sync, checksums=ecfg.checksums,
             faults=ecfg.fault_plan, io_retries=ecfg.io_retries,
             io_backoff_s=ecfg.io_backoff_s,
             abstract_kind=("pq" if ecfg.pq_abstracts else "minmax"),

@@ -46,8 +46,9 @@ demotions are metadata-only, promotions read the abstract or the chunk.
   keeps one storage plane: replica, sidecar, pool slab, chunk and row
   bytes cover exactly the latent payload (no phantom V plane).  The (k, v)
   entry points stay: callers pass the latent rows as ``k`` (``v`` is
-  ignored) and reads return them in both positions.  The PQ plane and the
-  shared-prefix cache on this layout raise (ROADMAP A7b);
+  ignored) and reads return them in both positions.  The PQ plane (its
+  ``head_dim // 8`` subspaces span the latent row) and the shared-prefix
+  cache run on this layout as on the K/V pair;
 * the **legacy device tier** (``use_pool=False``, the reference's
   default): a dict of host numpy chunks capped by ``device_budget`` and
   evicted LRU, a tier label in the ledger, served by ``fetch_chunks`` /
@@ -88,8 +89,10 @@ demotions are metadata-only, promotions read the abstract or the chunk.
 
 Host-side state and billing are the reference's numpy code, so disk bytes,
 abstracts and the traffic log are bitwise equal to ``repro``'s for the same
-script (tested).  Options of the reference that the port leaves out raise
-``NotImplementedError`` at construction, naming their ROADMAP item.
+script (tested).  ``debug_sync=True`` turns on the runtime sync sanitizer
+(``serving/sanitizer.py``): ``_lock``, ``_pq_lock`` and ``_futs_lock`` are
+wrapped in ``TrackedLock`` and the ownership decorators assert, as in the
+reference; ``close`` releases it.
 """
 
 from __future__ import annotations
@@ -115,6 +118,7 @@ from repro_torch.serving.faults import (ChunkLostError, DiskIOExhausted,
                                         IngestError, TransientDiskError,
                                         WorkerFault)
 from repro_torch.serving.prefix import PrefixIndex, chunk_hashes
+from repro_torch.serving import sanitizer as _san
 from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
                                            worker_thread)
 
@@ -290,11 +294,6 @@ class DeviceChunkPool:
         self.pending[key] = (off, kv_row)
 
 
-def _unsupported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TieredKVStore({option}) is not ported yet (ROADMAP {item})")
-
-
 class TieredKVStore:
     """Multi-sequence chunked K/V with device/host/disk placement.
 
@@ -327,15 +326,13 @@ class TieredKVStore:
                  pq_centroids: int = 256, pq_train_iters: int = 4,
                  device: DeviceLike = None, impl: Optional[str] = None,
                  fidelity_dtype: Optional[torch.dtype] = None):
-        for bad, opt, item in (
-                (latent and prefix_rows, "latent=True, prefix_rows>0", "A7b"),
-                (latent and abstract_kind == "pq",
-                 "latent=True, abstract_kind='pq'", "A7b"),
-                (debug_sync, "debug_sync=True", "A13")):
-            if bad:
-                raise _unsupported(opt, item)
         if abstract_kind not in ("minmax", "pq"):
             raise ValueError(f"unknown abstract_kind {abstract_kind!r}")
+        # sync sanitizer: a refcounted enable, so overlapping debug stores
+        # compose; the locks are wrapped in TrackedLock below
+        self.debug_sync = bool(debug_sync)
+        if self.debug_sync:
+            _san.enable()
         self.device = resolve_device(device)
         self.impl = impl
         self.n_seqs = n_seqs
@@ -377,6 +374,8 @@ class TieredKVStore:
                                 head_dim), -np.inf, np.float32)
         self._abs_kn = np.full_like(self._abs_km, np.inf)
         self._lock = threading.RLock()
+        if self.debug_sync:
+            self._lock = _san.TrackedLock(self._lock, "TieredKVStore._lock")
         self.codec_uploads = 0         # pooled H2D chunks sent packed
         self.plain_uploads = 0         # pooled H2D chunks sent fp16
         self.pools: List[Optional[DeviceChunkPool]] = [None] * n_layers
@@ -485,6 +484,9 @@ class TieredKVStore:
         # k-means kernels themselves run OUTSIDE any lock
         # (snapshot-compute-merge)
         self._pq_lock = threading.Lock()
+        if self.debug_sync:
+            self._pq_lock = _san.TrackedLock(self._pq_lock,
+                                             "TieredKVStore._pq_lock")
         self.fault_counters: Dict[str, int] = {
             "io_retries": 0, "checksum_failures": 0, "chunks_recomputed": 0,
             "pq_fallbacks": 0}
@@ -505,6 +507,9 @@ class TieredKVStore:
         # fence pops under _futs_lock and waits OUTSIDE the store lock
         self._ingest_futs: Dict[int, List] = defaultdict(list)
         self._futs_lock = threading.Lock()
+        if self.debug_sync:
+            self._futs_lock = _san.TrackedLock(self._futs_lock,
+                                               "TieredKVStore._futs_lock")
         # requant sweep: append-dirtied chunks keyed to the sweep round of
         # their LAST append; a chunk quiet for a full round is repacked
         # (sidecar) and re-encoded (PQ codes) in the background.  The
@@ -2306,6 +2311,9 @@ class TieredKVStore:
             self.requant_fence()
         except Exception:
             pass
+        if self.debug_sync:
+            _san.disable()
+            self.debug_sync = False    # idempotent on a second close
         self._disk = self._disk_q = self._disk_scale = None
         self._crc = self._crc_state = self._q_crc = None
         self._pq_codes = self._pq_codebook = self._pq_crc = None

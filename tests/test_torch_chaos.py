@@ -1,7 +1,7 @@
 """Chaos tests of the port's engine: seeded fault injection against
 ``BatchedLeoAMEngine`` and ``ContinuousBatcher`` on the CPU.  Ported from
 ``tests/test_chaos_engine.py`` (every test); the port's engines run with
-``debug_sync=False`` (the sync sanitizer is A13).
+``debug_sync=True`` (the runtime sync sanitizer), as the reference's do.
 
 - a seeded :class:`FaultPlan` (disk I/O errors, latency, sidecar
   bit-flips, worker exceptions) may degrade or fail single sequences, but
@@ -74,11 +74,12 @@ def _setup():
     return _SETUP["cfg"], _SETUP["params"], _SETUP["prompts"]
 
 
-def _engine(cfg, params, *, plan=None, **ecfg_kw):
+def _engine(cfg, params, *, plan=None, debug_sync=True, **ecfg_kw):
     return BatchedLeoAMEngine(
         cfg, params,
         EngineCfg(max_len=128, selection="tree", disk_sidecar=True,
-                  fault_plan=plan, io_backoff_s=0.0, **ecfg_kw),
+                  debug_sync=debug_sync, fault_plan=plan, io_backoff_s=0.0,
+                  **ecfg_kw),
         max_seqs=2, device="cpu")
 
 

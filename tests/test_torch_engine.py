@@ -172,16 +172,53 @@ def test_single_sequence_wrapper_and_release(setup):
     {"prefix_cache": True, "config": "deepseek-v2-lite-16b"},
     {"debug_sync": True}])
 def test_unported_engine_options_raise(setup, opt):
-    """The prefix cache and MLA models run now
-    (tests/test_torch_prefix_cache.py, tests/test_torch_mla_engine.py);
-    the prefix cache on an MLA model still refuses, naming its item
-    (A7b)."""
-    _, tcfg, _, tparams, _ = setup
+    """Options the port once refused, each now held to the reference: the
+    shared-prefix cache on an MLA model (A7b; deepseek-v2-lite's smoke
+    config with its own weights, three prompts of one 32-token head, the
+    later two adopting it) and the sync sanitizer (A13a).  Token streams,
+    TrafficLogs and pool stats equal ``repro``'s engine with the same
+    option."""
     opt = dict(opt)
     if "config" in opt:
-        tcfg = t_get_config(opt.pop("config"), smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tcfg, tparams, TCfg(max_len=128, **opt), device="cpu")
+        arch = opt.pop("config")
+        cfg, tcfg = (get(arch, smoke=True)
+                     for get in (get_config, t_get_config))
+        cfg, tcfg = (dataclasses.replace(c, leoam=dataclasses.replace(
+            c.leoam, chunk_size=16, min_seq_for_sparse=32))
+            for c in (cfg, tcfg))
+        params = jlm.init(cfg, jax.random.PRNGKey(3))
+        tparams = params_from_jax(jax.tree.map(np.asarray, params), "cpu")
+        rng = np.random.RandomState(4)
+        head = rng.randint(2, cfg.vocab_size, 32)
+        prompts = [np.concatenate([head, rng.randint(2, cfg.vocab_size, n)])
+                   for n in (20, 9, 30)]
+        setup = (cfg, tcfg, params, tparams, prompts)
+        opt.update(prefill_chunk_tokens=32, prefix_arena_rows=2)
+    outs = [_run_direct(port, setup, **opt) for port in (False, True)]
+    assert outs[1] == outs[0]
+    if "prefix_cache" in opt:
+        assert ("host", "disk", "prefix_ref") in outs[1][1][1]
+
+
+@pytest.mark.parametrize("kw", [{}, {"real_codec": True},
+                                {"pooled": False, "pipeline": False}],
+                         ids=["default", "codec", "legacy"])
+def test_moe_gqa_engine_matches_reference(kw):
+    """moonshot-v1-16b-a3b (GQA with no-drop MoE; smoke: 4 experts top-2)
+    through the engine: token streams, TrafficLogs and pool stats equal to
+    ``repro``'s, pooled (with and without the real codec) and legacy."""
+    cfg, tcfg = (dataclasses.replace(c, leoam=dataclasses.replace(
+        c.leoam, chunk_size=16, importance_rate=0.4, early_rate=0.6,
+        min_seq_for_sparse=32))
+        for c in (get("moonshot-v1-16b-a3b", smoke=True)
+                  for get in (get_config, t_get_config)))
+    params = jlm.init(cfg, jax.random.PRNGKey(2))
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), "cpu")
+    prompts = [np.random.RandomState(6).randint(2, cfg.vocab_size, n)
+               for n in LENS]
+    setup = (cfg, tcfg, params, tparams, prompts)
+    outs = [_run_direct(port, setup, **kw) for port in (False, True)]
+    assert outs[1] == outs[0]
 
 
 def test_params_on_another_device_are_refused(setup):

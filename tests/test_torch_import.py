@@ -75,7 +75,12 @@ def test_overload_and_trace_copies_load_no_jax_and_no_repro():
 
 def test_no_source_imports_jax_or_repro():
     offenders = []
-    for path in [*PORT.rglob("*.py"), *CARD_SCRIPTS]:
+    paths = [*PORT.rglob("*.py"), *CARD_SCRIPTS]
+    # the in-model decode path and the port's quickstart are scanned too
+    for rel in ("core/abstracts.py", "core/sparse_attention.py",
+                "models/attention.py", "launch/quickstart.py"):
+        assert PORT / rel in paths, rel
+    for path in paths:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

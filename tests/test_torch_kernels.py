@@ -31,8 +31,9 @@ from repro_torch.kernels.sparse_decode.ops import (BLOCKS_PER_SM,
                                                    sparse_decode_workingset,
                                                    split_plan, split_rows)
 from repro_torch.kernels.sparse_decode.ref import (
-    BF16_MAX_MISMATCH, bf16_agreement, model_scale,
-    sparse_decode_pooled_split_ref, workingset_slab)
+    BF16_MAX_MISMATCH, bf16_agreement, contract_agreement, model_scale,
+    sparse_decode_pooled_split_ref, sparse_decode_ref, tied_contract_case,
+    workingset_slab)
 
 _TDT = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -330,6 +331,26 @@ def test_bf16_bar_rejects_a_skipped_cast_point(rng, fault):
         assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
     else:
         assert frac > BF16_MAX_MISMATCH, (err, bar, frac)
+
+
+def test_contract_bar_sees_unrounded_probabilities():
+    """``contract_agreement``'s bar at bf16 (B2's contract entry, as
+    ``lm.decode_step`` runs it) is tight enough to see a P.V that leaves
+    each probability unrounded: on ``tied_contract_case`` the plain
+    version with an f32 q misses it by more than four bars, while the
+    plain version with each selection reversed (the same rows summed in
+    another order) stays within it."""
+    q, k, v, ids, length = tied_contract_case(torch.device("cpu"))
+    num, den, _ = sparse_decode_ref(q, k, v, ids, length, chunk=64)
+    out = num / den[..., None]
+    nf, df, _ = sparse_decode_ref(q, k, v, ids.flip(-1), length, chunk=64)
+    err, bar = contract_agreement(nf / df[..., None], out, v, den,
+                                  torch.bfloat16)
+    assert err <= bar, (err, bar)
+    nu, du, _ = sparse_decode_ref(q.float(), k, v, ids, length, chunk=64)
+    err_u, _ = contract_agreement(nu / du[..., None], out, v, den,
+                                  torch.bfloat16)
+    assert err_u > 4 * bar, (err_u, bar)
 
 
 @pytest.mark.parametrize("codec", ["int8", "int4"])

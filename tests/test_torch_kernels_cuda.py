@@ -18,6 +18,8 @@ so its sums and counts are bitwise equal, and so are two launches (no
 float atomics).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,8 +29,9 @@ from repro_torch.kernels.kv_quant import ops as kq_ops
 from repro_torch.kernels.pq import ops as pq_ops
 from repro_torch.kernels.sparse_decode import ops as sd_ops
 from repro_torch.kernels.sparse_decode.ref import (
-    BF16_MAX_MISMATCH, bf16_agreement, latent_agreement, latent_pooled_den,
-    sparse_decode_latent_pooled_ref, tied_latent_case)
+    BF16_MAX_MISMATCH, bf16_agreement, contract_agreement, latent_agreement,
+    latent_pooled_den, sparse_decode_latent_pooled_ref, tied_contract_case,
+    tied_latent_case)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1220,3 +1223,172 @@ def test_fetch_chunks_pooled_latent_cuda_matches_plain_scatter(cuda, tmp_path,
     assert out[None][2] == out["ref"][2] > 0
     assert out[None][3] == out["ref"][3]
     assert kq_ops.launches > before
+
+
+# ---------------------------------------------------------------------------
+# lm.decode_step's sparse path: B2's Pallas-contract entry at the model
+# dtype and with a softcap, B1 on pyramid boxes with sentinel rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,Hkv,G,hd,softcap,dtype", [
+    (4, 32, 1, 128, None, torch.bfloat16),    # longchat
+    (2, 4, 2, 256, 50.0, torch.bfloat16),     # gemma2: hd 256, softcap
+    (2, 8, 12, 192, None, torch.bfloat16),    # nemotron4: hd 192, G 12
+    (2, 2, 4, 64, 30.0, torch.float32),
+    (1, 2, 3, 128, None, torch.float16),
+])
+def test_sparse_decode_contract_at_the_model_dtype(cuda, rng, B, Hkv, G, hd,
+                                                   softcap, dtype):
+    """q in the cache's dtype (``sparse_decode_gqa`` rounds it there): the
+    kernel runs at that model dtype — probabilities rounded to it for P.V
+    — and with the softcap, as the plain version.  m and den are f32 sums
+    in another order (1e-5); the output may see a probability round the
+    other way where the scores differ in their last bits: two such flips,
+    one ulp of the model dtype at p <= 1 times max|v| over the smallest
+    den."""
+    S, chunk, nsel, length = 1024, 64, 6, 1000
+    q = _t(rng.randn(B, Hkv, G, hd).astype(np.float32) / np.sqrt(hd) * 4,
+           cuda, dtype)
+    k = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, dtype)
+    v = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, dtype)
+    ids = _t(np.stack([np.stack([
+        np.r_[rng.choice(S // chunk - 1, nsel - 1, replace=False),
+              S // chunk - 1] for _ in range(Hkv)]) for _ in range(B)])
+        .astype(np.int32), cuda)
+    num_r, den_r, m_r = sd_ops.sparse_decode(q, k, v, ids, length,
+                                             chunk=chunk,
+                                             attn_softcap=softcap,
+                                             impl="ref")
+    before = sd_ops.launches
+    num_k, den_k, m_k = sd_ops.sparse_decode(q, k, v, ids, length,
+                                             chunk=chunk,
+                                             attn_softcap=softcap)
+    assert sd_ops.launches == before + 1
+    torch.testing.assert_close(m_k, m_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(den_k, den_r, rtol=1e-5, atol=1e-5)
+    out_k, out_r = num_k / den_k[..., None], num_r / den_r[..., None]
+    err, bar = contract_agreement(out_k, out_r, v, den_r, dtype)
+    assert err <= bar, (err, bar)
+    if softcap is not None:
+        assert m_k.max().item() <= softcap
+
+
+def test_sparse_decode_contract_bar_sees_unrounded_p(cuda):
+    """The contract entry's bar at bf16 sees a P.V that does not round
+    each probability to bf16 (``tied_contract_case``: every probability
+    of a head but its one maximum is one value a quarter bf16 ulp or more
+    from bf16): the kernel at bf16 passes it, and the kernel with an f32 q
+    (the Pallas kernel's case, which leaves p unrounded) fails it by more
+    than four bars."""
+    q, k, v, ids, length = tied_contract_case(cuda)
+    num_r, den_r, _ = sd_ops.sparse_decode(q, k, v, ids, length, chunk=64,
+                                           impl="ref")
+    out_r = num_r / den_r[..., None]
+    num_k, den_k, _ = sd_ops.sparse_decode(q, k, v, ids, length, chunk=64)
+    err, bar = contract_agreement(num_k / den_k[..., None], out_r, v, den_r,
+                                  torch.bfloat16)
+    assert err <= bar, (err, bar)
+    num_f, den_f, _ = sd_ops.sparse_decode(q.float(), k, v, ids, length,
+                                           chunk=64)
+    err_f, _ = contract_agreement(num_f / den_f[..., None], out_r, v, den_r,
+                                  torch.bfloat16)
+    assert err_f > 4 * bar, (err_f, bar)
+
+
+@pytest.mark.parametrize("hd,G", [(128, 1), (256, 2), (192, 12)])
+def test_chunk_bounds_on_pyramid_boxes_with_sentinels(cuda, rng, hd, G):
+    """B1 at the decode path's two layouts — a cache leaf's (B, nc, Hkv,
+    hd) boxes read in place (a view into a stacked body leaf) and gathered
+    (B, Hkv, C, hd) boxes — where chunks past the length hold the -1e30 /
+    +1e30 sentinels: finite bounds within 1e-5 of the plain version's."""
+    from repro_torch.core.abstracts import NEG, build_pyramid
+    B, Hkv, S, chunk = 2, 4, 4096, 64
+    k = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, torch.bfloat16)
+    pyr = build_pyramid(k, chunk, 3, length=1500)
+    stacked = torch.stack([pyr.kmax[2], pyr.kmax[2]])
+    stacked_n = torch.stack([pyr.kmin[2], pyr.kmin[2]])
+    km, kn = stacked[1], stacked_n[1]                  # views, offset > 0
+    assert (km == NEG).any() and (kn == -NEG).any()
+    q = _t(rng.randn(B, Hkv * G, hd).astype(np.float32), cuda,
+           torch.bfloat16)
+    ub_r, lb_r = cb_ops.chunk_bounds_gqa(q, km, kn, impl="ref")
+    ub_k, lb_k = cb_ops.chunk_bounds_gqa(q, km, kn)
+    for got, want in ((ub_k, ub_r), (lb_k, lb_r)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    ids = torch.randint(0, pyr.kmax[1].shape[1], (B, Hkv, 9), device=cuda)
+    idx = ids[..., None].expand(B, Hkv, 9, hd)
+    gkm = torch.gather(pyr.kmax[1].transpose(1, 2), 2, idx)
+    gkn = torch.gather(pyr.kmin[1].transpose(1, 2), 2, idx)
+    q4 = q.reshape(B, Hkv, G, hd)
+    ub_r, lb_r = cb_ops.chunk_bounds(q4, gkm, gkn, impl="ref")
+    ub_k, lb_k = cb_ops.chunk_bounds(q4, gkm, gkn)
+    for got, want in ((ub_k, ub_r), (lb_k, lb_r)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,hd", [("longchat-7b-32k", 128),
+                                     ("gemma2-2b", 256),
+                                     ("nemotron-4-340b", 192)])
+def test_decode_step_kernels_match_plain(cuda, arch, hd):
+    """``lm.decode_step`` with B1 and B2 (``impl=None``) against the plain
+    versions (``impl="ref"``) on the card, at a small depth and width
+    (the arch's layer pattern and head dim, 8 q heads over 2 kv heads,
+    bf16): the plain run's chunk selections replayed, 4 steps, logits
+    within 4 bf16 ulps of max|logit|; B2 launched once per sparse layer
+    and step, B1 at least as often; and every kernel call of the run
+    within its bar of its plain version on the same inputs
+    (``repro_torch.testing.check_decode_kernels``: B1 1e-5 relative and
+    finite on the pyramid's sentinel boxes, B2 at the model dtype's
+    ``contract_agreement`` bar)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.testing import check_decode_kernels, replay_selections
+    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(
+        cfg, d_model=256, n_heads=8, n_kv_heads=2, head_dim=hd, d_ff=512,
+        dtype="bfloat16", leoam=dataclasses.replace(
+            cfg.leoam, chunk_size=16, pyramid_levels=3,
+            min_seq_for_sparse=64))
+    params = lm.init(cfg, seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(2, cfg.vocab_size, (2, 300), generator=gen).to(cuda)
+    recorded, outs, launches, checks = [], [], [], {}
+    for impl in ("ref", None):
+        with contextlib.ExitStack() as stack:
+            if impl == "ref":
+                stack.enter_context(replay_selections(record=recorded))
+            else:
+                stack.enter_context(replay_selections(replay=recorded))
+                stack.enter_context(check_decode_kernels(checks))
+            with torch.no_grad():
+                logits, cache = lm.prefill(params, cfg, {"tokens": toks},
+                                           max_len=512)
+                b1, b2 = cb_ops.launches, sd_ops.launches
+                tok, out = logits.argmax(-1), []
+                for step in range(4):
+                    lg, cache = lm.decode_step(params, cfg, cache,
+                                               {"token": tok}, 300 + step,
+                                               impl=impl)
+                    out.append(lg.float())
+                    tok = lg.argmax(-1) if impl == "ref" else \
+                        outs[0][step].argmax(-1)
+                launches.append((cb_ops.launches - b1,
+                                 sd_ops.launches - b2))
+        outs.append(out)
+    n_sparse = sum(k != "attn_local" for k in cfg.layer_kinds()) * 4
+    assert launches[0] == (0, 0)
+    assert launches[1][1] == n_sparse and launches[1][0] >= n_sparse
+    assert len(checks["sparse_decode"]) == n_sparse
+    assert len(checks["chunk_bounds"]) + len(checks["chunk_bounds_gqa"]) \
+        == launches[1][0]
+    bad = [(name, row) for name, rows in checks.items() for row in rows
+           if not row["ok"]]
+    assert not bad, bad[:4]
+    for got, want in zip(outs[1], outs[0]):
+        top = want.abs().max().item()
+        bar = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert (got - want).abs().max().item() <= bar

@@ -153,7 +153,8 @@ def test_mla_train_matches_reference(setup, rng):
 @pytest.mark.parametrize("length", [24, 17])
 def test_mla_prefill_cache_matches_reference(setup, rng, length):
     """The latent cache with rows at or past ``length`` zeroed, padded to
-    max_len (the pyramid leaves of the reference stay out of the port)."""
+    max_len, and its two abstract pyramids (``cmax``/``cmin`` over ckv,
+    ``rmax``/``rmin`` over krope; f32, the sentinels past ``length``)."""
     cfg, tcfg, params, tparams = setup
     x = _x(rng, tcfg)
     pos = positions_for(tcfg, 2, x.shape[1])
@@ -162,9 +163,11 @@ def test_mla_prefill_cache_matches_reference(setup, rng, length):
                                    64, length)
     got = tattn.mla_prefill_cache(_block(tparams, True)["core"], tcfg,
                                   torch.from_numpy(x), pos, 64, length)
-    assert sorted(got) == ["ckv", "krope"]
+    assert sorted(got) == sorted(want)
+    assert {"ckv", "krope", "cmax0", "rmin0"} <= set(got)
     for name in got:
         _close(got[name], want[name], CACHE_TOL)
+    for name in ("ckv", "krope"):
         assert not got[name][:, length:].any()
 
 
@@ -172,7 +175,7 @@ def _cache_close(tc, jc):
     for part in ("prologue", "body"):
         assert len(tc[part]) == len(jc[part])
         for td, jd in zip(tc[part], jc[part]):
-            assert sorted(td) == ["ckv", "krope"]
+            assert sorted(td) == sorted(jd)
             for name in td:
                 _close(td[name], jd[name], CACHE_TOL)
 
@@ -217,9 +220,7 @@ def test_prefill_chunk_matches_reference(setup, S, C):
                                 "start": start, "length": S}, tc,
                 max_len=MAX_LEN)
         _close(tl, jl, LOGIT_TOL)
-        _cache_close(tc, {part: [{k: d[k] for k in ("ckv", "krope")}
-                                 for d in jc[part]]
-                          for part in ("prologue", "body")})
+        _cache_close(tc, jc)
     with torch.no_grad():
         whole, _ = tlm.prefill(tparams, tcfg,
                                {"tokens": torch.from_numpy(prompt[None])},
@@ -258,7 +259,8 @@ def test_init_decode_cache_has_prefills_structure(setup):
     zc = tlm.init_decode_cache(tcfg, 1, MAX_LEN, device="cpu")
     for part in ("prologue", "body"):
         for z, p in zip(zc[part], pc[part]):
-            assert sorted(z) == sorted(p) == ["ckv", "krope"]
+            assert sorted(z) == sorted(p)
+            assert {"ckv", "krope", "cmax0", "rmin0"} <= set(z)
             for name in z:
                 assert z[name].shape == p[name].shape
                 assert z[name].dtype == p[name].dtype
@@ -277,9 +279,7 @@ def test_load_prefix_rows_splits_the_latent_plane(setup, rng):
                               rows, 32)
     tc = tlm.load_prefix_rows(tcfg, tlm.init_decode_cache(
         tcfg, 1, MAX_LEN, device="cpu"), rows, 32)
-    _cache_close(tc, {part: [{k: d[k] for k in ("ckv", "krope")}
-                             for d in jc[part]]
-                      for part in ("prologue", "body")})
+    _cache_close(tc, jc)
 
 
 # ---------------------------------------------------------------------------

@@ -251,10 +251,13 @@ def _snapshot(eng, out=None):
     st = eng.store
     st.ingest_fence_all()
     st.requant_fence()
+    extra = st.prefix_stats() if st.prefix_rows else \
+        {"pq_fallbacks": eng.fault_stats()["pq_fallbacks"]}
     return dict(out=out, bytes=dict(st.log.bytes), ops=dict(st.log.ops),
                 disk=np.array(st._disk), km=st._abs_km.copy(),
                 kn=st._abs_kn.copy(), tier=st.tier.copy(),
-                slots=[dict(p.slot_of) for p in st.pools if p is not None])
+                slots=[dict(p.slot_of) for p in st.pools if p is not None],
+                extra=extra)
 
 
 def _kv_close(t, j):
@@ -496,10 +499,36 @@ def test_oversized_prompt_and_capacity_raise(setup):
     eng.store.close()
 
 
+def _prefix_setup(setup):
+    """``setup`` with three prompts of one 32-token head (two chunks) and
+    fresh suffixes, the later two adopting the head."""
+    cfg = setup[0]
+    rng = np.random.RandomState(9)
+    head = rng.randint(2, cfg.vocab_size, 32)
+    return (*setup[:4], [np.concatenate([head, rng.randint(
+        2, cfg.vocab_size, n)]) for n in (20, 9, 30)])
+
+
 @pytest.mark.parametrize("opt", [{"prefix_cache": True, "max_len": 128},
                                  {"pq_abstracts": True}])
 def test_latent_options_still_refused(setup, opt):
-    """The shared-prefix cache and the PQ plane on the latent layout are
-    not ported yet; they refuse, naming their item."""
-    with pytest.raises(NotImplementedError, match="A7b"):
-        _engine(True, setup, **opt)
+    """The shared-prefix cache and the PQ plane on the latent layout,
+    refused until A7b, now run as the reference's: streams, TrafficLogs,
+    tiers and pool slots equal to ``repro``'s after admission and after
+    four decode rounds (the stored latent rows within one fp16 ulp); the
+    prefix cache's ``prefix_stats()`` equal, the PQ serve with no
+    fallback and codes read."""
+    kw = dict(real_codec=True, cpu_chunk_frac=0.2, **opt)
+    if "prefix_cache" in opt:
+        setup = _prefix_setup(setup)
+        kw["prefix_arena_rows"] = 2
+    jt, jd = _run(False, setup, "sync", **kw)
+    tt, td = _run(True, setup, "sync", **kw)
+    _same(tt, jt)
+    _same(td, jd, kv=False)
+    assert td["extra"] == jd["extra"]
+    if "prefix_cache" in opt:
+        assert td["extra"]["warm_admissions"] == 2.0
+    else:
+        assert td["extra"]["pq_fallbacks"] == 0.0
+        assert any(k[2] == "pq_codes_read" for k in td["bytes"])

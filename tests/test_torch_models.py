@@ -120,7 +120,8 @@ def test_prefill_matches_jax(setup, rng, S, bucket):
                                atol=1e-4)
     for part in ("prologue", "body"):
         for cjj, ctt in zip(cj[part], ct[part]):
-            for name in ("k", "v"):
+            assert sorted(ctt) == sorted(cjj)       # K/V and the pyramid
+            for name in cjj:
                 np.testing.assert_allclose(ctt[name].numpy(),
                                            np.asarray(cjj[name]),
                                            rtol=1e-5, atol=1e-5)

@@ -3,7 +3,7 @@ policy and the trace-driven load harness, on the CPU.  Ported from
 ``tests/test_overload.py`` (all but
 ``test_simulator_trace_goodput_matches_queueing_logic``: the analytic
 simulator waits for ROADMAP A14); the port's engines run with
-``debug_sync=False`` (the sync sanitizer is A13).
+``debug_sync=True`` (the runtime sync sanitizer), as the reference's do.
 
 - **preemption transparency** — suspending a sequence (its working set
   swapped down to the disk replica, its slot parked) and resuming it later
@@ -74,7 +74,8 @@ def _engine(cfg, params, *, plan=None, max_seqs=2, **ecfg_kw):
     return BatchedLeoAMEngine(
         cfg, params,
         EngineCfg(max_len=128, selection="tree", disk_sidecar=True,
-                  fault_plan=plan, io_backoff_s=0.0, **ecfg_kw),
+                  debug_sync=True, fault_plan=plan, io_backoff_s=0.0,
+                  **ecfg_kw),
         max_seqs=max_seqs, device="cpu")
 
 

@@ -140,9 +140,67 @@ def test_corrupt_replica_is_reported_lost(tmp_path):
     {"prefix_rows": 2, "latent": True}, {"debug_sync": True},
     {"latent": True, "abstract_kind": "pq"}])
 def test_unported_store_options_raise(tmp_path, opt):
-    """Arena rows and the latent layout run now
-    (tests/test_torch_prefix_cache.py, tests/test_torch_mla_engine.py);
-    together, or the latent layout with the PQ plane, they still refuse,
-    naming their item (A7b)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStore(L, NC, C, HKV, HD, root=str(tmp_path), device="cpu", **opt)
+    """Options the port once refused, each now held to the reference:
+    arena rows and the PQ plane on the latent layout (A7b), and the sync
+    sanitizer (A13a, its locks wrapped in ``TrackedLock``).  One script —
+    two sequences (the second adopting the first's 3-chunk prefix when
+    there are arena rows), ingest, fence, the requant sweep's fence, the
+    abstracts (the PQ codes with ``abstract_kind="pq"``), two appends and
+    a pooled fetch — gives equal TrafficLogs, replicas, abstracts, fetch
+    results and pool contents in both packages."""
+    from repro_torch.serving.sanitizer import TrackedLock
+    hkv = 1 if opt.get("latent") else HKV
+    toks = np.arange(2, 2 + 3 * C)
+    res = []
+    for port in (False, True):
+        root = tmp_path / ("torch" if port else "jax")
+        root.mkdir()
+        kw = dict(n_seqs=NSEQ, transit_codec="int4", use_pool=True,
+                  real_codec=True, root=str(root), **opt)
+        st = TStore(L, NC, C, hkv, HD, device="cpu", **kw) if port \
+            else JStore(L, NC, C, hkv, HD, **kw)
+        if port and opt.get("debug_sync"):
+            assert all(isinstance(lk, TrackedLock) for lk in
+                       (st._lock, st._pq_lock, st._futs_lock))
+        rng = np.random.RandomState(5)
+        out = []
+        for seq in range(NSEQ):
+            hit = st.prefix_admit(seq, toks) if st.prefix_rows else 0
+            out.append(hit)
+            for layer in range(L):
+                k = rng.randn(NC * C, hkv, HD).astype(np.float32)
+                v = rng.randn(NC * C, hkv, HD).astype(np.float32)
+                k[27:] = v[27:] = 0
+                st.ingest(layer, k[hit:], v[hit:], _placement(layer),
+                          seq=seq, start=hit)
+            st.ingest_fence(seq)
+            if st.prefix_rows:
+                st.finish_admission(seq)
+        st.requant_fence()
+        if st.prefix_rows:
+            assert out == [0, 3 * C]            # the second one adopted
+        sel = {0: [0, 2, 5], 1: [1, 3, 6]}
+        for layer in range(L):
+            if opt.get("abstract_kind") == "pq":
+                out += list(st.read_abstracts_pq_batch(layer, sel))
+            else:
+                out += list(st.read_abstracts_batch(layer, sel))
+        rows = rng.randn(NSEQ, hkv, HD).astype(np.float16)
+        st.append_tokens_batch(0, np.array([27, 27]), rows, rows,
+                               seqs=[0, 1])
+        slots, nsel, fst = st.fetch_chunks_pooled(0, sel, theta=0.5)
+        out += [slots, nsel, fst.uploads, fst.disk_bytes]
+        res.append((out, dict(st.log.bytes), dict(st.log.ops),
+                    np.asarray(st._disk).copy(), st._abs_km.copy(),
+                    np.asarray(st.pools[0].kv, np.float32).copy()))
+        st.close()
+    (jo, *jr), (to, *tr) = res
+    assert len(to) == len(jo)
+    for t, j in zip(to, jo):
+        if isinstance(t, (np.ndarray, torch.Tensor)):
+            np.testing.assert_array_equal(np.asarray(t), np.asarray(j))
+        else:
+            assert t == j
+    assert tr[0] == jr[0] and tr[1] == jr[1]
+    for t, j in zip(tr[2:], jr[2:]):
+        np.testing.assert_array_equal(t, j)
