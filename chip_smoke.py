@@ -24,8 +24,9 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    no weights), B1's and B2's latent variants against their plain
    versions (max error beside its tolerance, ms, bound, plain ms, the
    library call: two q+/q- einsums for B1, gather + ``baddbmm`` + softmax
-   + ``bmm`` for B2; B2 two launches bitwise equal) and B3 into a
-   one-plane (257, 1, 64, 1, 576) slab, bitwise;
+   + ``bmm`` for B2; B2 two launches bitwise equal; B1-latent one CUDA
+   kernel a call, B2-latent two) and B3 into a one-plane (257, 1, 64, 1,
+   576) slab, bitwise;
    3b. the PQ k-means (``pq_train`` + ``pq_encode``) through the kernels
    against the plain versions on clustered keys at one layer's size:
    codebooks, counts and codes byte-identical, and two kernel runs too,
@@ -160,12 +161,14 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    replica bitflip; counters, no failed sequence, no leak, the store's
    locks tracked);
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
-   the launches of the paths that run it, B1's and B2's with 4l's), then
+   the launches of the paths that run it, B1's and B2's with 4l's, and
+   the CUDA kernels one call launches, ``cuda_per_call``), then
    the result line
    ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --only b1,b2,b3,b5`` runs phases 1-2 and the timing
-lines of the named kernels only (``--b2`` is ``--only b2``), with no
+``python3 chip_smoke.py --only b1,b2,b3,b5,latent`` runs phases 1-2 and the
+timing lines of the named kernels only (``--b2`` is ``--only b2``;
+``latent``: B1- and B2-latent at phase 4k's shapes), with no
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
@@ -211,7 +214,7 @@ TOL_E2E_ULPS = 4
 PQ_M, PQ_K, PQ_DSUB = 16, 256, 8
 PQ_KEYS_SEED = 3             # phase 3b's clustered keys (also B5's 2nd line)
 PQ_RANDOM_SEED = 4           # B4's and B5's random keys
-KERNELS = ("b1", "b2", "b3", "b5")  # what --only may name
+KERNELS = ("b1", "b2", "b3", "b5", "latent")  # what --only may name
 # B2 at the serve's lengths halfway through decode, and at longchat's own
 # context: 4 sequences near 32k tokens
 MAIN_LENGTHS = tuple(p + NEW_TOKENS // 2 for p in PROMPTS)
@@ -259,6 +262,8 @@ MLA_CHUNK_TOKENS = 512
 # inside its time budget
 SERVE_MODES_LAYERS = 8
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
+# CUDA kernels one call of each latent variant launches
+LATENT_CUDA_PER_CALL = {"chunk_bounds_latent": 1, "sparse_decode_latent": 2}
 
 
 def _time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
@@ -618,6 +623,11 @@ def b3_row(np, torch, flush, slab, n):
               f"slab; {'fused' if fused else 'kv_dequant + index put'}")
 
 
+def _n_cuda_kernels(r) -> int:
+    """The CUDA kernels (not copies) one call of a row's kernel launches."""
+    return sum(not n.startswith("Memcpy") for n, _, _ in r["cuda_per_call"])
+
+
 def print_row(name, r):
     """One ``[kernel]`` line: the agreement with the plain version, the
     CUDA kernels a call launches, and the times beside the bound."""
@@ -638,8 +648,7 @@ def print_row(name, r):
                   f"{r['host_pack_ms']!r} h2d_ms={r['h2d_ms']!r}")
     stages = ", ".join(f"{n} {a!r}-{b!r} us"
                        for n, a, b in r["cuda_per_call"])
-    n_kernels = sum(not n.startswith("Memcpy")
-                    for n, _, _ in r["cuda_per_call"])
+    n_kernels = _n_cuda_kernels(r)
     print(f"[kernel] {name}: {r['shape']}: max_abs_err={r['max_abs_err']!r}"
           f" (tol {r['tol']!r}){extra}; CUDA kernels per call "
           f"{n_kernels} ({stages}; profiler, cold L2); "
@@ -2523,6 +2532,13 @@ def main() -> int:
             print_row("pq_update on clustered keys",
                       b5_row(torch, *clustered_update_inputs(np, torch),
                              flush))
+        if "latent" in only:
+            from repro_torch.configs import get_config
+            mla_cfg = get_config(MLA_ARCH)
+            print_row("chunk_bounds_latent",
+                      b1_latent_row(torch, mla_cfg, flush))
+            print_row("sparse_decode_latent",
+                      b2_latent_row(np, torch, mla_cfg, flush))
         return 0
     if not phases:
         rows, long_row, clustered, b3_48 = phase_kernels(np, torch, rng)
@@ -2604,6 +2620,7 @@ def main() -> int:
             "bound_by": "bytes" if r["bound"][0] >= r["bound"][1]
             else "operations",
             "library_ms": r["library_ms"],
+            "cuda_per_call": _n_cuda_kernels(r),
             **({"unfused_ms": r["unfused_ms"]} if "unfused_ms" in r
                else {})})
     print(f"[time] chip_smoke {time.perf_counter() - T_START!r} s")
@@ -3026,9 +3043,15 @@ def mla_kernel_rows(np, torch):
     bad = [n for n, r in {**rows, "kv_dequant on one plane": b3_lat}.items()
            if not r["max_abs_err"] <= r["tol"] or not r.get("bitwise", True)
            or not r.get("exact", True)]
+    # B1-latent is one CUDA kernel a call, B2-latent two (scores, then P.V
+    # with the combine)
+    bad += [n for n, want in LATENT_CUDA_PER_CALL.items()
+            if _n_cuda_kernels(rows[n]) != want]
     if bad:
         raise SystemExit(f"chip_smoke: latent kernels disagree with their "
-                         f"plain versions (or two launches differ): {bad}")
+                         f"plain versions (or two launches differ, or a "
+                         f"call launches other CUDA kernels than "
+                         f"{LATENT_CUDA_PER_CALL}): {bad}")
     return rows, b3_lat
 
 

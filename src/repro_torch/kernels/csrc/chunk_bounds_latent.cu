@@ -10,89 +10,168 @@
 //   ub[b, c] = sum_h (q_h+ . kmax[b, c] + q_h- . kmin[b, c])
 //   lb[b, c] = sum_h (q_h+ . kmin[b, c] + q_h- . kmax[b, c])
 //
-// What bounds it on the H100: at deepseek-v2-lite's shape (16 heads, rows
-// of 576, four sequences of up to 57 chunks) the bytes are ~1 MB of f32
-// boxes — 0.3 us at 3.35 TB/s — so its time is the ~5 us launch floor.
-// What shapes the design is the query: B1 reads q for every (chunk, b)
-// block, and with 16 heads on one box that q (18 KB in bf16) is four times
-// the chunk's own 4.6 KB of abstracts.
+// What bounds it on the H100: bytes, and at its size the latency of
+// fetching them.  At deepseek-v2-lite's shape (16 heads, rows of 576, four
+// sequences of up to 57 chunks) it reads ~1 MB of f32 boxes and 74 KB of
+// q — 0.3 us at 3.35 TB/s — so what costs is the number of dependent
+// round trips to memory a block makes, and how many SMs make them.
 //
 // Design: since every head meets the same box, the bound is linear in the
 // heads' positive and negative parts:
 //   ub = (sum_h q_h+) . kmax + (sum_h q_h-) . kmin,
-// so a block first folds q into the two D-vectors P = sum_h q_h+ and
-// N = sum_h q_h- in shared memory (q read once per block, coalesced over
-// d; the fold's loads unrolled, so their latencies overlap).  The grid is
-// ceil(nc / 8) blocks of 8 warps per sequence, and each warp takes one
-// chunk of a grid-stride loop: 16-byte __ldg loads of the chunk's kmax and
-// kmin rows, the two products per lane, a shuffle reduction, one write of
-// ub and lb.  So q is folded once per 8 chunks instead of once per chunk.  The sums are
-// f32 in another order than the plain version's (per head, then over
-// heads): the two agree to f32 rounding.
+// so a block folds q into the two D-vectors P = sum_h q_h+ and N = sum_h
+// q_h- (the heads added in order) and then takes two dot products per
+// chunk.  The grid is ceil(nc / 2) x B blocks of 256 threads — two chunks a
+// block, 116 blocks at the serve shape (nc 57, B 4), so most of the 132 SMs
+// fetch at once.  Everything a block reads is in flight at once, in one
+// round trip: thread 0 issues Hopper's 1-D bulk copies (cp.async.bulk,
+// completion counted in bytes on one mbarrier) of the block's q (H x D,
+// contiguous: 18 KB in bf16) and of each chunk's kmax and kmin rows
+// (2.3 KB each, contiguous or strided: one copy a row).  q is then folded
+// from shared memory (thread d adds column d of the 16 heads), and 128
+// threads a chunk take the dot products with 16-byte shared loads, a
+// shuffle sum and a fixed-order sum of the chunk's four warps.  A q that
+// is not a whole number of 16-byte pieces (H x D x its size) is copied
+// into shared memory by plain loads instead; one too large for shared
+// memory (more than 96 KB: many heads) is folded straight from global
+// memory.  The sums are f32 in another order than the plain version's (per
+// head, then over heads): the two agree to f32 rounding.
 #include "common.cuh"
 
-constexpr int kLatWarps = 8;
+constexpr int kLatThreads = 256;
+constexpr int kLatWarps = kLatThreads / 32;
+constexpr int kLatChunks = 2;                       // chunks a block
+constexpr int kLatThreadsPerChunk = kLatThreads / kLatChunks;
 constexpr int kLatMaxD = 1024;
+constexpr int kLatQCap = 96 * 1024;                 // q staged up to this
 
-// grid (blocks per sequence, B), kLatWarps warps
+// Shared memory: the barrier, P and N, the block's boxes (chunk c's kmax
+// at 2c, kmin at 2c + 1), the warps' sums, then q when staged.
+__host__ __device__ constexpr size_t lat_bounds_fixed(int D) {
+  return 128 + sizeof(float) * (2 * D + 2 * kLatChunks * D + 2 * kLatWarps);
+}
+
+// grid (ceil(nc / kLatChunks), B), kLatThreads threads
 template <typename TQ>
-__global__ void __launch_bounds__(kLatWarps * 32)
+__global__ void __launch_bounds__(kLatThreads)
     chunk_bounds_latent_kernel(const TQ* __restrict__ q,
                                const float* __restrict__ kmax,
                                const float* __restrict__ kmin,
                                float* __restrict__ ub, float* __restrict__ lb,
                                int H, int nc, int D, long long k_sb,
-                               long long k_sc) {
-  __shared__ __align__(16) float qp[kLatMaxD];
-  __shared__ __align__(16) float qn[kLatMaxD];
-  const int b = blockIdx.y;
+                               long long k_sc, int q_staged, int q_bulk,
+                               int box_bulk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* qp = reinterpret_cast<float*>(smem + 128);
+  float* qn = qp + D;
+  float* box = qn + D;
+  float* red = box + 2 * kLatChunks * D;
+  TQ* qs = reinterpret_cast<TQ*>(smem + lat_bounds_fixed(D));
+  const int b = blockIdx.y, c0 = blockIdx.x * kLatChunks;
+  const int n = min(kLatChunks, nc - c0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const TQ* qb = q + (long long)b * H * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float p = 0.f, n = 0.f;
-#pragma unroll 8
-    for (int h = 0; h < H; ++h) {
-      const float v = to_f32(qb[(long long)h * D + d]);
-      p += fmaxf(v, 0.f);
-      n += fminf(v, 0.f);
-    }
-    qp[d] = p;
-    qn[d] = n;
+  const uint32_t q_bytes = (uint32_t)(H * D * sizeof(TQ));
+  const uint32_t row_bytes = (uint32_t)(D * sizeof(float));
+  const uint32_t bulk_bytes = (q_staged && q_bulk ? q_bytes : 0) +
+                              (box_bulk ? 2 * n * row_bytes : 0);
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
   }
   __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n4 = D >> 2;
-  const float4* p4 = reinterpret_cast<const float4*>(qp);
-  const float4* n4v = reinterpret_cast<const float4*>(qn);
-  for (int c = blockIdx.x * kLatWarps + warp; c < nc;
-       c += gridDim.x * kLatWarps) {
-    const long long o = b * k_sb + c * k_sc;
-    const float4* a4 = reinterpret_cast<const float4*>(kmax + o);
-    const float4* z4 = reinterpret_cast<const float4*>(kmin + o);
-    float hi = 0.f, lo = 0.f;
-    for (int d4 = lane; d4 < n4; d4 += 32) {
-      const float4 a = __ldg(a4 + d4), z = __ldg(z4 + d4);
-      const float4 p = p4[d4], n = n4v[d4];
-      hi += p.x * a.x + n.x * z.x + p.y * a.y + n.y * z.y + p.z * a.z +
-            n.z * z.z + p.w * a.w + n.w * z.w;
-      lo += p.x * z.x + n.x * a.x + p.y * z.y + n.y * a.y + p.z * z.z +
-            n.z * a.z + p.w * z.w + n.w * a.w;
+  if (tid == 0 && bulk_bytes > 0) {
+    mbar_arrive_expect_tx(bar, bulk_bytes);
+    if (q_staged && q_bulk) bulk_copy(qs, qb, q_bytes, bar);
+    if (box_bulk)
+      for (int c = 0; c < n; ++c) {
+        const long long o = b * k_sb + (c0 + c) * k_sc;
+        bulk_copy(box + 2 * c * D, kmax + o, row_bytes, bar);
+        bulk_copy(box + (2 * c + 1) * D, kmin + o, row_bytes, bar);
+      }
+  }
+  // what the bulk copies cannot take, by plain loads beside them
+  if (q_staged && !q_bulk)
+    for (int i = tid; i < H * D; i += kLatThreads) qs[i] = qb[i];
+  if (!box_bulk)
+    for (int i = tid; i < n * D; i += kLatThreads) {
+      const int c = i / D, d = i - c * D;
+      const long long o = b * k_sb + (c0 + c) * k_sc + d;
+      box[2 * c * D + d] = kmax[o];
+      box[(2 * c + 1) * D + d] = kmin[o];
     }
-    hi = warp_sum(hi);
-    lo = warp_sum(lo);
-    if (lane == 0) {
-      ub[(long long)b * nc + c] = hi;
-      lb[(long long)b * nc + c] = lo;
+  __syncthreads();
+  if (bulk_bytes > 0) mbar_wait(bar, 0);
+
+  const TQ* qsrc = q_staged ? qs : qb;
+  for (int d = tid; d < D; d += kLatThreads) {
+    float p = 0.f, m = 0.f;
+#pragma unroll 8
+    for (int h = 0; h < H; ++h) {
+      const float v = to_f32(qsrc[(long long)h * D + d]);
+      p += fmaxf(v, 0.f);
+      m += fminf(v, 0.f);
     }
+    qp[d] = p;
+    qn[d] = m;
+  }
+  __syncthreads();
+
+  const int c = tid / kLatThreadsPerChunk, e = tid % kLatThreadsPerChunk;
+  float hi = 0.f, lo = 0.f;
+  if (c < n) {
+    const float4* p4 = reinterpret_cast<const float4*>(qp);
+    const float4* n4 = reinterpret_cast<const float4*>(qn);
+    const float4* a4 = reinterpret_cast<const float4*>(box + 2 * c * D);
+    const float4* z4 = reinterpret_cast<const float4*>(box + (2 * c + 1) * D);
+    for (int d4 = e; d4 < D / 4; d4 += kLatThreadsPerChunk) {
+      const float4 a = a4[d4], z = z4[d4], p = p4[d4], m = n4[d4];
+      hi += p.x * a.x + m.x * z.x + p.y * a.y + m.y * z.y + p.z * a.z +
+            m.z * z.z + p.w * a.w + m.w * z.w;
+      lo += p.x * z.x + m.x * a.x + p.y * z.y + m.y * a.y + p.z * z.z +
+            m.z * a.z + p.w * z.w + m.w * a.w;
+    }
+  }
+  hi = warp_sum(hi);
+  lo = warp_sum(lo);
+  if (lane == 0) {
+    red[2 * warp] = hi;
+    red[2 * warp + 1] = lo;
+  }
+  __syncthreads();
+  if (tid < n) {
+    constexpr int wpc = kLatWarps / kLatChunks;     // warps a chunk
+    float u = 0.f, l = 0.f;
+    for (int w = tid * wpc; w < (tid + 1) * wpc; ++w) {
+      u += red[2 * w];
+      l += red[2 * w + 1];
+    }
+    ub[(long long)b * nc + c0 + tid] = u;
+    lb[(long long)b * nc + c0 + tid] = l;
   }
 }
 
 template <typename TQ>
-static void bounds_latent(const void* q, const float* kmax, const float* kmin,
-                          float* ub, float* lb, int B, int H, int nc, int D,
-                          long long k_sb, long long k_sc, cudaStream_t st) {
-  const dim3 grid((nc + kLatWarps - 1) / kLatWarps, B);
-  chunk_bounds_latent_kernel<TQ><<<grid, kLatWarps * 32, 0, st>>>(
-      static_cast<const TQ*>(q), kmax, kmin, ub, lb, H, nc, D, k_sb, k_sc);
+static int bounds_latent(const void* q, const float* kmax, const float* kmin,
+                         float* ub, float* lb, int B, int H, int nc, int D,
+                         long long k_sb, long long k_sc, cudaStream_t st) {
+  const size_t q_bytes = (size_t)H * D * sizeof(TQ);
+  const int q_staged = q_bytes <= (size_t)kLatQCap;
+  // bulk copies: 16-byte aligned addresses, sizes a multiple of 16
+  const int q_bulk = q_bytes % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const int box_bulk = reinterpret_cast<uintptr_t>(kmax) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(kmin) % 16 == 0;
+  const size_t smem = lat_bounds_fixed(D) + (q_staged ? q_bytes : 0);
+  const int e = smem_opt_in(chunk_bounds_latent_kernel<TQ>, smem);
+  if (e != 0) return e;
+  const dim3 grid((nc + kLatChunks - 1) / kLatChunks, B);
+  chunk_bounds_latent_kernel<TQ><<<grid, kLatThreads, smem, st>>>(
+      static_cast<const TQ*>(q), kmax, kmin, ub, lb, H, nc, D, k_sb, k_sc,
+      q_staged, q_bulk, box_bulk);
+  return (int)cudaGetLastError();
 }
 
 // q: (B, H, D) contiguous of dtype q_dtype (LeoamDType); kmax/kmin: f32
@@ -115,17 +194,15 @@ extern "C" int leoam_chunk_bounds_latent(const void* q, const void* kmax,
   float* l = static_cast<float*>(lb);
   switch (q_dtype) {
     case LEOAM_F32:
-      bounds_latent<float>(q, km, kn, u, l, B, H, nc, D, k_sb, k_sc, st);
-      break;
+      return bounds_latent<float>(q, km, kn, u, l, B, H, nc, D, k_sb, k_sc,
+                                  st);
     case LEOAM_F16:
-      bounds_latent<__half>(q, km, kn, u, l, B, H, nc, D, k_sb, k_sc, st);
-      break;
-    case LEOAM_BF16:
-      bounds_latent<__nv_bfloat16>(q, km, kn, u, l, B, H, nc, D, k_sb, k_sc,
+      return bounds_latent<__half>(q, km, kn, u, l, B, H, nc, D, k_sb, k_sc,
                                    st);
-      break;
+    case LEOAM_BF16:
+      return bounds_latent<__nv_bfloat16>(q, km, kn, u, l, B, H, nc, D, k_sb,
+                                          k_sc, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

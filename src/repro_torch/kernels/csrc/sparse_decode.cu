@@ -77,49 +77,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// --- mbarrier and cp.async ------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 16 bytes global -> shared through the LSU, bypassing L1
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// one arrival on `bar` once every cp.async this thread issued completes
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
 // 16 bytes of K or V -> floats
 __device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
   f[0] = __uint_as_float(u.x);
@@ -580,19 +537,6 @@ static size_t sd_pv_smem(const SdArgs& a, int rb) {
          sizeof(float) * ((size_t)a.G * (1 + a.tile_rows + SD_NW + SD_NT));
 }
 
-// Shared memory over 48 KB must be opted into; and ask for the largest
-// shared-memory carveout, so the SM holds as many blocks as smem allows.
-template <typename K>
-static int sd_smem_attr(K kernel, size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return (int)e;
-}
-
 // GMAX bounds the q heads a kernel unrolls for (G = 1 for MHA models).
 template <typename TKV, typename TM, int GMAX>
 static int sd_launch(const SdArgs& a, cudaStream_t st) {
@@ -602,8 +546,8 @@ static int sd_launch(const SdArgs& a, cudaStream_t st) {
   w.tile_rows = std::min(a.chunk, std::min(SD_MAX_TILE_ROWS,
                                           std::max(1, SD_TILE_BYTES / rb)));
   const size_t s1 = sd_scores_smem(w, rb), s2 = sd_pv_smem(w, rb);
-  int e = sd_smem_attr(sd_scores_kernel<TKV, TM, GMAX>, s1);
-  if (e == 0) e = sd_smem_attr(sd_pv_kernel<TKV, TM, GMAX>, s2);
+  int e = smem_opt_in(sd_scores_kernel<TKV, TM, GMAX>, s1);
+  if (e == 0) e = smem_opt_in(sd_pv_kernel<TKV, TM, GMAX>, s2);
   if (e != 0) return e;
   const dim3 grid(a.nsplit, a.Hkv, a.B);
   sd_scores_kernel<TKV, TM, GMAX><<<grid, SD_NT, s1, st>>>(w);

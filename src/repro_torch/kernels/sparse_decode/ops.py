@@ -20,12 +20,15 @@ absorbed decode: :func:`sparse_decode_latent_pooled` and
 :func:`sparse_decode_latent_workingset` attend the H query heads over one
 latent plane (scores over all D columns, values the first r columns of the
 same rows) and return the normalized out_lat (B, H, r) f32.
-``latent_launches`` counts its wrapper calls that launched it (three CUDA
-launches each: scores, P.V partials, their combine)."""
+``latent_launches`` counts its wrapper calls that launched it (two CUDA
+launches each: the scores, then P.V, whose row splits of a sequence are
+added inside one thread-block cluster); :func:`latent_split_plan` gives
+both launches' plan."""
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -38,10 +41,13 @@ from repro_torch.kernels.sparse_decode.ref import (
 
 launches = 0
 latent_launches = 0
-LAT_MAX_H = 16               # q heads on the latent plane (one warp's lanes
-                             # hold two per head after the reduction)
-LAT_MAX_D = 704              # row width (the block's f32 copy of q)
-LAT_MAX_R = 512              # value width (two columns a thread, 256)
+LAT_MAX_H = 16               # q heads on the latent plane (mma's M)
+LAT_MAX_D = 704              # row width (a warp's q fragments in registers)
+LAT_MAX_R = 512              # value width
+LAT_BLOCKS1 = 96             # the latent scores launch aims at this many
+                             # blocks (csrc: LAT_BLOCKS1)
+LAT_SPLIT_ROWS = 192         # selected rows a P.V split takes (csrc)
+LAT_MAX_SPLITS = 8           # P.V splits a sequence at most (csrc)
 
 H100_SMS = 132
 BLOCKS_PER_SM = 8       # blocks the split plan aims at, per SM
@@ -70,6 +76,35 @@ def split_rows(nmax: int, chunk: int, nsplit: int, cps: int
         out.append(list(range(lo * chunk, hi * chunk)))
     out[-1].append(nmax * chunk)
     return out
+
+
+def latent_split_plan(nsel: int, chunk: int, batch: int
+                      ) -> Tuple[int, int, int]:
+    """The latent kernel's launch plan for ``batch`` sequences of ``nsel``
+    selection entries of ``chunk`` rows (``csrc/sparse_decode_latent.cu:
+    lat_plan``): (rows a scores block takes, scores blocks a sequence,
+    row splits of the P.V launch).  A scores block takes one tile of one
+    entry, the largest of 64, 32 and 16 rows that still gives the grid
+    ``LAT_BLOCKS1`` blocks; the P.V launch splits each sequence's live rows
+    into about ``LAT_SPLIT_ROWS`` a split, at most ``LAT_MAX_SPLITS`` (one
+    cluster), as :func:`latent_split_rows` cuts them."""
+    tr = 64
+    while tr > 16 and batch * nsel * -(-chunk // tr) < LAT_BLOCKS1:
+        tr //= 2
+    tr1 = min(tr, -(-chunk // 8) * 8)
+    nblk1 = max(1, nsel * -(-chunk // tr1))
+    nsplit = min(LAT_MAX_SPLITS, max(1, -(-nsel * chunk // LAT_SPLIT_ROWS)))
+    return tr1, nblk1, nsplit
+
+
+def latent_split_rows(n_live: int, nsplit: int) -> List[Tuple[int, int]]:
+    """The [start, end) of each P.V split among a sequence's ``n_live``
+    live rows in order (its selected entries' live rows, then the new
+    token's): equal runs of a multiple of 16 rows (an mma k-step), the
+    last ones possibly empty."""
+    per = -(-(-(-n_live // nsplit)) // 16) * 16
+    return [(min(n_live, s * per), min(n_live, (s + 1) * per))
+            for s in range(nsplit)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -390,6 +390,53 @@ def _latent_partials(q: torch.Tensor, lat: torch.Tensor, ok: torch.Tensor,
                                        valid[:, None, None])
 
 
+def sparse_decode_latent_split_ref(q: torch.Tensor, pool_kv: torch.Tensor,
+                                   slots: torch.Tensor,
+                                   chunk_ids: torch.Tensor,
+                                   lengths: torch.Tensor,
+                                   lat_new: torch.Tensor, r: int, *,
+                                   nsplit: int) -> torch.Tensor:
+    """The latent CUDA kernel's arithmetic in plain PyTorch (used by the
+    tests): the scores of every row (the new token's rounded to fp16) with
+    an f32 q split as hi + lo TF32 terms (``cvt.rna``, as the kernel feeds
+    the tensor cores; bf16 and fp16 q are exact in TF32); one global max
+    over all live rows; each sequence's live rows in order (entries' live
+    rows, then the new token's) cut into ``nsplit`` runs as
+    ``ops.latent_split_rows`` cuts them, per run p = exp(s - max) summed
+    unrounded into den and rounded to fp16 for P.V, num and den in f32;
+    the runs' partials added in run order.  Same contract as
+    :func:`sparse_decode_latent_pooled_ref`."""
+    from repro_torch.kernels.pq.ref import tf32_round
+    from repro_torch.kernels.sparse_decode.ops import latent_split_rows
+    lat, ok = _latent_rows(pool_kv, slots, chunk_ids, lengths)
+    B, S, D = lat.shape
+    new = lat_new.reshape(B, D).to(lat.dtype)
+    rows = torch.cat([lat, new[:, None]], dim=1).float()      # (B, T, D)
+    if q.dtype == torch.float32:
+        hi = tf32_round(q, "nearest")
+        lo = tf32_round(q - hi, "nearest")
+        sc = (torch.einsum("bhd,bsd->bhs", hi, rows)
+              + torch.einsum("bhd,bsd->bhs", lo, rows))
+    else:
+        sc = torch.einsum("bhd,bsd->bhs", q.float(), rows)     # (B, H, T)
+    valid = torch.cat([ok, torch.ones((B, 1), dtype=torch.bool,
+                                      device=ok.device)], dim=1)
+    out = torch.empty(B, q.shape[1], r, device=q.device)
+    for b in range(B):
+        live = valid[b].nonzero()[:, 0]          # entries' rows, new row last
+        s_b, v_b = sc[b][:, live], rows[b, live, :r]
+        e_all = torch.exp(s_b - s_b.amax(-1, keepdim=True))
+        num = torch.zeros(q.shape[1], r, device=q.device)
+        den = torch.zeros(q.shape[1], device=q.device)
+        for lo_, hi_ in latent_split_rows(len(live), nsplit):
+            e = e_all[:, lo_:hi_]
+            num = num + e.to(lat.dtype).float() @ v_b[lo_:hi_]
+            den = den + e.sum(-1)
+        out[b] = num / torch.where(den == 0, torch.ones_like(den),
+                                   den)[:, None]
+    return out
+
+
 def sparse_decode_latent_workingset_ref(q: torch.Tensor, latg: torch.Tensor,
                                         chunk_ids: torch.Tensor,
                                         lengths: torch.Tensor,

@@ -107,13 +107,26 @@ def _cuda_kernels(fn, attempts: int = 5):
 
 
 @pytest.mark.parametrize("kernel", ["b1_bf16", "b1_f32", "b1_pallas",
-                                    "b3", "b3_scatter", "b5"])
+                                    "b1_latent", "b2_latent", "b3",
+                                    "b3_scatter", "b5"])
 def test_cuda_kernels_per_call(cuda, rng, kernel):
-    """B1 (any q dtype, either layout) is one CUDA kernel, B5 its two (the
-    partials, then their fold): no cast of q, no fill of outputs that the
-    kernels write in full.  B3 is one CUDA kernel on either entry; the
-    scatter's only other device work is the copy of its slot list."""
-    if kernel.startswith("b1"):
+    """B1 (any q dtype, either layout) and B1-latent are one CUDA kernel,
+    B5 and B2-latent two (B5: the partials, then their fold; B2-latent:
+    the scores, then P.V with the combine): no cast of q, no fill of
+    outputs or counters that the kernels write in full.  B3 is one CUDA
+    kernel on either entry; the scatter's only other device work is the
+    copy of its slot list."""
+    if kernel == "b1_latent":
+        q = _t(rng.randn(4, 16, 576).astype(np.float32), cuda,
+               torch.bfloat16)
+        km = _t(rng.randn(4, 57, 1, 576).astype(np.float32), cuda)
+        kn = km - 1.0
+        fn = lambda: cb_ops.chunk_bounds_latent(q, km, kn)
+    elif kernel == "b2_latent":
+        args = _latent_inputs(rng, cuda, 4, 16, 576, 64, 36, 12,
+                              torch.bfloat16)
+        fn = lambda: sd_ops.sparse_decode_latent_pooled(*args, 512)
+    elif kernel.startswith("b1"):
         dtype = torch.float32 if kernel == "b1_f32" else torch.bfloat16
         q = _t(rng.randn(4, 32, 128).astype(np.float32), cuda, dtype)
         km = _t(rng.randn(4, 57, 32, 128).astype(np.float32), cuda)
@@ -147,6 +160,9 @@ def test_cuda_kernels_per_call(cuda, rng, kernel):
             names
     elif kernel == "b5":
         assert len(names) == 2 and all("pq_update" in n for n in names), names
+    elif kernel == "b2_latent":
+        assert len(names) == 2 and "lat_scores" in names[0] \
+            and "lat_pv" in names[1], names
     else:
         assert len(names) == 1 and "chunk_bounds" in names[0], names
 
@@ -1077,10 +1093,12 @@ def _latent_inputs(rng, dev, B, H, D, chunk, n_slots, nmax, dtype):
 
 @pytest.mark.parametrize("B,H,D,r,chunk,nmax", [
     (2, 4, 40, 32, 16, 6), (3, 8, 128, 96, 32, 9),
-    (4, 16, 576, 512, 64, 44),      # deepseek-v2-lite's serve shape
+    (4, 16, 576, 512, 64, 12),      # deepseek-v2-lite's serve shape
+    (4, 16, 576, 512, 64, 44),
     (1, 16, 576, 512, 64, 200),     # a long selection: many splits
 ])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
 def test_sparse_decode_latent_pooled_cuda(cuda, rng, B, H, D, r, chunk, nmax,
                                           dtype):
     args = _latent_inputs(rng, cuda, B, H, D, chunk, 3 * nmax, nmax, dtype)
@@ -1132,6 +1150,68 @@ def test_sparse_decode_latent_bar_sees_unrounded_p(cuda):
     unrounded = sparse_decode_latent_pooled_ref(q, pool.float(), *args)
     err_u, _ = latent_agreement(unrounded, ref, (pool, lat_new), den)
     assert err_u > 4 * bar, (err_u, bar)
+
+
+@pytest.mark.parametrize("B,H,D,r,chunk,nmax", [
+    (3, 16, 576, 512, 40, 5),       # 40-row tiles: no whole k-step of 16
+    (2, 16, 576, 512, 100, 4),      # 64 + 36 rows a chunk: two tiles
+    (2, 7, 72, 40, 24, 7),          # r not a multiple of 16 columns
+    (2, 5, 42, 34, 16, 6),          # D % 8 != 0: rows by 4-byte copies
+    (1, 16, 704, 512, 8, 3),        # the widest row, 8-row chunks
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_decode_latent_partial_tiles_cuda(cuda, rng, B, H, D, r,
+                                                 chunk, nmax, dtype):
+    """Selections whose rows fill no whole staged tile (T = nsel x chunk +
+    1 for chunks that are not a multiple of 16 rows, or longer than one
+    64-row tile), value widths that are not a multiple of 16, and rows
+    that are not a whole number of 16-byte pieces: against the plain
+    version within ``latent_agreement``'s bar."""
+    args = _latent_inputs(rng, cuda, B, H, D, chunk, 3 * nmax, nmax, dtype)
+    ref = sd_ops.sparse_decode_latent_pooled(*args, r, impl="ref")
+    out = sd_ops.sparse_decode_latent_pooled(*args, r)
+    err, bar = latent_agreement(out, ref, (args[1], args[5]),
+                                latent_pooled_den(*args, r))
+    assert err <= bar, (err, bar)
+
+
+def test_sparse_decode_latent_all_padding_cuda(cuda, rng):
+    """A selection that is all padding (chunk ids -1) but the new token's
+    row: p = 1 on that row alone, so out_lat is its first r values
+    rounded to fp16, exactly; a second sequence beside it has live rows."""
+    q, pool, slots, cids, lengths, lat_new = _latent_inputs(
+        rng, cuda, 2, 16, 576, 64, 36, 12, torch.bfloat16)
+    cids[0] = -1
+    out = sd_ops.sparse_decode_latent_pooled(q, pool, slots, cids, lengths,
+                                             lat_new, 512)
+    want = lat_new[0, :512].half().float().expand(16, 512)
+    assert torch.equal(out[0], want)
+    ref = sd_ops.sparse_decode_latent_pooled(q, pool, slots, cids, lengths,
+                                             lat_new, 512, impl="ref")
+    err, bar = latent_agreement(out, ref, (pool, lat_new), latent_pooled_den(
+        q, pool, slots, cids, lengths, lat_new, 512))
+    assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_decode_latent_32k_rows_cuda(cuda, rng, dtype):
+    """A 32k-row selection at the serve width (H 16, D 576, r 512): 512
+    live chunks of 64 (32 splits of 16 entries in the P.V launch) against
+    the plain version within ``latent_agreement``'s bar."""
+    nsel, chunk, D = 512, 64, 576
+    pool = _t(rng.randn(nsel + 9, 1, chunk, 1, D).astype(np.float16), cuda)
+    q = _t(rng.randn(1, 16, D).astype(np.float32) / np.sqrt(192), cuda,
+           dtype)
+    lat_new = _t(rng.randn(1, D).astype(np.float32), cuda, dtype)
+    slots = _t(rng.permutation(nsel + 8)[:nsel][None].astype(np.int32), cuda)
+    cids = _t(np.arange(nsel, dtype=np.int32)[None], cuda)
+    lengths = _t(np.array([nsel * chunk - 17], np.int32), cuda)
+    args = (q, pool, slots, cids, lengths, lat_new, 512)
+    out = sd_ops.sparse_decode_latent_pooled(*args)
+    ref = sd_ops.sparse_decode_latent_pooled(*args, impl="ref")
+    err, bar = latent_agreement(out, ref, (pool, lat_new),
+                                latent_pooled_den(*args))
+    assert err <= bar, (err, bar)
 
 
 def test_sparse_decode_latent_two_launches_bitwise(cuda, rng):

@@ -11,7 +11,11 @@ of B1's and B2's latent variants are held against the reference's jnp
 functions they replace (``core/bounds.py:chunk_bounds_mla`` and the
 engine's ``chunk_bounds_gqa_matmul`` at one kv head;
 ``core/sparse_attention.py:sparse_decode_mla`` and the engine's
-``_attend_pooled_mla`` / ``_attend_workingset_mla``) within 1e-5.
+``_attend_pooled_mla`` / ``_attend_workingset_mla``) within 1e-5.  The
+emulation of B2-latent's CUDA arithmetic (``sparse_decode_latent_split_ref``:
+TF32 hi + lo scores for f32 q, one global max, fp16 p, split partials) is
+held to the plain version and to ``_attend_core_mla`` at full width within
+``latent_agreement``'s bar (two probabilities rounded the other way).
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ from repro_torch.core import bounds as tbounds
 from repro_torch.core import sparse_attention as tsa
 from repro_torch.kernels.chunk_bounds import ops as cb_ops
 from repro_torch.kernels.sparse_decode import ops as sd_ops
+from repro_torch.kernels.sparse_decode import ref as sd_ref
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
@@ -506,3 +511,135 @@ def test_latent_bar_sees_unrounded_probabilities():
         q, pool.float(), slots, cids, *args)
     err_u, _ = sd_ref.latent_agreement(unrounded, ref, rows, den)
     assert err_u > 4 * bar, (err_u, bar)
+
+
+# ---------------------------------------------------------------------------
+# The emulation of B2-latent's CUDA arithmetic and its split plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nsel,chunk,batch", [
+    (0, 64, 4), (1, 64, 1), (3, 16, 2), (12, 64, 4), (16, 64, 4),
+    (44, 64, 4), (200, 64, 1), (512, 64, 1), (5, 100, 3), (6, 8, 2),
+])
+def test_latent_split_plan_covers_every_row_once(nsel, chunk, batch):
+    """B2-latent's launch plan: the scores launch's tiles cover every row
+    of every entry exactly once, within one entry, and reach
+    LAT_BLOCKS1 blocks where 16-row tiles allow it (the serve, 12 entries
+    of 64 rows for 4 sequences: 32-row tiles, 96 blocks); the P.V launch's
+    splits (at most one cluster of 8) cover every live row of a sequence
+    exactly once, in order, in runs of a multiple of 16 rows, the new
+    token's row in the last split that has rows."""
+    tr1, nblk1, nsplit = sd_ops.latent_split_plan(nsel, chunk, batch)
+    assert tr1 % 8 == 0 and 8 <= tr1 <= 64 and 1 <= nsplit <= 8
+    tpe = -(-chunk // tr1)
+    assert nblk1 == max(1, nsel * tpe)
+    tiles = [(blk // tpe, (blk % tpe) * tr1, min(chunk, (blk % tpe + 1) * tr1))
+             for blk in range(nsel * tpe)]
+    assert [(j, r) for j, lo, hi in tiles for r in range(lo, hi)] == \
+        [(j, r) for j in range(nsel) for r in range(chunk)]
+    if tr1 > min(16, -(-chunk // 8) * 8):
+        assert batch * nblk1 >= sd_ops.LAT_BLOCKS1
+    if (nsel, chunk, batch) == (12, 64, 4):
+        assert (tr1, batch * nblk1, nsplit) == (32, 96, 4)
+    for n_live in {1, 17, nsel * chunk // 2 + 1, nsel * chunk + 1}:
+        runs = sd_ops.latent_split_rows(n_live, nsplit)
+        assert len(runs) == nsplit
+        assert [k for lo, hi in runs for k in range(lo, hi)] == \
+            list(range(n_live))
+        last = max(i for i, (lo, hi) in enumerate(runs) if hi > lo)
+        assert runs[last][1] == n_live
+        assert all((hi - lo) % 16 == 0 for lo, hi in runs[:last])
+
+
+def _jax_out_lat(q, lat, lat_new, valid, r):
+    """The reference's ``_attend_core_mla`` out_lat (B, H, r): one head at
+    a time, with W_UV and ``wo`` the identity (exact in f32); q f32."""
+    eye = np.eye(r, dtype=np.float32)
+    core = jax.jit(jengine._attend_core_mla)
+    return np.stack([
+        np.asarray(core(q[:, h:h + 1, :r], q[:, h:h + 1, r:], lat, lat_new,
+                        valid, eye[None], eye), np.float32)
+        .reshape(q.shape[0], r) for h in range(q.shape[1])], axis=1)
+
+
+@pytest.mark.parametrize("qdtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("padded", [False, True])
+def test_latent_split_emulation_matches_plain_and_reference(rng, qdtype,
+                                                            padded):
+    """B2-latent's CUDA arithmetic emulated in plain PyTorch, at
+    deepseek-v2-lite's full width (H 16, r 512 + rope 64, chunk 64, 12
+    entries), against the plain version and the reference's
+    ``_attend_core_mla`` within ``latent_agreement``'s bar, for the plan
+    the kernel picks, one split and eight; ``padded``
+    leaves sequence 1 all padding but the new row."""
+    B, H, r, rr, chunk, nmax = 4, 16, 512, 64, 64, 12
+    pool, q_lat, q_rope, lat_new, slots, cids, lengths = _latent_pool(
+        rng, B, H, r, rr, chunk, 3 * nmax, nmax, qdtype)
+    if padded:
+        cids[1] = -1
+    q32 = np.concatenate([q_lat, q_rope], -1).astype(np.float32)
+    new32 = lat_new.astype(np.float32)
+    tdt = torch.float32 if qdtype == np.float32 else torch.bfloat16
+    args = (torch.from_numpy(q32).to(tdt), torch.from_numpy(pool),
+            torch.from_numpy(slots), torch.from_numpy(cids),
+            torch.from_numpy(lengths), torch.from_numpy(new32).to(tdt), r)
+    ref = sd_ref.sparse_decode_latent_pooled_ref(*args)
+    den = sd_ref.latent_pooled_den(*args)
+    rows = (args[1], args[5])
+    lat = pool[slots][:, :, 0].reshape(B, nmax * chunk, r + rr)
+    pos = (cids[..., None] * chunk + np.arange(chunk)).reshape(B, -1)
+    valid = (cids[..., None] >= 0).repeat(chunk, -1).reshape(B, -1) \
+        & (pos < lengths[:, None])
+    valid = np.concatenate([valid, np.ones((B, 1), bool)], 1)[:, None, None]
+    want = torch.from_numpy(_jax_out_lat(q32, lat, new32, valid, r))
+    for nsplit in (sd_ops.latent_split_plan(nmax, chunk, B)[2], 1, 8):
+        out = sd_ref.sparse_decode_latent_split_ref(*args, nsplit=nsplit)
+        assert out.shape == (B, H, r) and out.dtype == torch.float32
+        for other in (ref, want):
+            err, bar = sd_ref.latent_agreement(out, other, rows, den)
+            assert err <= bar, (nsplit, err, bar)
+    if padded:          # p = 1 on the new row alone: its fp16 values
+        torch.testing.assert_close(
+            out[1], args[5][1, :r].half().float().expand(H, r),
+            rtol=0, atol=0)
+
+
+def test_latent_split_emulation_rounds_p_on_the_tied_case():
+    """On ``tied_latent_case`` (every probability of a head one value a
+    quarter fp16 ulp or more from fp16) the emulation rounds p as the
+    plain version does, within ``latent_agreement``'s bar for every split
+    plan, which an unrounded P.V misses by more than four bars."""
+    q, pool, slots, cids, lengths, lat_new = sd_ref.tied_latent_case(
+        torch.device("cpu"))
+    args = (q, pool, slots, cids, lengths, lat_new, 512)
+    ref = sd_ref.sparse_decode_latent_pooled_ref(*args)
+    den = sd_ref.latent_pooled_den(*args)
+    nsel, chunk, B = slots.shape[1], pool.shape[2], slots.shape[0]
+    for nsplit in (sd_ops.latent_split_plan(nsel, chunk, B)[2], 1, 8):
+        out = sd_ref.sparse_decode_latent_split_ref(*args, nsplit=nsplit)
+        err, bar = sd_ref.latent_agreement(out, ref, (pool, lat_new), den)
+        assert err <= bar, (nsplit, err, bar)
+    unrounded = sd_ref.sparse_decode_latent_split_ref(
+        q, pool.float(), slots, cids, lengths, lat_new, 512, nsplit=1)
+    err_u, _ = sd_ref.latent_agreement(unrounded, ref, (pool, lat_new), den)
+    assert err_u > 4 * bar, (err_u, bar)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** 40, 2.0 ** -40])
+def test_latent_split_scores_hi_lo_within_f32(rng, scale):
+    """f32 q as two TF32 terms (hi, and lo = the TF32 rounding of q - hi)
+    against exact fp16 rows: each product's error is ~2^-22 relative, so
+    the score sits within a few f32 ulps of the f64 dot product (q alone
+    rounded to TF32 is 2^-11 off); at any exponent."""
+    from repro_torch.kernels.pq.ref import tf32_round
+    q = torch.from_numpy((rng.randn(16, 576) * scale).astype(np.float32))
+    rows = torch.from_numpy(rng.randn(64, 576).astype(np.float16))
+    hi = tf32_round(q, "nearest")
+    lo = tf32_round(q - hi, "nearest")
+    exact = q.double() @ rows.double().T
+    split = (hi.double() @ rows.double().T + lo.double() @ rows.double().T)
+    one = hi.double() @ rows.double().T
+    mag = q.double().abs() @ rows.double().abs().T
+    assert ((split - exact).abs() <= 2.0 ** -21 * mag).all()
+    assert ((one - exact).abs() > 2.0 ** -18 * mag).any()
