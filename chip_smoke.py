@@ -37,7 +37,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    new tokens each; every kernel's launch counter must move;
    4b. the same 4 requests with the PQ abstract plane
    (``EngineCfg(pq_abstracts=True)``): B4 and B5 at ingest, ADC scoring,
-   no PQ fallback;
+   no PQ fallback; at 8 of the 32 layers since phase 4m came (a
+   ``[depth]`` line; phase 4k serves PQ at full depth on deepseek);
    4c. admission parity (8 of the 32 layers, a ``[depth]`` line): the
    serve's 1536- and 3584-token prompts, each
    admitted on three fresh engines — ``add_sequence``,
@@ -160,8 +161,31 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    ``disk_read`` error, a quarantined sidecar read and a recomputed
    replica bitflip; counters, no failed sequence, no leak, the store's
    locks tracked);
+   4m. (after 4k, one model on the card at a time, bf16 random weights
+   from seed 0, ``max_len`` 4096, chunk 64) the A11 families at full
+   width: jamba-1.5-large-398b at its first 4 of 72 layers (a
+   ``[depth]`` line: three Mamba layers, then attention, ~46 GB of
+   weights; a full 8-layer period would not fit) and qwen2-vl-2b (28
+   layers) each serve phase 4's 4 requests with 16 new tokens
+   (``[serve-jamba]``, ``[serve-qwen2-vl]``: min/max, real int4 codec,
+   pipeline on; B1-B3 must launch), then plain against kernels as phase
+   5 with selections and experts replayed, every kernel call of the
+   first kernel round against its plain version (B1 within 1e-5, B2
+   ``bf16_agreement``, B3 bitwise), logits within ``A11_E2E_BAR``;
+   jamba's 2048-token sequence suspended for 2 rounds and resumed
+   against a run that leaves it out (``[preempt-jamba]``: streams and
+   logits bitwise, its Mamba state bitwise); qwen2-vl through
+   ``lm.prefill`` with 3-D M-RoPE positions (a text head, a 16 x 16
+   patch grid, a text tail) and seamless-m4t-large-v2 (24 + 24 layers,
+   384 encoder frames, cross-attention) through ``lm.decode_step``, 8
+   steps each, plain then B1/B2 replaying the selections, gated as 4l at
+   ``A11_E2E_BAR`` (``[decode-qwen2-vl]``, ``[decode-seamless]``); and
+   xlstm-125m prefilling 4 x 3072 tokens and decoding 16 steps, its last
+   prefill logits against a decode step after prefill(S - 1)
+   (``[xlstm]``);
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
-   the launches of the paths that run it, B1's and B2's with 4l's, and
+   the launches of the paths that run it, B1's and B2's with 4l's and
+   4m's, B3's with 4m's serves, and
    the CUDA kernels one call launches, ``cuda_per_call``), then
    the result line
    ``{"ok": true, "device": {...}}``.
@@ -172,8 +196,8 @@ timing lines of the named kernels only (``--b2`` is ``--only b2``;
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
-engine phases of phase 4 (4c-4l) only, with their gates and no result
-line (``--phases 4k`` alone never builds longchat).
+engine phases of phase 4 (4c-4m) only, with their gates and no result
+line (``--phases 4k`` or ``--phases 4m`` alone never builds longchat).
 """
 
 from __future__ import annotations
@@ -241,7 +265,7 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
 ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j",
-                 "4l", "4k")                               # --phases
+                 "4l", "4k", "4m")                         # --phases
 # phase 4l: lm.decode_step on longchat at full width and depth, a batch of
 # prompts of one length (decode_step takes one length for the batch), in
 # a MAX_LEN cache (sparse: MAX_LEN >= min_seq_for_sparse, 3 pyramid
@@ -256,7 +280,20 @@ MLA_FAULT_PLAN = {"sidecar_read": {0: "bitflip"},
 # rows' widths (kv_lora_rank + qk_rope_head_dim; values the first 512)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_CHUNK_TOKENS = 512
-# phases 4c, 4d, 4e, 4f, 4i and 4j run this many of longchat's 32 layers
+# phase 4m: the A11 families.  jamba at its published first 4 layers
+# (three Mamba, then attention: ~46 GB of weights; a full 8-layer period
+# would not fit the card), 16 new tokens a request; qwen2-vl's and
+# seamless's decode_step runs over DECODE_BATCH prompts of A11_PROMPT
+# rows (qwen2-vl's: a text head, a 16 x 16 patch grid, a text tail),
+# A11_DECODE_STEPS steps; xlstm's A11_XLSTM_STEPS steps
+A11_JAMBA, A11_JAMBA_LAYERS, A11_NEW_TOKENS = "jamba-1.5-large-398b", 4, 16
+A11_PROMPT, A11_VISION_HEAD, A11_PATCH_GRID = 3072, 1024, 16
+A11_DECODE_STEPS, A11_XLSTM_STEPS, A11_SEED = 8, 16, 29
+# phase 4m holds kernels against plain logits to phase 5's bar on longchat
+# (4 bf16 ulps of its max|logit| in [4, 8)): each kernel call is held to
+# its own bar beside it
+A11_E2E_BAR = 0.125
+# phases 4b, 4c, 4d, 4e, 4f, 4i and 4j run this many of longchat's 32 layers
 # (its 2 early layers and the first body layers, weights and widths
 # unchanged) so that the whole script, phases 4l and 4k included, stays
 # inside its time budget
@@ -878,7 +915,7 @@ def _spy_round_waits(eng, waits):
 
 def phase_serve(np, torch, cfg, params, pq: bool = False,
                 mode: str = "sync", sidecar: bool = False,
-                tag: str | None = None):
+                tag: str | None = None, new_tokens: int = NEW_TOKENS):
     """A main path: 4 requests through the batcher, counters checked.
     ``pq`` turns on the PQ abstract plane (phase 4b): B4 and B5 train and
     encode at ingest, evaluation scores code-valid chunks by ADC.
@@ -944,7 +981,7 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
-        batcher.submit(Request(rid=i, prompt=p, max_new=NEW_TOKENS))
+        batcher.submit(Request(rid=i, prompt=p, max_new=new_tokens))
     finished = batcher.run()
     eng.store.requant_fence()
     torch.cuda.synchronize()
@@ -1037,7 +1074,7 @@ def phase_serve(np, torch, cfg, params, pq: bool = False,
     if errors or len(finished) != len(PROMPTS):
         raise SystemExit(f"chip_smoke: serve failed: {errors}")
     for r in finished:
-        if len(r.out) != NEW_TOKENS or not all(
+        if len(r.out) != new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.out):
             raise SystemExit(f"chip_smoke: request {r.rid} gave {r.out}")
     path = [*_path_kernels(cfg), "kv_dequant"] + (
@@ -2338,12 +2375,17 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def phase_e2e(np, torch, cfg, params, tag="[e2e]"):
+def phase_e2e(np, torch, cfg, params, tag="[e2e]", check=None,
+              bar=None):
     """First request's prefill + 2 decode rounds: kernels vs plain.  The
     plain run goes first and records each layer's chunk selection (and an
     MoE model's expert choices); the kernel run replays them (B1 still
     runs), so only the kernels' arithmetic differs and a near-tied chunk
-    or expert choice cannot flip."""
+    or expert choice cannot flip.  With a ``check`` dict, every kernel
+    call of the kernel run's first round is held against its plain
+    version on the same inputs (:func:`_check_engine_kernels`).  The
+    logits are held to ``TOL_E2E_ULPS`` bf16 ulps of max|logit|, or to
+    the absolute ``bar`` when one is given."""
     from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
 
     prompt = np.random.RandomState(0).randint(2, cfg.vocab_size, PROMPTS[0])
@@ -2379,8 +2421,11 @@ def phase_e2e(np, torch, cfg, params, tag="[e2e]"):
             sid, tok = eng.add_sequence(prompt)
             logits = [eng.last_logits.copy()]
             toks = {sid: tok}
-            for _ in range(2):
-                toks = eng.decode_round(toks)
+            for r in range(2):
+                with (_check_engine_kernels(check)
+                      if check is not None and impl is None and r == 0
+                      else contextlib.nullcontext()):
+                    toks = eng.decode_round(toks)
                 logits.append(eng.last_logits[0].copy())
         out[impl] = logits
         eng.store.close()
@@ -2388,14 +2433,16 @@ def phase_e2e(np, torch, cfg, params, tag="[e2e]"):
         gc.collect()
         torch.cuda.empty_cache()
     diffs = [float(np.abs(a - b).max()) for a, b in zip(out[None], out["ref"])]
-    bars = [TOL_E2E_ULPS * _bf16_ulp(float(np.abs(b).max()))
+    ulps = [TOL_E2E_ULPS * _bf16_ulp(float(np.abs(b).max()))
             for b in out["ref"]]
+    bars = ulps if bar is None else [bar] * len(ulps)
     differ = [float((a != b).mean()) for a, b in zip(out[None], out["ref"])]
     same = [int(np.argmax(a)) == int(np.argmax(b))
             for a, b in zip(out[None], out["ref"])]
     print(f"{tag} max |logit(kernels) - logit(plain)| prefill, round 1, "
-          f"round 2: {diffs!r} (tol {TOL_E2E_ULPS} bf16 ulps of max|logit|: "
-          f"{bars!r}); fraction of logits that differ {differ!r}; layers "
+          f"round 2: {diffs!r} (tol {bars!r}; {TOL_E2E_ULPS} bf16 ulps of "
+          f"max|logit|: {ulps!r}); fraction of logits that differ "
+          f"{differ!r}; layers "
           f"whose own chunk selection would differ, per round: {flips} "
           f"(replayed); same argmax {same}"
           + (f"; token rows whose own experts would differ: "
@@ -2448,7 +2495,7 @@ def run_phases(np, torch, names):
     (longchat is built only for the phases that serve it, and freed
     before 4k)."""
     cfg = params = None
-    if names - {"4k"}:
+    if names - {"4k", "4m"}:
         cfg, params = init_longchat(torch)
     runners = {
         "4c": lambda: phase_admission(np, torch,
@@ -2461,11 +2508,12 @@ def run_phases(np, torch, names):
         "4i": lambda: phase_preempt(np, torch, *cut_for("4i", cfg, params)),
         "4j": lambda: phase_prefix(np, torch, *cut_for("4j", cfg, params)),
         "4l": lambda: phase_decode_step(np, torch, cfg, params),
-        "4k": lambda: phase_mla(np, torch)}
+        "4k": lambda: phase_mla(np, torch),
+        "4m": lambda: phase_a11(np, torch)}
     try:
         for name in ENGINE_PHASES:
             if name in names:
-                if name == "4k":
+                if name in ("4k", "4m"):
                     params = None              # longchat leaves the card
                     gc.collect()
                     torch.cuda.empty_cache()
@@ -2550,7 +2598,8 @@ def main() -> int:
     cfg, params = init_longchat(torch)
     try:
         serve = phase_serve(np, torch, cfg, params)
-        serve_pq = phase_serve(np, torch, cfg, params, pq=True)
+        serve_pq = phase_serve(np, torch, *cut_for("4b", cfg, params),
+                               pq=True)
         admission = phase_admission(np, torch,
                                     *cut_for("4c", cfg, params))
         serve_async, serve_chunked = _serve_modes(np, torch, cfg, params)
@@ -2575,6 +2624,9 @@ def main() -> int:
         t0 = time.perf_counter()
         mla = phase_mla(np, torch, mla_rows)
         print(f"[time] phase 4k {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        a11 = phase_a11(np, torch)
+        print(f"[time] phase 4m {time.perf_counter() - t0!r} s")
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
 
@@ -2610,6 +2662,10 @@ def main() -> int:
                 "chunk_bounds_latent": mla_l["chunk_bounds_latent"],
                 "sparse_decode_latent": mla_l["sparse_decode_latent"]}
     launches["kv_dequant"] += mla_l["kv_dequant"]
+    # B1-B3 also from phase 4m's paths (jamba's and qwen2-vl's serves,
+    # qwen2-vl's and seamless's decode_step runs)
+    for k in ("chunk_bounds", "sparse_decode", "kv_dequant"):
+        launches[k] += a11["launches"].get(k, 0)
     kernels = []
     for name, r in {**rows, **mla["rows"]}.items():
         kernels.append({
@@ -2643,7 +2699,8 @@ def main() -> int:
                       "pq_update_clustered": b5_clustered,
                       "kv_dequant_48": b3_48c,
                       "mla": {k: v for k, v in mla.items()
-                              if k != "rows"}}))
+                              if k != "rows"},
+                      "a11": a11}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2821,12 +2878,7 @@ def phase_decode_step(np, torch, cfg, params):
            for i in range(B)]
     n_layers = cfg.n_layers
     # each kernel call of the checked step against its plain version
-    kernel_checks = {name: {
-        "calls": len(rows),
-        "max_err": max(r.get("rel_err", r.get("err")) for r in rows),
-        "bar": max(r["bar"] for r in rows),
-        "all_ok": all(r["ok"] for r in rows)}
-        for name, rows in checks.items()}
+    kernel_checks = _summarize_checks(checks)
     if "sparse_decode" in checks:
         kernel_checks["sparse_decode"]["max_triple_rel_err"] = max(
             r["triple_rel_err"] for r in checks["sparse_decode"])
@@ -3187,6 +3239,479 @@ def _mla_faults(np, torch, cfg, params):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 4m: the remaining architectures (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _check_engine_kernels(out):
+    """Inside the block each kernel call of an engine round — B1 on the
+    stacked abstracts (``chunk_bounds_gqa``), B2 over the pool slots
+    (``sparse_decode_pooled``) and B3's dequant-and-scatter into the slab
+    (``kv_dequant_scatter``) — is followed by its plain version on the
+    same inputs: B1 within ``bounds_agreement``'s bar, B2 within
+    ``bf16_agreement``'s (f32: 1e-5), B3 bitwise over the whole slab.
+    Rows go into ``out[name]``."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.chunk_bounds import ops as cb
+    from repro_torch.kernels.sparse_decode.ref import (BF16_MAX_MISMATCH,
+                                                       bf16_agreement)
+    from repro_torch.serving import engine as eng_mod
+    from repro_torch.serving import offload
+    from repro_torch.testing import bounds_agreement
+    own = {"b1": cb.chunk_bounds_gqa, "b2": eng_mod.sparse_decode_pooled,
+           "b3": offload.kv_dequant_scatter}
+
+    def b1(q, *a, impl=None, **kw):
+        res = own["b1"](q, *a, impl=impl, **kw)
+        if build.use_kernel(impl, q):
+            out.setdefault("chunk_bounds", []).append(bounds_agreement(
+                res, own["b1"](q, *a, impl="ref", **kw)))
+        return res
+
+    def b2(q, *a, impl=None, **kw):
+        res = own["b2"](q, *a, impl=impl, **kw)
+        if build.use_kernel(impl, q):
+            ref = own["b2"](q, *a, impl="ref", **kw)
+            if q.dtype == torch.float32:
+                err = (res - ref).abs().max().item()
+                row = {"err": err, "bar": 1e-5, "ok": err <= 1e-5}
+            else:
+                err, bar, frac = bf16_agreement(res, ref)
+                row = {"err": err, "bar": bar, "mismatch": frac,
+                       "ok": err <= bar and frac <= BF16_MAX_MISMATCH}
+            out.setdefault("sparse_decode", []).append(row)
+        return res
+
+    def b3(data, scale, slab, slots, *a, impl=None, **kw):
+        if not build.use_kernel(impl, data):
+            return own["b3"](data, scale, slab, slots, *a, impl=impl, **kw)
+        want = slab.clone()
+        own["b3"](data, scale, want, slots, *a, impl="ref", **kw)
+        res = own["b3"](data, scale, slab, slots, *a, impl=impl, **kw)
+        same = bool(slab.eq(want).all())
+        out.setdefault("kv_dequant", []).append(
+            {"err": 0.0 if same else 1.0, "bar": 0.0, "ok": same})
+        return res
+
+    cb.chunk_bounds_gqa, eng_mod.sparse_decode_pooled = b1, b2
+    offload.kv_dequant_scatter = b3
+    try:
+        yield
+    finally:
+        cb.chunk_bounds_gqa = own["b1"]
+        eng_mod.sparse_decode_pooled = own["b2"]
+        offload.kv_dequant_scatter = own["b3"]
+
+
+def _summarize_checks(checks):
+    """Each kernel's calls against its plain version: count, largest
+    error and bar, whether all held."""
+    return {name: {"calls": len(rows),
+                   "max_err": max(r.get("rel_err", r.get("err"))
+                                  for r in rows),
+                   "bar": max(r["bar"] for r in rows),
+                   "all_ok": all(r["ok"] for r in rows)}
+            for name, rows in checks.items()}
+
+
+def _defs_bytes(cfg) -> int:
+    """The bytes of a config's weights, from its parameter definitions
+    (nothing allocated)."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import is_def, tree_map
+    sizes = []
+    tree_map(lambda d: sizes.append(math.prod(d.shape) * (
+        4 if d.dtype == "float32" else 2)), lm.param_defs(cfg),
+        is_leaf=is_def)
+    return sum(sizes)
+
+
+def _init_a11(torch, name, n_layers=None):
+    """One of the A11 configs at full width (``n_layers`` cuts its depth),
+    bf16 random weights from seed 0 built on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    full = get_config(name)
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    gb = sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9
+    print(f"[init] {name}: {cfg.n_layers} of {full.n_layers} layers "
+          f"{list(cfg.layer_kinds())} mlp {list(cfg.mlp_kinds())}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"{n / 1e9!r} G params, {gb!r} GB in "
+          f"{time.perf_counter() - t0!r} s")
+    return cfg, params, {"params": n, "weight_gb": gb,
+                         "layers": cfg.n_layers, "of": full.n_layers}
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _a11_preempt(np, torch, cfg, params, tag):
+    """Suspend and resume one sequence of a hybrid stack: the 1536- and
+    2048-token prompts, 2 rounds together, the second suspended for 2
+    rounds of the first alone, resumed, 2 more rounds — against a run
+    that only leaves it out of those 2 rounds.  Its recurrent state must
+    come back bitwise, the streams and every round's logits must be
+    equal."""
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+    prompts = serve_prompts(np, cfg)[:2]
+    runs = {}
+    for suspend in (False, True):
+        root = KV_ROOT / f"a11_preempt_{int(suspend)}"
+        eng = BatchedLeoAMEngine(
+            cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=False,
+                                   pipeline=False),
+            max_seqs=2, device="cuda", store_root=str(root))
+        eng._theta = lambda li: 0.5
+        toks, streams, logits = {}, {}, []
+        for p in prompts:
+            sid, t = eng.add_sequence(p)
+            toks[sid], streams[sid] = t, [t]
+        a, b = sorted(toks)
+
+        def rounds(live, n):
+            for _ in range(n):
+                got = eng.decode_round({s: toks[s] for s in live})
+                logits.append(eng.last_logits.copy())
+                for s, t in got.items():
+                    toks[s] = t
+                    streams[s].append(t)
+
+        rounds([a, b], 2)
+        same_state = True
+        if suspend:
+            before = [t.clone() for t in _leaves(eng.seqs[b].state)]
+            eng.suspend_sequence(b)
+        rounds([a], 2)
+        if suspend:
+            eng.resume_sequence(b)
+            after = list(_leaves(eng.seqs[b].state))
+            same_state = len(after) == len(before) and all(
+                torch.equal(x, y) for x, y in zip(before, after))
+        rounds([a, b], 2)
+        runs[suspend] = (streams, logits, same_state)
+        eng.store.close()
+        del eng
+        shutil.rmtree(root, ignore_errors=True)
+        _free(torch)
+    (s0, l0, _), (s1, l1, same_state) = runs[False], runs[True]
+    row = {"streams_identical": s0 == s1,
+           "logits_bitwise": len(l0) == len(l1) and all(
+               np.array_equal(x, y) for x, y in zip(l0, l1)),
+           "state_bitwise": same_state, "streams": {
+               str(k): v for k, v in s1.items()}}
+    print(f"{tag} {json.dumps(row)}")
+    if not (row["streams_identical"] and row["logits_bitwise"]
+            and same_state):
+        raise SystemExit(f"chip_smoke: {tag} suspend/resume is not the "
+                         f"identity: {row}")
+    return row
+
+
+def _a11_decode(np, torch, cfg, params, batch, S, steps, tag):
+    """``lm.prefill`` then ``steps`` greedy ``lm.decode_step``s, twice
+    from the same cache: the plain versions first (``impl="ref"``, each
+    sparse layer's selection recorded), then kernels B1 and B2 replaying
+    them, fed the plain run's tokens; the first kernel step's calls each
+    held against their plain versions (``check_decode_kernels``).  Gates
+    as phase 4l, with the logits held to ``A11_E2E_BAR`` (phase 5's) and
+    ``TOL_E2E_ULPS`` bf16 ulps of max|logit| printed beside: the first
+    tokens the same, B2 once per attention layer and step, B1 at least as
+    often, every checked call within its bar."""
+    from repro_torch.models import lm
+    from repro_torch.testing import check_decode_kernels, replay_selections
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds())
+    B = batch["tokens"].shape[0] if "tokens" in batch else \
+        batch["embeds"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits0, cache = lm.prefill(params, cfg, batch, max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        kcache = _clone_tree(cache)
+        tokens = [logits0.argmax(-1)]
+        sels, ref_logits, ref_s = [], [], []
+        with replay_selections(record=sels):
+            for step in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = lm.decode_step(params, cfg, cache,
+                                           {"token": tokens[-1]}, S + step,
+                                           impl="ref")
+                torch.cuda.synchronize()
+                ref_s.append(time.perf_counter() - t0)
+                ref_logits.append(lg.float().cpu().numpy())
+                tokens.append(lg.argmax(-1))
+        del cache
+        _free(torch)
+        _zero_launches()
+        pairs, out, kern_s, checks = [], [], [], {}
+        with replay_selections(replay=sels, pairs=pairs):
+            for step in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (check_decode_kernels(checks) if step == 0
+                      else contextlib.nullcontext()):
+                    lg, kcache = lm.decode_step(params, cfg, kcache,
+                                                {"token": tokens[step]},
+                                                S + step)
+                torch.cuda.synchronize()
+                kern_s.append(time.perf_counter() - t0)
+                out.append(lg.float().cpu().numpy())
+        launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cross = [tuple(c["cross_k"].shape) for c in kcache["prologue"]
+             if c and "cross_k" in c][:1]
+    del kcache, pairs, sels
+    _free(torch)
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(out, ref_logits)]
+    ulps = [TOL_E2E_ULPS * _bf16_ulp(float(np.abs(b).max()))
+            for b in ref_logits]
+    bars = [A11_E2E_BAR] * len(diffs)
+    same = [int(a.argmax(-1)[i]) == int(b.argmax(-1)[i])
+            for a, b in zip(out[:1], ref_logits[:1]) for i in range(B)]
+    kc = _summarize_checks(checks)
+    timed = kern_s[1:]
+    row = {"batch": B, "prompt": S, "max_len": MAX_LEN, "steps": steps,
+           "prefill_s": prefill_s, "median_step_s": float(np.median(timed)),
+           "median_step_plain_s": float(np.median(ref_s)),
+           "checked_first_step_s": kern_s[0], "peak_device_gib": peak,
+           "kernel_checks": kc, "max_logit_diff": diffs, "bars": bars,
+           "ulp_bars": ulps, "first_token_same": same, "launches": launches,
+           **({"cross_kv_shape": cross[0]} if cross else {})}
+    print(f"{tag} {json.dumps(row)}")
+    fails = []
+    if not all(d <= t for d, t in zip(diffs, bars)):
+        fails.append(f"logits off the plain run's by {diffs} (bars {bars})")
+    if not all(same):
+        fails.append(f"first token differs: {same}")
+    if launches["sparse_decode"] != steps * n_attn or \
+            launches["chunk_bounds"] < steps * n_attn:
+        fails.append(f"launches {launches} (B2 {steps * n_attn} wanted, B1 "
+                     f"at least as many)")
+    if not all(np.isfinite(x).all() for x in out):
+        fails.append("non-finite logits")
+    if kc.get("sparse_decode", {}).get("calls") != n_attn or \
+            not all(c["all_ok"] for c in kc.values()):
+        fails.append(f"kernel calls against their plain versions: {kc}")
+    if fails:
+        raise SystemExit(f"chip_smoke: {tag} " + "; ".join(fails))
+    return row
+
+
+def _a11_engine(np, torch, cfg, params, name):
+    """A hybrid or M-RoPE stack through ``BatchedLeoAMEngine``: the 4
+    requests through the batcher (min/max abstracts, real int4 codec,
+    pipeline on, ``A11_NEW_TOKENS`` tokens), then plain against kernels
+    as phase 5 with selections and experts replayed and the first kernel
+    round's calls each held against their plain versions."""
+    serve = phase_serve(np, torch, cfg, params, tag=f"[serve-{name}]",
+                        new_tokens=A11_NEW_TOKENS)
+    checks = {}
+    try:
+        e2e = phase_e2e(np, torch, cfg, params, tag=f"[e2e-{name}]",
+                        check=checks, bar=A11_E2E_BAR)
+    finally:
+        kc = _summarize_checks(checks)
+        print(f"[e2e-{name}] first kernel round's calls against their "
+              f"plain versions: {json.dumps(kc)}")
+    if not {"chunk_bounds", "sparse_decode"} <= set(kc) or \
+            not all(c["all_ok"] for c in kc.values()):
+        raise SystemExit(f"chip_smoke: [e2e-{name}] kernel calls against "
+                         f"their plain versions: {kc}")
+    return {"serve": serve, "e2e_max_diff": e2e, "kernel_checks": kc}
+
+
+def _a11_vision(np, torch, cfg, params):
+    """qwen2-vl through ``lm.prefill`` with 3-D M-RoPE positions, then
+    ``lm.decode_step`` (:func:`_a11_decode`): ``DECODE_BATCH`` rows of a
+    text head, an ``A11_PATCH_GRID``-square grid of patch embeddings and
+    a text tail, ``A11_PROMPT`` rows in all.  Positions as Qwen2-VL gives
+    them: text t = h = w = i; the grid's t fixed at its start, its h and
+    w the row and column from there; the tail resumes after the grid's
+    largest position.  Text rows are the embeddings of seeded random
+    tokens, patch rows seeded normals at the embeddings' scale."""
+    B, S = DECODE_BATCH, A11_PROMPT
+    head, n = A11_VISION_HEAD, A11_PATCH_GRID
+    tail = S - head - n * n
+    g = torch.Generator(device="cuda").manual_seed(A11_SEED)
+    toks = torch.randint(2, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    with torch.no_grad():
+        emb = params["embed"][toks]
+        patches = (torch.randn(B, n * n, cfg.d_model, generator=g,
+                               device="cuda") * 0.02).bfloat16()
+        emb[:, head:head + n * n] = patches
+    i = torch.arange(head, device="cuda")
+    r = torch.arange(n, device="cuda").repeat_interleave(n)
+    c = torch.arange(n, device="cuda").repeat(n)
+    grid = torch.stack([torch.full_like(r, head), head + r, head + c])
+    t0 = head + n
+    j = t0 + torch.arange(tail, device="cuda")
+    pos = torch.cat([i[None].expand(3, head), grid, j[None].expand(3, tail)],
+                    dim=1)
+    pos = pos[:, None].expand(3, B, S).to(torch.int32)
+    print(f"[decode-qwen2-vl] M-RoPE positions: text 0..{head - 1}, a "
+          f"{n}x{n} grid at t={head} h,w={head}..{head + n - 1}, text "
+          f"{t0}..{t0 + tail - 1}; decode at the cache length")
+    return _a11_decode(np, torch, cfg, params,
+                       {"embeds": emb, "positions": pos}, S, A11_DECODE_STEPS,
+                       "[decode-qwen2-vl]")
+
+
+def _a11_seamless(np, torch, cfg, params):
+    """seamless-m4t-large-v2 through ``lm.prefill`` (the encoder over
+    ``encoder_len(cfg, A11_PROMPT)`` seeded random frames, the decoder's
+    cross K/V from it) and ``lm.decode_step`` (:func:`_a11_decode`): the
+    self-attention sparse on B1/B2, the cross-attention dense."""
+    from repro_torch.models import lm
+    B, S = DECODE_BATCH, A11_PROMPT
+    frames = lm.encoder_len(cfg, S)
+    g = torch.Generator(device="cuda").manual_seed(A11_SEED)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (B, S),
+                                     generator=g, device="cuda"),
+             "embeds": torch.randn(B, frames, cfg.d_model, generator=g,
+                                   device="cuda").bfloat16()}
+    print(f"[decode-seamless] {frames} encoder frames "
+          f"(encoder_len(cfg, {S})), {B} decoder prompts of {S} tokens")
+    return _a11_decode(np, torch, cfg, params, batch, S, A11_DECODE_STEPS,
+                       "[decode-seamless]")
+
+
+def _a11_xlstm(np, torch, cfg, params):
+    """xlstm-125m: prefill 4 x ``A11_PROMPT`` tokens, ``A11_XLSTM_STEPS``
+    greedy decode steps; the last prefill logit against a decode step of
+    the last token from prefill(S - 1), within ``TOL_E2E_ULPS`` bf16 ulps
+    of max|logit|, the argmax the same."""
+    from repro_torch.models import lm
+    B, S = DECODE_BATCH, A11_PROMPT
+    g = torch.Generator(device="cuda").manual_seed(A11_SEED)
+    toks = torch.randint(2, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, cache = lm.prefill(params, cfg, {"tokens": toks},
+                                 max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok, step_s = full.argmax(-1), []
+        for k in range(A11_XLSTM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = lm.decode_step(params, cfg, cache, {"token": tok},
+                                       S + k)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            tok = lg.argmax(-1)
+        finite = bool(torch.isfinite(lg).all())
+        del cache
+        _, part = lm.prefill(params, cfg, {"tokens": toks[:, :S - 1]},
+                             max_len=MAX_LEN)
+        dec, _ = lm.decode_step(params, cfg, part, {"token": toks[:, -1]},
+                                S - 1)
+    a, b = dec.float().cpu().numpy(), full.float().cpu().numpy()
+    diff = float(np.abs(a - b).max())
+    bar = TOL_E2E_ULPS * _bf16_ulp(float(np.abs(b).max()))
+    same = [int(a[i].argmax()) == int(b[i].argmax()) for i in range(B)]
+    row = {"batch": B, "prompt": S, "prefill_s": prefill_s,
+           "median_step_s": float(np.median(step_s)),
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "decode_vs_prefill_max_diff": diff, "bar": bar,
+           "argmax_same": same, "finite": finite}
+    print(f"[xlstm] {json.dumps(row)}")
+    del part
+    _free(torch)
+    if not (diff <= bar and all(same) and finite):
+        raise SystemExit(f"chip_smoke: [xlstm] decode after prefill(S-1) "
+                         f"is not prefill(S)'s last row: {row}")
+    return row
+
+
+def phase_a11(np, torch):
+    """Phase 4m: the four families of ROADMAP A11 at full width, one model
+    on the card at a time: jamba (its first ``A11_JAMBA_LAYERS`` layers)
+    and qwen2-vl (all 28) through ``BatchedLeoAMEngine`` on B1-B3, jamba's
+    suspend/resume; qwen2-vl with 3-D M-RoPE positions, and seamless
+    (24 + 24 layers, cross-attention) through ``lm.prefill`` and
+    ``lm.decode_step`` on B1/B2; xlstm-125m's prefill and decode."""
+    import dataclasses
+    out, launches = {}, {}
+
+    def add(lc):
+        for k, v in lc.items():
+            launches[k] = launches.get(k, 0) + v
+
+    cfg, params, init = _init_a11(torch, A11_JAMBA, A11_JAMBA_LAYERS)
+    period = dataclasses.replace(cfg, n_layers=8)
+    print(f"[depth] phase 4m (jamba): {A11_JAMBA_LAYERS} of {init['of']} "
+          f"layers (3 Mamba with dense, MoE, dense MLPs, then attention "
+          f"with MoE), full width: {init['weight_gb']!r} GB of weights "
+          f"({_defs_bytes(cfg) / 1e9!r} GB from the definitions); the "
+          f"first full 8-layer period would hold "
+          f"{_defs_bytes(period) / 1e9!r} GB, above the card's 80 GB")
+    try:
+        t0 = time.perf_counter()
+        out["jamba"] = _a11_engine(np, torch, cfg, params, "jamba")
+        out["jamba"]["preempt"] = _a11_preempt(np, torch, cfg, params,
+                                               "[preempt-jamba]")
+        out["jamba"]["init"] = init
+        out["jamba"]["wall_s"] = time.perf_counter() - t0
+        add(out["jamba"]["serve"]["launches"])
+    finally:
+        del params
+        _free(torch)
+    cfg, params, init = _init_a11(torch, "qwen2-vl-2b")
+    try:
+        t0 = time.perf_counter()
+        out["qwen2_vl"] = _a11_engine(np, torch, cfg, params, "qwen2-vl")
+        out["qwen2_vl"]["decode"] = _a11_vision(np, torch, cfg, params)
+        out["qwen2_vl"]["init"] = init
+        out["qwen2_vl"]["wall_s"] = time.perf_counter() - t0
+        add(out["qwen2_vl"]["serve"]["launches"])
+        add(out["qwen2_vl"]["decode"]["launches"])
+    finally:
+        del params
+        _free(torch)
+    cfg, params, init = _init_a11(torch, "seamless-m4t-large-v2")
+    try:
+        t0 = time.perf_counter()
+        out["seamless"] = _a11_seamless(np, torch, cfg, params)
+        out["seamless"]["init"] = init
+        out["seamless"]["wall_s"] = time.perf_counter() - t0
+        add(out["seamless"]["launches"])
+    finally:
+        del params
+        _free(torch)
+    cfg, params, init = _init_a11(torch, "xlstm-125m")
+    try:
+        t0 = time.perf_counter()
+        out["xlstm"] = _a11_xlstm(np, torch, cfg, params)
+        out["xlstm"]["init"] = init
+        out["xlstm"]["wall_s"] = time.perf_counter() - t0
+    finally:
+        del params
+        _free(torch)
+    out["launches"] = launches
+    print(f"[a11] launches of B1-B3 on the phase's paths: "
+          f"{json.dumps(launches)}")
+    return out
+
+
 def init_longchat(torch):
     """longchat-7b-32k at full width, random weights from seed 0."""
     from repro_torch.configs import get_config
@@ -3222,8 +3747,8 @@ def cut_depth(cfg, params, n_layers):
 
 
 def cut_for(phase, cfg, params):
-    """longchat at ``SERVE_MODES_LAYERS`` layers for one phase (4c, 4f,
-    4i, 4j), with its ``[depth]`` line."""
+    """longchat at ``SERVE_MODES_LAYERS`` layers for one phase (4b, 4c,
+    4f, 4i, 4j), with its ``[depth]`` line."""
     print(f"[depth] phase {phase}: {SERVE_MODES_LAYERS} of {cfg.n_layers} "
           f"layers, full width")
     return cut_depth(cfg, params, SERVE_MODES_LAYERS)

@@ -19,7 +19,12 @@ dense otherwise.  The GQA sparse path runs kernels B1 and B2 on a CUDA
 tensor; the MLA decode runs the reference's split bound and latent
 attention in torch ops (the reference computes both in jnp).  Only the
 local decode context is ported: a sequence-sharded ``DecodeCtx`` belongs
-to ROADMAP A12, cross-attention to A11.
+to ROADMAP A12.
+
+Encoder-decoder stacks use :func:`gqa_train` for the encoder's non-causal
+self-attention and the decoder's cross-attention over :func:`cross_kv`;
+the cross-attention decode is dense over the static encoder K/V
+(``gqa_decode(cross_kv_cache=...)``), as in the reference.
 """
 
 from __future__ import annotations
@@ -257,6 +262,40 @@ def _qkv(p, cfg, x: torch.Tensor, pos
     return q, k, v
 
 
+def gqa_train(p, cfg, kind: str, x: torch.Tensor, pos,
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (the encoder's, non-causal with
+    ``causal=False``, or the decoder's cross-attention over ``cross_kv``:
+    un-rotated queries, no mask).  x: (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    if cross_kv is not None:
+        # keys are the encoder's un-rotated projections: no RoPE here
+        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        k, v = cross_kv
+        causal = False
+    else:
+        q, k, v = _qkv(p, cfg, x, pos)
+    window = cfg.window if kind == "attn_local" else None
+    out = blocked_attention(
+        scale_like(q, 1.0 / math.sqrt(hd)), k, v, causal=causal,
+        window=window, attn_softcap=cfg.attn_softcap,
+        block_kv=cfg.runtime.attn_block_kv)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def cross_kv(p, cfg, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K/V for cross-attention (once per request):
+    (B, S_enc, Hkv, hd) each."""
+    B, S, _ = enc_out.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc_out @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, Hkv, hd)
+    return k, v
+
+
 def gqa_prefill_cache(cfg, k: torch.Tensor, v: torch.Tensor, max_len: int,
                       length) -> Dict[str, torch.Tensor]:
     """The decode cache after prefill: K/V padded to ``max_len``, with rows
@@ -404,16 +443,25 @@ def gqa_decode(p, cfg, kind: str, x: torch.Tensor,
     """One decode step.  x: (B, 1, d); length: the cache fill (an int), the
     position the new token takes.  Writes the token's K/V row (and, on
     the sparse path, folds its key into the pyramid) into ``cache`` IN
-    PLACE; returns (out (B, 1, d), cache)."""
-    if cross_kv_cache is not None:
-        raise NotImplementedError(
-            "cross-attention decode (encoder-decoder) is not ported yet "
-            "(ROADMAP A11)")
-    _local_only(ctx)
+    PLACE; returns (out (B, 1, d), cache).
+
+    With ``cross_kv_cache`` = (K, V) of the encoder (B, S_enc, Hkv, hd)
+    it is the cross-attention: the un-rotated query attends densely over
+    every encoder row, and nothing is written."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.hd
+    if cross_kv_cache is not None:
+        q = scale_like((x @ p["wq"]).reshape(B, H, hd), 1.0 / math.sqrt(hd))
+        ck, cv = cross_kv_cache
+        part = sa.dense_decode_gqa(q, ck, cv, length=ck.shape[1])
+        out = sa._finish(part).to(x.dtype)
+        return out.reshape(B, 1, H * hd) @ p["wo"], cache
+    _local_only(ctx)
     length = int(length)
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
+    if cfg.rope == "mrope":
+        # at decode every M-RoPE stream takes the token's position
+        pos = pos[None].expand(3, B, 1)
     q, k_new, v_new = _qkv(p, cfg, x, pos)
     q = scale_like(q[:, 0], 1.0 / math.sqrt(hd))             # (B, H, hd)
     k_new, v_new = k_new[:, 0], v_new[:, 0]                  # (B, Hkv, hd)

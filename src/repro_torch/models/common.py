@@ -3,7 +3,7 @@ ported from ``repro.models.common`` with the same f32 compute points."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +63,34 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def mrope_sections(hd: int) -> Tuple[int, int, int]:
+    """Qwen2-VL M-RoPE: (temporal, height, width) sections of hd/2."""
+    half = hd // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float
+                ) -> torch.Tensor:
+    """M-RoPE.  x: (B, S, H, hd); pos3: (3, B, S) (t/h/w position ids).
+    Each rotary frequency takes its angle from the stream of its section
+    (:func:`mrope_sections`); the pairing is NeoX's, as in
+    :func:`apply_rope`."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(mrope_sections(hd), device=x.device))
+    pos = pos3.to(x.device)[sec_id]                          # (hd/2, B, S)
+    angles = pos.movedim(0, -1).float() * freqs              # (B, S, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def positions_for(cfg, batch: int, seq: int, device=None, offset: int = 0
                   ) -> torch.Tensor:
     """Default position ids (B, S) starting at ``offset`` (a prefill chunk
@@ -80,6 +108,5 @@ def rotate(cfg, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     if cfg.rope == "none":
         return x
     if cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet (ROADMAP A11)")
+        return apply_mrope(x, pos, cfg.rope_theta)
     return apply_rope(x, pos, cfg.rope_theta)

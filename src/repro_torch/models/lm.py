@@ -1,4 +1,5 @@
-"""Model assembly for decoder-only LMs, ported from ``repro.models.lm``.
+"""Model assembly, ported from ``repro.models.lm``: decoder-only LMs,
+hybrids, recurrent stacks and encoder-decoder.
 
 Layer organisation as in the JAX package: ``prologue`` layers (the first
 ``cfg.prologue()``) are kept one block each, and the remaining layers form
@@ -7,31 +8,41 @@ repeat axis — so a JAX parameter tree carries over leaf for leaf
 (:func:`repro_torch.models.params.params_from_jax`).  PyTorch runs eagerly:
 the body is a Python loop over the repeat axis.
 
-Attention is GQA/MHA or DeepSeek's MLA (whose decode cache is the latent
-``ckv`` / ``krope`` pair); feed-forward blocks are dense or
-mixture-of-experts, the latter with the inference dispatch (no capacity
-drops).  Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
-``prefill(params, cfg, batch, max_len)``, chunked prefill:
+A block's core is attention — GQA/MHA or DeepSeek's MLA (whose decode
+cache is the latent ``ckv`` / ``krope`` pair) — or a recurrent layer:
+Mamba (``models/ssm.py``, Jamba's) or xLSTM's mLSTM / sLSTM
+(``models/xlstm.py``), whose decode cache is their fixed-size state.
+Feed-forward blocks are dense or mixture-of-experts, the latter with the
+inference dispatch (no capacity drops).  An encoder-decoder stack
+(seamless) runs a non-causal encoder over ``batch["embeds"]`` and gives
+every decoder attention layer a cross-attention over the encoder's K/V,
+kept in the cache as ``cross_k`` / ``cross_v``; M-RoPE (qwen2-vl) takes
+``batch["positions"]`` (3, B, S) at prefill.
+
+Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
+``prefill(params, cfg, batch, max_len)``, chunked prefill (decoder-only):
 ``init_decode_cache(cfg, batch, max_len, device)`` then
 ``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk, after
 ``load_prefix_rows(cfg, cache, rows, n)`` for a warm shared prefix, and
 ``decode_step(params, cfg, cache, batch, length)``: one token for every
-sequence with the in-model LeoAM sparse decode (the abstract pyramid the
-cache carries, kernels B1 and B2 on the card; ``impl="ref"`` runs their
-plain versions there).  Recurrent and encoder-decoder stacks raise
-``NotImplementedError`` (ROADMAP A11).
+sequence with the in-model LeoAM sparse decode on attention layers (the
+abstract pyramid the cache carries, kernels B1 and B2 on the card;
+``impl="ref"`` runs their plain versions there) and the exact recurrence
+on recurrent ones.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import LOCAL_CTX, DecodeCtx
 from repro_torch.models.common import (positions_for, rms_norm, scale_like,
                                        softcap)
@@ -53,23 +64,24 @@ def _layer_plan(cfg):
     return prologue, body[:period], repeats
 
 
-def check_supported(cfg) -> None:
-    """Raise for what this slice of the port leaves out."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"'{cfg.name}' is encoder-decoder; not ported yet (ROADMAP A11)")
-    bad = sorted({k for k in cfg.layer_kinds() if not k.startswith("attn")})
-    if bad:
-        raise NotImplementedError(
-            f"'{cfg.name}' has non-attention layers {bad}; not ported yet "
-            f"(ROADMAP A11)")
+def _core_params(cfg, kind: str) -> Dict[str, ParamDef]:
+    if kind.startswith("attn"):
+        return attn.attn_params(cfg)
+    if kind == "mamba":
+        return ssm_mod.mamba_params(cfg)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_params(cfg)
+    if kind == "slstm":
+        return xlstm_mod.slstm_params(cfg)
+    raise ValueError(kind)
 
 
-def _block_defs(cfg, kind: str, mlp_kind: str) -> Dict[str, Any]:
+def _block_defs(cfg, kind: str, mlp_kind: str, cross: bool = False
+                ) -> Dict[str, Any]:
     d = cfg.d_model
     blk: Dict[str, Any] = {
         "ln1": ParamDef((d,), (None,), init="ones"),
-        "core": attn.attn_params(cfg),
+        "core": _core_params(cfg, kind),
     }
     if mlp_kind == "dense":
         ff = cfg.d_ff_dense if cfg.d_ff_dense else None
@@ -78,6 +90,9 @@ def _block_defs(cfg, kind: str, mlp_kind: str) -> Dict[str, Any]:
     elif mlp_kind == "moe":
         blk["ln2"] = ParamDef((d,), (None,), init="ones")
         blk["mlp"] = mlp_mod.moe_params(cfg)
+    if cross:
+        blk["ln_x"] = ParamDef((d,), (None,), init="ones")
+        blk["cross"] = attn.gqa_params(cfg)
     return blk
 
 
@@ -87,19 +102,29 @@ def _stack_defs(defs: Dict[str, Any], n: int) -> Dict[str, Any]:
         defs, is_leaf=is_def)
 
 
+def _cross(cfg) -> bool:
+    return cfg.is_encdec and cfg.cross_attn
+
+
 def param_defs(cfg) -> Dict[str, Any]:
-    check_supported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     prologue, period, repeats = _layer_plan(cfg)
+    cross = _cross(cfg)
     defs: Dict[str, Any] = {
         "embed": ParamDef((V, d), ("vocab", "embed"), init="embed"),
         "final_norm": ParamDef((d,), (None,), init="ones"),
-        "prologue": [_block_defs(cfg, k, m) for (_, k, m) in prologue],
-        "body": [_stack_defs(_block_defs(cfg, k, m), repeats)
+        "prologue": [_block_defs(cfg, k, m, cross) for (_, k, m) in prologue],
+        "body": [_stack_defs(_block_defs(cfg, k, m, cross), repeats)
                  for (k, m) in period] if repeats else [],
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
+    if cfg.is_encdec:
+        defs["encoder"] = {
+            "body": _stack_defs(_block_defs(cfg, "attn", "dense"),
+                                cfg.enc_layers),
+            "final_norm": ParamDef((d,), (None,), init="ones"),
+        }
     return defs
 
 
@@ -121,20 +146,47 @@ def body_block(params, pi: int, r: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def encoder_len(cfg, dec_len: int) -> int:
+    """The static encoder length of an encoder-decoder decode cache."""
+    return min(4096, max(256, dec_len // 8))
+
+
+def _block_cache_defs(cfg, kind: str, batch: int, max_len: int,
+                      cross: bool = False) -> Optional[Dict[str, ParamDef]]:
+    c: Dict[str, ParamDef] = {}
+    if kind.startswith("attn"):
+        c.update(attn.cache_defs(cfg, kind, batch, max_len) or {})
+        if cross:
+            Hkv, hd = cfg.n_kv_heads, cfg.hd
+            enc = encoder_len(cfg, max_len)
+            for name in ("cross_k", "cross_v"):
+                c[name] = ParamDef((batch, enc, Hkv, hd),
+                                   ("batch", None, "kv", None), init="zeros")
+    elif kind == "mamba":
+        c.update(ssm_mod.mamba_cache_defs(cfg, batch))
+    elif kind == "mlstm":
+        c.update(xlstm_mod.mlstm_cache_defs(cfg, batch))
+    elif kind == "slstm":
+        c.update(xlstm_mod.slstm_cache_defs(cfg, batch))
+    return c or None
+
+
 def cache_defs(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     """The decode cache's leaves, as :func:`prefill` returns them: per
     attention layer K and V (batch, max_len, Hkv, hd) — for MLA the latent
     ``ckv`` (batch, max_len, r) and ``krope`` (batch, max_len, rope) — and,
     with ``cfg.leoam.enabled``, the f32 abstract pyramid leaves
-    (``attention.gqa_cache_defs`` / ``mla_cache_defs``); body layers
+    (``attention.gqa_cache_defs`` / ``mla_cache_defs``), beside an
+    encoder-decoder's ``cross_k`` / ``cross_v``; per recurrent layer its
+    state (``ssm.mamba_cache_defs``, ``xlstm.*_cache_defs``); body layers
     stacked on the repeat axis."""
-    check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
-    return {"prologue": [attn.cache_defs(cfg, k, batch, max_len)
+    cross = _cross(cfg)
+    return {"prologue": [_block_cache_defs(cfg, k, batch, max_len, cross)
                          for (_, k, _m) in prologue],
-            "body": [_stack_defs(attn.cache_defs(cfg, k, batch, max_len),
-                                 repeats) for (k, _m) in period]
-            if repeats else []}
+            "body": [_stack_defs(_block_cache_defs(cfg, k, batch, max_len,
+                                                   cross), repeats)
+                     for (k, _m) in period] if repeats else []}
 
 
 def init_decode_cache(cfg, batch: int, max_len: int,
@@ -160,11 +212,12 @@ def load_prefix_rows(cfg, cache: Dict[str, Any], kv_rows,
     :func:`init_decode_cache`, layer by layer, in the cache's dtype and IN
     PLACE, so chunked prefill resumes at ``start == n_tokens`` over the
     warm span without recomputing it.  Returns the cache."""
-    check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
-    slots = [cache["prologue"][i] for i in range(len(prologue))]
+    slots = [cache["prologue"][i] for i, (_, k, _m) in enumerate(prologue)
+             if k.startswith("attn")]
     slots += [{name: leaf[r] for name, leaf in cache["body"][pi].items()}
-              for r in range(repeats) for pi in range(len(period))]
+              for r in range(repeats) for pi, (k, _m) in enumerate(period)
+              if k.startswith("attn")]
     if len(kv_rows) != len(slots):
         raise ValueError(f"load_prefix_rows: {len(kv_rows)} layers of rows "
                          f"for a cache of {len(slots)} attention layers")
@@ -198,8 +251,38 @@ def _apply_mlp(blk, cfg, mlp_kind: str, x: torch.Tensor) -> torch.Tensor:
     return x + mlp_mod.dense_apply(blk["mlp"], cfg, h)
 
 
+def _write_state(cache: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor]) -> None:
+    """A recurrent layer's new state into its cache leaves IN PLACE (a
+    body layer's leaves are views into the stacked repeat axis)."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+
+
+def _encode(params, cfg, embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings (B, S_enc, d): non-causal
+    attention blocks with dense MLPs, then the encoder's final norm."""
+    enc = params["encoder"]
+    B, S, _ = embeds.shape
+    pos = positions_for(cfg, B, S, device=embeds.device)
+    x = embeds.to(torch_dtype(cfg.dtype))
+    for r in range(cfg.enc_layers):
+        blk = tree_map(lambda a: a[r], enc["body"])
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        x = x + attn.gqa_train(blk["core"], cfg, "attn", h, pos,
+                               causal=False)
+        x = _apply_mlp(blk, cfg, "dense", x)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
 def _embed_in(params, cfg, batch: Dict[str, Any]
               ) -> Tuple[torch.Tensor, int, int]:
+    """The decoder's input rows: ``batch["embeds"]`` (a modality stub's
+    embeddings) for a decoder-only model that is given them, else the
+    token embeddings (an encoder-decoder's embeds feed its encoder)."""
+    if "embeds" in batch and not cfg.is_encdec:
+        x = batch["embeds"].to(torch_dtype(cfg.dtype))
+        return x, x.shape[0], x.shape[1]
     tokens = batch["tokens"]
     B, S = tokens.shape
     return params["embed"][tokens.long()], B, S
@@ -215,6 +298,36 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Recurrent layers over a prompt
+# ---------------------------------------------------------------------------
+
+
+def _masked_state_scan(step_fn, cache, x: torch.Tensor,
+                       length: Optional[int]):
+    """Step a per-token state update over ``x`` (B, S, ...) —
+    ``step_fn(cache, x_t) -> cache'`` — and return the state.  With
+    ``length`` the state stops updating there: rows at ``t >= length``
+    (bucket padding, a chunk's tail) leave it as it was, so the state
+    equals an exact-length scan's."""
+    for t in range(x.shape[1]):
+        if length is not None and t >= int(length):
+            break
+        cache = step_fn(cache, x[:, t])
+    return cache
+
+
+# a recurrent layer over prompt rows from a state (zeros to start) AND its
+# decode state after ``length`` of them, in one pass (the reference's
+# ``_mamba_prefill`` / ``_scan_prefill`` run the layer, then step its decode
+# over the prompt again; its chunked prefill steps the decode); one step
+_PREFILL = {"mamba": ssm_mod.mamba_prefill,
+            "mlstm": xlstm_mod.mlstm_prefill,
+            "slstm": xlstm_mod.slstm_prefill}
+_DECODE = {"mamba": ssm_mod.mamba_decode, "mlstm": xlstm_mod.mlstm_decode,
+           "slstm": xlstm_mod.slstm_decode}
+
+
+# ---------------------------------------------------------------------------
 # Prefill: run the full prompt, build the decode cache
 # ---------------------------------------------------------------------------
 
@@ -223,30 +336,41 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (last-position logits (B, V) f32, cache).
 
+    ``batch``: ``{"tokens": (B, S)}`` or, for a decoder-only model fed by
+    a modality stub, ``{"embeds": (B, S, d)}``; an encoder-decoder model
+    takes its decoder ``tokens`` and its encoder's frame ``embeds``
+    (B, S_enc, d).  ``batch["positions"]`` (optional) overrides the
+    default position ids ((3, B, S) t/h/w streams for M-RoPE).
+
     ``batch["length"]`` (optional int) marks the prompt's true length when
-    the token row is right-padded to a BUCKET size: the logits come from
-    position ``length - 1`` and K/V cache rows past ``length`` are zeroed,
-    so one bucket serves every prompt length in it, token-identical to
-    exact-length prefill.  The cache is ``{"prologue": [{"k", "v", ...}],
-    "body": [{"k", "v", ...} stacked on the repeat axis]}`` with K/V
-    (B, max_len, Hkv, hd), or the latent ``{"ckv", "krope", ...}`` for
-    MLA, beside the f32 abstract pyramid leaves (:func:`cache_defs`)."""
-    check_supported(cfg)
+    the row is right-padded to a BUCKET size: the logits come from
+    position ``length - 1``, K/V cache rows past ``length`` are zeroed
+    and recurrent states stop at ``length``, so one bucket serves every
+    prompt length in it, token-identical to exact-length prefill.  The
+    cache is ``{"prologue": [per layer], "body": [per period position,
+    stacked on the repeat axis]}`` with the leaves of :func:`cache_defs`
+    (the cross K/V at the encoder's own length)."""
     prologue, period, repeats = _layer_plan(cfg)
     x, B, S = _embed_in(params, cfg, batch)
-    pos = positions_for(cfg, B, S, device=x.device)
+    pos = batch.get("positions")
+    if pos is None:
+        pos = positions_for(cfg, B, S, device=x.device)
+    else:
+        pos = torch.as_tensor(pos).to(x.device)
     length = int(batch.get("length", S))
+    mask_len = batch.get("length")       # None: no bucket padding
+    enc_out = _encode(params, cfg, batch["embeds"].to(x.device)) \
+        if cfg.is_encdec else None
+    cross = _cross(cfg)
 
-    def block_prefill(blk, kind, mlpk, x):
-        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+    def attn_prefill(blk, kind, h):
         if cfg.mla is not None:
             # mla_train and mla_prefill_cache share their latent rows
             p = blk["core"]
             q_nope, q_rope = attn._mla_q(p, cfg, h, pos)
             ckv, krope = attn.mla_latent(p, cfg, h, pos)
             y = attn.mla_attend(p, cfg, q_nope, q_rope, ckv, krope)
-            cache = attn.mla_latent_cache(cfg, ckv, krope, max_len, length)
-            return _apply_mlp(blk, cfg, mlpk, x + y), cache
+            return y, attn.mla_latent_cache(cfg, ckv, krope, max_len, length)
         q, k, v = attn._qkv(blk["core"], cfg, h, pos)
         window = cfg.window if kind == "attn_local" else None
         o = attn.blocked_attention(
@@ -254,8 +378,23 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
             window=window, attn_softcap=cfg.attn_softcap,
             block_kv=cfg.runtime.attn_block_kv)
         y = o.reshape(B, S, -1) @ blk["core"]["wo"]
-        cache = attn.gqa_prefill_cache(cfg, k, v, max_len, length)
-        return _apply_mlp(blk, cfg, mlpk, x + y), cache
+        return y, attn.gqa_prefill_cache(cfg, k, v, max_len, length)
+
+    def block_prefill(blk, kind, mlpk, x):
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if kind.startswith("attn"):
+            y, cache = attn_prefill(blk, kind, h)
+            x = x + y
+            if cross:
+                hx = rms_norm(x, blk["ln_x"], cfg.norm_eps)
+                ckv = attn.cross_kv(blk["cross"], cfg, enc_out)
+                x = x + attn.gqa_train(blk["cross"], cfg, "attn", hx, pos,
+                                       cross_kv=ckv)
+                cache["cross_k"], cache["cross_v"] = ckv
+        else:
+            y, cache = _PREFILL[kind](blk["core"], cfg, h, length=mask_len)
+            x = x + y
+        return _apply_mlp(blk, cfg, mlpk, x), cache
 
     caches_pro = []
     for blk, (_idx, kind, mlpk) in zip(params["prologue"], prologue):
@@ -287,17 +426,19 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
 
 def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
                   max_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One chunk of a chunked prefill.
+    """One chunk of a chunked prefill (decoder-only models).
 
     batch: ``{"tokens": (B, C), "start": int, "length": int}`` — the chunk
     occupies global positions ``[start, start + C)``; rows at positions
     >= ``length`` are padding (last chunk only).  ``cache`` is the decode
-    cache (:func:`init_decode_cache` to start).  Each layer writes the
-    chunk's K/V into it at ``start``, padding rows zeroed first, and
-    attends the chunk's queries over the whole cache with an offset causal
-    mask: rows not yet written sit at later positions, so the mask alone
-    keeps them out.  The cache is updated IN PLACE and returned.  Only
-    K/V are written: the pyramid leaves stay as they are (zeros from
+    cache (:func:`init_decode_cache` to start).  Each attention layer
+    writes the chunk's K/V into it at ``start``, padding rows zeroed
+    first, and attends the chunk's queries over the whole cache with an
+    offset causal mask: rows not yet written sit at later positions, so
+    the mask alone keeps them out.  Each recurrent layer runs its one-pass
+    prefill over the chunk from the state the cache holds, the state
+    stopping at the chunk's last valid row.  The cache is updated IN PLACE and returned.  Only K/V are
+    written: the pyramid leaves stay as they are (zeros from
     :func:`init_decode_cache`), as in the reference.
 
     MLA chunks write the latent rows (``ckv`` / ``krope``, the same
@@ -306,7 +447,9 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
 
     Returns (logits (B, V) f32 at position ``min(length, start + C) - 1``,
     cache); the final chunk's logits give the prompt's first token."""
-    check_supported(cfg)
+    if cfg.is_encdec:
+        raise ValueError("chunked prefill drives decoder-only models; "
+                         f"'{cfg.name}' is an encoder-decoder architecture")
     prologue, period, repeats = _layer_plan(cfg)
     tokens = batch["tokens"]
     B, C = tokens.shape
@@ -331,9 +474,9 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
         return x + attn.mla_attend(p, cfg, q_nope, q_rope, c["ckv"],
                                    c["krope"], q_offset=start)
 
-    def attn_chunk(blk, kind, mlpk, x, c):
+    def attn_chunk(blk, kind, x, c):
         if cfg.mla is not None:
-            return _apply_mlp(blk, cfg, mlpk, mla_attn_chunk(blk, x, c))
+            return mla_attn_chunk(blk, x, c)
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         q, k, v = attn._qkv(blk["core"], cfg, h, pos)
         c["k"][:, start:start + C] = torch.where(valid, k, 0).to(c["k"].dtype)
@@ -343,16 +486,32 @@ def prefill_chunk(params, cfg, batch: Dict[str, Any], cache: Dict[str, Any],
             scale_like(q, 1.0 / math.sqrt(cfg.hd)), c["k"], c["v"],
             causal=True, window=window, attn_softcap=cfg.attn_softcap,
             block_kv=cfg.runtime.attn_block_kv, q_offset=start)
-        y = o.reshape(B, C, -1) @ blk["core"]["wo"]
-        return _apply_mlp(blk, cfg, mlpk, x + y)
+        return x + o.reshape(B, C, -1) @ blk["core"]["wo"]
+
+    def other_chunk(blk, kind, x, c):
+        """The layer over the chunk from the state the cache holds; the
+        state stops at the chunk's last valid row (padding rows feed no
+        valid row)."""
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+        y, new = _PREFILL[kind](blk["core"], cfg, h,
+                                length=min(C, length - start), state=c)
+        _write_state(c, new)
+        return x + y
+
+    def block_chunk(blk, kind, mlpk, x, c):
+        if kind.startswith("attn"):
+            x = attn_chunk(blk, kind, x, c)
+        else:
+            x = other_chunk(blk, kind, x, c)
+        return _apply_mlp(blk, cfg, mlpk, x)
 
     for blk, (_idx, kind, mlpk), c in zip(params["prologue"], prologue,
                                           cache["prologue"]):
-        x = attn_chunk(blk, kind, mlpk, x, c)
+        x = block_chunk(blk, kind, mlpk, x, c)
     for r in range(repeats):
         for pi, (kind, mlpk) in enumerate(period):
             c = {name: leaf[r] for name, leaf in cache["body"][pi].items()}
-            x = attn_chunk(body_block(params, pi, r), kind, mlpk, x, c)
+            x = block_chunk(body_block(params, pi, r), kind, mlpk, x, c)
 
     # last valid row of THIS chunk (earlier chunks' logits are discarded)
     idx = min(max(min(length, start + C) - 1 - start, 0), C - 1)
@@ -368,14 +527,29 @@ def _block_decode(blk, cfg, kind: str, mlp_kind: str, x: torch.Tensor,
                   cache: Dict[str, torch.Tensor], length: int, *,
                   layer_idx: int, ctx: DecodeCtx,
                   impl=None) -> torch.Tensor:
+    """One layer of one decode step; ``cache`` (the layer's leaves) is
+    updated IN PLACE."""
     h = rms_norm(x, blk["ln1"], cfg.norm_eps)
-    if cfg.mla is not None:
-        y, _ = attn.mla_decode(blk["core"], cfg, kind, h, cache, length,
-                               layer_idx=layer_idx, ctx=ctx, impl=impl)
+    if kind.startswith("attn"):
+        sub = {k: v for k, v in cache.items() if not k.startswith("cross_")}
+        if cfg.mla is not None:
+            y, _ = attn.mla_decode(blk["core"], cfg, kind, h, sub, length,
+                                   layer_idx=layer_idx, ctx=ctx, impl=impl)
+        else:
+            y, _ = attn.gqa_decode(blk["core"], cfg, kind, h, sub, length,
+                                   layer_idx=layer_idx, ctx=ctx, impl=impl)
     else:
-        y, _ = attn.gqa_decode(blk["core"], cfg, kind, h, cache, length,
-                               layer_idx=layer_idx, ctx=ctx, impl=impl)
-    return _apply_mlp(blk, cfg, mlp_kind, x + y)
+        y, new = _DECODE[kind](blk["core"], cfg, h, cache)
+        _write_state(cache, new)
+    x = x + y
+    if "cross" in blk and "cross_k" in cache:
+        hx = rms_norm(x, blk["ln_x"], cfg.norm_eps)
+        y, _ = attn.gqa_decode(blk["cross"], cfg, "attn", hx, {}, length,
+                               layer_idx=layer_idx,
+                               cross_kv_cache=(cache["cross_k"],
+                                               cache["cross_v"]))
+        x = x + y
+    return _apply_mlp(blk, cfg, mlp_kind, x)
 
 
 def decode_step(params, cfg, cache: Dict[str, Any], batch: Dict[str, Any],
@@ -383,14 +557,15 @@ def decode_step(params, cfg, cache: Dict[str, Any], batch: Dict[str, Any],
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence.  batch: ``{"token": (B,)}`` or
     ``{"embeds": (B, 1, d)}``; length: the current cache fill (an int, one
-    for the batch).  Every layer writes the token's row into ``cache`` IN
-    PLACE (and folds its key into the pyramid on the sparse path) and
-    attends sparse or dense as :func:`attention.gqa_decode` decides.  The
+    for the batch).  Every attention layer writes the token's row into
+    ``cache`` IN PLACE (and folds its key into the pyramid on the sparse
+    path) and attends sparse or dense as :func:`attention.gqa_decode`
+    decides; an encoder-decoder's layers then attend densely over their
+    cross K/V.  Every recurrent layer steps its state IN PLACE.  The
     prologue layers decode with their own index (the early budget), the
     body layers with index 10**6 (the standard budget), as in the
     reference.  ``impl="ref"`` runs the plain versions of kernels B1 and
     B2 on the card.  Returns (logits (B, V) f32, cache)."""
-    check_supported(cfg)
     prologue, period, repeats = _layer_plan(cfg)
     if "token" in batch:
         x = params["embed"][torch.as_tensor(batch["token"]).long().to(

@@ -1,10 +1,12 @@
 """LeoAM serving engine: batched tiered decoding on a live model (PyTorch).
 
-The port of ``repro.serving.engine`` for attention-only decoders: GQA/MHA
-(the paper's own model, longchat-7b-32k) and DeepSeek-class absorbed MLA
-with mixture-of-experts feed-forwards (deepseek-v2-lite).  Prefill
-populates the three-tier store; each decode round runs, per attention
-layer, the paper's Dynamic Three-tier Pipeline (§4.4):
+The port of ``repro.serving.engine`` for decoder-only models: GQA/MHA
+(the paper's own model, longchat-7b-32k; qwen2-vl with its M-RoPE
+positions), DeepSeek-class absorbed MLA with mixture-of-experts
+feed-forwards (deepseek-v2-lite), and hybrids whose attention layers sit
+between recurrent ones (Jamba's Mamba layers).  Prefill populates the
+three-tier store with every attention layer's K/V; each decode round runs,
+per attention layer, the paper's Dynamic Three-tier Pipeline (§4.4):
 
 1. **Evaluate**: one bounds product over the stacked per-request queries
    and the layer's padded abstract stack — kernel B1
@@ -17,6 +19,20 @@ layer, the paper's Dynamic Three-tier Pipeline (§4.4):
 3. **Attend**: sparse attention over the pool slots plus the new token —
    kernel B2 (``kernels.sparse_decode.sparse_decode_pooled``) — then the
    output projection and the append.
+
+A recurrent layer has no K/V to tier: its fixed-size decode state (Mamba's
+conv window and SSM state) stays on the device in the sequence's
+``_SeqState.state``, from the admission's prefill in every admission mode,
+and each round steps the batch's states stacked in one decode step: the
+rows are independent, as in the reference's per-sequence ``run_other``,
+and the layer's weights and MLP are read once a round, not once a
+sequence.  The round's new states are committed only once the round has
+run to its end, so a round that is re-run after a chunk loss steps them
+once.  Suspend and resume keep the state as it is.  An
+encoder-decoder model (seamless) raises the reference's ``ValueError``
+(serve it with ``lm.prefill`` / ``lm.decode_step``), and so does a stack
+with no attention layer (xlstm), where the reference fails inside its
+store.
 
 An MLA model tiers ONE latent row per token (concat(c_kv, k_rope), one
 logical kv head of width kv_lora_rank + qk_rope_head_dim) in a
@@ -90,8 +106,7 @@ into an arena row and published once their writes have landed.
 
 Every kernel runs on the engine's device when it is the CUDA card; on the
 CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
-asks for the plain versions on the card too.  Non-attention layers raise
-``NotImplementedError`` naming their ROADMAP item (A11).
+asks for the plain versions on the card too.
 ``EngineCfg(debug_sync=True)`` turns on the runtime sync sanitizer
 (``serving/sanitizer.py``) through the store, as the reference does.
 """
@@ -241,10 +256,14 @@ class StepStats:
 
 @dataclass
 class _SeqState:
-    """Host-side per-sequence decode state.  An attention-only stack keeps
-    no model cache here: the tier store holds every K/V row."""
+    """Per-sequence decode state.  The tier store holds every K/V row, so
+    only the recurrent layers' state is kept here: ``{"prologue": [per
+    layer, None for attention], "body": [per period position, stacked on
+    the repeat axis, None for attention]}`` on the engine's device, or
+    None for an attention-only stack."""
     length: int
     access: AccessTable
+    state: Optional[Dict[str, Any]] = None
     prefill_logits: Optional[np.ndarray] = None  # (V,) behind the first
                                      # token, for end-to-end checks
     stats: List[StepStats] = field(default_factory=list)
@@ -287,6 +306,11 @@ class BatchedLeoAMEngine:
                  device_chunk_budget: Optional[int] = None,
                  device: DeviceLike = None, impl: Optional[str] = None,
                  store_root: Optional[str] = None):
+        if cfg.is_encdec:
+            raise ValueError(
+                f"LeoAMEngine drives decoder-only models; '{cfg.name}' is "
+                f"an encoder-decoder architecture — serve it with the "
+                f"per-request runtime paths instead")
         if ecfg.prefix_cache:
             bad = sorted({k for k in cfg.layer_kinds()
                           if not k.startswith("attn")})
@@ -306,7 +330,13 @@ class BatchedLeoAMEngine:
                     f"prefill_chunk_tokens={C} must be a multiple of the "
                     f"store chunk ({chunk}) and divide max_len "
                     f"({ecfg.max_len})")
-        lm.check_supported(cfg)
+        if not any(k.startswith("attn") for k in cfg.layer_kinds()):
+            # the reference builds a store of zero layers and fails in it
+            raise ValueError(
+                f"BatchedLeoAMEngine tiers attention K/V; '{cfg.name}' has "
+                f"no attention layer (its layers are "
+                f"{sorted(set(cfg.layer_kinds()))}) — serve it with "
+                f"lm.prefill and lm.decode_step")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -321,6 +351,7 @@ class BatchedLeoAMEngine:
         self.max_seqs = max_seqs
         self.attn_layers = [i for i, k in enumerate(cfg.layer_kinds())
                             if k.startswith("attn")]
+        self.recurrent = len(self.attn_layers) < cfg.n_layers
         # absorbed-MLA stacks tier ONE latent row per token through the
         # same store and selection machinery: the box over the
         # concatenated latent IS the MLA bound (q_lat.ckv + q_rope.krope
@@ -490,10 +521,11 @@ class BatchedLeoAMEngine:
                               pool_place=pool_place)
             ingest_s += time.perf_counter() - t1
         prefill_s = time.perf_counter() - t0 - ingest_s
+        state = self._recurrent_state(cache)
         first = _to_host(logits)[0]
         self.seqs[sid] = _SeqState(length=S,
                                    access=AccessTable(self.n_chunks),
-                                   prefill_logits=first,
+                                   state=state, prefill_logits=first,
                                    tokens=np.asarray(tokens), prompt_len=S)
         self.admit_profiles.append({
             "total_s": time.perf_counter() - t0, "prefill_s": prefill_s,
@@ -555,6 +587,29 @@ class BatchedLeoAMEngine:
         sid = self._free.pop()
         self.failed.pop(sid, None)
         return ChunkedAdmission(self, sid, tokens, C)
+
+    def _recurrent_state(self, cache) -> Optional[Dict[str, Any]]:
+        """The recurrent layers' leaves of a prefill cache (its K/V go to
+        the store): what :attr:`_SeqState.state` holds.  A state made on
+        the admission worker's stream is marked as used by the decode
+        thread's, so its memory is not reused before that stream is done
+        with it."""
+        if not self.recurrent:
+            return None
+        prologue, period, _ = lm._layer_plan(self.cfg)
+        state = {"prologue": [None if k.startswith("attn")
+                              else cache["prologue"][i]
+                              for i, (_, k, _m) in enumerate(prologue)],
+                 "body": [None if k.startswith("attn") else cache["body"][pi]
+                          for pi, (k, _m) in enumerate(period)]}
+        if self.device.type == "cuda" and \
+                torch.cuda.current_stream(self.device) != \
+                torch.cuda.default_stream(self.device):
+            for part in state.values():
+                for leaves in part:
+                    for t in (leaves or {}).values():
+                        t.record_stream(torch.cuda.default_stream(self.device))
+        return state
 
     def _layer_cache(self, cache, layer: int) -> Dict[str, torch.Tensor]:
         pro_n = len(cache["prologue"])
@@ -1018,6 +1073,11 @@ class BatchedLeoAMEngine:
                            np.int64)
         lengths_dev = torch.from_numpy(lengths.astype(np.int32)).to(dev)
         pos = lengths_dev[:, None]                               # (B, 1)
+        if cfg.rope == "mrope":
+            # every M-RoPE stream takes the token's position, as in
+            # attention.gqa_decode (the reference's round passes the
+            # (B, 1) positions as the three streams, ROADMAP C15)
+            pos = pos[None].expand(3, B, 1)
         x = torch.tensor([[tokens[sid]] for sid in order], dtype=torch.long,
                          device=dev)
         params = self.params
@@ -1127,11 +1187,38 @@ class BatchedLeoAMEngine:
             li += 1
             return lm._apply_mlp(blk, cfg, mlpk, h + y)
 
-        for pi, (idx, _kind, mlpk) in enumerate(prologue):
-            h = run_attn(params["prologue"][pi], mlpk, h, idx)
+        states = [self.seqs[sid].state for sid in order]
+        new_states: List[Tuple[str, int, Optional[int], dict]] = []
+
+        def run_other(blk, kind, mlpk, h, layer_idx, part, pi, r):
+            """A recurrent layer: one decode step over the sequences'
+            states stacked on the batch axis (each row reads only its own
+            state, as in the reference's per-sequence ``run_other``), into
+            a copy that the round commits at its end."""
+            c = {name: torch.cat([st[part][pi][name] if r is None
+                                  else st[part][pi][name][r]
+                                  for st in states])
+                 for name in states[0][part][pi]}
+            # a recurrent layer reads no cache length
+            h = lm._block_decode(blk, cfg, kind, mlpk, h, c, 0,
+                                 layer_idx=layer_idx,
+                                 ctx=attn_mod.LOCAL_CTX, impl=self.impl)
+            new_states.append((part, pi, r, c))
+            return h
+
+        for pi, (idx, kind, mlpk) in enumerate(prologue):
+            blk = params["prologue"][pi]
+            if kind.startswith("attn"):
+                h = run_attn(blk, mlpk, h, idx)
+            else:
+                h = run_other(blk, kind, mlpk, h, idx, "prologue", pi, None)
         for r in range(repeats):
-            for pi, (_kind, mlpk) in enumerate(period):
-                h = run_attn(lm.body_block(params, pi, r), mlpk, h, 10 ** 6)
+            for pi, (kind, mlpk) in enumerate(period):
+                blk = lm.body_block(params, pi, r)
+                if kind.startswith("attn"):
+                    h = run_attn(blk, mlpk, h, 10 ** 6)
+                else:
+                    h = run_other(blk, kind, mlpk, h, 10 ** 6, "body", pi, r)
 
         logits = _to_host(lm._logits(params, cfg, h)[:, 0])      # (B, V)
         self.last_logits = logits
@@ -1147,6 +1234,12 @@ class BatchedLeoAMEngine:
         tc = prof["attend_s"] / max(1, len(self.attn_layers))
         for lid, up_b, disk_b in layer_io:
             self._update_costs(lid, up_b, disk_b, tc)
+        # the round ran to its end: commit the recurrent states (a body
+        # layer's into its repeat's row of the stacked leaves)
+        for part, pi, r, c in new_states:
+            for i, st in enumerate(states):
+                for name, t in st[part][pi].items():
+                    (t if r is None else t[r]).copy_(c[name][i:i + 1])
         out: Dict[int, int] = {}
         for i, sid in enumerate(order):
             s = self.seqs[sid]
@@ -1293,10 +1386,11 @@ class ChunkedAdmission:
                 self._ingest_rows(li, layer, zk, zk, end)
             self._ingest_s += time.perf_counter() - t1
         first = _to_host(logits)[0]
-        self.cache = None              # the store holds every row now
+        state = eng._recurrent_state(self.cache)
+        self.cache = None              # the store holds every K/V row now
         eng.seqs[self.sid] = _SeqState(length=self.S,
                                        access=AccessTable(eng.n_chunks),
-                                       prefill_logits=first,
+                                       state=state, prefill_logits=first,
                                        tokens=np.asarray(self.tokens),
                                        prompt_len=self.S)
         if self.pool_place:            # the decode thread's admission

@@ -19,8 +19,9 @@ Store scripts that feed both stores the same K/V are bitwise equal.
 Left out on purpose: the JAX compile-count test
 (``test_mixed_lengths_compile_log_programs``) bounds the number of XLA
 programs, and eager PyTorch compiles none, so it has no counterpart here;
-the disk-sidecar and ``masked_state_scan`` tests wait for the sidecar
-(ROADMAP A4) and recurrent layers (A11).
+the disk-sidecar admission tests sit in ``tests/test_torch_store_modes.py``,
+and the engine's admission modes on a hybrid stack (Mamba layers) in
+``tests/test_torch_hybrid_engine.py``.
 """
 
 import dataclasses
@@ -821,3 +822,19 @@ def test_chunked_admission_model_bounds_round_gap(chunk_s, n, round_s, k):
     assert m["ttft_chunked_s"] == pytest.approx(
         n * chunk_s + (-(-n // k) - 1) * round_s)
     assert m["max_round_gap_chunked_s"] <= m["max_round_gap_whole_s"]
+
+
+def test_masked_state_scan_ignores_padding():
+    """The recurrent-layer state scan (``tests/test_chunked_prefill.py``'s
+    test, through the port): bucket-padding rows are the identity for the
+    carried state, so the padded scan equals the exact one bitwise."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 8, 4))
+
+    def step(c, xt):
+        return c * 0.5 + xt
+
+    exact = tlm._masked_state_scan(step, torch.zeros(2, 4, dtype=x.dtype),
+                                   x[:, :5], None)
+    padded = tlm._masked_state_scan(step, torch.zeros(2, 4, dtype=x.dtype),
+                                    x, 5)
+    assert torch.equal(exact, padded)

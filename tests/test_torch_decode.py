@@ -235,8 +235,10 @@ def test_decode_step_impl_ref_is_the_plain_path():
 
 
 def test_unported_decode_contexts_raise():
-    """A sequence-sharded decode context (A12) and cross-attention decode
-    (A11) raise, naming their items."""
+    """A sequence-sharded decode context (A12) raises, naming its item.
+    The test kept its name from when cross-attention decode was refused
+    too (ROADMAP A11, ported now): ``gqa_decode`` over a cross K/V cache
+    equals the reference's within 1e-5 and writes nothing."""
     _, tcfg, _, tparams = _setup("longchat-7b-32k")
     with torch.no_grad():
         _, c = tlm.prefill(tparams, tcfg, {"tokens": torch.arange(
@@ -245,12 +247,24 @@ def test_unported_decode_contexts_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         tlm.decode_step(tparams, tcfg, c, {"token": torch.tensor([3])}, 32,
                         ctx)
-    blk = tparams["prologue"][0]["core"]
-    x = torch.zeros(1, 1, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tattn.gqa_decode(blk, tcfg, "attn", x, c["prologue"][0], 32,
-                         layer_idx=0, cross_kv_cache=(c["prologue"][0]["k"],
-                                                      c["prologue"][0]["v"]))
+    from repro.models import attention as jattn
+    cfg, tcfg, params, tparams = _setup("longchat-7b-32k")
+    rng = np.random.RandomState(5)
+    x = rng.randn(B, 1, cfg.d_model).astype(np.float32)
+    ck = rng.randn(B, 24, cfg.n_kv_heads, cfg.hd).astype(np.float32)
+    cv = rng.randn(B, 24, cfg.n_kv_heads, cfg.hd).astype(np.float32)
+    yj, _ = jattn.gqa_decode(params["prologue"][0]["core"], cfg, "attn",
+                             jnp.asarray(x), {}, jnp.int32(7), layer_idx=0,
+                             cross_kv_cache=(jnp.asarray(ck),
+                                             jnp.asarray(cv)))
+    empty = {}
+    yt, out = tattn.gqa_decode(tparams["prologue"][0]["core"], tcfg, "attn",
+                               torch.from_numpy(x), empty, 7, layer_idx=0,
+                               cross_kv_cache=(torch.from_numpy(ck),
+                                               torch.from_numpy(cv)))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+    assert out is empty and not empty
     with pytest.raises(NotImplementedError, match="A12"):
         tsa.combine_partials(tsa.Partials(*[torch.zeros(1)] * 3), ("data",))
 

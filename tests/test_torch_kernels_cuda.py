@@ -672,6 +672,53 @@ def test_sidecar_promotion_into_the_pool_cuda(cuda, tmp_path, theta):
         log_o[(HOST, DISK, "kv_replica")] * packed
 
 
+@pytest.mark.parametrize("Hkv,G,hd", [(8, 8, 128), (2, 6, 128), (16, 1, 64)],
+                         ids=["jamba", "qwen2-vl", "seamless"])
+def test_a11_shapes_b1_b2_b3_cuda(cuda, rng, Hkv, G, hd):
+    """B1, B2 and B3 at the attention shapes of the A11 families (jamba's
+    G 8 / hd 128, qwen2-vl's G 6 / hd 128, seamless's G 1 / hd 64), each
+    against its plain version: B1 on the engine's and the pyramid's
+    layouts, B2 over pool slots (the engine's round) and through its
+    contract entry (``decode_step``'s), B3's scatter at the layer's row
+    width (bitwise)."""
+    B, nc, chunk, nmax = 4, 64, 64, 12
+    H = Hkv * G
+    q = _t(rng.randn(B, H, hd).astype(np.float32) / np.sqrt(hd), cuda,
+           torch.bfloat16)
+    km = _t(rng.randn(B, nc, Hkv, hd).astype(np.float32), cuda)
+    kn = km - _t(np.abs(rng.randn(B, nc, Hkv, hd)).astype(np.float32), cuda)
+    for got, want in zip(cb_ops.chunk_bounds_gqa(q, km, kn),
+                         cb_ops.chunk_bounds_gqa(q, km, kn, impl="ref")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    q4 = q.reshape(B, Hkv, G, hd)
+    kmp, knp = km.transpose(1, 2).contiguous(), kn.transpose(1, 2).contiguous()
+    for got, want in zip(cb_ops.chunk_bounds(q4, kmp, knp),
+                         cb_ops.chunk_bounds(q4, kmp, knp, impl="ref")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    args = _pooled_inputs(rng, cuda, B, H, Hkv, hd, chunk, 3 * nmax, nmax,
+                          torch.bfloat16)
+    err, bar, frac = bf16_agreement(
+        sd_ops.sparse_decode_pooled(*args, None),
+        sd_ops.sparse_decode_pooled(*args, None, impl="ref"))
+    assert err <= bar and frac <= BF16_MAX_MISMATCH, (err, bar, frac)
+    S = nc * chunk
+    k = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, torch.bfloat16)
+    v = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, torch.bfloat16)
+    ids = _t(np.stack([np.stack([np.sort(rng.choice(nc, nmax,
+                                                    replace=False))
+                                 for _ in range(Hkv)]) for _ in range(B)
+                       ]).astype(np.int32), cuda)
+    qc = _t(rng.randn(B, Hkv, G, hd).astype(np.float32) / np.sqrt(hd), cuda)
+    for got, want in zip(sd_ops.sparse_decode(qc, k, v, ids, S - 7,
+                                              chunk=chunk),
+                         sd_ops.sparse_decode(qc, k, v, ids, S - 7,
+                                              chunk=chunk, impl="ref")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    for dtype in (torch.float16, torch.bfloat16):
+        _scatter_matches_plain("int4", *_scatter_inputs(
+            rng, cuda, "int4", 16, chunk, Hkv * hd, dtype))
+
+
 @pytest.mark.parametrize("B,H,Hkv,hd,chunk,nmax", [
     (3, 4, 4, 16, 16, 8), (2, 8, 2, 64, 32, 5), (4, 32, 32, 128, 64, 12)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

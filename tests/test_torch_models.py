@@ -145,9 +145,26 @@ def test_bucketed_prefill_equals_exact_length(setup, rng):
 
 
 def test_unported_architectures_raise():
-    """MLA and MoE run now (tests/test_torch_mla.py); encoder-decoder and
-    recurrent stacks still refuse (A11)."""
+    """The test kept its name from when encoder-decoder and recurrent
+    stacks were refused (ROADMAP A11, ported now): the four A11 configs'
+    parameter trees equal the reference's in shapes and dtypes, leaf for
+    leaf — Mamba's f32 ``a_log`` / ``d_skip``, the xLSTM gates, the
+    encoder tree, ``cross`` and ``ln_x`` included."""
+    from repro.models.params import ParamDef as JDef
+    from repro_torch.models.params import is_def
+
+    def flat(tree, is_leaf, prefix=()):
+        if is_leaf(tree):
+            return {prefix: (tuple(tree.shape), tree.dtype)}
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(flat(v, is_leaf, prefix + (k,)))
+        return out
+
     for arch in ("seamless-m4t-large-v2", "xlstm-125m",
-                 "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.param_defs(t_get_config(arch, smoke=True))
+                 "jamba-1.5-large-398b", "qwen2-vl-2b"):
+        want = flat(jlm.param_defs(get_config(arch, smoke=True)),
+                    lambda d: isinstance(d, JDef))
+        got = flat(tlm.param_defs(t_get_config(arch, smoke=True)), is_def)
+        assert got == want, arch
