@@ -183,6 +183,23 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    xlstm-125m prefilling 4 x 3072 tokens and decoding 16 steps, its last
    prefill logits against a decode step after prefill(S - 1)
    (``[xlstm]``);
+   4n. (after 4m) the trainer, which runs no hand kernel (their launch
+   counts, zeroed before, must still be 0): ``[train]`` qwen3-1.7b at
+   full width and depth, bf16, through ``repro_torch.launch.train.main``
+   (20 steps of 8 x 1024 tokens from ``ShardedLoader``, 2 microbatches,
+   block remat; every loss finite, the last 4's mean ``TRAIN_LOSS_DROP``
+   below the first 4's; the median step without step 0, tokens/s, peak
+   memory, grad norms, lr, and one step's CUDA kernels and device busy
+   share under torch.profiler); ``[train-resume]`` in a child process
+   with ``torch.use_deterministic_algorithms(True)`` (qwen3 at 3 of 28
+   layers, a ``[depth]`` line: save at step 3, three more steps, restore,
+   the same steps — parameters, moments and step bitwise; then
+   ``run_with_restarts`` with one injected failure: 1 restart, the final
+   step 6, bitwise; the checkpoint's bytes, save and restore times);
+   ``[train-moe]`` deepseek-v2-lite-16b at its first 3 of 27 layers
+   (``[depth]``: MLA, the capacity-drop MoE, 64 experts top-6, bf16
+   moments, 8 steps; finite losses and aux losses, each MoE layer's mean
+   drop fraction in [0, 1), the loss falling);
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
    the launches of the paths that run it, B1's and B2's with 4l's and
    4m's, B3's with 4m's serves, and
@@ -196,8 +213,8 @@ timing lines of the named kernels only (``--b2`` is ``--only b2``;
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
-engine phases of phase 4 (4c-4m) only, with their gates and no result
-line (``--phases 4k`` or ``--phases 4m`` alone never builds longchat).
+engine phases of phase 4 (4c-4n) only, with their gates and no result
+line (``--phases 4k``, ``4m`` or ``4n`` alone never builds longchat).
 """
 
 from __future__ import annotations
@@ -265,7 +282,7 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
 ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j",
-                 "4l", "4k", "4m")                         # --phases
+                 "4l", "4k", "4m", "4n")                   # --phases
 # phase 4l: lm.decode_step on longchat at full width and depth, a batch of
 # prompts of one length (decode_step takes one length for the batch), in
 # a MAX_LEN cache (sparse: MAX_LEN >= min_seq_for_sparse, 3 pyramid
@@ -289,6 +306,21 @@ MLA_CHUNK_TOKENS = 512
 A11_JAMBA, A11_JAMBA_LAYERS, A11_NEW_TOKENS = "jamba-1.5-large-398b", 4, 16
 A11_PROMPT, A11_VISION_HEAD, A11_PATCH_GRID = 3072, 1024, 16
 A11_DECODE_STEPS, A11_XLSTM_STEPS, A11_SEED = 8, 16, 29
+# phase 4n: the trainer (ROADMAP A12a).  [train]: qwen3-1.7b at full width
+# and depth through repro_torch.launch.train.main, bf16, remat "block",
+# TRAIN_MICRO microbatches, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+# tokens from ShardedLoader (seed 1234) at the CLI's lr; the mean of the
+# last 4 losses must lie TRAIN_LOSS_DROP below the mean of the first 4.
+# [train-resume]: qwen3 at TRAIN_CUT_LAYERS layers, TRAIN_RESUME_STEPS
+# steps, a save, as many again, restore, the same steps: bitwise.
+# [train-moe]: deepseek-v2-lite at TRAIN_CUT_LAYERS layers (dense, MoE,
+# one MoE body repeat), TRAIN_MOE_STEPS steps, the same drop margin
+TRAIN_ARCH, TRAIN_MOE_ARCH = "qwen3-1.7b", "deepseek-v2-lite-16b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 8, 1024, 20, 2
+TRAIN_LR, TRAIN_LOSS_DROP = 1e-3, 0.5
+TRAIN_CUT_LAYERS, TRAIN_RESUME_STEPS, TRAIN_MOE_STEPS = 3, 3, 8
+TRAIN_CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+TRAIN_CHILD_FLAG = "--train-resume-child"
 # phase 4m holds kernels against plain logits to phase 5's bar on longchat
 # (4 bf16 ulps of its max|logit| in [4, 8)): each kernel call is held to
 # its own bar beside it
@@ -2495,7 +2527,7 @@ def run_phases(np, torch, names):
     (longchat is built only for the phases that serve it, and freed
     before 4k)."""
     cfg = params = None
-    if names - {"4k", "4m"}:
+    if names - {"4k", "4m", "4n"}:
         cfg, params = init_longchat(torch)
     runners = {
         "4c": lambda: phase_admission(np, torch,
@@ -2509,11 +2541,12 @@ def run_phases(np, torch, names):
         "4j": lambda: phase_prefix(np, torch, *cut_for("4j", cfg, params)),
         "4l": lambda: phase_decode_step(np, torch, cfg, params),
         "4k": lambda: phase_mla(np, torch),
-        "4m": lambda: phase_a11(np, torch)}
+        "4m": lambda: phase_a11(np, torch),
+        "4n": lambda: phase_train(np, torch)}
     try:
         for name in ENGINE_PHASES:
             if name in names:
-                if name in ("4k", "4m"):
+                if name in ("4k", "4m", "4n"):
                     params = None              # longchat leaves the card
                     gc.collect()
                     torch.cuda.empty_cache()
@@ -2527,6 +2560,8 @@ def run_phases(np, torch, names):
 
 
 def main() -> int:
+    if TRAIN_CHILD_FLAG in sys.argv[1:]:
+        return train_resume_child()
     only = only_kernels(sys.argv[1:])
     phases = only_phases(sys.argv[1:])
     import torch
@@ -2627,6 +2662,9 @@ def main() -> int:
         t0 = time.perf_counter()
         a11 = phase_a11(np, torch)
         print(f"[time] phase 4m {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        train = phase_train(np, torch)
+        print(f"[time] phase 4n {time.perf_counter() - t0!r} s")
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
 
@@ -2700,7 +2738,7 @@ def main() -> int:
                       "kv_dequant_48": b3_48c,
                       "mla": {k: v for k, v in mla.items()
                               if k != "rows"},
-                      "a11": a11}))
+                      "a11": a11, "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3710,6 +3748,393 @@ def phase_a11(np, torch):
     print(f"[a11] launches of B1-B3 on the phase's paths: "
           f"{json.dumps(launches)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4n: the trainer (ROADMAP A12a)
+# ---------------------------------------------------------------------------
+
+
+def _busy_ms(kernels) -> float:
+    """The device time that at least one kernel covers (merged intervals
+    of (name, start_us, end_us)), in ms."""
+    busy, end = 0.0, float("-inf")
+    for b, e in sorted((b, e) for _, b, e in kernels):
+        if e > end:
+            busy += e - max(b, end)
+            end = e
+    return busy / 1e3
+
+
+def _profile_once(torch, fn):
+    """``fn()`` once under torch.profiler, CUDA activity only (tracing the
+    host's ops too cost a 1.2 s train step 16 s): (its result, the CUDA
+    kernels [(name, start_us, end_us)] from the first one's start)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == cuda),
+                 key=lambda e: e.time_range.start)
+    t0 = evs[0].time_range.start if evs else 0
+    return out, [(e.name, e.time_range.start - t0, e.time_range.end - t0)
+                 for e in evs]
+
+
+@contextlib.contextmanager
+def _spy_train_steps(torch, record, profile_at=None, profiled=None):
+    """Every step that ``launch.steps.make_train_step`` builds meanwhile
+    is timed (synchronized) and its metrics appended to ``record``; the
+    step numbered ``profile_at`` runs under torch.profiler, its kernels
+    into ``profiled``."""
+    from repro_torch.launch import steps
+    orig = steps.make_train_step
+
+    def make(cfg, tcfg):
+        fn = orig(cfg, tcfg)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(record) == profile_at:
+                (state, m), kernels = _profile_once(
+                    torch, lambda: fn(state, batch))
+                profiled.extend(kernels)
+            else:
+                state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            record.append({"s": time.perf_counter() - t0,
+                           **{k: float(v) for k, v in m.items()}})
+            return state, m
+        return step
+
+    steps.make_train_step = make
+    try:
+        yield
+    finally:
+        steps.make_train_step = orig
+
+
+def _loss_drop(losses, n):
+    """(mean of the first n losses, mean of the last n)."""
+    return (float(sum(losses[:n]) / n), float(sum(losses[-n:]) / n))
+
+
+def _train_full(np, torch):
+    """[train]: qwen3-1.7b at full width and depth through the CLI's
+    ``main``, every step timed, the last one profiled."""
+    from repro_torch.launch import train as train_cli
+    record, profiled = [], []
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--microbatches", str(TRAIN_MICRO), "--log-every", "1"]
+    print(f"[train] repro_torch.launch.train.main({argv})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _spy_train_steps(torch, record, TRAIN_STEPS - 1, profiled):
+        history = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [loss for _, loss in history]
+    first, last = _loss_drop(losses, 4)
+    timed = [r["s"] for r in record[1:TRAIN_STEPS - 1]]   # not 0, not profiled
+    med = float(np.median(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    busy = _busy_ms(profiled)
+    row = {"arch": TRAIN_ARCH, "steps": len(losses), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "remat": "block",
+           "lr": TRAIN_LR, "losses": losses,
+           "first4_mean": first, "last4_mean": last,
+           "median_step_s": med, "min_step_s": min(timed),
+           "max_step_s": max(timed), "step0_s": record[0]["s"],
+           "tokens_per_s": tokens / med, "peak_device_gib": peak,
+           "grad_norm": [r["grad_norm"] for r in record],
+           "lr_by_step": [r["lr"] for r in record],
+           "profiled_step_s": record[-1]["s"],
+           "cuda_kernels_in_step": len(profiled),
+           "device_busy_ms": busy,
+           "device_span_ms": profiled[-1][2] / 1e3 if profiled else None,
+           "busy_share_of_median_step": busy / 1e3 / med,
+           "wall_s": wall}
+    print(f"[train] losses {json.dumps(losses)}")
+    print(f"[train] grad_norm {json.dumps(row['grad_norm'])}")
+    print(f"[train] lr {json.dumps(row['lr_by_step'])}")
+    print(f"[train] median step {med!r} s (min {min(timed)!r}, max "
+          f"{max(timed)!r}; step 0 {record[0]['s']!r} s), "
+          f"{tokens / med!r} tokens/s, peak {peak!r} GiB")
+    by_name = {}
+    for name, b, e in profiled:
+        short = re.sub(r"^void ", "", name).split("<")[0].split("(")[0]
+        by_name[short] = by_name.get(short, 0.0) + (e - b) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row["top_kernels_ms"] = top
+    print(f"[train] one step under torch.profiler: {len(profiled)} CUDA "
+          f"kernels, device busy {busy!r} ms of a {med * 1e3!r} ms median "
+          f"step ({busy / 1e3 / med!r}); the most device time: "
+          f"{json.dumps(top)}")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"chip_smoke: [train] a loss is not finite: "
+                         f"{losses}")
+    if not last < first - TRAIN_LOSS_DROP:
+        raise SystemExit(f"chip_smoke: [train] the last 4 losses' mean "
+                         f"{last!r} is not {TRAIN_LOSS_DROP} below the "
+                         f"first 4's {first!r}")
+    if len(losses) != TRAIN_STEPS or not profiled:
+        raise SystemExit(f"chip_smoke: [train] {len(losses)} losses logged "
+                         f"of {TRAIN_STEPS}, {len(profiled)} kernels traced")
+    return row
+
+
+def _cut_config(name, n_layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    return dataclasses.replace(full, n_layers=n_layers), full
+
+
+def _train_setup(torch, cfg, steps, warmup):
+    """A state on the card (weights from seed 0, moments in the config's
+    ``adam_dtype``) and the train step for ``cfg``."""
+    from repro_torch.launch import steps as stp
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    adam = adamw.AdamWCfg(state_dtype=cfg.runtime.adam_dtype)
+    tcfg = stp.TrainCfg(lr=TRAIN_LR, warmup_steps=warmup, total_steps=steps,
+                        adam=adam)
+    params = lm.init(cfg, seed=0, device="cuda")
+    return ({"params": params, "opt": adamw.init_opt_state(params, adam)},
+            stp.make_train_step(cfg, tcfg))
+
+
+def _batches(cfg, n):
+    from repro_torch.data.synthetic import DataCfg, ShardedLoader
+    loader = ShardedLoader(DataCfg(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH))
+    try:
+        return [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+
+
+def _bitwise(a, b) -> bool:
+    """Same shape, dtype and bytes."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def train_resume_child() -> int:
+    """[train-resume], run in a child process whose CUBLAS_WORKSPACE_CONFIG
+    was set before its first cuBLAS call and with
+    ``torch.use_deterministic_algorithms(True)`` (the backward of the
+    embedding gather and of the attention's head repeat add with atomics
+    otherwise): qwen3 at ``TRAIN_CUT_LAYERS`` layers, steps, a save, steps
+    A; restore, the same steps B: A and B bitwise; then
+    ``run_with_restarts`` from the checkpoint with one injected failure.
+    Prints one ``[train-resume-json]`` line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.models.params import leaves
+    from repro_torch.runtime.fault_tolerance import run_with_restarts
+    R = TRAIN_RESUME_STEPS
+    cfg, full = _cut_config(TRAIN_ARCH, TRAIN_CUT_LAYERS)
+    print(f"[depth] phase 4n (train-resume): {cfg.n_layers} of "
+          f"{full.n_layers} layers (the 2 prologue layers and 1 body "
+          f"repeat), full width")
+    state, step = _train_setup(torch, cfg, 2 * R, warmup=1)
+    batches = _batches(cfg, 2 * R)
+    shutil.rmtree(TRAIN_CKPT_ROOT, ignore_errors=True)
+    ck = Checkpointer(str(TRAIN_CKPT_ROOT), keep=2, async_save=False)
+    try:
+        for b in batches[:R]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(R, state, block=True)
+        save_s = time.perf_counter() - t0
+        d = TRAIN_CKPT_ROOT / f"step_{R:08d}"
+        ck_bytes = sum(f.stat().st_size for f in d.iterdir())
+        s_a = state
+        for b in batches[R:]:
+            s_a, _ = step(s_a, b)
+        t0 = time.perf_counter()
+        restored, at = ck.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        round_trip = all(_bitwise(x, y) for x, y in zip(leaves(state),
+                                                        leaves(restored)))
+        s_b = restored
+        for b in batches[R:]:
+            s_b, _ = step(s_b, b)
+        same = {part: all(_bitwise(x, y) for x, y in zip(
+                    leaves(s_a[k1][k2] if k2 else s_a[k1]),
+                    leaves(s_b[k1][k2] if k2 else s_b[k1])))
+                for part, (k1, k2) in {"params": ("params", None),
+                                       "m": ("opt", "m"), "v": ("opt", "v"),
+                                       "step": ("opt", "step")}.items()}
+        fail = {R + 2: True}
+
+        def step_fn(i, s):
+            if fail.pop(i, False):
+                raise RuntimeError("injected worker failure")
+            return step(s, batches[i])[0]
+
+        final, stats = run_with_restarts(
+            step_fn, restored, n_steps=2 * R, checkpointer=ck, save_every=0,
+            restore_fn=ck.restore, start_step=R)
+        restart_same = all(_bitwise(x, y) for x, y in zip(leaves(final),
+                                                          leaves(s_a)))
+        res = {"layers": cfg.n_layers, "saved_at": R, "restored_at": at,
+               "checkpoint_bytes": ck_bytes, "save_s": save_s,
+               "restore_s": restore_s, "round_trip_bitwise": round_trip,
+               "bitwise": same, "restarts": stats.restarts,
+               "failed_steps": stats.failed_steps,
+               "final_step": int(final["opt"]["step"]),
+               "restart_run_bitwise": restart_same}
+    finally:
+        ck.close()
+        shutil.rmtree(TRAIN_CKPT_ROOT, ignore_errors=True)
+    print(f"[train-resume] checkpoint of step {R}: {ck_bytes} B, save "
+          f"{save_s!r} s, restore {restore_s!r} s; resumed run bitwise "
+          f"{json.dumps(same)}; run_with_restarts: {stats.restarts} "
+          f"restart(s) at {stats.failed_steps}, final step "
+          f"{res['final_step']}, bitwise to the uninterrupted run "
+          f"{restart_same}")
+    print("[train-resume-json] " + json.dumps(res))
+    if not (round_trip and all(same.values()) and restart_same
+            and at == R and stats.restarts == 1
+            and res["final_step"] == 2 * R):
+        raise SystemExit(f"chip_smoke: [train-resume] failed: {res}")
+    return 0
+
+
+def _train_resume():
+    """Runs :func:`train_resume_child` in a child process; its failure
+    fails the phase."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          TRAIN_CHILD_FLAG], env=env, capture_output=True,
+                         text=True, timeout=600)
+    print(res.stdout, end="")
+    if res.returncode:
+        print(res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"chip_smoke: [train-resume] child exited "
+                         f"{res.returncode}")
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("[train-resume-json] ")][-1]
+    out = json.loads(line.split(" ", 1)[1])
+    out["child_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def _spy_forward_train(record):
+    """The metrics of every ``lm.forward_train`` call meanwhile (the train
+    step's own metrics hold loss and accuracy only, as the reference's)."""
+    from repro_torch.models import lm
+    orig = lm.forward_train
+
+    def spy(params, cfg, batch):
+        loss, m = orig(params, cfg, batch)
+        record.append({k: float(v.detach()) for k, v in m.items()})
+        return loss, m
+
+    lm.forward_train = spy
+    try:
+        yield
+    finally:
+        lm.forward_train = orig
+
+
+def _train_moe(np, torch):
+    """[train-moe]: deepseek-v2-lite at ``TRAIN_CUT_LAYERS`` layers, MLA
+    and the capacity-drop dispatch (64 experts, top 6), bf16 moments."""
+    cfg, full = _cut_config(TRAIN_MOE_ARCH, TRAIN_CUT_LAYERS)
+    print(f"[depth] phase 4n (train-moe): {cfg.n_layers} of "
+          f"{full.n_layers} layers (dense layer 0, MoE layer 1, one MoE "
+          f"body repeat), full width: {_defs_bytes(cfg) / 1e9!r} GB of "
+          f"weights; all {full.n_layers} would hold "
+          f"{_defs_bytes(full) / 1e9!r} GB before optimizer state")
+    torch.cuda.reset_peak_memory_stats()
+    state, step = _train_setup(torch, cfg, TRAIN_MOE_STEPS, warmup=2)
+    batches = _batches(cfg, TRAIN_MOE_STEPS)
+    fwd, times, losses = [], [], []
+    with _spy_forward_train(fwd):
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    first, last = _loss_drop(losses, 2)
+    drops = [r["moe_drop_frac"] for r in fwd]
+    aux = {k: [r[k] for r in fwd] for k in ("moe_lb_loss", "moe_z_loss")}
+    row = {"arch": TRAIN_MOE_ARCH, "layers": cfg.n_layers,
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "adam_dtype": cfg.runtime.adam_dtype, "losses": losses,
+           "moe_drop_frac": drops, **aux,
+           "median_step_s": float(np.median(times[1:])),
+           "step0_s": times[0], "peak_device_gib": peak}
+    n_moe = sum(m == "moe" for m in cfg.mlp_kinds())
+    print(f"[train-moe] losses {json.dumps(losses)}; moe_drop_frac (summed "
+          f"over the {n_moe} MoE layers, as the reference's metric) "
+          f"{json.dumps(drops)}; median step {row['median_step_s']!r} s "
+          f"(step 0 {times[0]!r} s), peak {peak!r} GiB")
+    per_layer = [d / n_moe for d in drops]
+    row["moe_drop_frac_per_layer"] = per_layer
+    print(f"[train-moe] mean drop fraction per MoE layer "
+          f"{json.dumps(per_layer)}; moe_lb_loss {json.dumps(aux['moe_lb_loss'])}"
+          f"; moe_z_loss {json.dumps(aux['moe_z_loss'])}")
+    finite = all(math.isfinite(x) for x in losses + sum(aux.values(), []))
+    if not finite or not all(0.0 <= d < 1.0 for d in per_layer):
+        raise SystemExit(f"chip_smoke: [train-moe] not finite or a layer's "
+                         f"mean drop fraction outside [0, 1): {row}")
+    if not last < first - TRAIN_LOSS_DROP:
+        raise SystemExit(f"chip_smoke: [train-moe] the last 2 losses' mean "
+                         f"{last!r} is not {TRAIN_LOSS_DROP} below the "
+                         f"first 2's {first!r}")
+    return row
+
+
+def phase_train(np, torch):
+    """Phase 4n: the trainer at full width — [train], [train-resume] (in
+    a child process) and [train-moe].  No hand kernel lies on this path:
+    the launch counts, zeroed before, must still be 0 after."""
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = {"train": _train_full(np, torch)}
+    _free(torch)
+    t1 = time.perf_counter()
+    out["resume"] = _train_resume()
+    t2 = time.perf_counter()
+    out["moe"] = _train_moe(np, torch)
+    _free(torch)
+    print(f"[time] phase 4n: train {t1 - t0!r} s, train-resume (child "
+          f"process) {t2 - t1!r} s, train-moe {time.perf_counter() - t2!r} s")
+    counts = {**_launch_counts(), **_launch_counts(_mla_cfg())}
+    out["launches"] = counts
+    print(f"[train] hand-kernel launches on the trainer's paths: "
+          f"{json.dumps(counts)}")
+    if any(counts.values()):
+        raise SystemExit(f"chip_smoke: the trainer launched a hand kernel: "
+                         f"{counts}")
+    return out
+
+
+def _mla_cfg():
+    from repro_torch.configs import get_config
+    return get_config(MLA_ARCH)
 
 
 def init_longchat(torch):

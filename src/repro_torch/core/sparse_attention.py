@@ -10,7 +10,7 @@ returns the stable partial-softmax triple (num, den, m), which
 :func:`sparse_decode_gqa` runs kernel B2 through its Pallas-contract entry
 on a CUDA tensor (the reference computes it in jnp); the dense and MLA
 decodes stay torch ops, as the reference's are jnp.  Sequence-parallel
-decode (``combine_partials`` over mesh axes) belongs to ROADMAP A12.
+decode (``combine_partials`` over mesh axes) belongs to ROADMAP A12b.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def combine_partials(p: Partials, axes: Sequence[str]) -> torch.Tensor:
     if axes:
         raise NotImplementedError(
             "sequence-sharded decode (combine_partials over mesh axes) is "
-            "not ported yet (ROADMAP A12)")
+            "not ported yet (ROADMAP A12b)")
     return _finish(p)
 
 

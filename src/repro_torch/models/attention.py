@@ -19,7 +19,7 @@ dense otherwise.  The GQA sparse path runs kernels B1 and B2 on a CUDA
 tensor; the MLA decode runs the reference's split bound and latent
 attention in torch ops (the reference computes both in jnp).  Only the
 local decode context is ported: a sequence-sharded ``DecodeCtx`` belongs
-to ROADMAP A12.
+to ROADMAP A12b.
 
 Encoder-decoder stacks use :func:`gqa_train` for the encoder's non-causal
 self-attention and the decoder's cross-attention over :func:`cross_kv`;
@@ -52,7 +52,7 @@ from repro_torch.models.params import ParamDef
 @dataclass(frozen=True)
 class DecodeCtx:
     """How decode shards the cache: local (no ``seq_axes``) is the only
-    layout ported; mesh axes belong to ROADMAP A12."""
+    layout ported; mesh axes belong to ROADMAP A12b."""
     seq_axes: Tuple[str, ...] = ()
 
 
@@ -63,7 +63,7 @@ def _local_only(ctx: DecodeCtx) -> None:
     if ctx.seq_axes:
         raise NotImplementedError(
             "sequence-sharded decode (DecodeCtx with seq_axes) is not "
-            "ported yet (ROADMAP A12)")
+            "ported yet (ROADMAP A12b)")
 
 
 def gqa_params(cfg) -> Dict[str, ParamDef]:
@@ -218,9 +218,16 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     num = torch.zeros((B, H, S, vd), dtype=torch.float32, device=dev)
     den = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)
+
+    def heads(x):
+        # each kv head repeated G times (repeat_interleave), as a broadcast:
+        # its gradient is a sum over G, not an index_add_ with atomics
+        x = x[:, :, :, None].expand(*x.shape[:3], G, x.shape[-1])
+        return x.reshape(B, bkv, H, x.shape[-1])
+
     for kj in range(nkv):
-        kh = k[:, kj * bkv:(kj + 1) * bkv].repeat_interleave(G, dim=2)
-        vh = v[:, kj * bkv:(kj + 1) * bkv].repeat_interleave(G, dim=2)
+        kh = heads(k[:, kj * bkv:(kj + 1) * bkv])
+        vh = heads(v[:, kj * bkv:(kj + 1) * bkv])
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kh.float())
         if attn_softcap is not None:
             s = attn_softcap * torch.tanh(s / attn_softcap)

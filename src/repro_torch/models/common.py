@@ -110,3 +110,35 @@ def rotate(cfg, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     if cfg.rope == "mrope":
         return apply_mrope(x, pos, cfg.rope_theta)
     return apply_rope(x, pos, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None,
+                  z_weight: float = 0.0) -> Tuple[torch.Tensor, dict]:
+    """Mean token cross-entropy in f32; targets == -1 are ignored.
+
+    The gold logit is a masked reduction (iota-compare + sum) as in the
+    reference, not a gather: its backward is an elementwise product, so it
+    adds in a fixed order on the card, where a gather's backward scatters
+    with atomics.  Returns (loss, {"nll", "tokens", "accuracy"})."""
+    logits = logits.float()
+    mask = (targets >= 0) if valid is None else valid & (targets >= 0)
+    safe_t = targets.clamp(min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = vocab_iota == safe_t[..., None]
+    gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    nll = (lse - gold) * mask
+    denom = mask.sum().clamp(min=1)
+    loss = nll.sum() / denom
+    metrics = {"nll": loss, "tokens": denom}
+    if z_weight:
+        loss = loss + (z_weight * lse.square() * mask).sum() / denom
+    acc = (logits.argmax(dim=-1) == targets) & mask
+    metrics["accuracy"] = acc.sum() / denom
+    return loss, metrics

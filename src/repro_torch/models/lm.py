@@ -13,13 +13,16 @@ cache is the latent ``ckv`` / ``krope`` pair) — or a recurrent layer:
 Mamba (``models/ssm.py``, Jamba's) or xLSTM's mLSTM / sLSTM
 (``models/xlstm.py``), whose decode cache is their fixed-size state.
 Feed-forward blocks are dense or mixture-of-experts, the latter with the
-inference dispatch (no capacity drops).  An encoder-decoder stack
-(seamless) runs a non-causal encoder over ``batch["embeds"]`` and gives
-every decoder attention layer a cross-attention over the encoder's K/V,
+inference dispatch (no capacity drops) everywhere but ``forward_train``.
+An encoder-decoder stack (seamless) runs a non-causal encoder over
+``batch["embeds"]`` and gives every decoder attention layer a
+cross-attention over the encoder's K/V,
 kept in the cache as ``cross_k`` / ``cross_v``; M-RoPE (qwen2-vl) takes
 ``batch["positions"]`` (3, B, S) at prefill.
 
 Entry points: ``param_defs(cfg)``, ``init(cfg, seed, device)``,
+``forward_train(params, cfg, batch)`` (the training loss, under autograd,
+with the capacity-drop MoE dispatch and block remat),
 ``prefill(params, cfg, batch, max_len)``, chunked prefill (decoder-only):
 ``init_decode_cache(cfg, batch, max_len, device)`` then
 ``prefill_chunk(params, cfg, batch, cache, max_len)`` per chunk, after
@@ -37,6 +40,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
@@ -44,8 +48,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import LOCAL_CTX, DecodeCtx
-from repro_torch.models.common import (positions_for, rms_norm, scale_like,
-                                       softcap)
+from repro_torch.models.common import (cross_entropy, positions_for,
+                                       rms_norm, scale_like, softcap)
 from repro_torch.models.params import (ParamDef, init_tree, is_def,
                                        torch_dtype, tree_map)
 
@@ -251,6 +255,68 @@ def _apply_mlp(blk, cfg, mlp_kind: str, x: torch.Tensor) -> torch.Tensor:
     return x + mlp_mod.dense_apply(blk["mlp"], cfg, h)
 
 
+def _apply_mlp_train(blk, cfg, mlp_kind: str, x: torch.Tensor, aux):
+    """The MLP with the training MoE dispatch (capacity drops); a MoE
+    block adds its aux losses into ``aux``."""
+    if mlp_kind == "none" or "mlp" not in blk:
+        return x, aux
+    h = rms_norm(x, blk["ln2"], cfg.norm_eps)
+    if mlp_kind == "moe":
+        y, a = mlp_mod.moe_apply(blk["mlp"], cfg, h)
+        aux = {k: aux.get(k, 0.0) + v for k, v in a.items()}
+    else:
+        y = mlp_mod.dense_apply(blk["mlp"], cfg, h)
+    return x + y, aux
+
+
+def _block_train(blk, cfg, kind: str, mlp_kind: str, x: torch.Tensor, pos,
+                 enc_out: Optional[torch.Tensor], aux: Dict[str, Any],
+                 causal: bool = True):
+    """One block over whole sequences: the core (attention or a
+    recurrent layer), an encoder-decoder's cross-attention, the MLP.
+    Returns (x, aux)."""
+    h = rms_norm(x, blk["ln1"], cfg.norm_eps)
+    if kind.startswith("attn"):
+        if cfg.mla is not None:
+            y = attn.mla_train(blk["core"], cfg, h, pos)
+        else:
+            y = attn.gqa_train(blk["core"], cfg, kind, h, pos, causal=causal)
+    elif kind == "mamba":
+        y = ssm_mod.mamba_train(blk["core"], cfg, h)
+    elif kind == "mlstm":
+        y = xlstm_mod.mlstm_train(blk["core"], cfg, h)
+    elif kind == "slstm":
+        y = xlstm_mod.slstm_train(blk["core"], cfg, h)
+    else:
+        raise ValueError(kind)
+    x = x + y
+    if enc_out is not None and "cross" in blk:
+        hx = rms_norm(x, blk["ln_x"], cfg.norm_eps)
+        ckv = attn.cross_kv(blk["cross"], cfg, enc_out)
+        x = x + attn.gqa_train(blk["cross"], cfg, "attn", hx, pos,
+                               cross_kv=ckv)
+    return _apply_mlp_train(blk, cfg, mlp_kind, x, aux)
+
+
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``; with ``on``, under a non-reentrant activation
+    checkpoint: the backward recomputes what ``fn`` saved, so only its
+    inputs stay alive between the forward and the backward."""
+    if not on:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unstack(tree) -> list:
+    """The per-repeat trees of a stacked tree, by one ``unbind`` of each
+    leaf: the backward stacks the repeats' gradients once, where an index
+    per repeat would write a zero-padded stacked-size gradient for each."""
+    parts = {}
+    tree_map(lambda a: parts.setdefault(id(a), a.unbind(0)), tree)
+    n = len(next(iter(parts.values())))
+    return [tree_map(lambda a, r=r: parts[id(a)][r], tree) for r in range(n)]
+
+
 def _write_state(cache: Dict[str, torch.Tensor],
                  new: Dict[str, torch.Tensor]) -> None:
     """A recurrent layer's new state into its cache leaves IN PLACE (a
@@ -259,19 +325,18 @@ def _write_state(cache: Dict[str, torch.Tensor],
         cache[name].copy_(t)
 
 
-def _encode(params, cfg, embeds: torch.Tensor) -> torch.Tensor:
+def _encode(params, cfg, embeds: torch.Tensor, remat: bool = False
+            ) -> torch.Tensor:
     """The encoder over frame embeddings (B, S_enc, d): non-causal
-    attention blocks with dense MLPs, then the encoder's final norm."""
+    attention blocks with dense MLPs, then the encoder's final norm
+    (``remat``: each block recomputed in the backward)."""
     enc = params["encoder"]
     B, S, _ = embeds.shape
     pos = positions_for(cfg, B, S, device=embeds.device)
     x = embeds.to(torch_dtype(cfg.dtype))
-    for r in range(cfg.enc_layers):
-        blk = tree_map(lambda a: a[r], enc["body"])
-        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
-        x = x + attn.gqa_train(blk["core"], cfg, "attn", h, pos,
-                               causal=False)
-        x = _apply_mlp(blk, cfg, "dense", x)
+    for blk in _unstack(enc["body"]):
+        x, _ = _remat(remat, _block_train, blk, cfg, "attn", "dense", x,
+                      pos, None, {}, False)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -283,9 +348,12 @@ def _embed_in(params, cfg, batch: Dict[str, Any]
     if "embeds" in batch and not cfg.is_encdec:
         x = batch["embeds"].to(torch_dtype(cfg.dtype))
         return x, x.shape[0], x.shape[1]
-    tokens = batch["tokens"]
+    tokens = torch.as_tensor(batch["tokens"]).to(params["embed"].device)
     B, S = tokens.shape
-    return params["embed"][tokens.long()], B, S
+    # F.embedding: the gradient of the lookup adds its rows in a fixed
+    # order, where an index's scatter-add races across threads
+    return torch.nn.functional.embedding(tokens.long(), params["embed"]), \
+        B, S
 
 
 def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -295,6 +363,80 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = x @ params["lm_head"]
     return softcap(logits.float(), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Train forward
+# ---------------------------------------------------------------------------
+
+
+_MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+
+
+def forward_train(params, cfg, batch: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss of a batch and its metrics, as the reference's.
+
+    ``batch``: ``tokens`` (B, S) (or a modality stub's ``embeds``; an
+    encoder-decoder's ``embeds`` feed its encoder), ``targets`` (B, S)
+    with -1 ignored, optional ``positions`` ((3, B, S) for M-RoPE).  MoE
+    layers take the capacity dispatch; their aux losses are summed over
+    the layers and ``moe_loss`` of them joins the loss.  With
+    ``cfg.runtime.remat == "block"`` each block runs under an activation
+    checkpoint; with ``remat_groups`` G (dividing the repeats) the body
+    also checkpoints each group of repeats / G repeats around its blocks'
+    checkpoints (the reference's two-level remat).  Gradients reach the
+    stacked body leaves through one ``unbind`` each.
+
+    Returns (loss, metrics): ``nll``, ``tokens``, ``accuracy``, the MoE
+    aux losses where the model has MoE layers, and ``loss``."""
+    prologue, period, repeats = _layer_plan(cfg)
+    x, B, S = _embed_in(params, cfg, batch)
+    pos = batch.get("positions")
+    pos = positions_for(cfg, B, S, device=x.device) if pos is None \
+        else torch.as_tensor(pos).to(x.device)
+    remat = cfg.runtime.remat == "block"
+    enc_out = _encode(params, cfg, batch["embeds"].to(x.device), remat) \
+        if cfg.is_encdec else None
+    aux: Dict[str, torch.Tensor] = {}
+    for blk, (_idx, kind, mlpk) in zip(params["prologue"], prologue):
+        x, aux = _remat(remat, _block_train, blk, cfg, kind, mlpk, x, pos,
+                        enc_out, aux)
+
+    if repeats:
+        def repeat(blks, x, aux):
+            for blk, (kind, mlpk) in zip(blks, period):
+                x, aux = _block_train(blk, cfg, kind, mlpk, x, pos,
+                                      enc_out, aux)
+            return x, aux
+
+        def group(layers, x, aux):
+            for blks in layers:
+                x, aux = _remat(remat, repeat, blks, x, aux)
+            return x, aux
+
+        if any(mk == "moe" for _, mk in period):
+            aux = {**{k: torch.zeros((), device=x.device) for k in _MOE_AUX},
+                   **aux}
+        per_pos = [_unstack(t) for t in params["body"]]
+        layers = [[pp[r] for pp in per_pos] for r in range(repeats)]
+        G = cfg.runtime.remat_groups
+        if remat and G and G > 1 and repeats % G == 0:
+            k_in = repeats // G
+            for g in range(G):
+                x, aux = _remat(True, group, layers[g * k_in:(g + 1) * k_in],
+                                x, aux)
+        else:
+            x, aux = group(layers, x, aux)
+
+    logits = _logits(params, cfg, x)
+    loss, metrics = cross_entropy(logits, torch.as_tensor(
+        batch["targets"]).to(x.device))
+    if cfg.moe is not None and "moe_lb_loss" in aux:
+        loss = loss + mlp_mod.moe_loss(aux, cfg)
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

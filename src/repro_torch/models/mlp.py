@@ -1,11 +1,13 @@
 """Feed-forward blocks, ported from ``repro.models.mlp``: dense (SwiGLU /
-GeGLU / squared-ReLU / ReLU) and mixture-of-experts with the reference's
-INFERENCE dispatch (``no_drop``: no capacity drops, so each token's output
-depends on that token alone).  The training dispatch with its capacity
-drops and aux losses waits for the training side (ROADMAP A12)."""
+GeGLU / squared-ReLU / ReLU) and mixture-of-experts with both of the
+reference's dispatches: the INFERENCE one (``no_drop=True``: no capacity
+drops, so each token's output depends on that token alone) and the
+TRAINING one (capacity drops, static (E, C, d) expert products, the
+load-balance and router z aux losses)."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -67,24 +69,114 @@ def moe_params(cfg) -> Dict[str, ParamDef]:
     return p
 
 
+def _route(p, cfg, xf: torch.Tensor):
+    """(router logits (T, E) f32, probs, top_p (T, K) renormalized, top_e
+    (T, K) int64); the top-k in ``jax.lax.top_k``'s order."""
+    K = cfg.moe.top_k
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]
+    return logits, probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
+
+
 def moe_route(p, cfg, xf: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The router of (T, d) tokens: f32 logits, softmax, the top-k in the
     reference's order (``jax.lax.top_k``: descending, ties to the lower
     expert index — a stable descending sort) and the renormalized weights.
     Returns (top_p (T, K) f32, top_e (T, K) int64)."""
-    K = cfg.moe.top_k
-    logits = xf.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :K], top_e[:, :K]
-    return top_p / top_p.sum(dim=-1, keepdim=True), top_e
+    return _route(p, cfg, xf)[2:]
 
 
-def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False
-              ) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d), the reference's ``moe_apply`` with
-    ``no_drop=True`` (its aux losses are training metrics, left out).
+def _capacity(tokens: int, m) -> int:
+    c = int(math.ceil(tokens * m.top_k / m.n_experts * m.capacity_factor))
+    return max(4, c)
+
+
+def _combine(y_tk: torch.Tensor, top_p: torch.Tensor, dtype) -> torch.Tensor:
+    """(T, K, d) expert rows weighted by top_p (T, K), added in f32 in k
+    order."""
+    y_tk = y_tk.float()
+    y = y_tk[:, 0] * top_p[:, :1]
+    for k in range(1, y_tk.shape[1]):
+        y = y + y_tk[:, k] * top_p[:, k:k + 1]
+    return y.to(dtype)
+
+
+def _shared(p, cfg, xf: torch.Tensor) -> torch.Tensor:
+    sp = {k[len("shared_"):]: v for k, v in p.items()
+          if k.startswith("shared_")}
+    return dense_apply(sp, cfg, xf)
+
+
+def _moe_capacity(p, cfg, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training dispatch, as the reference's code (not its docstring):
+    ONE stable argsort of all T·K (token, k) pairs by expert; a pair keeps
+    its slot if its rank within its expert is below
+    ``C = _capacity(T, moe)``, else it is dropped (into a sink row that is
+    cut off).  The experts run as (E, C, d) batched products; the combine
+    is the inverse permutation.  Gradients reach the router through top_p
+    and probs (the one-hot of top_e carries none, as in the reference)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E, K = B * S, m.n_experts, m.top_k
+    dev = x.device
+    xf = x.reshape(T, d)
+    logits, probs, top_p, top_e = _route(p, cfg, xf)
+    C = _capacity(T, m)
+    e_flat = top_e.reshape(-1)                                # (T*K,)
+    order = torch.argsort(e_flat, stable=True)
+    sorted_e = e_flat[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
+                                side="left")
+    rank = torch.arange(T * K, device=dev) - starts[sorted_e]
+    keep = rank < C
+    slot = torch.where(keep, sorted_e * C + rank, E * C)      # sink: E*C
+    # the tokens into (E*C + 1, d) slots, the last row the overflow sink
+    xe = xf.new_zeros((E * C + 1, d)).index_put(
+        (slot,), xf.index_select(0, order // K))
+    xe = xe[:-1].reshape(E, C, d)
+    h = torch.einsum("ecd,edf->ecf", xe, p["w_up"])
+    if _gated(cfg.act):
+        h = _act_fn(cfg.act)(torch.einsum("ecd,edf->ecf", xe,
+                                          p["w_gate"])) * h
+    else:
+        h = _act_fn(cfg.act)(h)
+    ye = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(E * C, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    # combine: each (token, k) pair reads its slot back (the sink row: 0)
+    slot_tk = torch.empty_like(slot)
+    slot_tk[order] = slot
+    y = _combine(ye.index_select(0, slot_tk).reshape(T, K, d), top_p,
+                 x.dtype)
+    if m.n_shared:
+        y = y + _shared(p, cfg, xf)
+    onehot = torch.nn.functional.one_hot(top_e, E).float()    # (T, K, E)
+    frac_tokens = onehot.sum(dim=1).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    aux = {"moe_lb_loss": E * (frac_tokens * frac_probs).sum(),
+           "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
+           "moe_drop_frac": 1.0 - keep.float().mean()}
+    return y.reshape(B, S, d), aux
+
+
+def moe_loss(aux: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    m = cfg.moe
+    return (m.aux_loss_weight * aux["moe_lb_loss"]
+            + m.router_z_weight * aux["moe_z_loss"])
+
+
+def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False):
+    """x: (B, S, d) -> the reference's ``moe_apply``.
+
+    ``no_drop=False`` (training): the capacity dispatch
+    (:func:`_moe_capacity`), returning ``(y, aux)`` with the reference's
+    aux dict (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``).
+
+    ``no_drop=True`` (inference) returns ``y`` alone (the aux losses are
+    training metrics, left out).
 
     The reference scatters the routed rows into a zero-padded (E, T, d)
     buffer (capacity T, so nothing drops) and runs every expert over all T
@@ -96,9 +188,7 @@ def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False
     buffer and its T·E rows of expert work.  One host read a call (the
     per-expert row counts)."""
     if not no_drop:
-        raise NotImplementedError(
-            "moe_apply(no_drop=False) is the training dispatch with "
-            "capacity drops; not ported yet (ROADMAP A12)")
+        return _moe_capacity(p, cfg, x)
     m = cfg.moe
     B, S, d = x.shape
     T, K = B * S, m.top_k
@@ -123,13 +213,7 @@ def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False
         start += n
     y_tk = torch.empty_like(ys)
     y_tk[order] = ys
-    y_tk = y_tk.reshape(T, K, d).float()
-    y = y_tk[:, 0] * top_p[:, :1]
-    for k in range(1, K):
-        y = y + y_tk[:, k] * top_p[:, k:k + 1]
-    y = y.to(x.dtype)
+    y = _combine(y_tk.reshape(T, K, d), top_p, x.dtype)
     if m.n_shared:
-        sp = {k[len("shared_"):]: v for k, v in p.items()
-              if k.startswith("shared_")}
-        y = y + dense_apply(sp, cfg, xf)
+        y = y + _shared(p, cfg, xf)
     return y.reshape(B, S, d)

@@ -55,6 +55,28 @@ def tree_map(fn: Callable, tree: Any, is_leaf: Callable = lambda x: False
     return fn(tree)
 
 
+def tree_zip(fn: Callable, tree: Any, *others: Any) -> Any:
+    """``fn(leaf, *other_leaves)`` over trees of one structure, matched by
+    dict key and list index (not by leaf order: JAX rebuilds a dict in
+    sorted key order).  Tuples are leaves here, so ``fn`` may return
+    one."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_zip(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_zip(fn, *vs) for vs in zip(tree, *others)]
+    return fn(tree, *others)
+
+
+def leaves(tree: Any) -> list:
+    """The tree's leaves in its order (None is an empty subtree)."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
 def _fan_in(shape: Tuple[int, ...]) -> int:
     return shape[-2] if len(shape) >= 2 else shape[-1]
 
@@ -87,7 +109,10 @@ def params_from_jax(tree_of_numpy: Any, device, dtype=None) -> Any:
     """A JAX parameter tree already converted to numpy (``jax.tree.map(
     np.asarray, params)``) as the port's tree: same nesting, body leaves
     keep their leading repeat axis.  ``dtype`` (optional) casts every leaf;
-    bfloat16 numpy leaves cross through float32, which is exact."""
+    bfloat16 numpy leaves cross through float32, which is exact.  A whole
+    train state ``{"params", "opt": {"m", "v", "step"}}`` crosses the same
+    way (without ``dtype``): moments keep their dtype, ``step`` stays an
+    int32 0-d tensor."""
     dev = torch.device(device)
 
     def conv(a):
@@ -101,3 +126,10 @@ def params_from_jax(tree_of_numpy: Any, device, dtype=None) -> Any:
         return t.to(dev)
 
     return tree_map(conv, tree_of_numpy)
+
+
+def requires_grad(tree: Any) -> Any:
+    """The tree's leaves as new leaf tensors that require gradients,
+    sharing their storage (``detach`` makes no copy): the inputs of one
+    ``torch.autograd.grad``."""
+    return tree_map(lambda a: a.detach().requires_grad_(True), tree)

@@ -334,12 +334,25 @@ def test_moe_no_drop_rows_independent_of_batch_shape(setup, rng):
     assert torch.equal(y_whole[:, :8], y_chunk0)
 
 
-def test_moe_training_dispatch_raises(setup, rng):
-    """The capacity-drop training dispatch is not ported (ROADMAP A12)."""
-    _, tcfg, _, tparams = setup
-    x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmlp.moe_apply(_block(tparams, True)["mlp"], tcfg, x)
+def test_moe_training_dispatch_matches_reference(setup, rng):
+    """The capacity-drop training dispatch (``no_drop=False``, the
+    default) runs and equals the reference's: outputs within 1e-5, the aux
+    losses within 1e-5 and the drop fraction exactly (32 tokens x top-2
+    over 4 experts at capacity factor 0.5: 8 slots an expert, so pairs
+    drop).  Gradients: ``tests/test_torch_train_moe.py``."""
+    cfg, tcfg, params, tparams = setup
+    cfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=0.5)) for c in (cfg, tcfg))
+    x = rng.randn(2, 16, cfg.d_model).astype(np.float32)
+    want, jaux = jmlp.moe_apply(_block(params, False)["mlp"], cfg,
+                                jnp.asarray(x))
+    got, taux = tmlp.moe_apply(_block(tparams, True)["mlp"], tcfg,
+                               torch.from_numpy(x))
+    _close(got, want, BLOCK_TOL)
+    assert set(taux) == set(jaux)
+    for k in jaux:
+        _close(taux[k], jaux[k], BLOCK_TOL)
+    assert float(taux["moe_drop_frac"]) == float(jaux["moe_drop_frac"]) > 0
 
 
 # ---------------------------------------------------------------------------
