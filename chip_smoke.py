@@ -41,11 +41,14 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    ``[depth]`` line; phase 4k serves PQ at full depth on deepseek);
    4c. admission parity (8 of the 32 layers, a ``[depth]`` line): the
    serve's 1536- and 3584-token prompts, each
-   admitted on three fresh engines — ``add_sequence``,
-   ``add_sequence_async(...).result()`` and ``begin_admission(...).drain()``
+   admitted on four fresh engines — ``add_sequence``,
+   ``add_sequence_async(...).result()``, ``begin_admission(...).drain()``
+   and ``add_sequence`` with serial ingest (``overlap_ingest=False``)
    — and fenced: the overlapped admission must store the synchronous
    one's disk replica and min/max abstracts bit for bit, with the same
-   first token; the chunked one's first-token logits must lie within
+   first token; the serial one its replica, abstracts and device-pool
+   contents bit for bit, with the same first token and ``overlapped``
+   0.0 in its admit profile; the chunked one's first-token logits must lie within
    ``TOL_E2E_ULPS`` bf16 ulps of the synchronous logits (its replica's
    largest difference is printed); the async admission must have run on
    the ``leoam-admit`` thread and the chunked one in ceil(S / C) steps;
@@ -75,7 +78,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    fenced, flushed, closed and reopened; every chunk promoted into the
    pool must equal, bit for bit, a CPU store's (``impl="ref"``) after the
    same script;
-   4h. the fault domain: the 1536- and 2048-token prompts admitted
+   4h. the fault domain (8 of the 32 layers, a ``[depth]``
+   line): the 1536- and 2048-token prompts admitted
    chunked (``begin_admission(...).drain()``) with the packed int4 sidecar
    and the real codec, once with no fault plan and once with explicit
    events: a transient ``disk_read`` error (retried), two ``sidecar_read``
@@ -122,6 +126,19 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    (arena chunks stay as zero-reference cache), B1-B3 launched.  Prints
    the warm and cold admission walls and TTFTs, ``prefix_stats()``, the
    host bytes of the fidelity rows (bf16) and the pool slots saved;
+   4o. the engine's profile mode (8 of the 32 layers, a ``[depth]``
+   line): the 1536- and 3584-token prompts, 16 new tokens, on three
+   fresh engines — the defaults, ``profile=True`` (each layer's attend
+   call timed between two synchronizations of the stream) and
+   ``prefill_buckets=(1536, 2048, 3584, 4096)``; every profiled round has
+   the five keys, its measured ``attend_s`` within the rest of the round
+   (+1 ms), the default engine ran the prefill shapes 2048 and 4096 and
+   the scheduled one 1536 and 3584 (``prefill_programs`` 2 each), B1-B3
+   launched in the profiled serve; prints the profiled split's mean and
+   median (evaluate, gather, upload, measured attend, the rest) beside
+   the default engine's remainder, and the three engines' token streams
+   (not gated: θ reads measured costs, and other prefill shapes round
+   otherwise, ROADMAP C8);
 5. end to end against the plain versions: the first request's prefill and
    two decode rounds with ``impl="ref"``, then with the kernels replaying
    the plain run's chunk selections, logits held to a bf16 tolerance;
@@ -138,8 +155,11 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    4k. (after phase 5, longchat's parameters freed) the MLA latent path
    with no-drop MoE: deepseek-v2-lite-16b at full width (27 layers,
    d_model 2048, 16 heads, MLA 512 + 64, 64 experts top-6 + 2 shared,
-   bf16 random weights from seed 0), ``max_len`` 4096, chunk 64, all 27
-   layers: the 4 requests of phase 4 served as there (``[serve-mla]``:
+   bf16 random weights from seed 0), ``max_len`` 4096, chunk 64 — the
+   serve, the legacy pair and the end to end at all 27 layers, the PQ
+   serve, the prefix runs, the sidecar serve, the fault run and admission
+   parity at its first 9 (``MLA_CUT_LAYERS``, a ``[depth]`` line): the 4
+   requests of phase 4 served as there (``[serve-mla]``:
    min/max abstracts, real int4 codec, pipeline on; the latent B1/B2 and
    B3 launch counters must move; init time and parameter count, peak
    device memory, TTFT, the median round's split, bytes by tier and
@@ -201,8 +221,8 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    moments, 8 steps; finite losses and aux losses, each MoE layer's mean
    drop fraction in [0, 1), the loss falling);
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
-   the launches of the paths that run it, B1's and B2's with 4l's and
-   4m's, B3's with 4m's serves, and
+   the launches of the paths that run it, B1's and B2's with 4l's, 4m's
+   and 4o's profiled serve, B3's with 4m's and 4o's serves, and
    the CUDA kernels one call launches, ``cuda_per_call``), then
    the result line
    ``{"ok": true, "device": {...}}``.
@@ -213,7 +233,7 @@ timing lines of the named kernels only (``--b2`` is ``--only b2``;
 result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
-engine phases of phase 4 (4c-4n) only, with their gates and no result
+engine phases of phase 4 (4c-4o) only, with their gates and no result
 line (``--phases 4k``, ``4m`` or ``4n`` alone never builds longchat).
 """
 
@@ -281,7 +301,7 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 # tokens a step into a store with 4 arena rows
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
-ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j",
+ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4o",
                  "4l", "4k", "4m", "4n")                   # --phases
 # phase 4l: lm.decode_step on longchat at full width and depth, a batch of
 # prompts of one length (decode_step takes one length for the batch), in
@@ -297,6 +317,10 @@ MLA_FAULT_PLAN = {"sidecar_read": {0: "bitflip"},
 # rows' widths (kv_lora_rank + qk_rope_head_dim; values the first 512)
 MLA_ARCH = "deepseek-v2-lite-16b"
 MLA_CHUNK_TOKENS = 512
+# phase 4k runs its PQ, prefix, sidecar, fault and admission sub-phases at
+# this many of deepseek's 27 layers (dense layer 0 and 8 MoE layers) to
+# keep the script in its budget
+MLA_CUT_LAYERS = 9
 # phase 4m: the A11 families.  jamba at its published first 4 layers
 # (three Mamba, then attention: ~46 GB of weights; a full 8-layer period
 # would not fit the card), 16 new tokens a request; qwen2-vl's and
@@ -325,7 +349,13 @@ TRAIN_CHILD_FLAG = "--train-resume-child"
 # (4 bf16 ulps of its max|logit| in [4, 8)): each kernel call is held to
 # its own bar beside it
 A11_E2E_BAR = 0.125
-# phases 4b, 4c, 4d, 4e, 4f, 4i and 4j run this many of longchat's 32 layers
+# phase 4o: the engine's profile mode, new tokens a request, and the
+# explicit bucket schedule of its third engine (the two prompts' own
+# lengths and the powers of two above them)
+PROFILE_NEW_TOKENS = 16
+PROFILE_BUCKETS = (1536, 2048, 3584, 4096)
+# phases 4b, 4c, 4d, 4e, 4f, 4h, 4i, 4j and 4o run this many of longchat's
+# 32 layers
 # (its 2 early layers and the first body layers, weights and widths
 # unchanged) so that the whole script, phases 4l and 4k included, stays
 # inside its time budget
@@ -1314,6 +1344,109 @@ def phase_legacy(np, torch, cfg, params, tag="[serve-legacy]"):
     return row
 
 
+def phase_profile(np, torch, cfg, params, tag="[profile]"):
+    """Phase 4o: the serve's shortest and longest prompts, 16 new tokens
+    each, on three fresh engines: (a) the defaults, (b) ``profile=True``
+    (each layer's attend call timed behind stream synchronizations), (c)
+    ``prefill_buckets=PROFILE_BUCKETS``.  Gates: every round of (b) has
+    the five keys and its measured ``attend_s`` fits in the rest of the
+    round; (a) ran the two power-of-two prefill shapes and (c) the two
+    scheduled ones (``prefill_programs`` 2 each); B1, B2 and B3 launched in
+    (b).  Prints (b)'s split (evaluate, gather, upload, measured attend,
+    the rest) beside (a)'s remainder, and the token streams, which are not
+    gated: θ reads measured costs, and (c)'s other GEMM shapes round
+    otherwise (ROADMAP C8)."""
+    from repro_torch.serving.engine import BatchedLeoAMEngine, EngineCfg
+
+    prompts = serve_prompts(np, cfg)
+    prompts = [prompts[0], prompts[-1]]
+    runs = {"a": {}, "b": {"profile": True},
+            "c": {"prefill_buckets": PROFILE_BUCKETS}}
+    res = {}
+    for name, extra in runs.items():
+        root = KV_ROOT / f"profile-{name}"
+        eng = BatchedLeoAMEngine(
+            cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=True,
+                                   pipeline=True, **extra),
+            max_seqs=len(prompts), device="cuda", store_root=str(root))
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, streams = {}, {}
+        for p in prompts:
+            sid, tok = eng.add_sequence(p)
+            toks[sid], streams[sid] = tok, [tok]
+        for _ in range(PROFILE_NEW_TOKENS - 1):
+            toks = eng.decode_round(toks)
+            for sid, tok in toks.items():
+                streams[sid].append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = [dict(r) for r in eng.round_profiles]
+        res[name] = {
+            "streams": [streams[s] for s in sorted(streams)],
+            "rounds": rounds, "wall_s": wall,
+            "programs": eng.prefill_programs,
+            "shapes": sorted(eng._prefill_shapes),
+            "launches": {k: v for k, v in _round_launches().items()
+                         if k in (*_path_kernels(cfg), "kv_dequant")},
+            "ttft_s": [a["total_s"] for a in eng.admit_profiles]}
+        eng.store.close()
+        del eng
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def _stats(xs):
+        return {"mean": float(np.mean(xs)), "median": float(np.median(xs))}
+
+    def split(rounds, measured):
+        out = {k: _stats([r[k] for r in rounds])
+               for k in ("total_s", "eval_s", "gather_s", "upload_s")}
+        rest = [r["total_s"] - r["eval_s"] - r["gather_s"] - r["upload_s"]
+                - (r["attend_s"] if measured else 0.0) for r in rounds]
+        out["attend_s" if measured else "remainder_s"] = _stats(
+            [r["attend_s"] for r in rounds])
+        if measured:
+            out["rest_s"] = _stats(rest)
+        return out
+
+    a, b, c = res["a"], res["b"], res["c"]
+    keys = {"eval_s", "gather_s", "upload_s", "attend_s", "total_s"}
+    over = [r["attend_s"] - (r["total_s"] - r["eval_s"] - r["gather_s"]
+                             - r["upload_s"]) for r in b["rounds"]]
+    row = {"prompts": [len(p) for p in prompts],
+           "new_tokens": PROFILE_NEW_TOKENS,
+           "profiled_split": split(b["rounds"], True),
+           "default_split": split(a["rounds"], False),
+           "attend_over_rest_max_s": max(over),
+           "streams": {k: r["streams"] for k, r in res.items()},
+           "streams_a_b_identical": a["streams"] == b["streams"],
+           "streams_a_c_identical": a["streams"] == c["streams"],
+           "prefill_programs": {k: r["programs"] for k, r in res.items()},
+           "prefill_shapes": {k: r["shapes"] for k, r in res.items()},
+           "ttft_s": {k: r["ttft_s"] for k, r in res.items()},
+           "wall_s": {k: r["wall_s"] for k, r in res.items()},
+           "launches": {k: r["launches"] for k, r in res.items()}}
+    print(f"{tag} {json.dumps(row)}")
+    bad = []
+    if any(set(r) != keys for r in b["rounds"]):
+        bad.append(f"round profile keys {[sorted(r) for r in b['rounds']]}")
+    if max(over) > 1e-3:
+        bad.append(f"measured attend exceeds the rest of a round by "
+                   f"{max(over)} s")
+    if a["shapes"] != [2048, 4096] or a["programs"] != 2:
+        bad.append(f"default engine's prefill shapes {a['shapes']}")
+    if c["shapes"] != [1536, 3584] or c["programs"] != 2:
+        bad.append(f"scheduled engine's prefill shapes {c['shapes']}")
+    if any(b["launches"][k] <= 0 for k in b["launches"]):
+        bad.append(f"the profiled serve did not launch every kernel: "
+                   f"{b['launches']}")
+    if bad:
+        raise SystemExit(f"chip_smoke: {tag} " + "; ".join(bad))
+    return row
+
+
 def phase_reopen(np, torch):
     """Phase 4g: a reopened store on the card against the same script on
     a CPU store with the plain versions.  One sequence of the longest
@@ -1486,11 +1619,25 @@ def _route_witness(torch, routes, inputs, flips, n_moe, C, S):
             "ok": consistent and max(ulps) <= TOL_E2E_ULPS}
 
 
+def _pool_contents(store):
+    """Each layer's pool: its slot map and the slab rows of those slots
+    (on the card)."""
+    out = []
+    for pool in store.pools:
+        items = sorted(pool.slot_of.items())
+        idx = [slot for _, slot in items]
+        out.append((items, pool.kv[idx].clone()))
+    return out
+
+
 def phase_admission(np, torch, cfg, params, tag="[admit]",
-                    chunk_tokens=None):
-    """Phase 4c: two of the serve's prompts, each admitted on three fresh
-    engines (sync, async, chunked, ``chunk_tokens`` a step when given),
-    every store fenced, then held against the synchronous admission.  For
+                    chunk_tokens=None, serial=True):
+    """Phase 4c: two of the serve's prompts, each admitted on fresh
+    engines (sync, async, chunked, ``chunk_tokens`` a step when given, and
+    with ``serial`` a synchronous admission with ``overlap_ingest=False``),
+    every store fenced, then held against the synchronous admission.  The
+    serial admission must store the synchronous one's replica, abstracts
+    and pool contents bit for bit and report ``overlapped`` 0.0.  For
     an MoE model the chunked admission runs twice: free, with the routing
     flips against the whole prompt per layer, and with the synchronous
     admission's expert choices replayed.  The replay's first-token logits
@@ -1508,10 +1655,13 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
         routes = {"sync": [], "chunked": []}
         inputs = {"sync": [], "chunked": []}
         for mode in ("sync", "async", "chunked") + (
+                ("serial",) if serial else ()) + (
                 ("chunked_replay",) if moe else ()):
             root = KV_ROOT / f"admit_{S}_{mode}"
             step = {} if chunk_tokens is None else \
                 {"prefill_chunk_tokens": chunk_tokens}
+            if mode == "serial":
+                step["overlap_ingest"] = False
             eng = BatchedLeoAMEngine(
                 cfg, params, EngineCfg(max_len=MAX_LEN, real_codec=True,
                                        pipeline=True, **step),
@@ -1532,7 +1682,7 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with spy:
-                if mode == "sync":
+                if mode in ("sync", "serial"):
                     sid, tok = eng.add_sequence(p)
                     steps = None
                 elif mode == "async":
@@ -1552,7 +1702,9 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
                 disk=(os.path.join(st._root, "kv.bin"), st._disk.shape, sid),
                 threads=[n for n, _, _ in admits], steps=steps, wall=wall,
                 profile=dict(eng.admit_profiles[-1]),
-                C=eng.ecfg.prefill_chunk_tokens)
+                C=eng.ecfg.prefill_chunk_tokens,
+                pool=(_pool_contents(st) if mode in ("sync", "serial")
+                      else None))
             st.close()
             del eng, st
             gc.collect()
@@ -1567,6 +1719,18 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
         rs, ro, rc = replica(sync), replica(ov), replica(ch)
         ov_equal = all(np.array_equal(rs[li], ro[li])
                        for li in range(rs.shape[0]))
+        se = res.get("serial")
+        if se is not None:
+            rse = replica(se)
+            se_equal = {
+                "replica": all(np.array_equal(rs[li], rse[li])
+                               for li in range(rs.shape[0])),
+                "abstracts": (np.array_equal(sync["km"], se["km"])
+                              and np.array_equal(sync["kn"], se["kn"])),
+                "pool": all(a[0] == b[0] and torch.equal(a[1], b[1])
+                            for a, b in zip(sync["pool"], se["pool"])),
+                "first_token": se["tok"] == sync["tok"]}
+            del rse
         ch_diff = max(float(np.abs(rs[li].astype(np.float32)
                                    - rc[li].astype(np.float32)).max())
                       for li in range(rs.shape[0]))
@@ -1603,6 +1767,9 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
                    "replayed_max_logit_diff": gated_logit,
                    "replayed_first_token": gated["tok"]}
                   if moe else {}),
+               **({"serial_bitwise": se_equal,
+                   "serial_overlapped": se["profile"]["overlapped"]}
+                  if se is not None else {}),
                "chunked_replica_fraction_differ": ch_frac,
                "chunked_max_abstract_diff": ch_abs,
                "async_threads": ov["threads"], "chunked_steps": ch["steps"],
@@ -1615,6 +1782,12 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
         fails = []
         if not (ov_equal and abs_equal and ov["tok"] == sync["tok"]):
             fails.append("overlapped admission differs from synchronous")
+        if se is not None and not all(se_equal.values()):
+            fails.append(f"serial-ingest admission differs from the "
+                         f"synchronous one: {se_equal}")
+        if se is not None and se["profile"]["overlapped"] != 0.0:
+            fails.append(f"serial-ingest admission reports overlapped "
+                         f"{se['profile']['overlapped']}")
         if gated_logit > bar:
             fails.append("chunked first-token logits beyond the bar"
                          + (" with routing replayed" if moe else ""))
@@ -1625,9 +1798,11 @@ def phase_admission(np, torch, cfg, params, tag="[admit]",
         if not (len(ov["threads"]) == 1
                 and ov["threads"][0].startswith("leoam-admit")):
             fails.append(f"async admission ran on {ov['threads']}")
-        if sync["threads"] != ["MainThread"] or ch["threads"]:
-            fails.append(f"sync/chunked admission threads "
-                         f"{sync['threads']} {ch['threads']}")
+        if sync["threads"] != ["MainThread"] or ch["threads"] or (
+                se is not None and se["threads"] != ["MainThread"]):
+            fails.append(f"sync/chunked/serial admission threads "
+                         f"{sync['threads']} {ch['threads']} "
+                         f"{se['threads'] if se is not None else None}")
         if ch["steps"] != want_steps:
             fails.append(f"chunked admission took {ch['steps']} steps")
         if fails:
@@ -2536,9 +2711,10 @@ def run_phases(np, torch, names):
         "4e": lambda: _serve_sidecar(np, torch, cfg, params),
         "4f": lambda: phase_legacy(np, torch, *cut_for("4f", cfg, params)),
         "4g": lambda: phase_reopen(np, torch),
-        "4h": lambda: phase_faults(np, torch, cfg, params),
+        "4h": lambda: phase_faults(np, torch, *cut_for("4h", cfg, params)),
         "4i": lambda: phase_preempt(np, torch, *cut_for("4i", cfg, params)),
         "4j": lambda: phase_prefix(np, torch, *cut_for("4j", cfg, params)),
+        "4o": lambda: phase_profile(np, torch, *cut_for("4o", cfg, params)),
         "4l": lambda: phase_decode_step(np, torch, cfg, params),
         "4k": lambda: phase_mla(np, torch),
         "4m": lambda: phase_a11(np, torch),
@@ -2623,48 +2799,55 @@ def main() -> int:
             print_row("sparse_decode_latent",
                       b2_latent_row(np, torch, mla_cfg, flush))
         return 0
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            print(f"[time] phase {name} {time.perf_counter() - t0!r} s")
+
     if not phases:
-        rows, long_row, clustered, b3_48 = phase_kernels(np, torch, rng)
-        mla_rows = mla_kernel_rows(np, torch)
-        pq_train_res = phase_pq_train(np, torch)
+        rows, long_row, clustered, b3_48 = timed("3", phase_kernels, np,
+                                                 torch, rng)
+        mla_rows = timed("3 (latent)", mla_kernel_rows, np, torch)
+        pq_train_res = timed("3b", phase_pq_train, np, torch)
 
     if phases:
         return run_phases(np, torch, phases)
     cfg, params = init_longchat(torch)
     try:
-        serve = phase_serve(np, torch, cfg, params)
-        serve_pq = phase_serve(np, torch, *cut_for("4b", cfg, params),
-                               pq=True)
-        admission = phase_admission(np, torch,
-                                    *cut_for("4c", cfg, params))
-        serve_async, serve_chunked = _serve_modes(np, torch, cfg, params)
-        serve_sidecar = _serve_sidecar(np, torch, cfg, params)
+        serve = timed("4", phase_serve, np, torch, cfg, params)
+        serve_pq = timed("4b", phase_serve, np, torch,
+                         *cut_for("4b", cfg, params), pq=True)
+        admission = timed("4c", phase_admission, np, torch,
+                          *cut_for("4c", cfg, params))
+        serve_async, serve_chunked = timed("4d", _serve_modes, np, torch,
+                                           cfg, params)
+        serve_sidecar = timed("4e", _serve_sidecar, np, torch, cfg, params)
         print(f"[serve-sidecar] disk->host kv ({SERVE_MODES_LAYERS} of "
               f"{cfg.n_layers} layers) beside phase 4's: "
               f"{json.dumps(serve_sidecar['disk_kv'])} against "
               f"{json.dumps(serve['disk_kv'])}")
-        legacy = phase_legacy(np, torch, *cut_for("4f", cfg, params))
-        reopen = phase_reopen(np, torch)
-        faults = phase_faults(np, torch, cfg, params)
-        preempt = phase_preempt(np, torch, *cut_for("4i", cfg, params))
-        prefix = phase_prefix(np, torch, *cut_for("4j", cfg, params))
-        e2e = phase_e2e(np, torch, cfg, params)
-        t0 = time.perf_counter()
-        decode = phase_decode_step(np, torch, cfg, params)
-        print(f"[time] phase 4l {time.perf_counter() - t0!r} s")
+        legacy = timed("4f", phase_legacy, np, torch,
+                       *cut_for("4f", cfg, params))
+        reopen = timed("4g", phase_reopen, np, torch)
+        faults = timed("4h", phase_faults, np, torch,
+                       *cut_for("4h", cfg, params))
+        preempt = timed("4i", phase_preempt, np, torch,
+                        *cut_for("4i", cfg, params))
+        prefix = timed("4j", phase_prefix, np, torch,
+                       *cut_for("4j", cfg, params))
+        profile = timed("4o", phase_profile, np, torch,
+                        *cut_for("4o", cfg, params))
+        e2e = timed("5", phase_e2e, np, torch, cfg, params)
+        decode = timed("4l", phase_decode_step, np, torch, cfg, params)
         # phase 4k: longchat's weights leave the card first
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        mla = phase_mla(np, torch, mla_rows)
-        print(f"[time] phase 4k {time.perf_counter() - t0!r} s")
-        t0 = time.perf_counter()
-        a11 = phase_a11(np, torch)
-        print(f"[time] phase 4m {time.perf_counter() - t0!r} s")
-        t0 = time.perf_counter()
-        train = phase_train(np, torch)
-        print(f"[time] phase 4n {time.perf_counter() - t0!r} s")
+        mla = timed("4k", phase_mla, np, torch, mla_rows)
+        a11 = timed("4m", phase_a11, np, torch)
+        train = timed("4n", phase_train, np, torch)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
 
@@ -2701,9 +2884,11 @@ def main() -> int:
                 "sparse_decode_latent": mla_l["sparse_decode_latent"]}
     launches["kv_dequant"] += mla_l["kv_dequant"]
     # B1-B3 also from phase 4m's paths (jamba's and qwen2-vl's serves,
-    # qwen2-vl's and seamless's decode_step runs)
+    # qwen2-vl's and seamless's decode_step runs) and phase 4o's profiled
+    # serve
     for k in ("chunk_bounds", "sparse_decode", "kv_dequant"):
         launches[k] += a11["launches"].get(k, 0)
+        launches[k] += profile["launches"]["b"].get(k, 0)
     kernels = []
     for name, r in {**rows, **mla["rows"]}.items():
         kernels.append({
@@ -2731,7 +2916,7 @@ def main() -> int:
                       "serve_sidecar": serve_sidecar, "legacy": legacy,
                       "reopen": reopen, "faults": faults,
                       "preempt": preempt, "prefix": prefix,
-                      "decode_step": decode,
+                      "profile": profile, "decode_step": decode,
                       "pq_train": pq_train_res,
                       "sparse_decode_32k": long_b2,
                       "pq_update_clustered": b5_clustered,
@@ -3167,25 +3352,34 @@ def phase_mla(np, torch, kernel_rows=None):
           f"{n_params / 1e9!r} G params in {time.perf_counter() - t0!r} s, "
           f"{torch.cuda.memory_allocated() / 2**30!r} GiB on the card")
     torch.cuda.reset_peak_memory_stats()
+    # the opt-in planes, the fault run and admission parity at
+    # MLA_CUT_LAYERS of the 27 layers: the serve, legacy and end to end
+    # stay at full depth
+    cut, cut_params = cut_depth(cfg, params, MLA_CUT_LAYERS)
+    print(f"[depth] phase 4k (serve-pq-mla, prefix-mla, serve-sidecar-mla, "
+          f"faults-mla, admit-mla): {MLA_CUT_LAYERS} of {cfg.n_layers} "
+          f"layers (the dense layer and the first MoE layers), full width")
     try:
         serve = phase_serve(np, torch, cfg, params, tag="[serve-mla]")
-        serve_pq = phase_serve(np, torch, cfg, params, pq=True,
+        serve_pq = phase_serve(np, torch, cut, cut_params, pq=True,
                                tag="[serve-pq-mla]")
         # the PQ streams are printed, not gated (ROADMAP C12: the requant
         # sweep races the next round's code reads)
         print(f"[serve-pq-mla] streams {json.dumps(serve_pq['streams'])} "
               f"against min/max {json.dumps(serve['streams'])}")
-        prefix = phase_prefix(np, torch, cfg, params, tag="[prefix-mla]")
-        sidecar = phase_serve(np, torch, cfg, params, sidecar=True,
+        prefix = phase_prefix(np, torch, cut, cut_params,
+                              tag="[prefix-mla]")
+        sidecar = phase_serve(np, torch, cut, cut_params, sidecar=True,
                               tag="[serve-sidecar-mla]")
-        faults = _mla_faults(np, torch, cfg, params)
-        admission = phase_admission(np, torch, cfg, params, tag="[admit-mla]",
+        faults = _mla_faults(np, torch, cut, cut_params)
+        admission = phase_admission(np, torch, cut, cut_params,
+                                    tag="[admit-mla]", serial=False,
                                     chunk_tokens=MLA_CHUNK_TOKENS)
         legacy = phase_legacy(np, torch, cfg, params,
                               tag="[serve-legacy-mla]")
         e2e = phase_e2e(np, torch, cfg, params, tag="[e2e-mla]")
     finally:
-        del params
+        del params, cut_params
         gc.collect()
         torch.cuda.empty_cache()
     b3c = {k: v for k, v in b3_lat.items() if k != "bound"}
@@ -4153,9 +4347,9 @@ def init_longchat(torch):
 
 
 def cut_depth(cfg, params, n_layers):
-    """longchat at ``n_layers`` of its depth: the same widths, its early
-    (prologue) layers and the first body layers' weights (views of the
-    full model's stacked leaves, no copy)."""
+    """A model at ``n_layers`` of its depth: the same widths, its prologue
+    layers and the first body layers' weights (views of the full model's
+    stacked leaves, no copy)."""
     import dataclasses
     from repro_torch.models import lm
     cut = dataclasses.replace(cfg, n_layers=n_layers)
@@ -4173,7 +4367,7 @@ def cut_depth(cfg, params, n_layers):
 
 def cut_for(phase, cfg, params):
     """longchat at ``SERVE_MODES_LAYERS`` layers for one phase (4b, 4c,
-    4f, 4i, 4j), with its ``[depth]`` line."""
+    4f, 4h, 4i, 4j, 4o), with its ``[depth]`` line."""
     print(f"[depth] phase {phase}: {SERVE_MODES_LAYERS} of {cfg.n_layers} "
           f"layers, full width")
     return cut_depth(cfg, params, SERVE_MODES_LAYERS)

@@ -204,14 +204,19 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     over the whole decode cache, and the causal mask alone keeps rows not
     yet written out of every valid query row.  Returns (B, S, H, vd) in
     q's dtype.
+
+    A key length that is not a multiple of ``block_kv`` ends in a shorter
+    block (the reference asserts instead: its prefill cannot run an
+    explicit bucket such as 1536 at its 1024-key blocks, ROADMAP C18);
+    where the blocks divide the keys, the blocks and the arithmetic are
+    the reference's.
     """
     B, S, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     vd = v.shape[-1]
     G = H // Hkv
     bkv = min(block_kv, Skv)
-    nkv = Skv // bkv
-    assert Skv % bkv == 0, (Skv, bkv)
+    nkv = -(-Skv // bkv)
     dev = q.device
     qf = q.float()
     q_pos = torch.arange(S, device=dev) + int(q_offset)
@@ -223,16 +228,17 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # each kv head repeated G times (repeat_interleave), as a broadcast:
         # its gradient is a sum over G, not an index_add_ with atomics
         x = x[:, :, :, None].expand(*x.shape[:3], G, x.shape[-1])
-        return x.reshape(B, bkv, H, x.shape[-1])
+        return x.reshape(B, x.shape[1], H, x.shape[-1])
 
     for kj in range(nkv):
         kh = heads(k[:, kj * bkv:(kj + 1) * bkv])
         vh = heads(v[:, kj * bkv:(kj + 1) * bkv])
+        n = kh.shape[1]                   # bkv, or the ragged last block
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kh.float())
         if attn_softcap is not None:
             s = attn_softcap * torch.tanh(s / attn_softcap)
-        k_pos = kj * bkv + torch.arange(bkv, device=dev)
-        mask = torch.ones((S, bkv), dtype=torch.bool, device=dev)
+        k_pos = kj * bkv + torch.arange(n, device=dev)
+        mask = torch.ones((S, n), dtype=torch.bool, device=dev)
         if causal:
             mask &= q_pos[:, None] >= k_pos[None, :]
         if window is not None:

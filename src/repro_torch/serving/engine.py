@@ -68,7 +68,9 @@ predictions only move residency, so output is bit-identical to
 
 Admission has three modes, all with write-behind ingest (replica, CRC
 and abstract writes on the prefetch worker, behind a per-sequence
-fence):
+fence) unless ``overlap_ingest=False``, which forces the whole prefill
+to the host and writes every layer inline (the reference's serial
+ingest, the baseline its write-behind is measured against):
 
 * ``add_sequence`` — synchronous, bucketed prefill on the decode thread;
 * ``add_sequence_async`` — overlapped: the whole prefill and ingest run on
@@ -109,6 +111,18 @@ CPU (``device="cpu"``) the plain PyTorch versions run.  ``impl="ref"``
 asks for the plain versions on the card too.
 ``EngineCfg(debug_sync=True)`` turns on the runtime sync sanitizer
 (``serving/sanitizer.py``) through the store, as the reference does.
+
+With ``EngineCfg(profile=True)`` each attention layer's attend call is
+timed between two synchronizations of the engine's CUDA stream, and
+``round_profiles``' ``attend_s`` is their sum; without it ``attend_s`` is
+the rest of the round (attention, MLPs, appends, launches), an upper
+bound.  The θ balance reads ``attend_s`` either way.
+
+``EngineCfg`` has every field of the reference's but ``jit_prefill``:
+eager PyTorch compiles no prefill program, so there is nothing to turn
+off.  ``prefill_programs`` still counts the distinct prefill shapes (the
+padded whole-prompt lengths and the chunk-step sizes), which is what the
+reference's count of compiled programs is.
 """
 
 from __future__ import annotations
@@ -161,10 +175,20 @@ class EngineCfg:
     pipeline: bool = True            # async DTP overlap (prefetch thread)
     real_codec: bool = False         # carry actual packed int4/int8 transit
                                      # payloads (vs ledger-only scaling)
-    bucket_prefill: bool = True      # pad prompts to power-of-two lengths
-                                     # with the true length threaded
-                                     # through — token-identical to exact
-                                     # length (False: exact length)
+    overlap_ingest: bool = True      # write-behind prefill ingest: replica/
+                                     # abstract writes ride the prefetch
+                                     # worker behind a per-sequence fence;
+                                     # False = serial ingest (the whole
+                                     # prefill on the host, then every
+                                     # layer written inline)
+    bucket_prefill: bool = True      # pad prompts to power-of-two (or
+                                     # prefill_buckets) lengths with the
+                                     # true length threaded through —
+                                     # token-identical to exact length
+                                     # (False: exact length)
+    prefill_buckets: Optional[Tuple[int, ...]] = None
+                                     # explicit bucket schedule (None =
+                                     # powers of two from 16)
     prefill_chunk_tokens: int = 64   # chunk size of begin_admission's
                                      # chunked prefill; must divide max_len
                                      # and be a multiple of the store chunk
@@ -202,6 +226,9 @@ class EngineCfg:
                                      # store's sequence rows: how many
                                      # distinct prefix sets stay resident
                                      # (LRU beyond that)
+    profile: bool = False            # time each layer's attend call
+                                     # behind stream synchronizations, fill
+                                     # round_profiles' attend_s with it
     debug_sync: bool = False         # runtime sync sanitizer: ownership
                                      # assertions and TrackedLock order
     checksums: bool = True           # per-chunk CRC32 on disk replicas +
@@ -388,13 +415,18 @@ class BatchedLeoAMEngine:
         # selections, per-layer abstract cache, per-layer measured costs;
         # write-behind ingest rides the same worker
         self._executor = _prefetch_executor() if ecfg.pipeline else None
-        self._ingest_exec = _prefetch_executor()
+        self._ingest_exec = (_prefetch_executor() if ecfg.overlap_ingest
+                             else None)
         self._pf_futs: Dict[int, Future] = {}
         self._abs_cache: Dict[int, Tuple] = {}
         self._prev_sels: Dict[Tuple[int, int], List[int]] = {}
         self._lcost: Dict[int, Dict[str, float]] = {}
         self.round_profiles: List[Dict[str, float]] = []
         self.admit_profiles: List[Dict[str, float]] = []
+        # the distinct prefill shapes run so far: padded whole-prompt
+        # lengths and chunk-step sizes (the reference's compiled programs)
+        self._prefill_shapes: set = set()
+        self._chunk_prefill_shapes: set = set()
         self.failed: Dict[int, str] = {}
         self.seqs_failed = 0
         self.ingest_errors = 0
@@ -510,17 +542,31 @@ class BatchedLeoAMEngine:
         logits, cache = self._prefill(np.asarray(tokens))
         placement = self._default_placement()
         ingest_s = 0.0
-        # layer-streamed: hand each layer off as it reaches the host; the
-        # replica/abstract writes go write-behind on the executor
-        for li, layer in enumerate(self.attn_layers):
-            k, v = self._layer_kv(cache, layer)
+        if self._ingest_exec is None:
+            # serial: the whole prefill on the host first, then every
+            # layer's replicas written inline
+            kvs = [self._layer_kv(cache, layer) for layer in self.attn_layers]
+            prefill_s = time.perf_counter() - t0
             t1 = time.perf_counter()
-            self.store.ingest(li, k[0], v[0],
-                              self._layer_placement(layer, placement),
-                              seq=sid, executor=self._ingest_exec,
-                              pool_place=pool_place)
-            ingest_s += time.perf_counter() - t1
-        prefill_s = time.perf_counter() - t0 - ingest_s
+            for li, layer in enumerate(self.attn_layers):
+                k, v = kvs[li]
+                self.store.ingest(li, k[0], v[0],
+                                  self._layer_placement(layer, placement),
+                                  seq=sid, pool_place=pool_place)
+            del kvs
+            ingest_s = time.perf_counter() - t1
+        else:
+            # layer-streamed: hand each layer off as it reaches the host;
+            # the replica/abstract writes go write-behind on the executor
+            for li, layer in enumerate(self.attn_layers):
+                k, v = self._layer_kv(cache, layer)
+                t1 = time.perf_counter()
+                self.store.ingest(li, k[0], v[0],
+                                  self._layer_placement(layer, placement),
+                                  seq=sid, executor=self._ingest_exec,
+                                  pool_place=pool_place)
+                ingest_s += time.perf_counter() - t1
+            prefill_s = time.perf_counter() - t0 - ingest_s
         state = self._recurrent_state(cache)
         first = _to_host(logits)[0]
         self.seqs[sid] = _SeqState(length=S,
@@ -529,7 +575,8 @@ class BatchedLeoAMEngine:
                                    tokens=np.asarray(tokens), prompt_len=S)
         self.admit_profiles.append({
             "total_s": time.perf_counter() - t0, "prefill_s": prefill_s,
-            "ingest_s": ingest_s, "overlapped": 1.0})
+            "ingest_s": ingest_s,
+            "overlapped": float(self._ingest_exec is not None)})
         return sid, int(np.argmax(first))
 
     def _default_placement(self) -> Dict[int, str]:
@@ -543,11 +590,26 @@ class BatchedLeoAMEngine:
                 for c in range(self.n_chunks)}
 
     def _bucket_len(self, S: int) -> int:
-        """Smallest bucket >= S: powers of two from 16, capped at max_len."""
+        """Smallest bucket >= S: powers of two from 16, or the configured
+        ``prefill_buckets`` schedule, capped at max_len (the cache pad)."""
+        sched = self.ecfg.prefill_buckets
+        if sched:
+            for b in sorted(sched):
+                if b >= S:
+                    return min(int(b), self.ecfg.max_len)
+            return self.ecfg.max_len
         b = 16
         while b < S:
             b <<= 1
         return min(b, self.ecfg.max_len)
+
+    @property
+    def prefill_programs(self) -> int:
+        """Distinct prefill shapes run so far: padded whole-prompt lengths
+        plus chunk-step sizes — the reference's count of compiled prefill
+        programs (one per shape), which stays O(log max_len) under
+        ``bucket_prefill`` for any mix of prompt lengths."""
+        return len(self._prefill_shapes) + len(self._chunk_prefill_shapes)
 
     def _prefill(self, tokens: np.ndarray):
         """Model prefill on the engine's device.  With ``bucket_prefill``
@@ -563,9 +625,18 @@ class BatchedLeoAMEngine:
         else:
             batch = {"tokens": torch.from_numpy(
                 np.asarray(tokens, np.int64)[None]).to(self.device)}
+        self._prefill_shapes.add(batch["tokens"].shape[1])
         with torch.no_grad():
             return lm.prefill(self.params, self.cfg, batch,
                               max_len=self.ecfg.max_len)
+
+    def _prefill_chunk(self, batch: Dict[str, Any], cache):
+        """One chunked-prefill step over ``cache`` (updated in place);
+        each chunk size is one prefill shape."""
+        self._chunk_prefill_shapes.add(batch["tokens"].shape[1])
+        with torch.no_grad():
+            return lm.prefill_chunk(self.params, self.cfg, batch, cache,
+                                    max_len=self.ecfg.max_len)
 
     @decode_thread_only
     def begin_admission(self, tokens: np.ndarray) -> "ChunkedAdmission":
@@ -789,10 +860,17 @@ class BatchedLeoAMEngine:
                                                       group=self.chunk))
         return dtp.theta_from_measured(lc["D"], lc["T0"], lc["Tc"], bw)
 
+    def _sync_stream(self) -> None:
+        """Wait for the work queued on the engine's CUDA stream (``profile``
+        only; nothing on the CPU, where every op has run on return)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def _update_costs(self, li: int, upload_bytes: float, disk_bytes: float,
                       compute_s: float) -> None:
         """EMA of the layer's measured round costs (the compute window is
-        (round − host stages)/n_attn without ``profile``)."""
+        the measured attend time with ``profile``, (round − host
+        stages)/n_attn without)."""
         lc = self._lcost.setdefault(li, {"D": upload_bytes, "T0": disk_bytes,
                                          "Tc": max(compute_s, 1e-7)})
         for k, v in (("D", upload_bytes), ("T0", disk_bytes),
@@ -1042,18 +1120,16 @@ class BatchedLeoAMEngine:
         cache = lm.init_decode_cache(self.cfg, 1, self.ecfg.max_len,
                                      device=self.device)
         pos = 0
-        with torch.no_grad():
-            while pos < end:
-                chunk_toks = np.zeros(C, np.int64)
-                take = min(C, len(toks) - pos)
-                if take > 0:
-                    chunk_toks[:take] = toks[pos:pos + take]
-                batch = {"tokens": torch.from_numpy(
-                    chunk_toks[None]).to(self.device),
-                         "start": pos, "length": len(toks)}
-                _, cache = lm.prefill_chunk(self.params, self.cfg, batch,
-                                            cache, max_len=self.ecfg.max_len)
-                pos += C
+        while pos < end:
+            chunk_toks = np.zeros(C, np.int64)
+            take = min(C, len(toks) - pos)
+            if take > 0:
+                chunk_toks[:take] = toks[pos:pos + take]
+            batch = {"tokens": torch.from_numpy(
+                chunk_toks[None]).to(self.device),
+                     "start": pos, "length": len(toks)}
+            _, cache = self._prefill_chunk(batch, cache)
+            pos += C
         lost_now = self.store.disk_lost_keys()
         for li, layer in enumerate(self.attn_layers):
             for c in sorted(set(cs)):
@@ -1086,7 +1162,9 @@ class BatchedLeoAMEngine:
 
         prologue, period, repeats = lm._layer_plan(cfg)
         round_stats = {sid: StepStats() for sid in order}
-        prof = {"eval_s": 0.0, "gather_s": 0.0, "upload_s": 0.0}
+        prof = {"eval_s": 0.0, "gather_s": 0.0, "upload_s": 0.0,
+                "attend_s": 0.0}
+        sync = self._sync_stream if ecfg.profile else None
         layer_io: List[Tuple[int, float, float]] = []  # (li, upB, diskB)
         t_round = time.perf_counter()
         li = 0
@@ -1143,6 +1221,9 @@ class BatchedLeoAMEngine:
                 self._submit_prefetch(li + 1, order, lengths)
                 slots_dev = torch.from_numpy(slots).to(dev)
                 pool_kv = self.store.pools[li].kv
+                if sync:
+                    sync()
+                t1 = time.perf_counter()
                 if self.mla:
                     o = sparse_decode_latent_pooled(
                         qn, pool_kv, slots_dev, cids_dev, lengths_dev,
@@ -1163,6 +1244,9 @@ class BatchedLeoAMEngine:
                 kgd = torch.from_numpy(kg).to(dev)
                 vgd = None if self.mla else torch.from_numpy(vg).to(dev)
                 prof["upload_s"] += time.perf_counter() - t1
+                if sync:
+                    sync()
+                t1 = time.perf_counter()
                 if self.mla:
                     o = sparse_decode_latent_workingset(
                         qn, kgd, cids_dev, lengths_dev, lat_new,
@@ -1176,6 +1260,13 @@ class BatchedLeoAMEngine:
                 # then the output projection in the model dtype
                 o = torch.einsum("bhr,hrv->bhv", o,
                                  blk["core"]["wv_b"].float()).to(q_lat.dtype)
+            y = o.reshape(B, 1, -1) @ blk["core"]["wo"]
+            if sync:
+                # attention through the output projection, as the
+                # reference's blocking profile times it
+                sync()
+                prof["attend_s"] += time.perf_counter() - t1
+            if self.mla:
                 self.store.append_tokens_batch(
                     li, lengths, _to_host(lat_new)[:, None, :], None,
                     seqs=order)
@@ -1183,7 +1274,6 @@ class BatchedLeoAMEngine:
                 self.store.append_tokens_batch(
                     li, lengths, _to_host(k_new[:, 0]),
                     _to_host(v_new[:, 0]), seqs=order)
-            y = o.reshape(B, 1, -1) @ blk["core"]["wo"]
             li += 1
             return lm._apply_mlp(blk, cfg, mlpk, h + y)
 
@@ -1224,11 +1314,12 @@ class BatchedLeoAMEngine:
         self.last_logits = logits
         total_s = time.perf_counter() - t_round
         prof["total_s"] = total_s
-        # the rest of the round: attention, MLPs, appends (the window the
-        # θ balance must hide transfers under — an upper bound, as in the
-        # reference without its profile mode)
-        prof["attend_s"] = max(0.0, total_s - prof["eval_s"]
-                               - prof["gather_s"] - prof["upload_s"])
+        if not ecfg.profile:
+            # the rest of the round: attention, MLPs, appends (the window
+            # the θ balance must hide transfers under — an upper bound, as
+            # in the reference without its profile mode)
+            prof["attend_s"] = max(0.0, total_s - prof["eval_s"]
+                                   - prof["gather_s"] - prof["upload_s"])
         self.round_profiles.append(prof)
         # feed measured per-layer costs back into the θ balance
         tc = prof["attend_s"] / max(1, len(self.attn_layers))
@@ -1352,10 +1443,7 @@ class ChunkedAdmission:
         chunk_toks[:take] = self.tokens[self.pos:self.pos + take]
         batch = {"tokens": torch.from_numpy(chunk_toks[None]).to(eng.device),
                  "start": self.pos, "length": self.S}
-        with torch.no_grad():
-            logits, self.cache = lm.prefill_chunk(
-                eng.params, eng.cfg, batch, self.cache,
-                max_len=eng.ecfg.max_len)
+        logits, self.cache = eng._prefill_chunk(batch, self.cache)
         ingest_s = 0.0
         for li, layer in enumerate(eng.attn_layers):
             # the copy to the host waits for the chunk's kernels: prefill
@@ -1403,7 +1491,8 @@ class ChunkedAdmission:
         eng.admit_profiles.append({
             "total_s": time.perf_counter() - self._t0,
             "prefill_s": self._prefill_s, "ingest_s": self._ingest_s,
-            "overlapped": 1.0, "chunked": 1.0, "chunks": float(self.n_steps),
+            "overlapped": float(eng._ingest_exec is not None),
+            "chunked": 1.0, "chunks": float(self.n_steps),
             "prefix_hit_tokens": float(self._hit_tokens)})
         self.result = (self.sid, int(np.argmax(first)))
 
@@ -1427,6 +1516,23 @@ class LeoAMEngine:
                                           store_root=store_root)
         self._sid: Optional[int] = None
 
+    # passthroughs to the batched engine
+    @property
+    def cfg(self):
+        return self._engine.cfg
+
+    @property
+    def ecfg(self):
+        return self._engine.ecfg
+
+    @property
+    def chunk(self):
+        return self._engine.chunk
+
+    @property
+    def n_chunks(self):
+        return self._engine.n_chunks
+
     @property
     def attn_layers(self):
         return self._engine.attn_layers
@@ -1436,9 +1542,21 @@ class LeoAMEngine:
         return self._engine.store
 
     @property
+    def round_profiles(self):
+        return self._engine.round_profiles
+
+    @property
+    def admit_profiles(self):
+        return self._engine.admit_profiles
+
+    @property
     def length(self) -> int:
         return self._engine.seqs[self._sid].length if self._sid is not None \
             else 0
+
+    @property
+    def access(self):
+        return self._engine.seqs[self._sid].access
 
     @property
     def stats(self) -> List[StepStats]:

@@ -865,7 +865,7 @@ class TieredKVStore:
                     else:
                         self._promote_device(key, kc, vc)
             for row, items in to_pool.items():
-                # leolint: waive[locklint,threadlint] reason=decode-thread ingest only: to_pool fills only when pool_place=True, which the admission worker never passes (it defers via pending_place), and the slab update is an eager in-place device write, not a compiled dispatch
+                # leolint: waive[locklint,threadlint] reason=decode-thread ingest only: to_pool fills only when pool_place=True, which the admission worker never passes (it defers via pending_place), and the slab update is an eager in-place device write, not a compiled dispatch; the one sync-named call beneath it, `.tolist()` in B3's wrapper (kv_quant/ops.py), formats a host numpy slot array in an error message, and the launch copies its slots pinned and non-blocking, so nothing here waits for the card
                 self._pool_place(layer, row, items)
         for row, (cids, kcs, vcs) in groups.items():
             ks = np.stack(kcs)
@@ -1686,7 +1686,7 @@ class TieredKVStore:
         return data.to(self.device), scale.to(self.device)
 
     @decode_thread_only
-    def fetch_chunks_pooled(self, layer: int,  # leolint: waive[locklint] reason=decode-thread pooled fetch: the slab update runs under _lock so tier tables stay consistent with residency; it is an eager in-place device write, not a compiled dispatch
+    def fetch_chunks_pooled(self, layer: int,  # leolint: waive[locklint] reason=decode-thread pooled fetch: the slab update runs under _lock so tier tables stay consistent with residency; it is an eager in-place device write, not a compiled dispatch; the one sync-named call beneath pool.scatter, `.tolist()` in B3's wrapper (kv_quant/ops.py), formats a host numpy slot array in an error message, and the launch copies its slots pinned and non-blocking, so nothing here waits for the card
                             chunks_by_seq: Dict[int, Sequence[int]], *,
                             pad_to: Optional[int] = None,
                             theta: float = 1.0

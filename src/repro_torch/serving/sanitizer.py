@@ -3,9 +3,10 @@
 The serving stack's concurrency contracts (docstrings in ``engine.py`` /
 ``offload.py``, catalogued in ``docs/INVARIANTS.md``) are enforced twice:
 
-* statically by ``python -m repro.analysis`` (the ``leolint`` passes read
-  the ownership decorators below straight off the AST and walk the call
-  graph from every executor entry point);
+* statically by ``python -m repro_torch.analysis`` (the ``leolint``
+  passes, with PyTorch's host-device sync points, read the ownership
+  decorators below straight off the AST and walk the call graph from
+  every executor entry point);
 * dynamically by this module when ``EngineCfg(debug_sync=True)`` — the
   decorators become live owning-thread assertions, store/pool mutating
   entry points get a concurrent-mutation (epoch) guard, and the store's

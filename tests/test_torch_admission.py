@@ -16,10 +16,12 @@ ulp of each value plus 1e-5.  Inside each package every mode stores the
 synchronous mode's bytes bit for bit, which is what a mode may not change.
 Store scripts that feed both stores the same K/V are bitwise equal.
 
-Left out on purpose: the JAX compile-count test
+Elsewhere: the JAX compile-count test
 (``test_mixed_lengths_compile_log_programs``) bounds the number of XLA
-programs, and eager PyTorch compiles none, so it has no counterpart here;
-the disk-sidecar admission tests sit in ``tests/test_torch_store_modes.py``,
+programs; eager PyTorch compiles none, and the port's
+``prefill_programs`` (its distinct prefill shapes) is held to the
+reference's count in ``tests/test_torch_engine_cfg.py``, with the serial
+ingest (``overlap_ingest=False``); the disk-sidecar admission tests sit in ``tests/test_torch_store_modes.py``,
 and the engine's admission modes on a hybrid stack (Mamba layers) in
 ``tests/test_torch_hybrid_engine.py``.
 """

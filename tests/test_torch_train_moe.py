@@ -13,7 +13,13 @@ What must hold (f32):
 - the gradients of ``sum(y * w) + moe_loss(aux)`` with respect to x, the
   router and every expert and shared weight within ``GRAD_TOL`` of each
   leaf's largest reference magnitude (``jax.grad``): the router's reach
-  it through top_p and the softmax, as in the reference.
+  it through top_p and the softmax, as in the reference;
+- over ``ROUTER_STEPS`` train steps of deepseek's smoke config at its own
+  routing (64 experts, top 6), from one state on the reference's batches,
+  ``forward_train``'s ``moe_lb_loss``, ``moe_z_loss`` and
+  ``moe_drop_frac`` before each step within ``ROUTER_TOL`` (relative) of
+  the reference's (ROADMAP C17: the router's trajectory is the
+  reference's at smoke width).
 """
 
 import dataclasses
@@ -25,13 +31,23 @@ import pytest
 import torch
 
 from repro.configs import get_config
+from repro.data.synthetic import DataCfg as JDataCfg
+from repro.data.synthetic import ShardedLoader as JLoader
+from repro.launch import steps as jsteps
 from repro.models import lm as jlm
 from repro.models import mlp as jmlp
+from repro.optim import adamw as jadamw
 from repro_torch.configs import get_config as t_get_config
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
 from repro_torch.models.params import params_from_jax
+from repro_torch.optim import adamw as tadamw
 
 TOL, GRAD_TOL = 1e-5, 1e-5
+# ROADMAP C17: the router's trajectory over training steps, the two
+# packages from one state, f32 moments (relative, per metric and step)
+ROUTER_TOL, ROUTER_STEPS = 1e-4, 8
 ARCHS = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b",
          "jamba-1.5-large-398b"]
 
@@ -125,3 +141,57 @@ def test_inference_dispatch_is_unchanged_by_the_training_one():
     assert float(aux["moe_drop_frac"]) == 0.0
     np.testing.assert_allclose(train.numpy(), got.numpy(), rtol=TOL,
                                atol=TOL)
+
+
+def _router_cfgs():
+    """deepseek-v2-lite's smoke config with its published routing (64
+    experts, top 6), 2 microbatches, f32 moments."""
+    def one(get):
+        cfg = get("deepseek-v2-lite-16b", smoke=True)
+        return dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, n_experts=64, top_k=6),
+            runtime=dataclasses.replace(cfg.runtime, microbatches=2,
+                                        adam_dtype="float32"))
+    return one(get_config), one(t_get_config)
+
+
+def test_router_trajectory_matches_reference_over_training():
+    """ROADMAP C17: the two packages' routers train alike — the aux
+    metrics of ``forward_train`` before each of 8 steps (lr 1e-3, warmup
+    2), the same drop fractions and balance losses."""
+    cfg, tcfg = _router_cfgs()
+    adam = dict(state_dtype="float32")
+    sched = dict(lr=1e-3, warmup_steps=2, total_steps=ROUTER_STEPS)
+    jt = jsteps.TrainCfg(adam=jadamw.AdamWCfg(**adam), **sched)
+    tt = tsteps.TrainCfg(adam=tadamw.AdamWCfg(**adam), **sched)
+    params = jlm.init(cfg, jax.random.PRNGKey(0))
+    jstate = {"params": params,
+              "opt": jadamw.init_opt_state(params, jt.adam)}
+    tstate = params_from_jax(jax.tree.map(np.asarray, jstate), "cpu")
+    jstep = jax.jit(jsteps.make_train_step(cfg, jt))
+    tstep = tsteps.make_train_step(tcfg, tt)
+    jaux = jax.jit(lambda p, b: jlm.forward_train(p, cfg, b)[1])
+    loader = JLoader(JDataCfg(vocab_size=cfg.vocab_size, seq_len=32,
+                              global_batch=4))
+    try:
+        batches = [next(loader) for _ in range(ROUTER_STEPS)]
+    finally:
+        loader.close()
+    keys = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+    traj = []
+    for i, b in enumerate(batches):
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        want = jaux(jstate["params"], jb)
+        with torch.no_grad():
+            _, got = tlm.forward_train(
+                tstate["params"], tcfg,
+                {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()})
+        for k in keys:
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=ROUTER_TOL,
+                                       err_msg=f"step {i} {k}")
+        traj.append(float(want["moe_drop_frac"]))
+        jstate, _ = jstep(jstate, jb)
+        tstate, _ = tstep(tstate, b)
+    # 6 of 64 experts at capacity factor 1.25 drop pairs from the start
+    assert traj[0] > 0.0
