@@ -219,10 +219,28 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    ``[train-moe]`` deepseek-v2-lite-16b at its first 3 of 27 layers
    (``[depth]``: MLA, the capacity-drop MoE, 64 experts top-6, bf16
    moments, 8 steps; finite losses and aux losses, each MoE layer's mean
-   drop fraction in [0, 1), the loss falling);
+   drop fraction in [0, 1), the loss falling); the child then runs phase
+   4p's ``[mesh-train]``;
+   4p. (after 4n) the device mesh (ROADMAP A12b) on the one card, longchat
+   at 8 of 32 layers, full width (a ``[depth]`` line), 4 x 2560 tokens
+   into a 4096-row cache, every rank building its weights from the seed:
+   ``[mesh-1]`` a one-rank NCCL mesh in a child process —
+   ``make_jitted_prefill`` and 16 ``make_jitted_decode`` steps bitwise
+   equal to ``lm.prefill`` + ``lm.decode_step`` (over one rank the combine
+   multiplies by exp(0) = 1); ``[mesh-4]`` four gloo ranks on the card,
+   mesh (1, 4), 1024 rows a shard (shard 2 partly filled, shard 3 empty
+   at every step): 8 steps plain recording each rank's selections, 8
+   with B1 and B2 replaying them (logits within ``TOL_E2E_ULPS`` bf16
+   ulps of max|logit|, the first tokens the same, B2 launched on every
+   rank, the empty one included), and the dense decode within
+   ``TOL_E2E_ULPS`` of the one-process local decode; ``[mesh-train]``
+   (in 4n's deterministic child, or a child of its own under ``--phases
+   4p``): qwen3 at 3 of 28 layers, 2 steps of ``make_jitted_train_step``
+   on a one-rank NCCL mesh bitwise equal to 2 of ``make_train_step``;
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
-   the launches of the paths that run it, B1's and B2's with 4l's, 4m's
-   and 4o's profiled serve, B3's with 4m's and 4o's serves, and
+   the launches of the paths that run it, B1's and B2's with 4l's, 4m's,
+   4o's profiled serve and every rank's of 4p, B3's with 4m's and 4o's
+   serves, and
    the CUDA kernels one call launches, ``cuda_per_call``), then
    the result line
    ``{"ok": true, "device": {...}}``.
@@ -234,7 +252,8 @@ result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
 engine phases of phase 4 (4c-4o) only, with their gates and no result
-line (``--phases 4k``, ``4m`` or ``4n`` alone never builds longchat).
+line (``--phases 4k``, ``4m``, ``4n`` or ``4p`` alone never builds
+longchat).
 """
 
 from __future__ import annotations
@@ -302,7 +321,9 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
 ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4o",
-                 "4l", "4k", "4m", "4n")                   # --phases
+                 "4l", "4k", "4m", "4n", "4p")             # --phases
+# phases that build their own models (longchat leaves the card before them)
+OWN_MODEL_PHASES = ("4k", "4m", "4n", "4p")
 # phase 4l: lm.decode_step on longchat at full width and depth, a batch of
 # prompts of one length (decode_step takes one length for the batch), in
 # a MAX_LEN cache (sparse: MAX_LEN >= min_seq_for_sparse, 3 pyramid
@@ -360,6 +381,19 @@ PROFILE_BUCKETS = (1536, 2048, 3584, 4096)
 # unchanged) so that the whole script, phases 4l and 4k included, stays
 # inside its time budget
 SERVE_MODES_LAYERS = 8
+# phase 4p: the device mesh (ROADMAP A12b) on the one card.  longchat at
+# MESH_LAYERS of its 32 layers, full width, bf16 weights from seed 0 built
+# by every rank; MESH_BATCH prompts of MESH_PROMPT tokens into a MAX_LEN
+# cache.  [mesh-1]: a one-rank NCCL mesh, MESH_STEPS decode steps;
+# [mesh-4]: four gloo ranks on the card, mesh (1, 4) of MAX_LEN / 4 rows a
+# shard (shard 2 partly filled, shard 3 empty), MESH_SHARD_STEPS steps
+# plain, then with the kernels, then dense.  [mesh-train] runs in the
+# deterministic child of 4n (qwen3 at TRAIN_CUT_LAYERS layers): 2 steps on
+# a one-rank NCCL mesh against 2 steps without one
+MESH_LAYERS, MESH_BATCH, MESH_PROMPT, MESH_SEED = 8, 4, 2560, 31
+MESH_STEPS, MESH_SHARD_STEPS, MESH_TRAIN_STEPS = 16, 8, 2
+MESH_TIMEOUT_S = 600
+MESH_TRAIN_ONLY_FLAG = "--mesh-train-only"
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 # CUDA kernels one call of each latent variant launches
 LATENT_CUDA_PER_CALL = {"chunk_bounds_latent": 1, "sparse_decode_latent": 2}
@@ -2702,7 +2736,7 @@ def run_phases(np, torch, names):
     (longchat is built only for the phases that serve it, and freed
     before 4k)."""
     cfg = params = None
-    if names - {"4k", "4m", "4n"}:
+    if names - set(OWN_MODEL_PHASES):
         cfg, params = init_longchat(torch)
     runners = {
         "4c": lambda: phase_admission(np, torch,
@@ -2718,11 +2752,12 @@ def run_phases(np, torch, names):
         "4l": lambda: phase_decode_step(np, torch, cfg, params),
         "4k": lambda: phase_mla(np, torch),
         "4m": lambda: phase_a11(np, torch),
-        "4n": lambda: phase_train(np, torch)}
+        "4n": lambda: phase_train(np, torch),
+        "4p": lambda: phase_mesh(np, torch)}
     try:
         for name in ENGINE_PHASES:
             if name in names:
-                if name in ("4k", "4m", "4n"):
+                if name in OWN_MODEL_PHASES:
                     params = None              # longchat leaves the card
                     gc.collect()
                     torch.cuda.empty_cache()
@@ -2737,7 +2772,7 @@ def run_phases(np, torch, names):
 
 def main() -> int:
     if TRAIN_CHILD_FLAG in sys.argv[1:]:
-        return train_resume_child()
+        return train_resume_child(MESH_TRAIN_ONLY_FLAG in sys.argv[1:])
     only = only_kernels(sys.argv[1:])
     phases = only_phases(sys.argv[1:])
     import torch
@@ -2848,6 +2883,7 @@ def main() -> int:
         mla = timed("4k", phase_mla, np, torch, mla_rows)
         a11 = timed("4m", phase_a11, np, torch)
         train = timed("4n", phase_train, np, torch)
+        mesh = timed("4p", phase_mesh, np, torch)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
 
@@ -2889,6 +2925,9 @@ def main() -> int:
     for k in ("chunk_bounds", "sparse_decode", "kv_dequant"):
         launches[k] += a11["launches"].get(k, 0)
         launches[k] += profile["launches"]["b"].get(k, 0)
+    # B1 and B2 also from phase 4p's sharded decodes, every rank's count
+    for k in ("chunk_bounds", "sparse_decode"):
+        launches[k] += mesh["launches"][k]
     kernels = []
     for name, r in {**rows, **mla["rows"]}.items():
         kernels.append({
@@ -2923,7 +2962,7 @@ def main() -> int:
                       "kv_dequant_48": b3_48c,
                       "mla": {k: v for k, v in mla.items()
                               if k != "rows"},
-                      "a11": a11, "train": train}))
+                      "a11": a11, "train": train, "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4088,17 +4127,25 @@ def _cut_config(name, n_layers):
     return dataclasses.replace(full, n_layers=n_layers), full
 
 
+def _train_tcfg(cfg, steps, warmup):
+    """The phase's TrainCfg: moments in the config's ``adam_dtype``."""
+    from repro_torch.launch import steps as stp
+    from repro_torch.optim import adamw
+    adam = adamw.AdamWCfg(state_dtype=cfg.runtime.adam_dtype)
+    return stp.TrainCfg(lr=TRAIN_LR, warmup_steps=warmup, total_steps=steps,
+                        adam=adam)
+
+
 def _train_setup(torch, cfg, steps, warmup):
     """A state on the card (weights from seed 0, moments in the config's
     ``adam_dtype``) and the train step for ``cfg``."""
     from repro_torch.launch import steps as stp
     from repro_torch.models import lm
     from repro_torch.optim import adamw
-    adam = adamw.AdamWCfg(state_dtype=cfg.runtime.adam_dtype)
-    tcfg = stp.TrainCfg(lr=TRAIN_LR, warmup_steps=warmup, total_steps=steps,
-                        adam=adam)
+    tcfg = _train_tcfg(cfg, steps, warmup)
     params = lm.init(cfg, seed=0, device="cuda")
-    return ({"params": params, "opt": adamw.init_opt_state(params, adam)},
+    return ({"params": params, "opt": adamw.init_opt_state(params,
+                                                           tcfg.adam)},
             stp.make_train_step(cfg, tcfg))
 
 
@@ -4120,7 +4167,73 @@ def _bitwise(a, b) -> bool:
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
-def train_resume_child() -> int:
+def _mesh_train(torch):
+    """[mesh-train] (in the deterministic child): qwen3 at
+    ``TRAIN_CUT_LAYERS`` layers, ``MESH_TRAIN_STEPS`` steps of
+    ``make_train_step`` without a mesh, then as many of
+    ``make_jitted_train_step`` on a one-rank NCCL mesh from the same state
+    laid out as DTensors by ``state_specs``, on the same batches: every
+    parameter, moment, the step and each step's loss bitwise equal.
+    Returns the row it prints."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps as stp
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import whole
+    t0 = time.perf_counter()
+    cfg, full = _cut_config(TRAIN_ARCH, TRAIN_CUT_LAYERS)
+    n = MESH_TRAIN_STEPS
+    tcfg = _train_tcfg(cfg, n, warmup=1)
+    batches = _batches(cfg, n)
+    lmesh.init_distributed(0, 1, f"tcp://127.0.0.1:{lmesh.free_port()}",
+                           "nccl", device="cuda")
+    try:
+        mesh = lmesh.make_host_mesh(1, 1)
+        params = lm.init(cfg, seed=0, device="cuda")
+        plain = {"params": params,
+                 "opt": adamw.init_opt_state(params, tcfg.adam)}
+        mstep, ss, _ = stp.make_jitted_train_step(
+            cfg, mesh, tcfg, ShapeCfg("t", TRAIN_SEQ, TRAIN_BATCH, "train"))
+        on_mesh = stp.distribute_tree(tree_map(torch.clone, plain), ss, mesh)
+        step = stp.make_train_step(cfg, tcfg)
+        losses = {"plain": [], "mesh": []}
+        for b in batches:
+            plain, m = step(plain, b)
+            losses["plain"].append(m["loss"])
+        t1 = time.perf_counter()
+        for b in batches:
+            on_mesh, m = mstep(on_mesh, b)
+            losses["mesh"].append(m["loss"])
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t1
+        from torch.distributed.tensor import DTensor
+        dtensors = all(isinstance(x, DTensor) for x in leaves(on_mesh))
+        same = all(_bitwise(whole(x), y) for x, y in
+                   zip(leaves(on_mesh), leaves(plain)))
+        loss_same = all(_bitwise(a, b) for a, b in zip(losses["mesh"],
+                                                       losses["plain"]))
+        row = {"layers": cfg.n_layers, "of": full.n_layers, "steps": n,
+               "mesh": [1, 1], "backend": dist.get_backend(),
+               "state_dtensors": dtensors, "state_bitwise": same,
+               "loss_bitwise": loss_same,
+               "losses": [float(x) for x in losses["mesh"]],
+               "mesh_steps_s": mesh_s,
+               "wall_s": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+    print(f"[depth] phase 4p (mesh-train): {cfg.n_layers} of "
+          f"{full.n_layers} qwen3 layers, full width")
+    print(f"[mesh-train] {json.dumps(row)}")
+    print(f"[time] phase 4p mesh-train {row['wall_s']!r} s")
+    if not (dtensors and same and loss_same):
+        raise SystemExit(f"chip_smoke: [mesh-train] not bitwise: {row}")
+    return row
+
+
+def train_resume_child(mesh_train_only: bool = False) -> int:
     """[train-resume], run in a child process whose CUBLAS_WORKSPACE_CONFIG
     was set before its first cuBLAS call and with
     ``torch.use_deterministic_algorithms(True)`` (the backward of the
@@ -4128,12 +4241,22 @@ def train_resume_child() -> int:
     otherwise): qwen3 at ``TRAIN_CUT_LAYERS`` layers, steps, a save, steps
     A; restore, the same steps B: A and B bitwise; then
     ``run_with_restarts`` from the checkpoint with one injected failure.
-    Prints one ``[train-resume-json]`` line."""
+    Prints one ``[train-resume-json]`` line.  Then phase 4p's
+    [mesh-train] (alone with ``mesh_train_only``), one
+    ``[mesh-train-json]`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.use_deterministic_algorithms(True)
+    if not mesh_train_only:
+        _resume_in_child(torch)
+    print("[mesh-train-json] " + json.dumps(_mesh_train(torch)))
+    return 0
+
+
+def _resume_in_child(torch):
+    """[train-resume]'s runs and gates (see :func:`train_resume_child`)."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.models.params import leaves
     from repro_torch.runtime.fault_tolerance import run_with_restarts
@@ -4206,25 +4329,37 @@ def train_resume_child() -> int:
             and at == R and stats.restarts == 1
             and res["final_step"] == 2 * R):
         raise SystemExit(f"chip_smoke: [train-resume] failed: {res}")
-    return 0
 
 
-def _train_resume():
+# [mesh-train]'s row when phase 4n's child ran it in this call
+MESH_TRAIN_ROW = {}
+
+
+def _train_resume(mesh_train_only: bool = False):
     """Runs :func:`train_resume_child` in a child process; its failure
-    fails the phase."""
+    fails the phase.  Keeps the child's [mesh-train] row in
+    ``MESH_TRAIN_ROW``."""
     env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                          TRAIN_CHILD_FLAG], env=env, capture_output=True,
+                          TRAIN_CHILD_FLAG] + (
+                              [MESH_TRAIN_ONLY_FLAG] if mesh_train_only
+                              else []), env=env, capture_output=True,
                          text=True, timeout=600)
     print(res.stdout, end="")
     if res.returncode:
         print(res.stderr[-4000:], file=sys.stderr)
         raise SystemExit(f"chip_smoke: [train-resume] child exited "
                          f"{res.returncode}")
-    line = [ln for ln in res.stdout.splitlines()
-            if ln.startswith("[train-resume-json] ")][-1]
-    out = json.loads(line.split(" ", 1)[1])
+    rows = {}
+    for ln in res.stdout.splitlines():
+        for tag in ("[train-resume-json] ", "[mesh-train-json] "):
+            if ln.startswith(tag):
+                rows[tag] = json.loads(ln.split(" ", 1)[1])
+    MESH_TRAIN_ROW.update(rows["[mesh-train-json] "])
+    if mesh_train_only:
+        return dict(MESH_TRAIN_ROW)
+    out = rows["[train-resume-json] "]
     out["child_wall_s"] = time.perf_counter() - t0
     return out
 
@@ -4236,8 +4371,8 @@ def _spy_forward_train(record):
     from repro_torch.models import lm
     orig = lm.forward_train
 
-    def spy(params, cfg, batch):
-        loss, m = orig(params, cfg, batch)
+    def spy(params, cfg, batch, shards=None):
+        loss, m = orig(params, cfg, batch, shards)
         record.append({k: float(v.detach()) for k, v in m.items()})
         return loss, m
 
@@ -4323,6 +4458,247 @@ def phase_train(np, torch):
     if any(counts.values()):
         raise SystemExit(f"chip_smoke: the trainer launched a hand kernel: "
                          f"{counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4p: the device mesh (ROADMAP A12b) on the one card
+# ---------------------------------------------------------------------------
+
+
+def _mesh_model(np, torch, device):
+    """longchat at ``MESH_LAYERS`` layers (full width, bf16 weights from
+    seed 0, on this rank's card) and the phase's prompts."""
+    from repro_torch.models import lm
+    cfg, full = _cut_config("longchat-7b-32k", MESH_LAYERS)
+    params = lm.init(cfg, seed=0, device=device)
+    prompts = np.random.RandomState(MESH_SEED).randint(
+        2, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT))
+    return cfg, full, params, prompts
+
+
+def _mesh_steps(cfg, mesh):
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import steps as stp
+    return (stp.make_jitted_prefill(cfg, mesh, ShapeCfg(
+                "p", MAX_LEN, MESH_BATCH, "prefill")),
+            stp.make_jitted_decode(cfg, mesh, ShapeCfg(
+                "d", MAX_LEN, MESH_BATCH, "decode")))
+
+
+def _mesh1_rank(rank, world, device):
+    """[mesh-1] on a one-rank NCCL mesh (1, 1): ``make_jitted_prefill``
+    and ``MESH_STEPS`` steps of ``make_jitted_decode`` (B1 and B2, the
+    launches counted over them), then ``lm.prefill`` and as many
+    ``lm.decode_step`` steps without a mesh on the same tokens: every
+    step's logits and the final cache bitwise equal."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves
+    cfg, _, params, prompts = _mesh_model(np, torch, device)
+    mesh = make_host_mesh(1, 1, device=device)
+    prefill, decode = _mesh_steps(cfg, mesh)
+    S, n = MESH_PROMPT, MESH_STEPS
+    with torch.no_grad():
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, {"tokens": prompts})
+        tokens, mesh_logits = [lg.argmax(-1)], [lg]
+        _zero_launches()
+        for t in range(n):
+            lg, cache = decode(params, cache, {"token": tokens[-1]}, S + t)
+            mesh_logits.append(lg)
+            tokens.append(lg.argmax(-1))
+        torch.cuda.synchronize(device)
+        launches = _launch_counts()
+        mesh_s = time.perf_counter() - t0
+        lg, local = lm.prefill(params, cfg, {"tokens": torch.from_numpy(
+            prompts).to(device)}, max_len=MAX_LEN)
+        same = [_bitwise(lg, mesh_logits[0])]
+        for t in range(n):
+            lg, local = lm.decode_step(params, cfg, local,
+                                       {"token": tokens[t]}, S + t)
+            same.append(_bitwise(lg, mesh_logits[t + 1]))
+        cache_same = all(_bitwise(a, b) for a, b in zip(leaves(cache),
+                                                       leaves(local)))
+    return {"backend": dist.get_backend(), "steps": n,
+            "logits_bitwise": same, "cache_bitwise": cache_same,
+            "launches": {k: launches[k] for k in ("chunk_bounds",
+                                                  "sparse_decode")},
+            "mesh_prefill_and_decode_s": mesh_s}
+
+
+def _mesh4_rank(rank, world, device):
+    """[mesh-4], one of four gloo ranks on the card, mesh (1, 4):
+    ``MESH_SHARD_STEPS`` steps of ``make_jitted_decode`` with the plain
+    versions (``impl="ref"``) recording each layer's selection on this
+    shard, as many with B1 and B2 replaying them, then the dense decode
+    (``min_seq_for_sparse`` raised) of the same tokens; rank 0 also runs
+    the dense decode on the whole cache in this process.  Returns its
+    logits (host), launches and shard fill."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.testing import replay_selections
+    cfg, _, params, prompts = _mesh_model(np, torch, device)
+    dense = dataclasses.replace(cfg, leoam=dataclasses.replace(
+        cfg.leoam, min_seq_for_sparse=10 ** 9))
+    mesh = make_host_mesh(1, 4, device=device)
+    prefill, decode = _mesh_steps(cfg, mesh)
+    _, decode_dense = _mesh_steps(dense, mesh)
+    S, n = MESH_PROMPT, MESH_SHARD_STEPS
+    S_l = MAX_LEN // 4
+    out = {"rank": rank, "shard_rows": S_l,
+           "shard_fill": [min(max(S + t + 1 - rank * S_l, 0), S_l)
+                          for t in range(n)]}
+    with torch.no_grad():
+        lg, cache = prefill(params, {"tokens": prompts})
+        kcache, dcache = _clone_tree(cache), _clone_tree(cache)
+        tokens, sels = [lg.argmax(-1)], []
+        out["ref"], out["kernels"], out["dense"] = [], [], []
+        t0 = time.perf_counter()
+        with replay_selections(record=sels):
+            for t in range(n):
+                lg, cache = decode(params, cache, {"token": tokens[-1]},
+                                   S + t, impl="ref")
+                out["ref"].append(lg.float().cpu().numpy())
+                tokens.append(lg.argmax(-1))
+        out["ref_s"] = time.perf_counter() - t0
+        del cache
+        _zero_launches()
+        t0 = time.perf_counter()
+        with replay_selections(replay=sels):
+            for t in range(n):
+                lg, kcache = decode(params, kcache, {"token": tokens[t]},
+                                    S + t)
+                out["kernels"].append(lg.float().cpu().numpy())
+        torch.cuda.synchronize(device)
+        out["kernels_s"] = time.perf_counter() - t0
+        launches = _launch_counts()
+        out["launches"] = {k: launches[k] for k in ("chunk_bounds",
+                                                    "sparse_decode")}
+        del kcache
+        for t in range(n):
+            lg, dcache = decode_dense(params, dcache, {"token": tokens[t]},
+                                      S + t)
+            out["dense"].append(lg.float().cpu().numpy())
+        del dcache
+        if rank == 0:
+            _, whole = lm.prefill(params, dense, {"tokens": torch.from_numpy(
+                prompts).to(device)}, max_len=MAX_LEN)
+            out["local_dense"] = []
+            for t in range(n):
+                lg, whole = lm.decode_step(params, dense, whole,
+                                           {"token": tokens[t]}, S + t)
+                out["local_dense"].append(lg.float().cpu().numpy())
+    out["tokens"] = [t.cpu().numpy() for t in tokens[:n]]
+    return out
+
+
+def _ulps_bar(np, ref):
+    return TOL_E2E_ULPS * _bf16_ulp(float(np.abs(ref).max()))
+
+
+def _mesh1(np, torch):
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    res = run_ranks(_mesh1_rank, 1, device="cuda", backend="nccl",
+                    timeout_s=MESH_TIMEOUT_S)[0]
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"[mesh-1] {json.dumps(res)}")
+    print(f"[time] phase 4p mesh-1 {res['wall_s']!r} s")
+    n = MESH_STEPS * MESH_LAYERS
+    if not (all(res["logits_bitwise"]) and res["cache_bitwise"]):
+        raise SystemExit(f"chip_smoke: [mesh-1] not bitwise: {res}")
+    if res["launches"]["sparse_decode"] != n or \
+            res["launches"]["chunk_bounds"] < n:
+        raise SystemExit(f"chip_smoke: [mesh-1] launches {res['launches']} "
+                         f"(B2 {n} wanted, B1 at least as many)")
+    return res
+
+
+def _mesh4(np, torch):
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh4_rank, 4, device="cuda", backend="gloo",
+                      timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    bars = [_ulps_bar(np, b) for b in r0["ref"]]
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(r0["kernels"],
+                                                       r0["ref"])]
+    dense_bars = [_ulps_bar(np, b) for b in r0["local_dense"]]
+    dense_diffs = [float(np.abs(a - b).max())
+                   for a, b in zip(r0["dense"], r0["local_dense"])]
+    same_across = all(np.array_equal(r["ref"][t], r0["ref"][t])
+                      and np.array_equal(r["kernels"][t], r0["kernels"][t])
+                      for r in ranks for t in range(MESH_SHARD_STEPS))
+    first_same = [bool(a) for a in (r0["kernels"][0].argmax(-1)
+                                    == r0["ref"][0].argmax(-1))]
+    n = MESH_SHARD_STEPS * MESH_LAYERS
+    row = {"mesh": [1, 4], "backend": "gloo", "steps": MESH_SHARD_STEPS,
+           "shard_rows": r0["shard_rows"],
+           "shard_fill_last_step": [r["shard_fill"][-1] for r in ranks],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "max_logit_diff": diffs, "bars": bars,
+           "first_token_same": first_same,
+           "dense_vs_local_diff": dense_diffs, "dense_bars": dense_bars,
+           "logits_same_on_every_rank": same_across,
+           "ref_steps_s": [r["ref_s"] for r in ranks],
+           "kernel_steps_s": [r["kernels_s"] for r in ranks],
+           "wall_s": wall}
+    print(f"[mesh-4] {json.dumps(row)}")
+    print(f"[time] phase 4p mesh-4 {wall!r} s")
+    fails = []
+    if not all(d <= b for d, b in zip(diffs, bars)):
+        fails.append(f"kernel logits off the plain run's by {diffs} "
+                     f"(bars {bars})")
+    if not all(first_same):
+        fails.append(f"first token differs: {first_same}")
+    if not all(d <= b for d, b in zip(dense_diffs, dense_bars)):
+        fails.append(f"dense mesh decode off the local one by "
+                     f"{dense_diffs} (bars {dense_bars})")
+    if not same_across:
+        fails.append("ranks disagree on the combined logits")
+    if ranks[3]["shard_fill"][-1] != 0 or not \
+            0 < ranks[2]["shard_fill"][-1] < r0["shard_rows"]:
+        fails.append(f"shard fills {row['shard_fill_last_step']}: shard 2 "
+                     f"partly filled and shard 3 empty wanted")
+    for r in ranks:
+        if r["launches"]["sparse_decode"] != n or \
+                r["launches"]["chunk_bounds"] < n:
+            fails.append(f"rank {r['rank']} launches {r['launches']} (B2 "
+                         f"{n} wanted, B1 at least as many)")
+    if fails:
+        raise SystemExit("chip_smoke: [mesh-4] " + "; ".join(fails))
+    return row
+
+
+def phase_mesh(np, torch):
+    """Phase 4p: the device mesh on the one card — [mesh-1], [mesh-4] and
+    [mesh-train] (run by phase 4n's deterministic child when 4n ran in
+    this call, else by a child of its own), each with its ``[time]``.
+    Every rank builds its weights from the seed, so the only collective on
+    the card is the combine; each rank's B1 and B2 launches over its
+    sharded decodes are added to the ``kernels`` line."""
+    cfg, full = _cut_config("longchat-7b-32k", MESH_LAYERS)
+    print(f"[depth] phase 4p (mesh-1, mesh-4): {cfg.n_layers} of "
+          f"{full.n_layers} longchat layers (its 2 early layers and the "
+          f"first body layers), full width; {MESH_BATCH} x {MESH_PROMPT} "
+          f"tokens into a {MAX_LEN}-row cache")
+    out = {"mesh1": _mesh1(np, torch), "mesh4": _mesh4(np, torch)}
+    out["mesh_train"] = dict(MESH_TRAIN_ROW) or _train_resume(
+        mesh_train_only=True)
+    out["launches"] = {k: out["mesh1"]["launches"][k] + sum(
+        r[k] for r in out["mesh4"]["launches_by_rank"])
+        for k in ("chunk_bounds", "sparse_decode")}
+    print(f"[mesh] B1/B2 launches over the sharded decodes: "
+          f"{json.dumps(out['launches'])}")
     return out
 
 

@@ -11,9 +11,14 @@ Leaf keys are the reference's: ``/``-joined dict keys and list indices
 (``params/prologue/0/core/wq``, ``opt/step``).  numpy has no bfloat16, so
 a bf16 leaf is written as its ``uint16`` bits with ``"dtype":
 "bfloat16"`` in ``meta.json`` and restored bit for bit.  ``restore`` puts
-each leaf on its template leaf's device (numpy leaves stay numpy);
-restoring onto another device layout (``shardings=``) waits for the
-port's mesh (ROADMAP A12b).
+each leaf on its template leaf's device (numpy leaves stay numpy), or,
+with ``shardings=``, lays it out as a DTensor by its sharding's placements
+on that sharding's mesh: the elastic-rescale path (``runtime.elastic``).
+
+A tree of DTensors (a state on a mesh) is saved whole: every rank makes
+its leaves whole (a collective), rank 0 alone writes and renames the step
+directory, and the others wait for it; such a save does not return before
+the directory is in place.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.params import tree_map
+from repro_torch.sharding.ctx import is_dtensor
 
 BF16 = "bfloat16"
 
@@ -73,7 +79,12 @@ class Checkpointer:
 
     def save(self, step: int, tree: Any, *, block: bool = False) -> None:
         """Copy to the host, then write on the worker (one save in flight:
-        a second save waits for the first)."""
+        a second save waits for the first).  A tree with DTensor leaves is
+        made whole on every rank and written by rank 0 while the others
+        wait (a blocking save on every rank)."""
+        if any(is_dtensor(v) for _, v in _flatten(tree)):
+            self._save_from_mesh(step, tree)
+            return
         dtypes = {k: BF16 for k, v in _flatten(tree)
                   if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16}
         host_tree = tree_map(_to_host, tree)
@@ -82,6 +93,15 @@ class Checkpointer:
                                           dtypes)
         if block or not self.async_save:
             self.wait()
+
+    def _save_from_mesh(self, step: int, tree: Any) -> None:
+        import torch.distributed as dist
+
+        from repro_torch.runtime.elastic import whole
+        tree = tree_map(whole, tree)
+        if dist.get_rank() == 0:
+            self.save(step, tree, block=True)
+        dist.barrier()
 
     def wait(self) -> None:
         if self._pending is not None:
@@ -133,10 +153,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> Tuple[Any, int]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Tuple[Any, int]:
         """Load into the structure of ``template`` (the latest step unless
-        ``step`` is given); each leaf on its template leaf's device."""
+        ``step`` is given); each leaf on its template leaf's device, or,
+        with ``shardings`` (a tree of ``partition.NamedSharding`` of the
+        template's structure), distributed by its placements (elastic
+        reshard)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -145,20 +168,27 @@ class Checkpointer:
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
 
-        def load(key, leaf):
+        def load(key, leaf, shard):
             info = meta["leaves"][key]
             arr = np.load(os.path.join(d, info["file"]))
             want = tuple(leaf.shape)
             if tuple(arr.shape) != want:
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {want}")
-            if not isinstance(leaf, torch.Tensor):
+            if not isinstance(leaf, torch.Tensor) and shard is None:
                 return arr
             if info["dtype"] == BF16:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
+            if shard is not None:
+                from repro_torch.runtime.elastic import distribute
+                return distribute(t, shard,
+                                  torch.device(shard.mesh.device_type))
             return t.to(leaf.device)
 
-        loaded = iter([load(k, v) for k, v in _flatten(template)])
+        shard_of = dict(_flatten(shardings)) if shardings is not None \
+            else {}
+        loaded = iter([load(k, v, shard_of.get(k))
+                       for k, v in _flatten(template)])
         return tree_map(lambda _: next(loaded), template), step

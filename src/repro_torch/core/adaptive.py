@@ -247,12 +247,17 @@ def _ub_gathered(q4: torch.Tensor, km: torch.Tensor, kn: torch.Tensor, *,
 
 
 def _force_bias(ub: torch.Tensor, ids: torch.Tensor, lvl: int, nc0: int,
-                sink_chunks: int, recent_chunks: int, n_valid0
-                ) -> torch.Tensor:
+                sink_chunks: int, recent_chunks: int, n_valid0,
+                chunk_offset: int = 0) -> torch.Tensor:
     """+inf bias for sink/recent nodes so they always survive the beam.
-    ``n_valid0`` is in base-chunk units."""
+
+    ``chunk_offset`` / ``n_valid0`` are in GLOBAL base-chunk units: under
+    sequence sharding only the shard that owns the global sink (or the
+    tail) forces those chunks."""
     span = 1 << lvl
     gids = ids.long() * span                    # first base chunk of node
+    if chunk_offset:
+        gids = gids + chunk_offset              # ... in global units
     forced = torch.zeros_like(ub, dtype=torch.bool)
     if sink_chunks:
         forced = forced | (gids < sink_chunks)
@@ -272,11 +277,14 @@ def _take(a: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def pyramid_select_gqa(q: torch.Tensor, pyr: Pyramid, budget: int, *,
                        rf: int = 2, sink_chunks: int = 1,
                        recent_chunks: int = 2, n_valid0=None,
-                       impl: Optional[str] = None) -> torch.Tensor:
+                       chunk_offset: int = 0, impl: Optional[str] = None
+                       ) -> torch.Tensor:
     """Select ``budget`` base chunks per (batch, kv head).
 
-    q: (B, H, hd) scaled and roped.  Returns int32 ids (B, Hkv, budget).
-    ``n_valid0``: the base chunks that hold a token."""
+    q: (B, H, hd) scaled and roped.  Returns int32 ids (B, Hkv, budget),
+    local to the pyramid.  ``n_valid0``: the GLOBAL count of base chunks
+    that hold a token; ``chunk_offset``: this shard's global base-chunk
+    offset (0 when unsharded)."""
     L = pyr.levels
     B, H, hd = q.shape
     Hkv = pyr.kmax[0].shape[2]
@@ -293,7 +301,7 @@ def pyramid_select_gqa(q: torch.Tensor, pyr: Pyramid, budget: int, *,
     ids = torch.arange(nc[L - 1], dtype=torch.int32,
                        device=q.device).expand(ub.shape)
     ub = _force_bias(ub, ids, L - 1, nc[0], sink_chunks, recent_chunks,
-                     n_valid0)
+                     n_valid0, chunk_offset)
     ids = torch.gather(ids, -1, _top_k(ub, beams[L - 1]))
 
     for lvl in range(L - 2, -1, -1):
@@ -302,7 +310,7 @@ def pyramid_select_gqa(q: torch.Tensor, pyr: Pyramid, budget: int, *,
         kn = pyr.kmin[lvl].transpose(1, 2)
         ub = _ub_gathered(q4, _take(km, ids), _take(kn, ids), impl=impl)
         ub = _force_bias(ub, ids, lvl, nc[0], sink_chunks, recent_chunks,
-                         n_valid0)
+                         n_valid0, chunk_offset)
         width = beams[lvl] if lvl > 0 else budget
         ids = torch.gather(ids, -1, _top_k(ub, min(width, ids.shape[-1])))
     return ids.to(torch.int32)
@@ -311,8 +319,8 @@ def pyramid_select_gqa(q: torch.Tensor, pyr: Pyramid, budget: int, *,
 def flat_select_gqa(q: torch.Tensor, kmax0: torch.Tensor,
                     kmin0: torch.Tensor, budget: int, *,
                     sink_chunks: int = 1, recent_chunks: int = 2,
-                    n_valid0=None, impl: Optional[str] = None
-                    ) -> torch.Tensor:
+                    n_valid0=None, chunk_offset: int = 0,
+                    impl: Optional[str] = None) -> torch.Tensor:
     """Quest-like baseline: score all base chunks, top-k.  Same
     interface."""
     ub, _ = chunk_bounds_gqa_matmul(q, kmax0, kmin0, impl=impl)
@@ -321,15 +329,16 @@ def flat_select_gqa(q: torch.Tensor, kmax0: torch.Tensor,
         n_valid0 = nc0
     ids = torch.arange(nc0, dtype=torch.int32, device=q.device).expand(
         ub.shape)
-    ub = _force_bias(ub, ids, 0, nc0, sink_chunks, recent_chunks, n_valid0)
+    ub = _force_bias(ub, ids, 0, nc0, sink_chunks, recent_chunks, n_valid0,
+                     chunk_offset)
     return _top_k(ub, min(budget, nc0)).to(torch.int32)
 
 
 def pyramid_select_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                        pyr_c: Pyramid, pyr_r: Pyramid, budget: int, *,
                        rf: int = 2, sink_chunks: int = 1,
-                       recent_chunks: int = 2, n_valid0=None
-                       ) -> torch.Tensor:
+                       recent_chunks: int = 2, n_valid0=None,
+                       chunk_offset: int = 0) -> torch.Tensor:
     """MLA variant: boxes over the compressed latent (+ rope key), the
     reference's split bound in torch ops.  pyr_c levels: (B, nc, 1, r);
     pyr_r: (B, nc, 1, rope).  Returns (B, 1, k) int32."""
@@ -352,12 +361,12 @@ def pyramid_select_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     ids = torch.arange(nc[L - 1], dtype=torch.int32,
                        device=q_lat.device).expand(ub.shape)
     ub = _force_bias(ub, ids, L - 1, nc[0], sink_chunks, recent_chunks,
-                     n_valid0)
+                     n_valid0, chunk_offset)
     ids = torch.gather(ids, -1, _top_k(ub, beams[L - 1]))
     for lvl in range(L - 2, -1, -1):
         ids = torch.cat([ids * 2, ids * 2 + 1], dim=-1)
         ub = _force_bias(score(lvl, ids), ids, lvl, nc[0], sink_chunks,
-                         recent_chunks, n_valid0)
+                         recent_chunks, n_valid0, chunk_offset)
         width = beams[lvl] if lvl > 0 else budget
         ids = torch.gather(ids, -1, _top_k(ub, min(width, ids.shape[-1])))
     return ids.to(torch.int32)

@@ -9,8 +9,9 @@ returns the stable partial-softmax triple (num, den, m), which
 
 :func:`sparse_decode_gqa` runs kernel B2 through its Pallas-contract entry
 on a CUDA tensor (the reference computes it in jnp); the dense and MLA
-decodes stay torch ops, as the reference's are jnp.  Sequence-parallel
-decode (``combine_partials`` over mesh axes) belongs to ROADMAP A12b.
+decodes stay torch ops, as the reference's are jnp.  The triples compose
+across sequence shards: :func:`combine_partials` merges them over mesh
+axes, the sequence-parallel decode of every decode shape on a mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core.abstracts import Pyramid
 from repro_torch.core.adaptive import flat_select_gqa, pyramid_select_gqa
+from repro_torch.sharding import ctx as shard_ctx
 
 NEG_INF = float("-inf")
 
@@ -47,14 +49,34 @@ def _lens(length, device, ndim: int):
                                                           *[1] * (ndim - 1))
 
 
-def combine_partials(p: Partials, axes: Sequence[str]) -> torch.Tensor:
-    """Merge per-shard partial softmax over mesh ``axes``; with none, the
-    local normalization :func:`_finish`."""
-    if axes:
-        raise NotImplementedError(
-            "sequence-sharded decode (combine_partials over mesh axes) is "
-            "not ported yet (ROADMAP A12b)")
-    return _finish(p)
+def combine_partials(p: Partials, axes: Sequence[str], mesh=None
+                     ) -> torch.Tensor:
+    """Merge per-shard partial softmax over the ``axes`` of ``mesh`` (a
+    ``DeviceMesh``); with no axes, the local normalization :func:`_finish`.
+
+    ``m`` is max-reduced over each axis in turn; each shard weights its
+    ``num`` and ``den`` by ``exp(m - gm)`` (0 where its ``m`` is not
+    finite: a shard that holds no valid token) and both are sum-reduced.
+    Over one rank the weight is ``exp(0) = 1`` and the result is
+    :func:`_finish`'s bit for bit."""
+    if not axes:
+        return _finish(p)
+    if mesh is None:
+        raise ValueError(f"combine_partials over mesh axes {tuple(axes)} "
+                         f"needs the mesh, and none was given")
+    gm = shard_ctx.all_reduce(p.m, mesh, axes, "max")
+    gm_safe = torch.where(torch.isfinite(gm), gm, torch.zeros_like(gm))
+    w = torch.where(torch.isfinite(p.m), torch.exp(p.m - gm_safe),
+                    torch.zeros_like(p.m))
+    num = p.num * w[..., None]
+    den = p.den * w
+    both = shard_ctx.all_reduce(torch.cat([num.reshape(-1),
+                                           den.reshape(-1)]),
+                                mesh, axes, "sum")
+    num = both[:num.numel()].reshape(num.shape)
+    den = both[num.numel():].reshape(den.shape)
+    den = torch.where(den == 0.0, torch.ones_like(den), den)
+    return num / den[..., None]
 
 
 def _masked_softmax_partials(scores: torch.Tensor, v: torch.Tensor,
@@ -132,10 +154,12 @@ def sparse_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def dense_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      length, attn_softcap: Optional[float] = None,
-                     window: Optional[int] = None,
+                     window: Optional[int] = None, base_pos: int = 0,
                      query_pos=None) -> Partials:
-    """Full (or sliding-window) decode attention over a KV cache (q and K
-    in f32, probabilities rounded to v's dtype for P·V)."""
+    """Full (or sliding-window) decode attention over a local KV shard (q
+    and K in f32, probabilities rounded to v's dtype for P·V).  ``length``
+    counts the shard's valid rows; ``base_pos`` is the shard's first global
+    position, which the window compares with ``query_pos``."""
     B, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, hd)
@@ -148,7 +172,7 @@ def dense_decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None:
         qp = _lens(query_pos if query_pos is not None else length, q.device,
                    3)
-        valid = valid & (local_pos > (qp - window))
+        valid = valid & ((local_pos + base_pos) > (qp - window))
     return _masked_softmax_partials(scores, v.transpose(1, 2), valid)
 
 
@@ -181,22 +205,26 @@ def leoam_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        attn_softcap: Optional[float] = None,
                        sink_chunks: int = 1, recent_chunks: int = 2,
                        rf: int = 2, n_valid_chunks=None,
+                       chunk_offset: int = 0,
                        impl: Optional[str] = None) -> Partials:
-    """LeoAM decode over one cache: pyramid-select (a one-level pyramid:
-    score every base chunk), then attend.  ``n_valid_chunks``: the base
-    chunks that hold a token."""
+    """One shard's worth of LeoAM decode: pyramid-select (a one-level
+    pyramid: score every base chunk), then attend.  ``n_valid_chunks`` /
+    ``chunk_offset`` are global base-chunk coordinates (sink/recent
+    forcing is global under sequence sharding); ``length`` counts the
+    shard's valid rows."""
     n_valid = n_valid_chunks if n_valid_chunks is not None \
         else pyr.base_chunks
     if pyr.levels > 1:
         ids = pyramid_select_gqa(q, pyr, budget, rf=rf,
                                  sink_chunks=sink_chunks,
                                  recent_chunks=recent_chunks,
-                                 n_valid0=n_valid, impl=impl)
+                                 n_valid0=n_valid,
+                                 chunk_offset=chunk_offset, impl=impl)
     else:
         ids = flat_select_gqa(q, pyr.kmax[0], pyr.kmin[0], budget,
                               sink_chunks=sink_chunks,
                               recent_chunks=recent_chunks, n_valid0=n_valid,
-                              impl=impl)
+                              chunk_offset=chunk_offset, impl=impl)
     return sparse_decode_gqa(q, k, v, ids, chunk, length=length,
                              attn_softcap=attn_softcap, impl=impl)
 

@@ -17,9 +17,14 @@ pyramid IN PLACE, then attend: sparse (pyramid descent, then attention
 over the selected chunks) at a cache of ``min_seq_for_sparse`` or more,
 dense otherwise.  The GQA sparse path runs kernels B1 and B2 on a CUDA
 tensor; the MLA decode runs the reference's split bound and latent
-attention in torch ops (the reference computes both in jnp).  Only the
-local decode context is ported: a sequence-sharded ``DecodeCtx`` belongs
-to ROADMAP A12b.
+attention in torch ops (the reference computes both in jnp).
+
+Decode-path distribution: under a :class:`DecodeCtx` with ``seq_axes``
+each rank holds one block of the cache's rows (``lm.shard_cache``) and
+runs the reference's shard-local function on it: the row write on the
+owner shard only, chunk selection with the global sink/recent forcing,
+attention over the shard's rows; only the O(B·H) partial-softmax combine
+(``sparse_attention.combine_partials``) crosses shards.
 
 Encoder-decoder stacks use :func:`gqa_train` for the encoder's non-causal
 self-attention and the decoder's cross-attention over :func:`cross_kv`;
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -42,6 +47,7 @@ from repro_torch.core.adaptive import pyramid_select_mla
 from repro_torch.core.sparse_attention import NEG_INF
 from repro_torch.models.common import rms_norm, rotate, scale_like
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import partition as pt
 
 
 # ---------------------------------------------------------------------------
@@ -51,19 +57,35 @@ from repro_torch.models.params import ParamDef
 
 @dataclass(frozen=True)
 class DecodeCtx:
-    """How decode shards the cache: local (no ``seq_axes``) is the only
-    layout ported; mesh axes belong to ROADMAP A12b."""
+    """How decode shards the cache: the mesh (a ``DeviceMesh``), the axes
+    its cache rows shard over and the axes its batch rows shard over (no
+    mesh: local execution)."""
+    mesh: Any = None
     seq_axes: Tuple[str, ...] = ()
+    batch_axes: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.seq_axes and self.mesh is None:
+            raise ValueError(f"DecodeCtx(seq_axes={self.seq_axes!r}) needs "
+                             f"the mesh they name, and mesh is None")
+
+    @property
+    def n_seq_shards(self) -> int:
+        if self.mesh is None or not self.seq_axes:
+            return 1
+        return pt.mesh_extent(self.mesh, self.seq_axes)
+
+    def seq_index(self) -> int:
+        """This rank's shard of the cache rows: its linear coordinate over
+        ``seq_axes`` in that order, the first axis major."""
+        if not self.seq_axes:
+            return 0
+        from repro_torch.sharding.ctx import mesh_coords
+        return pt.shard_index(self.seq_axes, self.mesh,
+                              mesh_coords(self.mesh))
 
 
 LOCAL_CTX = DecodeCtx()
-
-
-def _local_only(ctx: DecodeCtx) -> None:
-    if ctx.seq_axes:
-        raise NotImplementedError(
-            "sequence-sharded decode (DecodeCtx with seq_axes) is not "
-            "ported yet (ROADMAP A12b)")
 
 
 def gqa_params(cfg) -> Dict[str, ParamDef]:
@@ -430,22 +452,38 @@ def mla_latent_cache(cfg, ckv: torch.Tensor, krope: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _layer_budget(cfg, layer_idx: int, n_chunks: int) -> int:
-    """Chunks a layer attends: the early rate for the first
-    ``early_layers`` indices, ``importance_rate`` otherwise (body layers
-    decode with index 10**6, so every body layer takes the standard rate),
-    plus the forced sink and recent chunks."""
+def _layer_budget(cfg, layer_idx: int, n_chunks: int,
+                  n_seq_shards: int = 1) -> int:
+    """Chunks a layer attends on a shard of ``n_chunks`` base chunks: the
+    early rate for the first ``early_layers`` indices, ``importance_rate``
+    otherwise (body layers decode with index 10**6, so every body layer
+    takes the standard rate), plus the forced sink and recent chunks.
+    With more than one sequence shard no shard hosts both the sink and the
+    tail, so only max(sink, recent) slots are reserved."""
     lcfg = cfg.leoam
     rate = lcfg.early_rate if layer_idx < lcfg.early_layers \
         else lcfg.importance_rate
-    want = (int(math.ceil(n_chunks * rate)) + lcfg.sink_chunks
-            + lcfg.recent_chunks)
+    if n_seq_shards > 1:
+        forced = max(lcfg.sink_chunks, lcfg.recent_chunks)
+    else:
+        forced = lcfg.sink_chunks + lcfg.recent_chunks
+    want = int(math.ceil(n_chunks * rate)) + forced
     return max(1, min(n_chunks, want))
 
 
 def _use_sparse(cfg, kind: str, S_total: int) -> bool:
     return (cfg.leoam.enabled and kind != "attn_local"
             and S_total >= cfg.leoam.min_seq_for_sparse)
+
+
+def _shard_place(ctx: DecodeCtx, S_l: int, length: int):
+    """(shard index, whether this shard owns position ``length``, the
+    row it takes there, the shard's valid rows after the write) for a
+    shard of ``S_l`` rows."""
+    idx = ctx.seq_index()
+    owner = length // S_l == idx
+    local_len = min(max(length + 1 - idx * S_l, 0), S_l)
+    return idx, owner, length % S_l, local_len
 
 
 def gqa_decode(p, cfg, kind: str, x: torch.Tensor,
@@ -456,7 +494,11 @@ def gqa_decode(p, cfg, kind: str, x: torch.Tensor,
     """One decode step.  x: (B, 1, d); length: the cache fill (an int), the
     position the new token takes.  Writes the token's K/V row (and, on
     the sparse path, folds its key into the pyramid) into ``cache`` IN
-    PLACE; returns (out (B, 1, d), cache).
+    PLACE; returns (out (B, 1, d), cache).  Under a ``ctx`` with
+    ``seq_axes`` ``cache`` is this rank's block of rows (the whole cache
+    has ``ctx.n_seq_shards`` times as many): the row is written on the
+    shard that owns position ``length`` only, and the shards' partial
+    softmax triples are combined over the mesh.
 
     With ``cross_kv_cache`` = (K, V) of the encoder (B, S_enc, Hkv, hd)
     it is the cross-attention: the un-rotated query attends densely over
@@ -469,7 +511,6 @@ def gqa_decode(p, cfg, kind: str, x: torch.Tensor,
         part = sa.dense_decode_gqa(q, ck, cv, length=ck.shape[1])
         out = sa._finish(part).to(x.dtype)
         return out.reshape(B, 1, H * hd) @ p["wo"], cache
-    _local_only(ctx)
     length = int(length)
     pos = torch.full((B, 1), length, dtype=torch.int32, device=x.device)
     if cfg.rope == "mrope":
@@ -479,29 +520,35 @@ def gqa_decode(p, cfg, kind: str, x: torch.Tensor,
     q = scale_like(q[:, 0], 1.0 / math.sqrt(hd))             # (B, H, hd)
     k_new, v_new = k_new[:, 0], v_new[:, 0]                  # (B, Hkv, hd)
 
-    S = cache["k"].shape[1]
+    S_l, n_sh = cache["k"].shape[1], ctx.n_seq_shards
     chunk = cfg.leoam.chunk_size
-    use_sparse = _use_sparse(cfg, kind, S)
-    cache["k"][:, length] = k_new.to(cache["k"].dtype)
-    cache["v"][:, length] = v_new.to(cache["v"].dtype)
-    n_valid = min(length + 1, S)
+    use_sparse = _use_sparse(cfg, kind, S_l * n_sh)
+    idx, owner, wpos, local_len = _shard_place(ctx, S_l, length)
+    if owner:
+        cache["k"][:, wpos] = k_new.to(cache["k"].dtype)
+        cache["v"][:, wpos] = v_new.to(cache["v"].dtype)
     if use_sparse:
-        pyr = update_pyramid(_pyr_from_cache(cache), k_new, length, chunk)
+        pyr = _pyr_from_cache(cache)
+        if owner:
+            # the reference folds -inf (max) / +inf (min) on the other
+            # shards: the identity
+            update_pyramid(pyr, k_new, wpos, chunk)
         part = sa.leoam_decode_shard(
             q, cache["k"], cache["v"], pyr, chunk=chunk,
-            budget=_layer_budget(cfg, layer_idx, S // chunk),
-            length=n_valid, attn_softcap=cfg.attn_softcap,
+            budget=_layer_budget(cfg, layer_idx, S_l // chunk, n_sh),
+            length=local_len, attn_softcap=cfg.attn_softcap,
             sink_chunks=cfg.leoam.sink_chunks,
             recent_chunks=cfg.leoam.recent_chunks,
             rf=cfg.leoam.refine_factor,
-            n_valid_chunks=(length + chunk) // chunk, impl=impl)
+            n_valid_chunks=(length + chunk) // chunk,
+            chunk_offset=idx * (S_l // chunk), impl=impl)
     else:
         part = sa.dense_decode_gqa(
-            q, cache["k"], cache["v"], length=n_valid,
+            q, cache["k"], cache["v"], length=local_len,
             attn_softcap=cfg.attn_softcap,
             window=cfg.window if kind == "attn_local" else None,
-            query_pos=length)
-    out = sa.combine_partials(part, ctx.seq_axes)
+            base_pos=idx * S_l, query_pos=length)
+    out = sa.combine_partials(part, ctx.seq_axes, ctx.mesh)
     out = out.to(x.dtype).reshape(B, 1, H * hd)
     return out @ p["wo"], cache
 
@@ -514,8 +561,8 @@ def mla_decode(p, cfg, kind: str, x: torch.Tensor,
     """Absorbed-MLA decode step: the query absorbs W_UK (latent space),
     the new latent row is written (and folded into both pyramids) IN
     PLACE, the latent attention runs sparse or dense, and W_UV and ``wo``
-    project out.  Returns (out (B, 1, d), cache)."""
-    _local_only(ctx)
+    project out.  Returns (out (B, 1, d), cache).  Sharded as
+    :func:`gqa_decode` under a ``ctx`` with ``seq_axes``."""
     m = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
@@ -528,29 +575,34 @@ def mla_decode(p, cfg, kind: str, x: torch.Tensor,
     ckv_new, krope_new = mla_latent(p, cfg, x, pos)
     ckv_new, krope_new = ckv_new[:, 0], krope_new[:, 0]
 
-    S = cache["ckv"].shape[1]
+    S_l, n_sh = cache["ckv"].shape[1], ctx.n_seq_shards
     chunk = cfg.leoam.chunk_size
-    use_sparse = cfg.leoam.enabled and S >= cfg.leoam.min_seq_for_sparse
-    cache["ckv"][:, length] = ckv_new.to(cache["ckv"].dtype)
-    cache["krope"][:, length] = krope_new.to(cache["krope"].dtype)
-    n_valid = min(length + 1, S)
+    use_sparse = (cfg.leoam.enabled
+                  and S_l * n_sh >= cfg.leoam.min_seq_for_sparse)
+    idx, owner, wpos, local_len = _shard_place(ctx, S_l, length)
+    if owner:
+        cache["ckv"][:, wpos] = ckv_new.to(cache["ckv"].dtype)
+        cache["krope"][:, wpos] = krope_new.to(cache["krope"].dtype)
     if use_sparse:
-        pc = update_pyramid(_pyr_from_cache(cache, "c"), ckv_new[:, None],
-                            length, chunk)
-        pr = update_pyramid(_pyr_from_cache(cache, "r"), krope_new[:, None],
-                            length, chunk)
+        pc = _pyr_from_cache(cache, "c")
+        pr = _pyr_from_cache(cache, "r")
+        if owner:                  # the other shards' fold is the identity
+            update_pyramid(pc, ckv_new[:, None], wpos, chunk)
+            update_pyramid(pr, krope_new[:, None], wpos, chunk)
         ids = pyramid_select_mla(
-            q_lat, q_rope, pc, pr, _layer_budget(cfg, layer_idx, S // chunk),
+            q_lat, q_rope, pc, pr,
+            _layer_budget(cfg, layer_idx, S_l // chunk, n_sh),
             rf=cfg.leoam.refine_factor, sink_chunks=cfg.leoam.sink_chunks,
             recent_chunks=cfg.leoam.recent_chunks,
-            n_valid0=(length + chunk) // chunk)
+            n_valid0=(length + chunk) // chunk,
+            chunk_offset=idx * (S_l // chunk))
         part = sa.sparse_decode_mla(q_lat, q_rope, cache["ckv"],
                                     cache["krope"], ids, chunk,
-                                    length=n_valid)
+                                    length=local_len)
     else:
         part = sa.dense_decode_mla(q_lat, q_rope, cache["ckv"],
-                                   cache["krope"], length=n_valid)
-    out_lat = sa.combine_partials(part, ctx.seq_axes)          # (B, H, r)
+                                   cache["krope"], length=local_len)
+    out_lat = sa.combine_partials(part, ctx.seq_axes, ctx.mesh)  # (B,H,r)
     out = torch.einsum("bhr,hrv->bhv", out_lat.float(),
                        p["wv_b"].float()).to(x.dtype)
     return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache

@@ -255,14 +255,16 @@ def _apply_mlp(blk, cfg, mlp_kind: str, x: torch.Tensor) -> torch.Tensor:
     return x + mlp_mod.dense_apply(blk["mlp"], cfg, h)
 
 
-def _apply_mlp_train(blk, cfg, mlp_kind: str, x: torch.Tensor, aux):
-    """The MLP with the training MoE dispatch (capacity drops); a MoE
-    block adds its aux losses into ``aux``."""
+def _apply_mlp_train(blk, cfg, mlp_kind: str, x: torch.Tensor, aux,
+                     shards=None):
+    """The MLP with the training MoE dispatch (capacity drops, over the
+    whole batch of ``shards``); a MoE block adds its aux losses into
+    ``aux``."""
     if mlp_kind == "none" or "mlp" not in blk:
         return x, aux
     h = rms_norm(x, blk["ln2"], cfg.norm_eps)
     if mlp_kind == "moe":
-        y, a = mlp_mod.moe_apply(blk["mlp"], cfg, h)
+        y, a = mlp_mod.moe_apply(blk["mlp"], cfg, h, shards=shards)
         aux = {k: aux.get(k, 0.0) + v for k, v in a.items()}
     else:
         y = mlp_mod.dense_apply(blk["mlp"], cfg, h)
@@ -271,7 +273,7 @@ def _apply_mlp_train(blk, cfg, mlp_kind: str, x: torch.Tensor, aux):
 
 def _block_train(blk, cfg, kind: str, mlp_kind: str, x: torch.Tensor, pos,
                  enc_out: Optional[torch.Tensor], aux: Dict[str, Any],
-                 causal: bool = True):
+                 causal: bool = True, shards=None):
     """One block over whole sequences: the core (attention or a
     recurrent layer), an encoder-decoder's cross-attention, the MLP.
     Returns (x, aux)."""
@@ -295,7 +297,7 @@ def _block_train(blk, cfg, kind: str, mlp_kind: str, x: torch.Tensor, pos,
         ckv = attn.cross_kv(blk["cross"], cfg, enc_out)
         x = x + attn.gqa_train(blk["cross"], cfg, "attn", hx, pos,
                                cross_kv=ckv)
-    return _apply_mlp_train(blk, cfg, mlp_kind, x, aux)
+    return _apply_mlp_train(blk, cfg, mlp_kind, x, aux, shards)
 
 
 def _remat(on: bool, fn, *args):
@@ -373,7 +375,7 @@ def _logits(params, cfg, x: torch.Tensor) -> torch.Tensor:
 _MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
-def forward_train(params, cfg, batch: Dict[str, Any]
+def forward_train(params, cfg, batch: Dict[str, Any], shards=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss of a batch and its metrics, as the reference's.
 
@@ -388,6 +390,12 @@ def forward_train(params, cfg, batch: Dict[str, Any]
     checkpoints (the reference's two-level remat).  Gradients reach the
     stacked body leaves through one ``unbind`` each.
 
+    ``shards`` (a ``sharding.ctx.BatchShards``): ``batch`` is this rank's
+    block of a batch cut over mesh axes; the MoE layers dispatch over the
+    whole batch and their aux losses are this block's terms of the whole
+    batch's (see ``mlp._moe_capacity``).  The cross-entropy stays the
+    block's own mean.
+
     Returns (loss, metrics): ``nll``, ``tokens``, ``accuracy``, the MoE
     aux losses where the model has MoE layers, and ``loss``."""
     prologue, period, repeats = _layer_plan(cfg)
@@ -401,13 +409,13 @@ def forward_train(params, cfg, batch: Dict[str, Any]
     aux: Dict[str, torch.Tensor] = {}
     for blk, (_idx, kind, mlpk) in zip(params["prologue"], prologue):
         x, aux = _remat(remat, _block_train, blk, cfg, kind, mlpk, x, pos,
-                        enc_out, aux)
+                        enc_out, aux, True, shards)
 
     if repeats:
         def repeat(blks, x, aux):
             for blk, (kind, mlpk) in zip(blks, period):
                 x, aux = _block_train(blk, cfg, kind, mlpk, x, pos,
-                                      enc_out, aux)
+                                      enc_out, aux, shards=shards)
             return x, aux
 
         def group(layers, x, aux):
@@ -474,8 +482,8 @@ _DECODE = {"mamba": ssm_mod.mamba_decode, "mlstm": xlstm_mod.mlstm_decode,
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, cfg, batch: Dict[str, Any], max_len: int
-            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def prefill(params, cfg, batch: Dict[str, Any], max_len: int,
+            ctx: DecodeCtx = LOCAL_CTX) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (last-position logits (B, V) f32, cache).
 
     ``batch``: ``{"tokens": (B, S)}`` or, for a decoder-only model fed by
@@ -491,7 +499,9 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
     prompt length in it, token-identical to exact-length prefill.  The
     cache is ``{"prologue": [per layer], "body": [per period position,
     stacked on the repeat axis]}`` with the leaves of :func:`cache_defs`
-    (the cross K/V at the encoder's own length)."""
+    (the cross K/V at the encoder's own length).  Under a ``ctx`` with
+    ``seq_axes`` the batch holds this rank's rows and the cache returned
+    is this rank's block of their cache rows (:func:`shard_cache`)."""
     prologue, period, repeats = _layer_plan(cfg)
     x, B, S = _embed_in(params, cfg, batch)
     pos = batch.get("positions")
@@ -558,7 +568,73 @@ def prefill(params, cfg, batch: Dict[str, Any], max_len: int
     else:
         x_last = x[:, -1:]
     logits_last = _logits(params, cfg, x_last)[:, 0]
-    return logits_last, {"prologue": caches_pro, "body": caches_body}
+    cache = {"prologue": caches_pro, "body": caches_body}
+    if ctx.seq_axes:
+        cache = shard_cache(cache, DecodeCtx(ctx.mesh, ctx.seq_axes))
+    return logits_last, cache
+
+
+# ---------------------------------------------------------------------------
+# A rank's block of a decode cache
+# ---------------------------------------------------------------------------
+
+
+def cache_block_specs(cache: Dict[str, Any], ctx: DecodeCtx
+                      ) -> Dict[str, Any]:
+    """The spec of each leaf of a decode cache under ``ctx``: batch rows
+    over ``ctx.batch_axes``; the rows of an attention layer's leaves (K/V
+    or the latent rows and their pyramid levels) over ``ctx.seq_axes``, in
+    the reference's order (``launch.steps.cache_specs``).  Cross K/V and
+    recurrent states keep every head: cross-attention and the recurrences
+    run on the rank's rows whole."""
+    from repro_torch.sharding import partition as pt
+
+    def one(layer, lead):
+        if layer is None:
+            return None
+        seq = "k" in layer or "ckv" in layer
+        out = {}
+        for name, leaf in layer.items():
+            sharded = seq and not name.startswith("cross_")
+            entries = lead + (pt.axes_entry(ctx.batch_axes),) + (
+                (pt.axes_entry(ctx.seq_axes),) if sharded else ())
+            out[name] = entries + (None,) * (leaf.dim() - len(entries))
+        return out
+    return {"prologue": [one(c, ()) for c in cache["prologue"]],
+            "body": [one(c, (None,)) for c in cache["body"]]}
+
+
+def _map_cache(fn, cache, specs):
+    return {part: [None if c is None else
+                   {k: fn(v, sp[k]) for k, v in c.items()}
+                   for c, sp in zip(cache[part], specs[part])]
+            for part in ("prologue", "body")}
+
+
+def shard_cache(cache: Dict[str, Any], ctx: DecodeCtx) -> Dict[str, Any]:
+    """This rank's block of a whole decode cache (every batch row, every
+    cache row): its batch rows by ``ctx.batch_axes`` and its cache rows by
+    ``ctx.seq_axes`` (:func:`cache_block_specs`), as contiguous copies.
+    A ``ctx`` without a mesh returns the cache as it is."""
+    if ctx.mesh is None:
+        return cache
+    from repro_torch.sharding import partition as pt
+    from repro_torch.sharding.ctx import mesh_coords
+    coords = mesh_coords(ctx.mesh)
+    return _map_cache(
+        lambda t, spec: pt.local_block(t, spec, ctx.mesh,
+                                       coords).contiguous(),
+        cache, cache_block_specs(cache, ctx))
+
+
+def unshard_cache(cache: Dict[str, Any], ctx: DecodeCtx) -> Dict[str, Any]:
+    """The inverse of :func:`shard_cache`: the whole cache on every rank,
+    gathered from every rank's block (an all-gather a leaf)."""
+    if ctx.mesh is None:
+        return cache
+    from repro_torch.sharding.ctx import gather_block
+    return _map_cache(lambda t, spec: gather_block(t, spec, ctx.mesh),
+                      cache, cache_block_specs(cache, ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -707,7 +783,10 @@ def decode_step(params, cfg, cache: Dict[str, Any], batch: Dict[str, Any],
     prologue layers decode with their own index (the early budget), the
     body layers with index 10**6 (the standard budget), as in the
     reference.  ``impl="ref"`` runs the plain versions of kernels B1 and
-    B2 on the card.  Returns (logits (B, V) f32, cache)."""
+    B2 on the card.  Under a ``ctx`` with ``seq_axes`` (a mesh) the batch
+    and ``cache`` are this rank's rows and block (:func:`shard_cache`);
+    each attention layer combines its shards' partial softmax over the
+    mesh.  Returns (logits (B, V) f32, cache)."""
     prologue, period, repeats = _layer_plan(cfg)
     if "token" in batch:
         x = params["embed"][torch.as_tensor(batch["token"]).long().to(

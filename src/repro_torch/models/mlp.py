@@ -110,7 +110,7 @@ def _shared(p, cfg, xf: torch.Tensor) -> torch.Tensor:
     return dense_apply(sp, cfg, xf)
 
 
-def _moe_capacity(p, cfg, x: torch.Tensor
+def _moe_capacity(p, cfg, x: torch.Tensor, shards=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training dispatch, as the reference's code (not its docstring):
     ONE stable argsort of all T·K (token, k) pairs by expert; a pair keeps
@@ -118,21 +118,34 @@ def _moe_capacity(p, cfg, x: torch.Tensor
     ``C = _capacity(T, moe)``, else it is dropped (into a sink row that is
     cut off).  The experts run as (E, C, d) batched products; the combine
     is the inverse permutation.  Gradients reach the router through top_p
-    and probs (the one-hot of top_e carries none, as in the reference)."""
+    and probs (the one-hot of top_e carries none, as in the reference).
+
+    With ``shards`` (a ``sharding.ctx.BatchShards``) ``x`` is this rank's
+    block of a batch cut over mesh axes, and the dispatch is the whole
+    batch's: C is the whole batch's, a pair's rank counts its expert's
+    pairs in the blocks before this one (they come first in the whole
+    batch's order), and each aux value is this block's term of the whole
+    batch's mean (``frac_tokens`` reduced over the blocks), so the blocks'
+    aux, and their gradients, sum to the whole batch's."""
     m = cfg.moe
     B, S, d = x.shape
     T, E, K = B * S, m.n_experts, m.top_k
     dev = x.device
     xf = x.reshape(T, d)
     logits, probs, top_p, top_e = _route(p, cfg, xf)
-    C = _capacity(T, m)
+    Tg = T if shards is None else T * shards.n
+    C = _capacity(Tg, m)
     e_flat = top_e.reshape(-1)                                # (T*K,)
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
     starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
                                 side="left")
     rank = torch.arange(T * K, device=dev) - starts[sorted_e]
-    keep = rank < C
+    if shards is None:
+        keep = rank < C
+    else:
+        before = shards.before(torch.bincount(e_flat, minlength=E))
+        keep = rank + before[sorted_e] < C
     slot = torch.where(keep, sorted_e * C + rank, E * C)      # sink: E*C
     # the tokens into (E*C + 1, d) slots, the last row the overflow sink
     xe = xf.new_zeros((E * C + 1, d)).index_put(
@@ -154,11 +167,20 @@ def _moe_capacity(p, cfg, x: torch.Tensor
     if m.n_shared:
         y = y + _shared(p, cfg, xf)
     onehot = torch.nn.functional.one_hot(top_e, E).float()    # (T, K, E)
-    frac_tokens = onehot.sum(dim=1).mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    aux = {"moe_lb_loss": E * (frac_tokens * frac_probs).sum(),
-           "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
-           "moe_drop_frac": 1.0 - keep.float().mean()}
+    if shards is None:
+        frac_tokens = onehot.sum(dim=1).mean(dim=0)
+        frac_probs = probs.mean(dim=0)
+        aux = {"moe_lb_loss": E * (frac_tokens * frac_probs).sum(),
+               "moe_z_loss": torch.logsumexp(logits,
+                                             dim=-1).square().mean(),
+               "moe_drop_frac": 1.0 - keep.float().mean()}
+    else:
+        frac_tokens = shards.sum(onehot.sum(dim=1).sum(dim=0)) / Tg
+        aux = {"moe_lb_loss": E * (frac_tokens * probs.sum(dim=0)
+                                   / Tg).sum(),
+               "moe_z_loss": torch.logsumexp(logits,
+                                             dim=-1).square().sum() / Tg,
+               "moe_drop_frac": (~keep).float().sum() / (Tg * K)}
     return y.reshape(B, S, d), aux
 
 
@@ -168,12 +190,14 @@ def moe_loss(aux: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
             + m.router_z_weight * aux["moe_z_loss"])
 
 
-def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False):
+def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False,
+              shards=None):
     """x: (B, S, d) -> the reference's ``moe_apply``.
 
     ``no_drop=False`` (training): the capacity dispatch
     (:func:`_moe_capacity`), returning ``(y, aux)`` with the reference's
-    aux dict (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``).
+    aux dict (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``); with
+    ``shards``, over the whole batch that ``x`` is this rank's block of.
 
     ``no_drop=True`` (inference) returns ``y`` alone (the aux losses are
     training metrics, left out).
@@ -188,7 +212,7 @@ def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False):
     buffer and its T·E rows of expert work.  One host read a call (the
     per-expert row counts)."""
     if not no_drop:
-        return _moe_capacity(p, cfg, x)
+        return _moe_capacity(p, cfg, x, shards)
     m = cfg.moe
     B, S, d = x.shape
     T, K = B * S, m.top_k

@@ -70,6 +70,12 @@ def tree_zip(fn: Callable, tree: Any, *others: Any) -> Any:
     return fn(tree, *others)
 
 
+def axes_tree(defs: Any) -> Any:
+    """The logical axes of every ``ParamDef`` (a tuple per leaf): the
+    input of ``sharding.partition.spec_tree``."""
+    return tree_map(lambda d: d.axes, defs, is_leaf=is_def)
+
+
 def leaves(tree: Any) -> list:
     """The tree's leaves in its order (None is an empty subtree)."""
     out: list = []

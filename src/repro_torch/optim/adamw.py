@@ -50,19 +50,22 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: Dict[str, Any],
-                  cfg: AdamWCfg, lr: torch.Tensor, grad_scale=1.0
+                  cfg: AdamWCfg, lr: torch.Tensor, grad_scale=1.0,
+                  norm=global_norm
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step.  ``lr`` is the scheduled learning rate (0-d).
 
     ``grad_scale`` (e.g. 1/num_microbatches) and the clip rescale fold
     into each leaf's update, so no f32 copy of the whole gradient tree is
-    made.  Returns (new params, new state, {"grad_norm", "param_norm"});
-    the inputs are not written."""
+    made.  ``norm`` gives a tree's global norm: on a mesh, where the trees
+    hold this rank's shards, the norm of the whole trees, the same on
+    every rank.  Returns (new params, new state, {"grad_norm",
+    "param_norm"}); the inputs are not written."""
     metrics: Dict[str, torch.Tensor] = {}
     dev = state["step"].device
     scale = torch.tensor(grad_scale, dtype=torch.float32, device=dev)
     if cfg.clip_norm is not None:
-        gnorm = global_norm(grads) * grad_scale
+        gnorm = norm(grads) * grad_scale
         scale = scale * torch.clamp(
             cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         metrics["grad_norm"] = gnorm
@@ -86,5 +89,5 @@ def apply_updates(params: Any, grads: Any, state: Dict[str, Any],
     out = tree_zip(upd, params, grads, state["m"], state["v"])
     params_new, m_new, v_new = (tree_zip(lambda t, i=i: t[i], out)
                                 for i in range(3))
-    metrics["param_norm"] = global_norm(params_new)
+    metrics["param_norm"] = norm(params_new)
     return params_new, {"m": m_new, "v": v_new, "step": step}, metrics

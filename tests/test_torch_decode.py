@@ -235,18 +235,15 @@ def test_decode_step_impl_ref_is_the_plain_path():
 
 
 def test_unported_decode_contexts_raise():
-    """A sequence-sharded decode context (A12) raises, naming its item.
-    The test kept its name from when cross-attention decode was refused
-    too (ROADMAP A11, ported now): ``gqa_decode`` over a cross K/V cache
+    """A sequence-sharded decode context without its mesh raises a
+    ``ValueError`` naming the mesh, in ``DecodeCtx`` and in
+    ``combine_partials`` (the sequence-sharded decode itself is ported,
+    ROADMAP A12b, and held in ``tests/test_torch_mesh.py``).  The test
+    kept its name from when both were refused, and cross-attention decode
+    too (ROADMAP A11, ported): ``gqa_decode`` over a cross K/V cache
     equals the reference's within 1e-5 and writes nothing."""
-    _, tcfg, _, tparams = _setup("longchat-7b-32k")
-    with torch.no_grad():
-        _, c = tlm.prefill(tparams, tcfg, {"tokens": torch.arange(
-            2, 34)[None]}, max_len=MAX_LEN)
-    ctx = tattn.DecodeCtx(seq_axes=("data",))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tlm.decode_step(tparams, tcfg, c, {"token": torch.tensor([3])}, 32,
-                        ctx)
+    with pytest.raises(ValueError, match="mesh"):
+        tattn.DecodeCtx(seq_axes=("data",))
     from repro.models import attention as jattn
     cfg, tcfg, params, tparams = _setup("longchat-7b-32k")
     rng = np.random.RandomState(5)
@@ -265,7 +262,7 @@ def test_unported_decode_contexts_raise():
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
                                atol=1e-5)
     assert out is empty and not empty
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="mesh"):
         tsa.combine_partials(tsa.Partials(*[torch.zeros(1)] * 3), ("data",))
 
 

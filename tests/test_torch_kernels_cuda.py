@@ -1401,6 +1401,46 @@ def test_sparse_decode_contract_at_the_model_dtype(cuda, rng, B, Hkv, G, hd,
         assert m_k.max().item() <= softcap
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("where", ["empty", "first_chunk"])
+def test_sparse_decode_contract_on_a_shard_edge(cuda, rng, dtype, where):
+    """A sequence shard's B2 call (``lm.decode_step`` under a mesh) at the
+    shard's edges: a local length of 0 (a shard that holds no token yet)
+    gives num 0, den 0 and m -inf as the plain version does, never a NaN;
+    a length inside the first selected chunk (the shard that the fill has
+    just reached) masks the rest of it and every later chunk.  The
+    selection lists chunks past the fill, as the pyramid descent picks
+    sentinel boxes there."""
+    B, Hkv, G, hd, S, chunk = 4, 32, 1, 128, 1024, 64
+    q = _t(rng.randn(B, Hkv, G, hd).astype(np.float32) / np.sqrt(hd),
+           cuda, dtype)
+    k = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, dtype)
+    v = _t(rng.randn(B, S, Hkv, hd).astype(np.float32), cuda, dtype)
+    ids = _t(np.broadcast_to(np.array([0, 2, 4, 6, 8, 1], np.int32),
+                             (B, Hkv, 6)).copy(), cuda)
+    length = 0 if where == "empty" else chunk // 2 + 3
+    ref = sd_ops.sparse_decode(q, k, v, ids, length, chunk=chunk,
+                               impl="ref")
+    before = sd_ops.launches
+    got = sd_ops.sparse_decode(q, k, v, ids, length, chunk=chunk)
+    assert sd_ops.launches == before + 1
+    for t in got:
+        assert not torch.isnan(t).any()
+    if where == "empty":
+        for t, r in zip(got, ref):
+            assert torch.equal(t, r)
+        assert bool((got[2] == float("-inf")).all())
+        assert not got[0].any() and not got[1].any()
+        return
+    num_k, den_k, m_k = got
+    num_r, den_r, m_r = ref
+    torch.testing.assert_close(m_k, m_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(den_k, den_r, rtol=1e-5, atol=1e-5)
+    err, bar = contract_agreement(num_k / den_k[..., None],
+                                  num_r / den_r[..., None], v, den_r, dtype)
+    assert err <= bar, (err, bar)
+
+
 def test_sparse_decode_contract_bar_sees_unrounded_p(cuda):
     """The contract entry's bar at bf16 sees a P.V that does not round
     each probability to bf16 (``tied_contract_case``: every probability
