@@ -237,10 +237,31 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    (in 4n's deterministic child, or a child of its own under ``--phases
    4p``): qwen3 at 3 of 28 layers, 2 steps of ``make_jitted_train_step``
    on a one-rank NCCL mesh bitwise equal to 2 of ``make_train_step``;
+   4q. (after 4p) the dry run (ROADMAP A12c, ``[dryrun]``): (a) in a
+   child process, rank 0's step of three cells traced on fake CUDA
+   tensors over a fake group of 256 on the production (16, 16) mesh
+   (``repro_torch.launch.dryrun.lower_cell``): longchat-7b-32k x
+   decode_32k (through B1's and B2's fake implementations),
+   qwen3-1.7b x train_4k and deepseek-v2-lite-16b x decode_32k (MLA, the
+   balanced MoE stand-in), each record and its roofline row printed; and
+   the same rank's decode cell on a (1, 1) mesh; (b) that cell measured
+   on the card — longchat at full width and depth, bf16 weights from seed
+   0, rank 0's block of decode_32k on (16, 16) (8 sequences in a
+   2048-row cache, chunk 64) on a one-rank NCCL mesh: the parameters
+   DTensors by ``param_specs``, ``make_jitted_prefill`` of 8 x 2040
+   tokens, then 8 ``make_jitted_decode`` steps at fills 2040-2047 on the
+   kernels.  Gates: the last step (fill 2047, the step the dry run
+   traces) counted by ``OpCounter`` on the card equals the (1, 1) record
+   in FLOPs, bytes and collective counts; B1 and B2 launched; step 0's
+   B1 and B2 calls each within its bar of its plain version
+   (``check_decode_kernels``); ``max_memory_allocated`` over the decode
+   steps within ``DRYRUN_PEAK_REL`` of the trace's peak.  Prints the
+   median step, the roofline bound and the fraction of it the step
+   reaches, and the card's busy share over one profiled step;
 6. a ``kernels`` JSON line (B1-B5 and the two latent variants, each with
    the launches of the paths that run it, B1's and B2's with 4l's, 4m's,
-   4o's profiled serve and every rank's of 4p, B3's with 4m's and 4o's
-   serves, and
+   4o's profiled serve, every rank's of 4p and 4q's, B3's with 4m's and
+   4o's serves, and
    the CUDA kernels one call launches, ``cuda_per_call``), then
    the result line
    ``{"ok": true, "device": {...}}``.
@@ -252,8 +273,8 @@ result line; copied into a checkout of another commit, it holds that
 commit's kernels against this one's on the same card.
 ``python3 chip_smoke.py --phases 4h,4i`` runs phases 1-2 and the named
 engine phases of phase 4 (4c-4o) only, with their gates and no result
-line (``--phases 4k``, ``4m``, ``4n`` or ``4p`` alone never builds
-longchat).
+line (``--phases 4k``, ``4m``, ``4n``, ``4p`` or ``4q`` alone never
+builds longchat in the parent).
 """
 
 from __future__ import annotations
@@ -276,10 +297,10 @@ sys.path.insert(0, str(ROOT / "src"))
 PROMPTS = (1536, 2048, 3072, 3584)
 NEW_TOKENS = 32
 MAX_LEN = 4096
-HBM_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_F32 = 67e12             # f32 outside the tensor cores
-PEAK_BF16 = 989e12           # dense bf16 / fp16 tensor cores
-PEAK_TF32 = 495e12           # dense TF32 tensor cores
+# the H100 SXM5 80GB's peaks (NVIDIA data sheet), one set for the port
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_S  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    PEAK_BF16, PEAK_F32, PEAK_TF32)
 TOL_BOUNDS_REL = 1e-5        # f32 sums in another order
 # B2's bf16 output is held by sparse_decode.ref.bf16_agreement: at most 5 %
 # of the elements differ, by at most two bf16 ulps of max|ref|.
@@ -321,9 +342,9 @@ PREEMPT_AFTER, PREEMPT_ROUNDS = 4, 4
 PREFIX_TOKENS, PREFIX_SUFFIXES, PREFIX_SEED = 3072, (100, 228, 356, 484), 19
 PREFIX_CHUNK_TOKENS, PREFIX_ARENA_ROWS = 512, 4
 ENGINE_PHASES = ("4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4o",
-                 "4l", "4k", "4m", "4n", "4p")             # --phases
+                 "4l", "4k", "4m", "4n", "4p", "4q")       # --phases
 # phases that build their own models (longchat leaves the card before them)
-OWN_MODEL_PHASES = ("4k", "4m", "4n", "4p")
+OWN_MODEL_PHASES = ("4k", "4m", "4n", "4p", "4q")
 # phase 4l: lm.decode_step on longchat at full width and depth, a batch of
 # prompts of one length (decode_step takes one length for the batch), in
 # a MAX_LEN cache (sparse: MAX_LEN >= min_seq_for_sparse, 3 pyramid
@@ -394,6 +415,20 @@ MESH_LAYERS, MESH_BATCH, MESH_PROMPT, MESH_SEED = 8, 4, 2560, 31
 MESH_STEPS, MESH_SHARD_STEPS, MESH_TRAIN_STEPS = 16, 8, 2
 MESH_TIMEOUT_S = 600
 MESH_TRAIN_ONLY_FLAG = "--mesh-train-only"
+# phase 4q: the dry run.  (a) these cells on the (16, 16) mesh, traced in
+# a child process; (b) longchat's decode_32k cell as rank 0 holds it on
+# (16, 16) — DRYRUN_BATCH rows of the batch, a cache block of DRYRUN_ROWS
+# rows — measured on a one-rank mesh: prompts of DRYRUN_PROMPT tokens,
+# then DRYRUN_STEPS steps at fills DRYRUN_PROMPT .. DRYRUN_ROWS - 1.  The
+# card's peak over the steps must lie within DRYRUN_PEAK_REL of the
+# trace's
+DRYRUN_CELLS = (("longchat-7b-32k", "decode_32k"), ("qwen3-1.7b", "train_4k"),
+                ("deepseek-v2-lite-16b", "decode_32k"))
+DRYRUN_ARCH, DRYRUN_SHAPE = "longchat-7b-32k", "decode_32k"
+DRYRUN_PROMPT, DRYRUN_STEPS, DRYRUN_SEED = 2040, 8, 37
+DRYRUN_PEAK_REL = 0.10
+DRYRUN_CHILD_FLAG = "--dryrun-child"
+DRYRUN_TIMEOUT_S = 600
 SLEEP_CYCLES = 4_000_000    # ~2 ms at the H100's boost clock
 # CUDA kernels one call of each latent variant launches
 LATENT_CUDA_PER_CALL = {"chunk_bounds_latent": 1, "sparse_decode_latent": 2}
@@ -453,8 +488,7 @@ def b1_row(torch, flush):
     qf = q.float().reshape(B, H, 1, hd)
     qp, qn = qf.clamp(min=0), qf.clamp(max=0)
     kmt, knt = km.transpose(1, 2), kn.transpose(1, 2)
-    nbytes = _nbytes(q, km, kn, ub_r, lb_r)
-    ops = 8 * B * H * nc * hd
+    ops, nbytes = cb.cost_chunk_bounds_gqa(q, km, kn)
     return dict(
         max_abs_err=err, tol=tol,
         ms=_time_ms(lambda: cb.chunk_bounds_gqa(q, km, kn), flush),
@@ -579,9 +613,8 @@ def b2_row(np, torch, rng, flush, lengths, max_len, chunk=64, rate=0.10):
     # every live row of K and V read once (the tail chunk only to length)
     live_rows = sum(min(chunk, int(L) - c * chunk) for L, s in
                     zip(lengths, sels) for c in s)
-    nbytes = (live_rows * 2 * H * hd * 2 + _nbytes(qd, k_new, v_new, o_r)
-              + _nbytes(slots_t, cids_t, len_t))
-    ops = 4 * H * hd * (live_rows + B)
+    ops, nbytes = sd.cost_sparse_decode_pooled(*args[:-1],
+                                               live_rows=live_rows)
     plan = (sd.split_plan(nmax, B, H) if hasattr(sd, "split_plan")
             else None)
     row = dict(
@@ -2753,7 +2786,8 @@ def run_phases(np, torch, names):
         "4k": lambda: phase_mla(np, torch),
         "4m": lambda: phase_a11(np, torch),
         "4n": lambda: phase_train(np, torch),
-        "4p": lambda: phase_mesh(np, torch)}
+        "4p": lambda: phase_mesh(np, torch),
+        "4q": lambda: phase_dryrun(np, torch)}
     try:
         for name in ENGINE_PHASES:
             if name in names:
@@ -2773,6 +2807,9 @@ def run_phases(np, torch, names):
 def main() -> int:
     if TRAIN_CHILD_FLAG in sys.argv[1:]:
         return train_resume_child(MESH_TRAIN_ONLY_FLAG in sys.argv[1:])
+    if DRYRUN_CHILD_FLAG in sys.argv[1:]:
+        return dryrun_child(int(sys.argv[sys.argv.index(
+            DRYRUN_CHILD_FLAG) + 1]))
     only = only_kernels(sys.argv[1:])
     phases = only_phases(sys.argv[1:])
     import torch
@@ -2884,6 +2921,7 @@ def main() -> int:
         a11 = timed("4m", phase_a11, np, torch)
         train = timed("4n", phase_train, np, torch)
         mesh = timed("4p", phase_mesh, np, torch)
+        dry = timed("4q", phase_dryrun, np, torch, 1)
     finally:
         shutil.rmtree(KV_ROOT, ignore_errors=True)
 
@@ -2925,9 +2963,10 @@ def main() -> int:
     for k in ("chunk_bounds", "sparse_decode", "kv_dequant"):
         launches[k] += a11["launches"].get(k, 0)
         launches[k] += profile["launches"]["b"].get(k, 0)
-    # B1 and B2 also from phase 4p's sharded decodes, every rank's count
+    # B1 and B2 also from phase 4p's sharded decodes, every rank's count,
+    # and from phase 4q's measured decode steps
     for k in ("chunk_bounds", "sparse_decode"):
-        launches[k] += mesh["launches"][k]
+        launches[k] += mesh["launches"][k] + dry["launches"][k]
     kernels = []
     for name, r in {**rows, **mla["rows"]}.items():
         kernels.append({
@@ -2962,7 +3001,8 @@ def main() -> int:
                       "kv_dequant_48": b3_48c,
                       "mla": {k: v for k, v in mla.items()
                               if k != "rows"},
-                      "a11": a11, "train": train, "mesh": mesh}))
+                      "a11": a11, "train": train, "mesh": mesh,
+                      "dryrun": dry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4700,6 +4740,228 @@ def phase_mesh(np, torch):
     print(f"[mesh] B1/B2 launches over the sharded decodes: "
           f"{json.dumps(out['launches'])}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4q: the dry run (ROADMAP A12c)
+# ---------------------------------------------------------------------------
+
+
+def _rank_shape():
+    """Rank 0's block of ``DRYRUN_SHAPE`` on the (16, 16) mesh, as a decode
+    shape of its own: its batch rows (over ``decode_batch_axes``) and its
+    cache rows (over ``seq_shard_axes``)."""
+    from repro_torch.configs import get_shape
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.mesh import PRODUCTION_SHAPES
+    from repro_torch.sharding import partition as pt
+    shape = get_shape(DRYRUN_SHAPE)
+    sizes, names = PRODUCTION_SHAPES[False]
+    mesh = pt.MeshShape(names, sizes)
+    B = shape.global_batch // pt.mesh_extent(
+        mesh, pt.decode_batch_axes(mesh, shape.global_batch))
+    S = shape.seq_len // pt.mesh_extent(
+        mesh, pt.seq_shard_axes(mesh, shape.global_batch))
+    return ShapeCfg(f"{DRYRUN_SHAPE}_rank0", S, B, "decode")
+
+
+def dryrun_child(n_cells: int) -> int:
+    """Phase 4q (a), in a process of its own (the fake process group is
+    process-global): the first ``n_cells`` of ``DRYRUN_CELLS`` on the
+    (16, 16) mesh over a fake group of 256, then :func:`_rank_shape`'s
+    cell on a (1, 1) mesh; one ``[dryrun-records]`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    mesh = dryrun.production_mesh(False, "cuda")
+    recs = [dryrun.lower_cell(arch, shape, mesh, device="cuda")
+            for arch, shape in DRYRUN_CELLS[:n_cells]]
+    one = dryrun.make_mesh((1, 1), ("data", "model"), "cuda")
+    recs.append(dryrun.lower_cell(DRYRUN_ARCH, _rank_shape(), one,
+                                  device="cuda",
+                                  cfg=get_config(DRYRUN_ARCH)))
+    print("[dryrun-records] " + json.dumps(recs), flush=True)
+    return 0
+
+
+def _dryrun_rank(rank, world, device):
+    """Phase 4q (b) on a one-rank NCCL mesh: longchat at full width and
+    depth, the parameters DTensors by ``param_specs``; the prefill, then
+    ``DRYRUN_STEPS`` decode steps on the kernels — step 0 with every B1
+    and B2 call held against its plain version, the middle steps timed,
+    one profiled, the last (fill ``seq_len - 1``) counted by an
+    ``OpCounter``.  Returns host numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as stp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.testing import check_decode_kernels
+    cfg = get_config(DRYRUN_ARCH)
+    shape = _rank_shape()
+    mesh = make_host_mesh(1, 1, device=device)
+    whole = lm.init(cfg, seed=0, device=device)
+    params = stp.distribute_tree(whole, stp.param_specs(cfg, mesh), mesh)
+    prefill = stp.make_jitted_prefill(cfg, mesh, ShapeCfg(
+        shape.name, shape.seq_len, shape.global_batch, "prefill"))
+    decode = stp.make_jitted_decode(cfg, mesh, shape)
+    rng = np.random.RandomState(DRYRUN_SEED)
+    prompts = rng.randint(2, cfg.vocab_size,
+                          (shape.global_batch, DRYRUN_PROMPT))
+    out = {"shape": [shape.global_batch, shape.seq_len],
+           "fills": [DRYRUN_PROMPT, DRYRUN_PROMPT + DRYRUN_STEPS - 1]}
+    steps_s, checks = [], {}
+    with torch.no_grad():
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, {"tokens": prompts})
+        tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize(device)
+        out["prefill_s"] = time.perf_counter() - t0
+        del lg
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(device)
+        _zero_launches()
+        for t in range(DRYRUN_STEPS):
+            fill = DRYRUN_PROMPT + t
+            args = (params, cache, {"token": tok}, fill)
+            if t == DRYRUN_STEPS - 1:
+                assert fill == shape.seq_len - 1, fill
+                counter = dryrun.trace_step(decode, args, n_devices=1)
+                break
+            if t == DRYRUN_STEPS - 2:
+                (lg, cache), kern = _profile_once(torch,
+                                                  lambda: decode(*args))
+                wall = kern[-1][2] / 1e3 if kern else 0.0
+                out["profile"] = {"cuda_kernels": len(kern),
+                                  "device_busy_ms": _busy_ms(kern),
+                                  "device_span_ms": wall}
+            else:
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                with (check_decode_kernels(checks) if t == 0
+                      else contextlib.nullcontext()):
+                    lg, cache = decode(*args)
+                torch.cuda.synchronize(device)
+                if t:
+                    steps_s.append(time.perf_counter() - t0)
+            tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize(device)
+        out["measured_peak_bytes"] = int(
+            torch.cuda.max_memory_allocated(device))
+    launches = _launch_counts()
+    out["launches"] = {k: launches[k] for k in ("chunk_bounds",
+                                                "sparse_decode")}
+    out["steps_s"] = steps_s
+    out["median_step_s"] = float(np.median(steps_s))
+    out["counted"] = counter.cost.to_json()
+    out["counted_memory"] = counter.memory()
+    out["counted_ops"] = counter.ops
+    out["kernel_checks"] = _summarize_checks(checks)
+    out["n_layers"] = cfg.n_layers
+    return out
+
+
+def phase_dryrun(np, torch, n_cells: int = len(DRYRUN_CELLS)):
+    """Phase 4q: (b) the measured rank, then (a) the dry-run child over
+    the first ``n_cells`` of ``DRYRUN_CELLS`` (after the rank: a trace
+    running beside it slowed its host-bound steps 2.7 times); their gates
+    (see the module docstring)."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import run_ranks
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()           # the rank's process needs ~23 GB
+    if n_cells < len(DRYRUN_CELLS):
+        kept = ", ".join(" x ".join(c) for c in DRYRUN_CELLS[:n_cells])
+        print(f"[depth] phase 4q (a): {n_cells} of {len(DRYRUN_CELLS)} "
+              f"dry-run cells ({kept}); the others trace for minutes "
+              f"(qwen3 x train_4k: 8 microbatches, about 360 000 ops) and "
+              f"run under --phases 4q")
+    rank = run_ranks(_dryrun_rank, 1, device="cuda", backend="nccl",
+                     timeout_s=MESH_TIMEOUT_S)[0]
+    rank_s = time.perf_counter() - t_phase
+    child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                              DRYRUN_CHILD_FLAG, str(n_cells)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        cout, cerr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t_phase - rank_s
+    for line in cout.splitlines():
+        if line.startswith("[dryrun] "):
+            print(line)
+    recs = [json.loads(line.split(" ", 1)[1]) for line in cout.splitlines()
+            if line.startswith("[dryrun-records] ")]
+    if child.returncode != 0 or not recs:
+        raise SystemExit(f"chip_smoke: [dryrun] child exited "
+                         f"{child.returncode}:\n{cout[-3000:]}\n"
+                         f"{cerr[-3000:]}")
+    recs = recs[-1]
+    for rec in recs:
+        print(f"[dryrun-record] {json.dumps(rec)}")
+    for rec in recs[:-1]:          # the (16, 16) cells of SHAPES
+        print(f"[roofline] {json.dumps(roofline.analyze_cell(rec))}")
+    ref = recs[-1]
+    oc, got = ref["op_cost"], rank["counted"]
+    bound_s = max(oc["flops"] / roofline.PEAK_FLOPS,
+                  oc["bytes"] / roofline.HBM_BW)
+    prof = rank.get("profile", {})
+    busy = (prof["device_busy_ms"] / prof["device_span_ms"]
+            if prof.get("device_span_ms") else None)
+    peak_trace = ref["memory"]["peak_bytes_per_device"]
+    peak_rel = rank["measured_peak_bytes"] / peak_trace - 1.0
+    row = {"cell": f"{ref['arch']} x {ref['shape']} x {ref['mesh']}",
+           "batch_rows": rank["shape"], "fills": rank["fills"],
+           "prefill_s": rank["prefill_s"],
+           "median_step_s": rank["median_step_s"],
+           "steps_s": rank["steps_s"],
+           "roofline_bound_s": bound_s,
+           "fraction_of_bound": bound_s / rank["median_step_s"],
+           "profiled_step": prof, "device_busy_share": busy,
+           "traced": {"flops": oc["flops"], "bytes": oc["bytes"],
+                      "collective_counts": oc["collective_counts"],
+                      "peak_bytes": peak_trace, "ops": ref["ops"]},
+           "counted": {"flops": got["flops"], "bytes": got["bytes"],
+                       "collective_counts": got["collective_counts"],
+                       "ops": rank["counted_ops"],
+                       "memory": rank["counted_memory"]},
+           "measured_peak_bytes": rank["measured_peak_bytes"],
+           "peak_rel_to_trace": peak_rel,
+           "launches": rank["launches"],
+           "kernel_checks": rank["kernel_checks"],
+           "rank_s": rank_s, "child_s": child_s,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"[dryrun-step] {json.dumps(row)}")
+    fails = []
+    if (got["flops"], got["bytes"], got["collective_counts"]) != \
+            (oc["flops"], oc["bytes"], oc["collective_counts"]):
+        fails.append(f"the card's count {row['counted']} is not the "
+                     f"trace's {row['traced']}")
+    n = (DRYRUN_STEPS) * rank["n_layers"]
+    if rank["launches"]["sparse_decode"] != n or \
+            rank["launches"]["chunk_bounds"] < n:
+        fails.append(f"launches {rank['launches']} (B2 {n} wanted, B1 at "
+                     f"least as many)")
+    kc = rank["kernel_checks"]
+    if set(kc) != {"chunk_bounds", "chunk_bounds_gqa", "sparse_decode"} \
+            or not all(c["all_ok"] for c in kc.values()):
+        fails.append(f"kernel calls against their plain versions: {kc}")
+    if not abs(peak_rel) <= DRYRUN_PEAK_REL:
+        fails.append(f"measured peak {rank['measured_peak_bytes']} B is "
+                     f"{peak_rel:+.3f} off the trace's {peak_trace} B")
+    if not all(r["op_cost"]["flops"] > 0 for r in recs) or [
+            r["n_devices"] for r in recs] != [256] * n_cells + [1]:
+        fails.append("a dry-run record is empty or on another mesh")
+    if fails:
+        raise SystemExit("chip_smoke: [dryrun] " + "; ".join(fails))
+    return {"records": recs, "step": row, "launches": rank["launches"]}
 
 
 def _mla_cfg():

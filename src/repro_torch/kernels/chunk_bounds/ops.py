@@ -9,7 +9,15 @@ launch a call.  :func:`chunk_bounds_latent` is B1's latent variant
 (``csrc/chunk_bounds_latent.cu``) for MLA: one logical kv head, many q
 heads, rows of 576.  A CUDA tensor launches the kernel; a CPU tensor takes
 the plain version in ``ref.py``.  ``launches`` and ``latent_launches``
-count kernel launches only."""
+count kernel launches only.
+
+The two GQA entries are ``torch.library`` custom ops
+(``torch.ops.repro_torch.chunk_bounds`` / ``chunk_bounds_gqa``): the CUDA
+implementation is the kernel, the CPU one the plain version, and a fake
+implementation gives the output shapes, so the decode path traces under
+``FakeTensorMode`` (``launch/dryrun.py``).  :func:`cost_chunk_bounds` and
+:func:`cost_chunk_bounds_gqa` give a call's (flops, bytes), which
+``launch/op_costing.py`` charges for the op."""
 
 from __future__ import annotations
 
@@ -74,9 +82,10 @@ def chunk_bounds(q: torch.Tensor, kmax: torch.Tensor, kmin: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hkv, G, hd) any float; kmax/kmin: (B, Hkv, nc, hd) f32 ->
     (ub, lb) (B, Hkv, nc) f32."""
-    if not build.use_kernel(impl, q):
+    if impl == "ref":
         return chunk_bounds_ref(q, kmax, kmin)
-    return _launch(q, kmax, kmin, h_dim=1, c_dim=2)
+    build.use_kernel(impl, q)        # refuses another impl or device
+    return torch.ops.repro_torch.chunk_bounds(q, kmax, kmin)
 
 
 def chunk_bounds_gqa(q: torch.Tensor, kmax: torch.Tensor, kmin: torch.Tensor,
@@ -84,12 +93,80 @@ def chunk_bounds_gqa(q: torch.Tensor, kmax: torch.Tensor, kmin: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, H, hd) any float (pre-scaled); kmax/kmin: (B, nc, Hkv, hd)
     f32 -> (ub, lb) (B, Hkv, nc) f32, group-summed over H // Hkv."""
-    if not build.use_kernel(impl, q):
+    if impl == "ref":
         return chunk_bounds_gqa_ref(q, kmax, kmin)
+    build.use_kernel(impl, q)        # refuses another impl or device
+    return torch.ops.repro_torch.chunk_bounds_gqa(q, kmax, kmin)
+
+
+# The entries as custom ops: CPU -> the plain version, CUDA -> the kernel,
+# fake tensors -> the output shapes.
+
+@torch.library.custom_op("repro_torch::chunk_bounds", mutates_args=(),
+                         device_types="cpu")
+def _chunk_bounds_op(q: torch.Tensor, kmax: torch.Tensor,
+                     kmin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return chunk_bounds_ref(q, kmax, kmin)
+
+
+@_chunk_bounds_op.register_kernel("cuda")
+def _chunk_bounds_cuda(q, kmax, kmin):
+    return _launch(q, kmax, kmin, h_dim=1, c_dim=2)
+
+
+@_chunk_bounds_op.register_fake
+def _chunk_bounds_fake(q, kmax, kmin):
+    B, Hkv = q.shape[:2]
+    ub = q.new_empty((B, Hkv, kmax.shape[2]), dtype=torch.float32)
+    return ub, torch.empty_like(ub)
+
+
+@torch.library.custom_op("repro_torch::chunk_bounds_gqa", mutates_args=(),
+                         device_types="cpu")
+def _chunk_bounds_gqa_op(q: torch.Tensor, kmax: torch.Tensor,
+                         kmin: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return chunk_bounds_gqa_ref(q, kmax, kmin)
+
+
+@_chunk_bounds_gqa_op.register_kernel("cuda")
+def _chunk_bounds_gqa_cuda(q, kmax, kmin):
     B, H, hd = q.shape
     Hkv = kmax.shape[2]
     return _launch(q.reshape(B, Hkv, H // Hkv, hd), kmax, kmin,
                    h_dim=2, c_dim=1)
+
+
+@_chunk_bounds_gqa_op.register_fake
+def _chunk_bounds_gqa_fake(q, kmax, kmin):
+    ub = q.new_empty((q.shape[0], kmax.shape[2], kmax.shape[1]),
+                     dtype=torch.float32)
+    return ub, torch.empty_like(ub)
+
+
+def _bounds_cost(q_rows: int, nc: int, hd: int, n_out: int,
+                 *inputs: torch.Tensor) -> Tuple[float, float]:
+    """8 operations per (query row, chunk, coordinate): the two box
+    products, their max and min, and the two sums; bytes: every input read
+    once, ub and lb (f32) written once."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    return float(8 * q_rows * nc * hd), float(nbytes + 2 * n_out * 4)
+
+
+def cost_chunk_bounds(q: torch.Tensor, kmax: torch.Tensor,
+                      kmin: torch.Tensor) -> Tuple[float, float]:
+    """(flops, bytes) of one :func:`chunk_bounds` call (shapes only)."""
+    B, Hkv, G, hd = q.shape
+    nc = kmax.shape[2]
+    return _bounds_cost(B * Hkv * G, nc, hd, B * Hkv * nc, q, kmax, kmin)
+
+
+def cost_chunk_bounds_gqa(q: torch.Tensor, kmax: torch.Tensor,
+                          kmin: torch.Tensor) -> Tuple[float, float]:
+    """(flops, bytes) of one :func:`chunk_bounds_gqa` call (shapes only)."""
+    B, H, hd = q.shape
+    nc, Hkv = kmax.shape[1], kmax.shape[2]
+    return _bounds_cost(B * H, nc, hd, B * Hkv * nc, q, kmax, kmin)
 
 
 def chunk_bounds_latent(q: torch.Tensor, kmax: torch.Tensor,

@@ -23,7 +23,15 @@ same rows) and return the normalized out_lat (B, H, r) f32.
 ``latent_launches`` counts its wrapper calls that launched it (two CUDA
 launches each: the scores, then P.V, whose row splits of a sequence are
 added inside one thread-block cluster); :func:`latent_split_plan` gives
-both launches' plan."""
+both launches' plan.
+
+The Pallas contract :func:`sparse_decode` is a ``torch.library`` custom op
+(``torch.ops.repro_torch.sparse_decode``): the CUDA implementation is the
+kernel, the CPU one the plain version, and a fake implementation gives the
+output shapes, so ``lm.decode_step`` traces under ``FakeTensorMode``
+(``launch/dryrun.py``).  :func:`cost_sparse_decode` gives its (flops,
+bytes) and :func:`cost_sparse_decode_pooled` the engine entry's, from the
+rows the selections hold (:func:`cost_rows`)."""
 
 from __future__ import annotations
 
@@ -235,14 +243,39 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   impl: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pallas contract: q (B, Hkv, G, hd) pre-scaled; k/v (B, S, Hkv, hd);
-    ids (B, Hkv, nsel); scalar length -> (num, den, m) f32 triple.  q in
-    the cache's dtype runs the kernel at that model dtype (probabilities
-    rounded to it for P·V, as ``lm.decode_step``'s sparse attention
-    rounds them); any other q runs in f32.  ``attn_softcap`` caps the
-    scores (gemma2)."""
-    if not build.use_kernel(impl, q):
+    ids (B, Hkv, nsel); scalar length (an int; a tensor is read on the
+    host) -> (num, den, m) f32 triple.  q in the cache's dtype runs the
+    kernel at that model dtype (probabilities rounded to it for P·V, as
+    ``lm.decode_step``'s sparse attention rounds them); any other q runs
+    in f32.  ``attn_softcap`` caps the scores (gemma2)."""
+    if impl == "ref":
         return sparse_decode_ref(q, k, v, ids, length, chunk=chunk,
                                  attn_softcap=attn_softcap)
+    build.use_kernel(impl, q)        # refuses another impl or device
+    return torch.ops.repro_torch.sparse_decode(
+        q, k, v, ids, int(length), chunk,
+        None if attn_softcap is None else float(attn_softcap))
+
+
+@torch.library.custom_op("repro_torch::sparse_decode", mutates_args=(),
+                         device_types="cpu")
+def _sparse_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      ids: torch.Tensor, length: int, chunk: int,
+                      attn_softcap: Optional[float]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return sparse_decode_ref(q, k, v, ids, length, chunk=chunk,
+                             attn_softcap=attn_softcap)
+
+
+@_sparse_decode_op.register_fake
+def _sparse_decode_fake(q, k, v, ids, length, chunk, attn_softcap):
+    num = q.new_empty(q.shape, dtype=torch.float32)
+    den = q.new_empty(q.shape[:3], dtype=torch.float32)
+    return num, den, torch.empty_like(den)
+
+
+@_sparse_decode_op.register_kernel("cuda")
+def _sparse_decode_cuda(q, k, v, ids, length, chunk, attn_softcap):
     B, Hkv, G, hd = q.shape
     S = k.shape[1]
     nsel = ids.shape[-1]
@@ -253,12 +286,9 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q = (q if q.dtype == k.dtype else q.float()).contiguous()
     k, v = k.contiguous(), v.contiguous()
     ids = ids.to(device=q.device, dtype=torch.int32).contiguous()
-    # a Python length is filled on the device: no host-to-device copy, so
-    # no wait for the stream at every call
-    lens = (length.to(device=q.device, dtype=torch.int32).reshape(1)
-            if isinstance(length, torch.Tensor) else
-            torch.full((1,), int(length), dtype=torch.int32,
-                       device=q.device))
+    # the length is filled on the device: no host-to-device copy, so no
+    # wait for the stream at every call
+    lens = torch.full((1,), length, dtype=torch.int32, device=q.device)
     num = torch.empty((B, Hkv, G, hd), dtype=torch.float32, device=q.device)
     den = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
     m = torch.empty_like(den)
@@ -268,6 +298,52 @@ def sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             float(attn_softcap) if attn_softcap is not None else 0.0, None,
             num, den, m, k.dtype, "sparse_decode")
     return num, den, m
+
+
+def cost_rows(kv_rows: int, new_rows: int, heads_per_kv: int, hd: int,
+              kv_itemsize: int, io_bytes: int) -> Tuple[float, float]:
+    """(flops, bytes) of B2 over ``kv_rows`` cache rows, summed over every
+    (sequence, kv head), and ``new_rows`` new-token rows: each row costs
+    its ``heads_per_kv`` q heads 2·hd for the score and 2·hd for P·V;
+    the cache rows' K and V are read once (the selected chunks' rows,
+    never the whole cache), beside ``io_bytes`` for q, the new rows, the
+    indices and the outputs."""
+    flops = 4 * heads_per_kv * hd * (kv_rows + new_rows)
+    return float(flops), float(2 * kv_rows * hd * kv_itemsize + io_bytes)
+
+
+def cost_sparse_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       ids: torch.Tensor, length: int, chunk: int,
+                       attn_softcap: Optional[float] = None
+                       ) -> Tuple[float, float]:
+    """(flops, bytes) of one :func:`sparse_decode` call from its shapes and
+    ``length``: each (sequence, kv head) attends its ``nsel`` chunks' rows
+    up to the fill, ``min(nsel * chunk, length)``; q is read in the
+    kernel's dtype, ids as int32, (num, den, m) written in f32."""
+    B, Hkv, G, hd = q.shape
+    nsel = ids.shape[-1]
+    rows = B * Hkv * min(nsel * chunk, max(int(length), 0))
+    q_item = k.element_size() if q.dtype == k.dtype else 4
+    io = q.numel() * q_item + ids.numel() * 4 + 4 + B * Hkv * G * (hd + 2) * 4
+    return cost_rows(rows, 0, G, hd, k.element_size(), io)
+
+
+def cost_sparse_decode_pooled(q: torch.Tensor, pool_kv: torch.Tensor,
+                              slots: torch.Tensor, chunk_ids: torch.Tensor,
+                              lengths: torch.Tensor, k_new: torch.Tensor,
+                              v_new: torch.Tensor, *, live_rows: int
+                              ) -> Tuple[float, float]:
+    """(flops, bytes) of one :func:`sparse_decode_pooled` call.  The data
+    decides its rows: ``live_rows`` is the selected chunks' rows below each
+    sequence's length, summed over the sequences (every kv head reads
+    them); each sequence's new token adds one row; q, the new K/V rows,
+    the output (q's shape and dtype) and the index arrays move once."""
+    B, H, hd = q.shape
+    Hkv = pool_kv.shape[3]
+    io = sum(t.numel() * t.element_size()
+             for t in (q, k_new, v_new, q, slots, chunk_ids, lengths))
+    return cost_rows(live_rows * Hkv, B * Hkv, H // Hkv, hd,
+                     pool_kv.element_size(), io)
 
 
 def _launch_latent(q, slab_ptr, slot_stride, slots, chunk_ids, lengths,

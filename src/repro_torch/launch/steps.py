@@ -3,15 +3,14 @@
 the spec trees (``param_specs``, ``param_shardings``, ``state_specs``,
 ``decode_rules``, ``cache_specs``, ``decode_ctx``, ``batch_specs_tree``)
 and the step builders ``make_jitted_train_step``, ``make_jitted_prefill``
-and ``make_jitted_decode``.
+and ``make_jitted_decode`` — and the dry run's stand-ins, ``input_specs`` and
+``abstract_state`` (meta tensors, no allocation).
 
 The names are the reference's, so a reader finds them; nothing is
 compiled (PyTorch runs eagerly).  On a mesh every rank runs the step
 itself, on its own batch rows and shards, in a process of its own
 (``launch.mesh.run_ranks``); the steps take the global inputs and cut the
-rank's rows from them.  The reference's dry-run stand-ins
-(``input_specs``, ``abstract_state``) wait for the dry-run analysers
-(ROADMAP A12c).
+rank's rows from them.
 """
 
 from __future__ import annotations
@@ -98,22 +97,46 @@ def batch_specs_tree(cfg, mesh, batch: Dict[str, Any],
     return out
 
 
-def _batch_shapes(cfg, shape) -> Dict[str, Tuple[int, ...]]:
-    """The shapes of a train or prefill batch's leaves at ``shape`` (the
-    shape half of the reference's ``input_specs``)."""
+def input_specs(cfg, shape) -> Dict[str, Any]:
+    """Stand-ins for one (arch, shape) cell's step inputs: meta tensors of
+    the reference's shapes and dtypes.  Train and prefill: ``{"batch"}``
+    (``tokens`` or ``embeds``, M-RoPE ``positions``, an encoder-decoder's
+    frame ``embeds``, ``targets`` for train).  Decode: ``{"cache",
+    "batch": {"token"}, "length"}``, where ``length`` is the int
+    ``seq_len - 1`` (the reference's is a 0-d int32): the port's
+    ``decode_step`` takes the fill as a Python int, and an eager step's
+    cost depends on it (``use_sparse``, each shard's valid rows, the
+    chunks it selects), so the stand-in is a full cache and the costliest
+    step."""
     B, S = shape.global_batch, shape.seq_len
-    out: Dict[str, Tuple[int, ...]] = {}
+    dt = torch_dtype(cfg.dtype)
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"cache": lm.abstract_cache(cfg, B, S),
+                "batch": {"token": meta((B,))}, "length": S - 1}
+    batch: Dict[str, Any] = {}
     if cfg.embed_inputs and not cfg.is_encdec:
-        out["embeds"] = (B, S, cfg.d_model)
+        batch["embeds"] = meta((B, S, cfg.d_model), dt)
         if cfg.rope == "mrope":
-            out["positions"] = (3, B, S)
+            batch["positions"] = meta((3, B, S))
     else:
-        out["tokens"] = (B, S)
+        batch["tokens"] = meta((B, S))
     if cfg.is_encdec:
-        out["embeds"] = (B, lm.encoder_len(cfg, S), cfg.d_model)
+        batch["embeds"] = meta((B, lm.encoder_len(cfg, S), cfg.d_model), dt)
     if shape.kind == "train":
-        out["targets"] = (B, S)
-    return {k: torch.empty(v, device="meta") for k, v in out.items()}
+        batch["targets"] = meta((B, S))
+    return {"batch": batch}
+
+
+def abstract_state(cfg, tcfg: TrainCfg) -> Dict[str, Any]:
+    """The train state ``{"params", "opt"}`` as meta tensors, the moments
+    in the config's ``adam_dtype``."""
+    adam = dataclasses.replace(tcfg.adam, state_dtype=cfg.runtime.adam_dtype)
+    params = lm.abstract_params(cfg)
+    return {"params": params, "opt": adamw.abstract_opt_state(params, adam)}
 
 
 def _rows(batch: Dict[str, Any], mesh, axes: Tuple[str, ...], device
@@ -337,7 +360,7 @@ def make_jitted_train_step(cfg, mesh, tcfg: TrainCfg, shape):
     tcfg = dataclasses.replace(tcfg, adam=adam)
     step = make_train_step(cfg, tcfg, mesh)
     ss = state_specs(cfg, mesh, tcfg)
-    bspec = batch_specs_tree(cfg, mesh, _batch_shapes(cfg, shape),
+    bspec = batch_specs_tree(cfg, mesh, input_specs(cfg, shape)["batch"],
                              pt.batch_axes(mesh))
     return step, ss, bspec
 

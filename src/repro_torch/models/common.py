@@ -79,9 +79,10 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float
     :func:`apply_rope`."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(mrope_sections(hd), device=x.device))
+    # each frequency's stream, built on the host (no data-dependent
+    # output shape, so the step also traces under FakeTensorMode)
+    sec_id = torch.tensor([i for i, n in enumerate(mrope_sections(hd))
+                           for _ in range(n)], device=x.device)
     pos = pos3.to(x.device)[sec_id]                          # (hd/2, B, S)
     angles = pos.movedim(0, -1).float() * freqs              # (B, S, hd/2)
     cos = torch.cos(angles)[..., None, :]

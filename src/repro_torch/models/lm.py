@@ -50,8 +50,8 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import LOCAL_CTX, DecodeCtx
 from repro_torch.models.common import (cross_entropy, positions_for,
                                        rms_norm, scale_like, softcap)
-from repro_torch.models.params import (ParamDef, init_tree, is_def,
-                                       torch_dtype, tree_map)
+from repro_torch.models.params import (ParamDef, abstract_tree, init_tree,
+                                       is_def, torch_dtype, tree_map)
 
 Params = Any
 
@@ -140,6 +140,11 @@ def init(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
     return init_tree(param_defs(cfg), gen, torch_dtype(cfg.dtype), dev)
 
 
+def abstract_params(cfg) -> Params:
+    """The parameter tree as meta tensors (no allocation)."""
+    return abstract_tree(param_defs(cfg), cfg.dtype)
+
+
 def body_block(params, pi: int, r: int) -> Dict[str, Any]:
     """Repeat ``r`` of body position ``pi``: views into the stacked leaves."""
     return tree_map(lambda a: a[r], params["body"][pi])
@@ -191,6 +196,11 @@ def cache_defs(cfg, batch: int, max_len: int) -> Dict[str, Any]:
             "body": [_stack_defs(_block_cache_defs(cfg, k, batch, max_len,
                                                    cross), repeats)
                      for (k, _m) in period] if repeats else []}
+
+
+def abstract_cache(cfg, batch: int, max_len: int) -> Dict[str, Any]:
+    """The decode cache of :func:`cache_defs` as meta tensors."""
+    return abstract_tree(cache_defs(cfg, batch, max_len), cfg.dtype)
 
 
 def init_decode_cache(cfg, batch: int, max_len: int,

@@ -144,7 +144,11 @@ def _moe_capacity(p, cfg, x: torch.Tensor, shards=None
     if shards is None:
         keep = rank < C
     else:
-        before = shards.before(torch.bincount(e_flat, minlength=E))
+        # each expert's pairs in this block (bincount's counts, from the
+        # sorted ids: an output of E entries whatever the data)
+        counts = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
+                                    side="right") - starts
+        before = shards.before(counts)
         keep = rank + before[sorted_e] < C
     slot = torch.where(keep, sorted_e * C + rank, E * C)      # sink: E*C
     # the tokens into (E*C + 1, d) slots, the last row the overflow sink
@@ -190,6 +194,20 @@ def moe_loss(aux: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
             + m.router_z_weight * aux["moe_z_loss"])
 
 
+def expert_counts(flat_e: torch.Tensor, n_experts: int) -> list:
+    """The rows routed to each expert, read on the host (``bincount``).
+    A fake tensor (the dry run's trace) holds no values: its counts are a
+    balanced router's, ``T·K // E`` rows an expert and the remainder one
+    each to the first experts.  The expert FLOPs are then exact for any
+    routing, since the rows always sum to T·K; only the per-expert split
+    (and so the launches' shapes) is a stand-in."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if isinstance(flat_e, FakeTensor):
+        base, rem = divmod(flat_e.numel(), n_experts)
+        return [base + (e < rem) for e in range(n_experts)]
+    return torch.bincount(flat_e, minlength=n_experts).tolist()
+
+
 def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False,
               shards=None):
     """x: (B, S, d) -> the reference's ``moe_apply``.
@@ -210,7 +228,7 @@ def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False,
     per expert with rows, scatter back, combine in f32 in k order, then add
     the shared experts.  At T = 4096 this skips the padded form's 1 GiB
     buffer and its T·E rows of expert work.  One host read a call (the
-    per-expert row counts)."""
+    per-expert row counts, :func:`expert_counts`)."""
     if not no_drop:
         return _moe_capacity(p, cfg, x, shards)
     m = cfg.moe
@@ -220,7 +238,7 @@ def moe_apply(p, cfg, x: torch.Tensor, *, no_drop: bool = False,
     top_p, top_e = moe_route(p, cfg, xf)
     flat_e = top_e.reshape(-1)                               # (T*K,)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=m.n_experts).tolist()
+    counts = expert_counts(flat_e, m.n_experts)
     xs = xf[order // K]                                      # rows by expert
     ys = torch.empty_like(xs)
     start = 0

@@ -70,6 +70,16 @@ def tree_zip(fn: Callable, tree: Any, *others: Any) -> Any:
     return fn(tree, *others)
 
 
+def abstract_tree(defs: Any, dtype) -> Any:
+    """Meta tensors of every ``ParamDef``'s shape and dtype (the
+    reference's ``ShapeDtypeStruct`` mirror): stand-ins for the dry run,
+    with no allocation."""
+    dt = torch_dtype(dtype)
+    return tree_map(lambda d: torch.empty(
+        d.shape, dtype=torch_dtype(d.dtype) if d.dtype else dt,
+        device="meta"), defs, is_leaf=is_def)
+
+
 def axes_tree(defs: Any) -> Any:
     """The logical axes of every ``ParamDef`` (a tuple per leaf): the
     input of ``sharding.partition.spec_tree``."""

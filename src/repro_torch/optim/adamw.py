@@ -37,6 +37,14 @@ def init_opt_state(params: Any, cfg: AdamWCfg) -> Dict[str, Any]:
                                 device=leaves(params)[0].device)}
 
 
+def abstract_opt_state(params: Any, cfg: AdamWCfg) -> Dict[str, Any]:
+    """:func:`init_opt_state`'s tree as meta tensors (no allocation)."""
+    dt = torch_dtype(cfg.state_dtype)
+    sd = lambda p: torch.empty(p.shape, dtype=dt, device="meta")
+    return {"m": tree_map(sd, params), "v": tree_map(sd, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(l.float().square().sum() for l in leaves(tree)))
 

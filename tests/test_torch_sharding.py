@@ -120,7 +120,8 @@ def test_batch_axes_and_batch_specs_match_reference(i):
         for kind in ("train", "prefill"):
             js = JShapeCfg("t", 64, 8, kind)
             jb = jsteps.input_specs(jcfg, js)["batch"]
-            tb = tsteps._batch_shapes(tcfg, ShapeCfg("t", 64, 8, kind))
+            tb = tsteps.input_specs(tcfg, ShapeCfg("t", 64, 8, kind))[
+                "batch"]
             assert {k: tuple(v.shape) for k, v in tb.items()} == \
                 {k: tuple(v.shape) for k, v in jb.items()}
             for axes in (jpt.batch_axes(jm), ()):
