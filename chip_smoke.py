@@ -131,7 +131,7 @@ Needs one CUDA card.  Phases, in order; any failure exits non-zero:
    fresh engines — the defaults, ``profile=True`` (each layer's attend
    call timed between two synchronizations of the stream) and
    ``prefill_buckets=(1536, 2048, 3584, 4096)``; every profiled round has
-   the five keys, its measured ``attend_s`` within the rest of the round
+   the keys of ``engine.ROUND_KEYS``, its measured ``attend_s`` within the rest of the round
    (+1 ms), the default engine ran the prefill shapes 2048 and 4096 and
    the scheduled one 1536 and 3584 (``prefill_programs`` 2 each), B1-B3
    launched in the profiled serve; prints the profiled split's mean and
@@ -1416,7 +1416,7 @@ def phase_profile(np, torch, cfg, params, tag="[profile]"):
     each, on three fresh engines: (a) the defaults, (b) ``profile=True``
     (each layer's attend call timed behind stream synchronizations), (c)
     ``prefill_buckets=PROFILE_BUCKETS``.  Gates: every round of (b) has
-    the five keys and its measured ``attend_s`` fits in the rest of the
+    the keys of ``engine.ROUND_KEYS`` and its measured ``attend_s`` fits in the rest of the
     round; (a) ran the two power-of-two prefill shapes and (c) the two
     scheduled ones (``prefill_programs`` 2 each); B1, B2 and B3 launched in
     (b).  Prints (b)'s split (evaluate, gather, upload, measured attend,
@@ -1478,8 +1478,9 @@ def phase_profile(np, torch, cfg, params, tag="[profile]"):
             out["rest_s"] = _stats(rest)
         return out
 
+    from repro_torch.serving.engine import ROUND_KEYS
     a, b, c = res["a"], res["b"], res["c"]
-    keys = {"eval_s", "gather_s", "upload_s", "attend_s", "total_s"}
+    keys = set(ROUND_KEYS)
     over = [r["attend_s"] - (r["total_s"] - r["eval_s"] - r["gather_s"]
                              - r["upload_s"]) for r in b["rounds"]]
     row = {"prompts": [len(p) for p in prompts],

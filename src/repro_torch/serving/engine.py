@@ -112,11 +112,51 @@ asks for the plain versions on the card too.
 ``EngineCfg(debug_sync=True)`` turns on the runtime sync sanitizer
 (``serving/sanitizer.py``) through the store, as the reference does.
 
-With ``EngineCfg(profile=True)`` each attention layer's attend call is
-timed between two synchronizations of the engine's CUDA stream, and
-``round_profiles``' ``attend_s`` is their sum; without it ``attend_s`` is
-the rest of the round (attention, MLPs, appends, launches), an upper
-bound.  The θ balance reads ``attend_s`` either way.
+Each decode round appends one dict to ``round_profiles`` (keys
+``ROUND_KEYS``), host wall seconds summed over the round's layers and
+always taken:
+
+* ``total_s``: the round, from its first layer to the next tokens (the
+  argmax included);
+* the parts that do not overlap (``ROUND_PARTS``; ``total_s`` less their
+  sum is the round's self time: the selection bookkeeping, the prefetch
+  submission and the fetch outside its two stages):
+  ``dense_s`` (``rms_norm``, the QKV or MLA query with qk-norm and RoPE,
+  the attend launch through the output projection, the MLP; recurrent
+  layers whole), ``logits_s`` (final norm and head, the logits' copy to
+  the host, the argmax), ``eval_s`` (evaluate), ``gather_s`` and
+  ``upload_s`` (the tier fetch's disk stage and upload),
+  ``append_copy_s`` (the new K/V rows' copies to the host, which wait
+  for the layer's queued work) and ``append_store_s``
+  (``append_tokens_batch``);
+* evaluate's split, whose parts share their end points and add up to
+  ``eval_s``: ``eval_wait_s`` (the prefetch worker's future, where there
+  is one), ``eval_read_s`` (the call itself and the abstracts, read here
+  on a speculation miss), ``eval_bounds_s`` (their upload, the bounds
+  product and its copy back) and ``eval_select_s`` (the per-sequence
+  selection, to the call's return);
+* counters: ``spec_misses`` (layers whose abstracts missed the prefetch
+  cache) and ``lock_wait_s`` (seconds the decode thread was blocked on
+  the store lock, inside any part);
+* ``attend_s``: with ``EngineCfg(profile=True)`` each attention layer's
+  attend call timed between two synchronizations of the engine's CUDA
+  stream, summed; without it the rest of the round (``total_s`` less
+  ``eval_s``, ``gather_s`` and ``upload_s``), an upper bound.  The θ
+  balance reads ``attend_s`` either way.
+
+Each part and stage also opens a ``leoam.*`` profiler range while a
+``torch.profiler`` session runs (``serving/spans.py``).
+
+``BatchedLeoAMEngine.on_round`` (default None), set before the first
+admission, is called at the end of every decode round with a
+:class:`RoundRecord`: the round's ``order`` and ``lengths`` (the position
+each sequence decoded), its ``selections`` by sequence and attention
+layer, ``int4`` (for each selected chunk the pool holds as int4 transit
+payload, the rows it holds: set when a codec upload writes the slot,
+cleared when the slot is allocated again or written plain; rows appended
+later land exact) and its ``round_profiles`` entry.  A round re-run after
+a chunk loss reports once, its last run.  Unset, a round reads the one
+attribute and the pools keep no int4 record.
 
 ``EngineCfg`` has every field of the reference's but ``jit_prefill``:
 eager PyTorch compiles no prefill program, so there is nothing to turn
@@ -155,6 +195,7 @@ from repro_torch.models.params import torch_dtype
 from repro_torch.serving.faults import AdmissionError, ChunkLostError
 from repro_torch.serving.offload import DEVICE, DISK, HOST, TieredKVStore
 from repro_torch.serving.sanitizer import decode_thread_only, worker_thread
+from repro_torch.serving.spans import Laps, span
 
 
 @dataclass
@@ -277,8 +318,37 @@ def _admit_executor() -> ThreadPoolExecutor:
 class StepStats:
     evaluations: int = 0
     fetched_chunks: int = 0
-    fetched_bytes: float = 0.0
     abstract_bytes: float = 0.0
+
+
+# the keys of each ``round_profiles`` entry (module docstring); summed over
+# the round's layers, ``spec_misses`` a count, the rest seconds
+ROUND_KEYS = ("eval_s", "gather_s", "upload_s", "attend_s", "total_s",
+              "dense_s", "logits_s", "append_copy_s", "append_store_s",
+              "eval_wait_s", "eval_read_s", "eval_bounds_s", "eval_select_s",
+              "spec_misses", "lock_wait_s")
+# the parts of a round that do not overlap: total_s less their sum is the
+# round's self time
+ROUND_PARTS = ("dense_s", "logits_s", "eval_s", "gather_s", "upload_s",
+               "append_copy_s", "append_store_s")
+
+
+@dataclass
+class RoundRecord:
+    """What one decode round did, handed to
+    :attr:`BatchedLeoAMEngine.on_round` at the round's end."""
+    order: List[int]                   # seq ids in the round's row order
+    lengths: Dict[int, int]            # seq id -> its length as the round
+                                       # began: the position it decoded
+    selections: Dict[int, Dict[int, List[int]]]
+                                       # seq id -> attention layer index ->
+                                       # the chunk ids it attended
+    int4: Dict[int, Dict[int, Dict[int, int]]]
+                                       # seq id -> layer -> {chunk: rows}
+                                       # of the selected chunks the pool
+                                       # holds as int4 transit payload
+                                       # (layers with none left out)
+    profile: Dict[str, float]          # the round's round_profiles entry
 
 
 @dataclass
@@ -422,6 +492,9 @@ class BatchedLeoAMEngine:
         self._prev_sels: Dict[Tuple[int, int], List[int]] = {}
         self._lcost: Dict[int, Dict[str, float]] = {}
         self.round_profiles: List[Dict[str, float]] = []
+        # the running round's clock, which evaluate adds its parts to
+        self._laps = Laps(dict.fromkeys(ROUND_KEYS, 0.0))
+        self._on_round = None
         self.admit_profiles: List[Dict[str, float]] = []
         # the distinct prefill shapes run so far: padded whole-prompt
         # lengths and chunk-step sizes (the reference's compiled programs)
@@ -438,6 +511,20 @@ class BatchedLeoAMEngine:
         self.last_logits: Optional[np.ndarray] = None
         # the admission worker's CUDA stream (made at its first use)
         self._admit_stream: Optional[torch.cuda.Stream] = None
+
+    @property
+    def on_round(self):
+        """Called with a :class:`RoundRecord` at the end of every decode
+        round, or None (the default).  Set it before the first admission:
+        the pools keep their int4 record only while it is set."""
+        return self._on_round
+
+    @on_round.setter
+    def on_round(self, fn) -> None:
+        self._on_round = fn
+        for pool in self.store.pools:
+            if pool is not None:
+                pool.int4 = None if fn is None else {}
 
     @property
     def free_slots(self) -> int:
@@ -459,7 +546,8 @@ class BatchedLeoAMEngine:
         sid = self._free.pop()
         self.failed.pop(sid, None)
         try:
-            out = self._admit(sid, tokens, pool_place=True)
+            with span("leoam.admit"):
+                out = self._admit(sid, tokens, pool_place=True)
         except BaseException:
             self.abort_admission(sid)
             raise
@@ -503,7 +591,7 @@ class BatchedLeoAMEngine:
         stream = torch.cuda.stream(self._admit_stream) \
             if self._admit_stream is not None else contextlib.nullcontext()
         try:
-            with stream:
+            with stream, span("leoam.admit"):
                 return self._admit(sid, tokens, pool_place=False)
         except BaseException as e:
             raise AdmissionError(sid, e) from e
@@ -550,9 +638,10 @@ class BatchedLeoAMEngine:
             t1 = time.perf_counter()
             for li, layer in enumerate(self.attn_layers):
                 k, v = kvs[li]
-                self.store.ingest(li, k[0], v[0],
-                                  self._layer_placement(layer, placement),
-                                  seq=sid, pool_place=pool_place)
+                with span("leoam.ingest"):
+                    self.store.ingest(li, k[0], v[0],
+                                      self._layer_placement(layer, placement),
+                                      seq=sid, pool_place=pool_place)
             del kvs
             ingest_s = time.perf_counter() - t1
         else:
@@ -561,10 +650,11 @@ class BatchedLeoAMEngine:
             for li, layer in enumerate(self.attn_layers):
                 k, v = self._layer_kv(cache, layer)
                 t1 = time.perf_counter()
-                self.store.ingest(li, k[0], v[0],
-                                  self._layer_placement(layer, placement),
-                                  seq=sid, executor=self._ingest_exec,
-                                  pool_place=pool_place)
+                with span("leoam.ingest"):
+                    self.store.ingest(li, k[0], v[0],
+                                      self._layer_placement(layer, placement),
+                                      seq=sid, executor=self._ingest_exec,
+                                      pool_place=pool_place)
                 ingest_s += time.perf_counter() - t1
             prefill_s = time.perf_counter() - t0 - ingest_s
         state = self._recurrent_state(cache)
@@ -626,7 +716,7 @@ class BatchedLeoAMEngine:
             batch = {"tokens": torch.from_numpy(
                 np.asarray(tokens, np.int64)[None]).to(self.device)}
         self._prefill_shapes.add(batch["tokens"].shape[1])
-        with torch.no_grad():
+        with torch.no_grad(), span("leoam.prefill"):
             return lm.prefill(self.params, self.cfg, batch,
                               max_len=self.ecfg.max_len)
 
@@ -634,7 +724,7 @@ class BatchedLeoAMEngine:
         """One chunked-prefill step over ``cache`` (updated in place);
         each chunk size is one prefill shape."""
         self._chunk_prefill_shapes.add(batch["tokens"].shape[1])
-        with torch.no_grad():
+        with torch.no_grad(), span("leoam.prefill"):
             return lm.prefill_chunk(self.params, self.cfg, batch, cache,
                                     max_len=self.ecfg.max_len)
 
@@ -694,27 +784,31 @@ class BatchedLeoAMEngine:
     def _layer_kv(self, cache, layer: int) -> Tuple[np.ndarray, np.ndarray]:
         """(k, v) (B, S, Hkv, hd) of one layer, on the host.  An MLA layer
         yields its latent rows (B, S, 1, r + rope) in both positions (the
-        store keeps one latent plane)."""
+        store keeps one latent plane).  The copies wait for the prefill's
+        kernels: the span is the prefill's."""
         c = self._layer_cache(cache, layer)
-        if self.mla:
-            lat = _to_host(torch.cat([c["ckv"], c["krope"]], dim=-1))
-            lat = lat[:, :, None, :]
-            return lat, lat
-        return _to_host(c["k"]), _to_host(c["v"])
+        with span("leoam.prefill"):
+            if self.mla:
+                lat = _to_host(torch.cat([c["ckv"], c["krope"]], dim=-1))
+                lat = lat[:, :, None, :]
+                return lat, lat
+            return _to_host(c["k"]), _to_host(c["v"])
 
     def _layer_kv_slice(self, cache, layer: int, start: int, n: int
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Rows [start, start + n) of one layer's (k, v), batch row 0, on
         the host: a chunked admission's stream-out (latent rows in both
-        positions for MLA)."""
+        positions for MLA), under the prefill's span as in
+        :meth:`_layer_kv`."""
         c = self._layer_cache(cache, layer)
-        if self.mla:
-            lat = _to_host(torch.cat([c["ckv"][0, start:start + n],
-                                      c["krope"][0, start:start + n]],
-                                     dim=-1))[:, None, :]
-            return lat, lat
-        return (_to_host(c["k"][0, start:start + n]),
-                _to_host(c["v"][0, start:start + n]))
+        with span("leoam.prefill"):
+            if self.mla:
+                lat = _to_host(torch.cat([c["ckv"][0, start:start + n],
+                                          c["krope"][0, start:start + n]],
+                                         dim=-1))[:, None, :]
+                return lat, lat
+            return (_to_host(c["k"][0, start:start + n]),
+                    _to_host(c["v"][0, start:start + n]))
 
     def _layer_placement(self, layer: int,
                          placement: Dict[int, str]) -> Dict[int, str]:
@@ -907,9 +1001,10 @@ class BatchedLeoAMEngine:
 
         @worker_thread
         def work():
-            res = self._read_abstracts(li, chunks_by_seq)
-            self._abs_cache[li] = (key, res)
-            self.store.stage_host(li, pred)
+            with span("leoam.prefetch"):
+                res = self._read_abstracts(li, chunks_by_seq)
+                self._abs_cache[li] = (key, res)
+                self.store.stage_host(li, pred)
 
         self._pf_futs[li] = self._executor.submit(work)
 
@@ -933,67 +1028,88 @@ class BatchedLeoAMEngine:
         per-sequence chunk-level adaptive selection on the host.  q: (B,
         H, d) PRE-SCALED queries, rows matching ``order`` — GQA passes
         q/sqrt(hd) against the per-head key boxes, MLA concat(q_lat,
-        q_rope)·scale against the latent boxes (one kv head)."""
+        q_rope)·scale against the latent boxes (one kv head).
+
+        Its parts add to the running round's clock from the caller's last
+        lap: ``eval_wait_s`` (the prefetch worker's future, where there
+        is one), ``eval_read_s`` (the call itself and the abstracts; a
+        read of its own on a speculation miss, counted in
+        ``spec_misses``), ``eval_bounds_s`` (their upload, the bounds
+        product and its copy back); the caller laps ``eval_select_s``
+        (the per-sequence selection) on its return."""
         cfg = self.cfg
         chunk = self.chunk
-        n_valid = {sid: (int(L) + chunk - 1) // chunk
-                   for sid, L in zip(order, lengths)}
-        chunks_by_seq = {sid: list(range(n_valid[sid])) for sid in order}
-        use_pq = self.ecfg.pq_abstracts
+        laps = self._laps
         fut = self._pf_futs.pop(li, None)
         if fut is not None:
-            fut.result()
-        cached = self._abs_cache.pop(li, None)
-        key = tuple((sid, n_valid[sid]) for sid in order)
-        if cached is not None and cached[0] == key:
-            res = cached[1]
-        else:   # speculation miss: sync read (the worker's read stays billed)
-            res = self._read_abstracts(li, chunks_by_seq)
-        if use_pq:
-            km, kn, pq_codes, pq_valid, pq_cb, abs_billed = res
-        else:
-            km, kn, abs_billed = res
-        bounds = chunk_bounds_latent if self.mla else chunk_bounds_gqa_matmul
-        ub, _ = bounds(q, torch.from_numpy(km).to(q.device),
-                       torch.from_numpy(kn).to(q.device), impl=self.impl)
-        ub = ub.cpu().numpy()                                # (B, Hkv, ncmax)
-        adc = None
-        if use_pq and pq_valid.any():
-            # asymmetric-distance scores off the PQ codes: q summed per kv
-            # group against decoded centroids, max over a chunk's live
-            # tokens.  Only code-valid chunks use them; the rest keep the
-            # min/max upper bound BITWISE (np.where selects whole values)
-            adc = adc_chunk_scores(group_sum(q, km.shape[2]), pq_cb,
-                                   pq_codes, lengths).cpu().numpy()
+            laps.lap("eval_read_s")
+            with span("leoam.eval_wait"):
+                fut.result()
+            laps.lap("eval_wait_s")
+        with span("leoam.eval_read"):
+            n_valid = {sid: (int(L) + chunk - 1) // chunk
+                       for sid, L in zip(order, lengths)}
+            chunks_by_seq = {sid: list(range(n_valid[sid])) for sid in order}
+            use_pq = self.ecfg.pq_abstracts
+            cached = self._abs_cache.pop(li, None)
+            key = tuple((sid, n_valid[sid]) for sid in order)
+            if cached is not None and cached[0] == key:
+                res = cached[1]
+            else:   # speculation miss: sync read (the worker's stays billed)
+                res = self._read_abstracts(li, chunks_by_seq)
+                laps.prof["spec_misses"] += 1
+        laps.lap("eval_read_s")
+        with span("leoam.eval_bounds"):
+            if use_pq:
+                km, kn, pq_codes, pq_valid, pq_cb, abs_billed = res
+            else:
+                km, kn, abs_billed = res
+            bounds = chunk_bounds_latent if self.mla \
+                else chunk_bounds_gqa_matmul
+            ub, _ = bounds(q, torch.from_numpy(km).to(q.device),
+                           torch.from_numpy(kn).to(q.device), impl=self.impl)
+            ub = ub.cpu().numpy()                            # (B, Hkv, ncmax)
+            adc = None
+            if use_pq and pq_valid.any():
+                # asymmetric-distance scores off the PQ codes: q summed per
+                # kv group against decoded centroids, max over a chunk's
+                # live tokens.  Only code-valid chunks use them; the rest
+                # keep the min/max upper bound BITWISE (np.where selects
+                # whole values)
+                adc = adc_chunk_scores(group_sum(q, km.shape[2]), pq_cb,
+                                       pq_codes, lengths).cpu().numpy()
+        laps.lap("eval_bounds_s")
 
         rate = (cfg.leoam.early_rate if layer < cfg.leoam.early_layers
                 else cfg.leoam.importance_rate)
         sels: Dict[int, List[int]] = {}
         stats: Dict[int, StepStats] = {}
-        for i, sid in enumerate(order):
-            st = StepStats(abstract_bytes=abs_billed[sid])
-            nv = n_valid[sid]
-            length = int(lengths[i])
-            scores = ub[i].max(0)[:nv]                       # (nv,)
-            if adc is not None:
-                scores = np.where(pq_valid[i, :nv], adc[i].max(0)[:nv],
-                                  scores)
-            budget_tokens = max(chunk, int(math.ceil(length * rate)))
-            chunk_scores = scores / chunk
-            if self.ecfg.selection == "tree":
-                sel, st.evaluations = tree_select_chunks(
-                    chunk_scores, length, budget_tokens, chunk)
-            else:
-                sel, st.evaluations = flat_select_chunks(
-                    chunk_scores, length, budget_tokens, chunk)
-            # sink + recent + hot chunks always included
-            forced = set(range(cfg.leoam.sink_chunks))
-            forced.update(range(max(0, nv - cfg.leoam.recent_chunks), nv))
-            forced.update(
-                int(c) for c in self.seqs[sid].access.hot_tokens(
-                    self.ecfg.hot_frac) if c < nv)
-            sels[sid] = sorted(set(sel) | forced)
-            stats[sid] = st
+        with span("leoam.eval_select"):
+            for i, sid in enumerate(order):
+                st = StepStats(abstract_bytes=abs_billed[sid])
+                nv = n_valid[sid]
+                length = int(lengths[i])
+                scores = ub[i].max(0)[:nv]                   # (nv,)
+                if adc is not None:
+                    scores = np.where(pq_valid[i, :nv], adc[i].max(0)[:nv],
+                                      scores)
+                budget_tokens = max(chunk, int(math.ceil(length * rate)))
+                chunk_scores = scores / chunk
+                if self.ecfg.selection == "tree":
+                    sel, st.evaluations = tree_select_chunks(
+                        chunk_scores, length, budget_tokens, chunk)
+                else:
+                    sel, st.evaluations = flat_select_chunks(
+                        chunk_scores, length, budget_tokens, chunk)
+                # sink + recent + hot chunks always included
+                forced = set(range(cfg.leoam.sink_chunks))
+                forced.update(range(max(0, nv - cfg.leoam.recent_chunks),
+                                    nv))
+                forced.update(
+                    int(c) for c in self.seqs[sid].access.hot_tokens(
+                        self.ecfg.hot_frac) if c < nv)
+                sels[sid] = sorted(set(sel) | forced)
+                stats[sid] = st
         return sels, stats
 
     # ------------------------------------------------------------------
@@ -1021,24 +1137,25 @@ class BatchedLeoAMEngine:
                 "decode_round needs at least one sequence: pass "
                 "{seq id: last token} for every live sequence (admit one "
                 "via add_sequence first)")
-        live = dict(tokens)
-        for sid in sorted(live):        # write-behind completion fence
-            try:
-                self.store.ingest_fence(sid)
-            except Exception as e:
-                self.ingest_errors += 1
-                self.fail_sequence(sid, f"cold ingest failed: {e!r}")
-                live.pop(sid)
-        for _ in range(self._MAX_ROUND_RETRIES):
-            if not live:
-                return {}
-            snap = self._snapshot_round(live)
-            try:
-                with torch.no_grad():
-                    return self._decode_round_impl(live)
-            except ChunkLostError as e:
-                self._restore_round(snap)
-                self._recover_lost(e, live)
+        with span("leoam.round"):
+            live = dict(tokens)
+            for sid in sorted(live):        # write-behind completion fence
+                try:
+                    self.store.ingest_fence(sid)
+                except Exception as e:
+                    self.ingest_errors += 1
+                    self.fail_sequence(sid, f"cold ingest failed: {e!r}")
+                    live.pop(sid)
+            for _ in range(self._MAX_ROUND_RETRIES):
+                if not live:
+                    return {}
+                snap = self._snapshot_round(live)
+                try:
+                    with torch.no_grad():
+                        return self._decode_round_impl(live)
+                except ChunkLostError as e:
+                    self._restore_round(snap)
+                    self._recover_lost(e, live)
         raise RuntimeError(
             f"decode round failed to converge after "
             f"{self._MAX_ROUND_RETRIES} chunk-loss recoveries — the disk "
@@ -1162,36 +1279,51 @@ class BatchedLeoAMEngine:
 
         prologue, period, repeats = lm._layer_plan(cfg)
         round_stats = {sid: StepStats() for sid in order}
-        prof = {"eval_s": 0.0, "gather_s": 0.0, "upload_s": 0.0,
-                "attend_s": 0.0}
+        prof = dict.fromkeys(ROUND_KEYS, 0.0)
         sync = self._sync_stream if ecfg.profile else None
         layer_io: List[Tuple[int, float, float]] = []  # (li, upB, diskB)
-        t_round = time.perf_counter()
+        # the public round record, only while someone reads it
+        hook = self._on_round
+        rec_len = dict(zip(order, lengths.tolist())) if hook else None
+        rec_sels = {sid: {} for sid in order} if hook else None
+        rec_int4: Dict[int, Dict[int, Dict[int, int]]] = {}
+        lock_wait0 = self.store.lock_wait_s
+        # the round's parts share end points; a stretch lapped with no key
+        # is the round's self time
+        laps = self._laps = Laps(prof)
+        t_round = laps.t
         li = 0
 
         def run_attn(blk, mlpk, h, layer_idx):
             nonlocal li
-            hln = rms_norm(h, blk["ln1"], cfg.norm_eps)
-            if self.mla:
-                # absorbed MLA: the query lives in latent space (q_lat =
-                # q_nope . W_UK, then q_rope) and the round's cache row is
-                # ONE latent vector; selection and attention both run over
-                # the store's latent plane
-                p = blk["core"]
-                sc = attn_mod.mla_scale(cfg)
-                q_nope, q_rope = attn_mod._mla_q(p, cfg, hln, pos)
-                q_lat = scale_like(torch.einsum("bhd,hrd->bhr", q_nope[:, 0],
-                                                p["wk_b"]), sc)
-                qn = torch.cat([q_lat, scale_like(q_rope[:, 0], sc)], dim=-1)
-                ckv_new, krope_new = attn_mod.mla_latent(p, cfg, hln, pos)
-                lat_new = torch.cat([ckv_new[:, 0], krope_new[:, 0]], dim=-1)
-            else:
-                q, k_new, v_new = attn_mod._qkv(blk["core"], cfg, hln, pos)
-                qn = q[:, 0] / math.sqrt(hd)                     # (B, H, hd)
-            t0 = time.perf_counter()
-            sels, sel_stats = self._select_chunks_batched(
-                li, layer_idx, qn, order, lengths)
-            prof["eval_s"] += time.perf_counter() - t0
+            laps.lap()
+            with span("leoam.dense"):
+                hln = rms_norm(h, blk["ln1"], cfg.norm_eps)
+                if self.mla:
+                    # absorbed MLA: the query lives in latent space (q_lat
+                    # = q_nope . W_UK, then q_rope) and the round's cache
+                    # row is ONE latent vector; selection and attention
+                    # both run over the store's latent plane
+                    p = blk["core"]
+                    sc = attn_mod.mla_scale(cfg)
+                    q_nope, q_rope = attn_mod._mla_q(p, cfg, hln, pos)
+                    q_lat = scale_like(torch.einsum(
+                        "bhd,hrd->bhr", q_nope[:, 0], p["wk_b"]), sc)
+                    qn = torch.cat([q_lat, scale_like(q_rope[:, 0], sc)],
+                                   dim=-1)
+                    ckv_new, krope_new = attn_mod.mla_latent(p, cfg, hln,
+                                                             pos)
+                    lat_new = torch.cat([ckv_new[:, 0], krope_new[:, 0]],
+                                        dim=-1)
+                else:
+                    q, k_new, v_new = attn_mod._qkv(blk["core"], cfg, hln,
+                                                    pos)
+                    qn = q[:, 0] / math.sqrt(hd)                 # (B, H, hd)
+            t_eval = laps.lap("dense_s")
+            with span("leoam.evaluate"):
+                sels, sel_stats = self._select_chunks_batched(
+                    li, layer_idx, qn, order, lengths)
+            prof["eval_s"] += laps.lap("eval_select_s") - t_eval
 
             nmax = max(len(s) for s in sels.values())
             pad = max(1, ecfg.sel_pad)
@@ -1207,75 +1339,104 @@ class BatchedLeoAMEngine:
             chunk_ids = np.full((B, nmax), -1, np.int32)
             for i, sid in enumerate(order):
                 chunk_ids[i, :len(sels[sid])] = sels[sid]
-            cids_dev = torch.from_numpy(chunk_ids).to(dev)
             if ecfg.pooled:
                 slots, _, fst = self.store.fetch_chunks_pooled(
-                    li, sels, pad_to=nmax, theta=self._theta(li))
+                    li, sels, pad_to=nmax, theta=self._theta(li),
+                    lengths=rec_len)
                 prof["gather_s"] += fst.gather_s
                 prof["upload_s"] += fst.upload_s
                 layer_io.append((li, fst.uploads * self.store.chunk_bytes,
                                  fst.disk_bytes))
-                for sid in order:
-                    round_stats[sid].fetched_bytes += fst.upload_bytes / B
+                if hook:
+                    held = self.store.pools[li].int4
+                    for i, sid in enumerate(order):
+                        rec_sels[sid][li] = list(sels[sid])
+                        h4 = {c: held[s] for c, s in zip(
+                            sels[sid], slots[i].tolist()) if s in held}
+                        if h4:
+                            rec_int4.setdefault(sid, {})[li] = h4
                 # overlap: next layer's reads under this layer's attention
                 self._submit_prefetch(li + 1, order, lengths)
-                slots_dev = torch.from_numpy(slots).to(dev)
-                pool_kv = self.store.pools[li].kv
-                if sync:
-                    sync()
-                t1 = time.perf_counter()
-                if self.mla:
-                    o = sparse_decode_latent_pooled(
-                        qn, pool_kv, slots_dev, cids_dev, lengths_dev,
-                        lat_new, cfg.mla.kv_lora_rank, impl=self.impl)
-                else:
-                    o = sparse_decode_pooled(
-                        q[:, 0], pool_kv, slots_dev, cids_dev, lengths_dev,
-                        k_new, v_new, cfg.attn_softcap, impl=self.impl)
+                laps.lap()
+                with span("leoam.dense"):
+                    cids_dev = torch.from_numpy(chunk_ids).to(dev)
+                    slots_dev = torch.from_numpy(slots).to(dev)
+                    pool_kv = self.store.pools[li].kv
+                    if sync:
+                        sync()
+                    t1 = time.perf_counter()
+                    if self.mla:
+                        o = sparse_decode_latent_pooled(
+                            qn, pool_kv, slots_dev, cids_dev, lengths_dev,
+                            lat_new, cfg.mla.kv_lora_rank, impl=self.impl)
+                    else:
+                        o = sparse_decode_pooled(
+                            q[:, 0], pool_kv, slots_dev, cids_dev,
+                            lengths_dev, k_new, v_new, cfg.attn_softcap,
+                            impl=self.impl)
             else:
                 # the legacy path: the host-assembled working set crosses
                 # whole every round and B2 reads it in place (one plane for
                 # MLA: the latent stack sits in both positions)
-                t1 = time.perf_counter()
-                kg, vg, _ = self.store.fetch_chunks_batch(li, sels,
-                                                          pad_to=nmax)
-                prof["gather_s"] += time.perf_counter() - t1
-                t1 = time.perf_counter()
-                kgd = torch.from_numpy(kg).to(dev)
-                vgd = None if self.mla else torch.from_numpy(vg).to(dev)
-                prof["upload_s"] += time.perf_counter() - t1
-                if sync:
-                    sync()
-                t1 = time.perf_counter()
+                if hook:
+                    for sid in order:
+                        rec_sels[sid][li] = list(sels[sid])
+                with span("leoam.fetch"):
+                    laps.lap()
+                    with span("leoam.gather"):
+                        kg, vg, _ = self.store.fetch_chunks_batch(
+                            li, sels, pad_to=nmax)
+                    laps.lap("gather_s")
+                    with span("leoam.upload"):
+                        kgd = torch.from_numpy(kg).to(dev)
+                        vgd = None if self.mla \
+                            else torch.from_numpy(vg).to(dev)
+                    laps.lap("upload_s")
+                with span("leoam.dense"):
+                    cids_dev = torch.from_numpy(chunk_ids).to(dev)
+                    if sync:
+                        sync()
+                    t1 = time.perf_counter()
+                    if self.mla:
+                        o = sparse_decode_latent_workingset(
+                            qn, kgd, cids_dev, lengths_dev, lat_new,
+                            cfg.mla.kv_lora_rank, impl=self.impl)
+                    else:
+                        o = sparse_decode_workingset(
+                            q[:, 0], kgd, vgd, cids_dev, lengths_dev,
+                            k_new, v_new, cfg.attn_softcap, impl=self.impl)
+            with span("leoam.dense"):
                 if self.mla:
-                    o = sparse_decode_latent_workingset(
-                        qn, kgd, cids_dev, lengths_dev, lat_new,
-                        cfg.mla.kv_lora_rank, impl=self.impl)
-                else:
-                    o = sparse_decode_workingset(
-                        q[:, 0], kgd, vgd, cids_dev, lengths_dev, k_new,
-                        v_new, cfg.attn_softcap, impl=self.impl)
-            if self.mla:
-                # the absorbed value projection W_UV in f32 on out_lat,
-                # then the output projection in the model dtype
-                o = torch.einsum("bhr,hrv->bhv", o,
-                                 blk["core"]["wv_b"].float()).to(q_lat.dtype)
-            y = o.reshape(B, 1, -1) @ blk["core"]["wo"]
-            if sync:
-                # attention through the output projection, as the
-                # reference's blocking profile times it
-                sync()
-                prof["attend_s"] += time.perf_counter() - t1
-            if self.mla:
-                self.store.append_tokens_batch(
-                    li, lengths, _to_host(lat_new)[:, None, :], None,
-                    seqs=order)
-            else:
-                self.store.append_tokens_batch(
-                    li, lengths, _to_host(k_new[:, 0]),
-                    _to_host(v_new[:, 0]), seqs=order)
+                    # the absorbed value projection W_UV in f32 on out_lat,
+                    # then the output projection in the model dtype
+                    o = torch.einsum("bhr,hrv->bhv", o,
+                                     blk["core"]["wv_b"].float()
+                                     ).to(q_lat.dtype)
+                y = o.reshape(B, 1, -1) @ blk["core"]["wo"]
+                if sync:
+                    # attention through the output projection, as the
+                    # reference's blocking profile times it
+                    sync()
+                    prof["attend_s"] += time.perf_counter() - t1
+            laps.lap("dense_s")
+            with span("leoam.append"):
+                # the copies to the host wait for the layer's queued work
+                with span("leoam.append_copy"):
+                    if self.mla:
+                        k_rows, v_rows = _to_host(lat_new)[:, None, :], None
+                    else:
+                        k_rows = _to_host(k_new[:, 0])
+                        v_rows = _to_host(v_new[:, 0])
+                laps.lap("append_copy_s")
+                with span("leoam.append_store"):
+                    self.store.append_tokens_batch(li, lengths, k_rows,
+                                                   v_rows, seqs=order)
+                laps.lap("append_store_s")
             li += 1
-            return lm._apply_mlp(blk, cfg, mlpk, h + y)
+            with span("leoam.dense"):
+                h = lm._apply_mlp(blk, cfg, mlpk, h + y)
+            laps.lap("dense_s")
+            return h
 
         states = [self.seqs[sid].state for sid in order]
         new_states: List[Tuple[str, int, Optional[int], dict]] = []
@@ -1285,14 +1446,17 @@ class BatchedLeoAMEngine:
             states stacked on the batch axis (each row reads only its own
             state, as in the reference's per-sequence ``run_other``), into
             a copy that the round commits at its end."""
-            c = {name: torch.cat([st[part][pi][name] if r is None
-                                  else st[part][pi][name][r]
-                                  for st in states])
-                 for name in states[0][part][pi]}
-            # a recurrent layer reads no cache length
-            h = lm._block_decode(blk, cfg, kind, mlpk, h, c, 0,
-                                 layer_idx=layer_idx,
-                                 ctx=attn_mod.LOCAL_CTX, impl=self.impl)
+            laps.lap()
+            with span("leoam.dense"):
+                c = {name: torch.cat([st[part][pi][name] if r is None
+                                      else st[part][pi][name][r]
+                                      for st in states])
+                     for name in states[0][part][pi]}
+                # a recurrent layer reads no cache length
+                h = lm._block_decode(blk, cfg, kind, mlpk, h, c, 0,
+                                     layer_idx=layer_idx,
+                                     ctx=attn_mod.LOCAL_CTX, impl=self.impl)
+            laps.lap("dense_s")
             new_states.append((part, pi, r, c))
             return h
 
@@ -1310,10 +1474,14 @@ class BatchedLeoAMEngine:
                 else:
                     h = run_other(blk, kind, mlpk, h, 10 ** 6, "body", pi, r)
 
-        logits = _to_host(lm._logits(params, cfg, h)[:, 0])      # (B, V)
+        laps.lap()
+        with span("leoam.logits"):
+            logits = _to_host(lm._logits(params, cfg, h)[:, 0])  # (B, V)
+            nxt = [int(np.argmax(logits[i])) for i in range(B)]
+        total_s = laps.lap("logits_s") - t_round
         self.last_logits = logits
-        total_s = time.perf_counter() - t_round
         prof["total_s"] = total_s
+        prof["lock_wait_s"] = self.store.lock_wait_s - lock_wait0
         if not ecfg.profile:
             # the rest of the round: attention, MLPs, appends (the window
             # the θ balance must hide transfers under — an upper bound, as
@@ -1336,13 +1504,17 @@ class BatchedLeoAMEngine:
             s = self.seqs[sid]
             s.length += 1
             s.stats.append(round_stats[sid])
-            out[sid] = int(np.argmax(logits[i]))
+            out[sid] = nxt[i]
         if ecfg.sidecar_requant and (ecfg.disk_sidecar or ecfg.pq_abstracts):
             # background repack of append-dirtied sidecars and re-encode of
             # their PQ codes (chunks quiet for a full round): long-running
             # sequences regain packed disk->host promotions and ADC scoring
             # instead of fp16 and the min/max box forever
             self.store.requant_sweep(executor=_prefetch_executor())
+        if hook:
+            hook(RoundRecord(order=order, lengths=rec_len,
+                             selections=rec_sels, int4=rec_int4,
+                             profile=prof))
         return out
 
 
@@ -1409,16 +1581,18 @@ class ChunkedAdmission:
     def _ingest_rows(self, li: int, layer: int, k: np.ndarray,
                      v: np.ndarray, start: int) -> None:
         eng = self.engine
-        eng.store.ingest(li, k, v,
-                         eng._layer_placement(layer, self.placement),
-                         seq=self.sid, executor=eng._ingest_exec,
-                         pool_place=self.pool_place, start=start)
+        with span("leoam.ingest"):
+            eng.store.ingest(li, k, v,
+                             eng._layer_placement(layer, self.placement),
+                             seq=self.sid, executor=eng._ingest_exec,
+                             pool_place=self.pool_place, start=start)
 
     @decode_thread_only
     def step(self) -> int:
         """Advance one chunk; returns the prompt tokens it consumed (0 once
         done or cancelled)."""
-        return self._step_impl()
+        with span("leoam.admit"):
+            return self._step_impl()
 
     @decode_thread_only
     def cancel(self) -> None:

@@ -121,6 +121,7 @@ from repro_torch.serving.prefix import PrefixIndex, chunk_hashes
 from repro_torch.serving import sanitizer as _san
 from repro_torch.serving.sanitizer import (any_thread, decode_thread_only,
                                            worker_thread)
+from repro_torch.serving.spans import WaitTimedLock, span
 
 DEVICE, HOST, DISK = "device", "host", "disk"
 
@@ -196,6 +197,12 @@ class DeviceChunkPool:
         self.hits = 0
         self.misses = 0
         self.uploads = 0
+        # {slot: rows} of the slots holding a codec upload's int4 round
+        # trip, kept only while the engine publishes its rounds (None
+        # otherwise): set at a codec-part scatter, cleared when the slot
+        # is allocated again or takes a plain write; rows appended later
+        # land exact
+        self.int4: Optional[Dict[int, int]] = None
 
     def lookup(self, key: Tuple[int, int]) -> Optional[int]:
         slot = self.slot_of.get(key)
@@ -213,6 +220,8 @@ class DeviceChunkPool:
         if self.free:
             slot = self.free.pop()
             self.slot_of[key] = slot
+            if self.int4 is not None:
+                self.int4.pop(slot, None)
             return slot, None
         for victim in self.slot_of:            # LRU → MRU
             if victim not in pinned:
@@ -224,6 +233,8 @@ class DeviceChunkPool:
         slot = self.slot_of.pop(victim)
         self.pending.pop(victim, None)     # host copy keeps the rows
         self.slot_of[key] = slot
+        if self.int4 is not None:
+            self.int4.pop(slot, None)
         return slot, victim
 
     def evict(self, key: Tuple[int, int]) -> None:
@@ -241,7 +252,8 @@ class DeviceChunkPool:
 
     @decode_thread_only
     def scatter(self, slots: Sequence[int], kv_plain, packed=None, *,
-                codec: Optional[str] = None, impl: Optional[str] = None
+                codec: Optional[str] = None, impl: Optional[str] = None,
+                int4_rows: Optional[Sequence[int]] = None
                 ) -> List[Tuple[int, int]]:
         """One slab update per (layer, round): write a delta into ``slots``
         AND flush the queued decode-append rows.  ``packed`` = (data,
@@ -255,7 +267,9 @@ class DeviceChunkPool:
         those.  A slot may appear once: two writes of one slot in one
         update would race inside kernel B3 (and leave the index
         assignment's winner unspecified), so a repeated slot raises
-        before anything is written."""
+        before anything is written.  With the int4 record on (``int4``
+        not None), ``int4_rows`` gives the rows each codec slot's chunk
+        holds."""
         if len(set(slots)) != len(slots):
             dup = next(s for i, s in enumerate(slots) if s in slots[:i])
             raise ValueError(
@@ -281,6 +295,12 @@ class DeviceChunkPool:
                                  device=dev)
             kv_rows = torch.from_numpy(np.stack([r[3] for r in rows]))
             self.kv[si, :, oi] = kv_rows.to(device=dev, dtype=self.kv.dtype)
+        if self.int4 is not None:
+            for i, slot in enumerate(slots):
+                if i < n_comp:
+                    self.int4[slot] = int(int4_rows[i])
+                else:
+                    self.int4.pop(slot, None)
         # clear AFTER the slab updates land: an exception mid-scatter must
         # not drop queued append rows
         self.pending.clear()
@@ -373,7 +393,9 @@ class TieredKVStore:
         self._abs_km = np.full((rows, n_layers, n_chunks, kv_heads,
                                 head_dim), -np.inf, np.float32)
         self._abs_kn = np.full_like(self._abs_km, np.inf)
-        self._lock = threading.RLock()
+        # the decode thread's waits for the store lock: ``lock_wait_s``
+        self._lock_clock = WaitTimedLock(threading.RLock())
+        self._lock = self._lock_clock
         if self.debug_sync:
             self._lock = _san.TrackedLock(self._lock, "TieredKVStore._lock")
         self.codec_uploads = 0         # pooled H2D chunks sent packed
@@ -549,6 +571,12 @@ class TieredKVStore:
         plane under the absorbed-MLA layout."""
         return (self.planes * self.chunk * self.kv_heads * self.head_dim
                 * self.dtype.itemsize)
+
+    @property
+    def lock_wait_s(self) -> float:
+        """Seconds threads other than the serving workers (the decode
+        thread) have spent blocked acquiring the store lock."""
+        return self._lock_clock.wait_s
 
     @property
     def abstract_bytes(self) -> int:
@@ -814,7 +842,7 @@ class TieredKVStore:
                 f"chunk ({self.chunk}): partial ingests land whole chunks")
         placement = placement or {}
         c0 = start // self.chunk
-        with self._lock:
+        with span("leoam.ingest_cast"), self._lock:
             S = k.shape[0]
             shared = self._shared_map.get(seq) or {}
             plan = self._reg_plan.get(seq) or {}
@@ -896,95 +924,106 @@ class TieredKVStore:
         chunk, Hkv, hd) in store dtype, rows matching ``cids``.  ``seq``
         is the STORAGE row (an arena row when a registration redirects);
         ``bill_seq`` is the sequence the traffic is billed to."""
-        bill = seq if bill_seq is None else bill_seq
-        # an injected worker fault (an arbitrary bug in this work item)
-        # propagates through the future and surfaces at the sequence's
-        # ingest fence as IngestError: that sequence's terminal state alone
-        self._fault_point("worker", (layer, seq))
-        n = len(cids)
-        packed = None
-        if self.disk_sidecar:
-            # quantize OUTSIDE the lock (pure compute on private arrays):
-            # holding it here would stall the decode thread's fetches
-            planes = (kcs,) if self.planes == 1 else (kcs, vcs)
-            packed = tuple(compression.quantize_chunks(p, self.transit_codec)
-                           for p in planes)
-        # checksums over the exact bytes about to land, computed outside
-        # the lock; CRC rows are metadata (4 B a chunk), not billed
-        crcs = q_crcs = None
-        if self._crc is not None:
-            crcs = [self._crc32(self._plane_stack(kcs[i], vcs[i]))
-                    for i in range(n)]
-        if packed is not None and self._q_crc is not None:
-            q_crcs = [self._sidecar_crc(np.stack([pd[i] for pd, _ in packed]),
-                                        np.stack([ps[i] for _, ps in packed]))
-                      for i in range(n)]
-        # PQ plane: fold this batch's key vectors into the layer's online
-        # codebook and encode every chunk.  The k-means kernels and the
-        # device->host copies that end them run OUTSIDE any lock; the
-        # codebook mirror is snapshotted and merged back under the leaf
-        # _pq_lock (last writer wins: codebook drift is estimator error,
-        # never a correctness hazard — attention always reads real KV)
-        pq_codes_arr = pq_crcs = None
-        if self.pq:
-            vecs = kcs.reshape(-1, self.head_dim).astype(np.float32)
-            # tail-chunk zero padding (and all-zero rows past the prompt)
-            # must not poison the codebook: train on non-zero rows only
-            train = vecs[np.any(vecs != 0.0, axis=1)]
-            with self._pq_lock:
-                cb0 = self._pq_cb[layer].copy()
-                cnt0 = self._pq_counts[layer].copy()
-            cb1, cnt1 = pq_train(train, cb0, cnt0, iters=self.pq_train_iters,
-                                 impl=self.impl, device=self.device)
-            pq_codes_arr = pq_encode(vecs, cb1, impl=self.impl,
-                                     device=self.device).reshape(
-                n, self.chunk, self.kv_heads, self.pq_m)
-            with self._pq_lock:
-                self._pq_cb[layer] = cb1
-                self._pq_counts[layer] = cnt1
-                self._pq_codebook[layer] = cb1
-            if self._pq_crc is not None:
-                pq_crcs = [self._crc32(pq_codes_arr[i]) for i in range(n)]
-        # transient write errors retry here, outside the lock; exhaustion
-        # (DiskIOExhausted) surfaces at the fence, not in a decode round
-        self._with_retries(
-            lambda: self._fault_point("disk_write", (layer, seq)))
-        with self._lock:
-            idx = np.asarray(cids, np.int64)
-            self._disk[seq, layer, idx, 0] = kcs
-            if self.planes == 2:
-                self._disk[seq, layer, idx, 1] = vcs
-            self._abs_km[seq, layer, idx] = kcs.max(1)
-            self._abs_kn[seq, layer, idx] = kcs.min(1)
-            if crcs is not None:
-                self._crc[seq, layer, idx] = crcs
-                self._crc_state[seq, layer, idx] = _CRC_VALID
-            rep_bytes = float(self.chunk_bytes)
-            if packed is not None:
-                for pl, (pd, ps) in enumerate(packed):
-                    self._disk_q[seq, layer, idx, pl] = pd
-                    self._disk_scale[seq, layer, idx, pl] = ps
-                self._sidecar_valid[seq, layer, idx] = True
-                if q_crcs is not None:
-                    self._q_crc[seq, layer, idx] = q_crcs
-                rep_bytes = self._packed_bytes()
-            if pq_codes_arr is not None:
-                self._pq_codes[seq, layer, idx] = pq_codes_arr
-                self._pq_valid[seq, layer, idx] = True
-                if pq_crcs is not None:
-                    self._pq_crc[seq, layer, idx] = pq_crcs
-                # write-through codebook persistence, billed once per cold
-                # batch (it is shared state, K * head_dim floats)
-                self._record(bill, HOST, DISK, "pq_codes_write",
-                             4.0 * self.pq_m * self.pq_centroids
-                             * (self.head_dim // self.pq_m))
-            for _c in cids:
-                self._record(bill, HOST, DISK, "kv_replica", rep_bytes)
-                self._record(bill, HOST, DISK, "abstract",
-                             self.abstract_bytes)
+        with span("leoam.ingest_cold"):
+            bill = seq if bill_seq is None else bill_seq
+            # an injected worker fault (an arbitrary bug in this work
+            # item) propagates through the future and surfaces at the
+            # sequence's ingest fence as IngestError: that sequence's
+            # terminal state alone
+            self._fault_point("worker", (layer, seq))
+            n = len(cids)
+            packed = None
+            if self.disk_sidecar:
+                # quantize OUTSIDE the lock (pure compute on private
+                # arrays): holding it here would stall the decode thread's
+                # fetches
+                planes = (kcs,) if self.planes == 1 else (kcs, vcs)
+                packed = tuple(compression.quantize_chunks(
+                    p, self.transit_codec) for p in planes)
+            # checksums over the exact bytes about to land, computed
+            # outside the lock; CRC rows are metadata (4 B a chunk), not
+            # billed
+            crcs = q_crcs = None
+            with span("leoam.crc"):
+                if self._crc is not None:
+                    crcs = [self._crc32(self._plane_stack(kcs[i], vcs[i]))
+                            for i in range(n)]
+                if packed is not None and self._q_crc is not None:
+                    q_crcs = [self._sidecar_crc(
+                        np.stack([pd[i] for pd, _ in packed]),
+                        np.stack([ps[i] for _, ps in packed]))
+                        for i in range(n)]
+            # PQ plane: fold this batch's key vectors into the layer's
+            # online codebook and encode every chunk.  The k-means kernels
+            # and the device->host copies that end them run OUTSIDE any
+            # lock; the codebook mirror is snapshotted and merged back
+            # under the leaf _pq_lock (last writer wins: codebook drift is
+            # estimator error, never a correctness hazard — attention
+            # always reads real KV)
+            pq_codes_arr = pq_crcs = None
+            if self.pq:
+                vecs = kcs.reshape(-1, self.head_dim).astype(np.float32)
+                # tail-chunk zero padding (and all-zero rows past the
+                # prompt) must not poison the codebook: train on non-zero
+                # rows only
+                train = vecs[np.any(vecs != 0.0, axis=1)]
+                with self._pq_lock:
+                    cb0 = self._pq_cb[layer].copy()
+                    cnt0 = self._pq_counts[layer].copy()
+                cb1, cnt1 = pq_train(train, cb0, cnt0,
+                                     iters=self.pq_train_iters,
+                                     impl=self.impl, device=self.device)
+                pq_codes_arr = pq_encode(vecs, cb1, impl=self.impl,
+                                         device=self.device).reshape(
+                    n, self.chunk, self.kv_heads, self.pq_m)
+                with self._pq_lock:
+                    self._pq_cb[layer] = cb1
+                    self._pq_counts[layer] = cnt1
+                    self._pq_codebook[layer] = cb1
+                if self._pq_crc is not None:
+                    pq_crcs = [self._crc32(pq_codes_arr[i])
+                               for i in range(n)]
+            # transient write errors retry here, outside the lock;
+            # exhaustion (DiskIOExhausted) surfaces at the fence, not in a
+            # decode round
+            self._with_retries(
+                lambda: self._fault_point("disk_write", (layer, seq)))
+            with span("leoam.write"), self._lock:
+                idx = np.asarray(cids, np.int64)
+                self._disk[seq, layer, idx, 0] = kcs
+                if self.planes == 2:
+                    self._disk[seq, layer, idx, 1] = vcs
+                self._abs_km[seq, layer, idx] = kcs.max(1)
+                self._abs_kn[seq, layer, idx] = kcs.min(1)
+                if crcs is not None:
+                    self._crc[seq, layer, idx] = crcs
+                    self._crc_state[seq, layer, idx] = _CRC_VALID
+                rep_bytes = float(self.chunk_bytes)
+                if packed is not None:
+                    for pl, (pd, ps) in enumerate(packed):
+                        self._disk_q[seq, layer, idx, pl] = pd
+                        self._disk_scale[seq, layer, idx, pl] = ps
+                    self._sidecar_valid[seq, layer, idx] = True
+                    if q_crcs is not None:
+                        self._q_crc[seq, layer, idx] = q_crcs
+                    rep_bytes = self._packed_bytes()
                 if pq_codes_arr is not None:
+                    self._pq_codes[seq, layer, idx] = pq_codes_arr
+                    self._pq_valid[seq, layer, idx] = True
+                    if pq_crcs is not None:
+                        self._pq_crc[seq, layer, idx] = pq_crcs
+                    # write-through codebook persistence, billed once per
+                    # cold batch (it is shared state, K * head_dim floats)
                     self._record(bill, HOST, DISK, "pq_codes_write",
-                                 float(self.pq_bytes))
+                                 4.0 * self.pq_m * self.pq_centroids
+                                 * (self.head_dim // self.pq_m))
+                for _c in cids:
+                    self._record(bill, HOST, DISK, "kv_replica", rep_bytes)
+                    self._record(bill, HOST, DISK, "abstract",
+                                 self.abstract_bytes)
+                    if pq_codes_arr is not None:
+                        self._record(bill, HOST, DISK, "pq_codes_write",
+                                     float(self.pq_bytes))
 
     @any_thread
     def ingest_fence(self, seq: int) -> None:
@@ -1689,7 +1728,8 @@ class TieredKVStore:
     def fetch_chunks_pooled(self, layer: int,  # leolint: waive[locklint] reason=decode-thread pooled fetch: the slab update runs under _lock so tier tables stay consistent with residency; it is an eager in-place device write, not a compiled dispatch; the one sync-named call beneath pool.scatter, `.tolist()` in B3's wrapper (kv_quant/ops.py), formats a host numpy slot array in an error message, and the launch copies its slots pinned and non-blocking, so nothing here waits for the card
                             chunks_by_seq: Dict[int, Sequence[int]], *,
                             pad_to: Optional[int] = None,
-                            theta: float = 1.0
+                            theta: float = 1.0,
+                            lengths: Optional[Dict[int, int]] = None
                             ) -> Tuple[np.ndarray, np.ndarray, FetchStats]:
         """Delta promotion into the layer's device slab.
 
@@ -1706,6 +1746,10 @@ class TieredKVStore:
         share that slot, and one that several sequences miss is uploaded
         once, billed ``kv_shared`` to the first of them.
 
+        ``lengths`` ({seq: length}) is needed only while the pool keeps
+        its int4 record (``DeviceChunkPool.int4``): a codec-uploaded
+        chunk holds ``min(chunk, length - c * chunk)`` rows.
+
         Returns (slots, nsel, stats): slots (B, pad_to) int32 indices into
         ``pools[layer]`` (padding rows point at slot 0 — the engine masks
         them), nsel (B,) valid counts.  Rows follow dict order."""
@@ -1714,7 +1758,7 @@ class TieredKVStore:
                 "fetch_chunks_pooled requires a pooled store — construct "
                 "TieredKVStore(use_pool=True, ...) or use fetch_chunks / "
                 "fetch_chunks_batch on the legacy host-assembled path")
-        with self._lock:
+        with span("leoam.fetch"), self._lock:
             st = FetchStats()
             pool = self.pools[layer]
             items = list(chunks_by_seq.items())
@@ -1724,9 +1768,11 @@ class TieredKVStore:
                        else (nsel.max() if B else 0))
 
             t0 = time.perf_counter()
-            st.disk_reads, st.disk_bytes = self._stage_disk(
-                layer, [(seq, c) for seq, chunks in items for c in chunks],
-                nbytes=self._disk_read_bytes(), skip_pool=True)
+            with span("leoam.gather"):
+                st.disk_reads, st.disk_bytes = self._stage_disk(
+                    layer, [(seq, c) for seq, chunks in items
+                            for c in chunks],
+                    nbytes=self._disk_read_bytes(), skip_pool=True)
             st.gather_s = time.perf_counter() - t0
 
             slots = np.zeros((B, nmax), np.int32)
@@ -1761,79 +1807,87 @@ class TieredKVStore:
                         slots[i, j] = slot
                         st.hits += 1
             t1 = time.perf_counter()
-            fresh: Dict[Tuple[int, int], int] = {}
+            with span("leoam.upload"):
+                fresh: Dict[Tuple[int, int], int] = {}
 
-            def scrub_partial():
-                # residency must never point at a slab row the scatter did
-                # not write: return the half-uploaded slots (host copies
-                # and replicas are intact) and put the deferred placements
-                # back for the next fetch
-                for pk, slot in [*fresh.items(),
-                                 *zip(place_keys, place_slots)]:
-                    if pool.slot_of.get(pk) == slot:
-                        pool.slot_of.pop(pk, None)
-                        pool.free.append(slot)
-                    self.tier[pk[0], layer, pk[1]] = HOST
-                pool.pending_place.update(zip(place_keys, place_kv))
+                def scrub_partial():
+                    # residency must never point at a slab row the scatter
+                    # did not write: return the half-uploaded slots (host
+                    # copies and replicas are intact) and put the deferred
+                    # placements back for the next fetch
+                    for pk, slot in [*fresh.items(),
+                                     *zip(place_keys, place_slots)]:
+                        if pool.slot_of.get(pk) == slot:
+                            pool.slot_of.pop(pk, None)
+                            pool.free.append(slot)
+                        self.tier[pk[0], layer, pk[1]] = HOST
+                    pool.pending_place.update(zip(place_keys, place_kv))
 
-            if missing:
-                # shared chunks dedupe here too: sequences that miss one
-                # arena chunk share ONE slot and ONE upload (billed to the
-                # first); allocating the key twice would orphan a slot and
-                # hand kernel B3 the same chunk twice
-                up_keys: List[Tuple[int, int, int]] = []  # (seq, row, c)
-                try:
-                    for i, j, seq, p, c in missing:
-                        slot = fresh.get((p, c))
-                        if slot is None:
-                            slot, evicted = pool.alloc((p, c), pinned)
-                            if evicted is not None:
-                                self.tier[evicted[0], layer,
-                                          evicted[1]] = HOST
-                            self.tier[p, layer, c] = DEVICE
-                            fresh[(p, c)] = slot
-                            up_keys.append((seq, p, c))
-                        slots[i, j] = slot
-                    kv_stack = np.stack(
-                        [self._plane_stack(self._host_k[(p, layer, c)],
-                                           self._host_v[(p, layer, c)])
-                         for _, p, c in up_keys])  # (m, planes, c, Hkv, hd)
-                    m = len(up_keys)
-                    n_comp = int(round(min(1.0, max(0.0, theta)) * m)) \
-                        if self.real_codec else 0
-                    # deferred placements ride along as plain rows after
-                    # the delta; B3's slot list stays the codec part
-                    self._bill_flushed_rows(pool.scatter(
-                        [fresh[(p, c)] for _, p, c in up_keys]
-                        + place_slots,
-                        np.concatenate([kv_stack[n_comp:], *(
-                            [np.stack(place_kv)] if place_kv else [])]),
-                        self._pack_upload(kv_stack[:n_comp]),
-                        codec=self.transit_codec, impl=self.impl))
-                except BaseException:
-                    scrub_partial()
-                    raise
-                per_comp = self._packed_bytes() if self.real_codec \
-                    else self._transit_bytes()
-                per_plain = float(self.chunk_bytes) if self.real_codec \
-                    else self._transit_bytes()
-                for idx, (seq, p, _c) in enumerate(up_keys):
-                    nb = per_comp if idx < n_comp else per_plain
-                    self._record(seq, HOST, DEVICE, self._kv_kind(seq, p), nb)
-                    st.upload_bytes += nb
-                st.uploads = m
-                st.compressed = n_comp
-                self.codec_uploads += n_comp
-                self.plain_uploads += m - n_comp
-            elif place_slots:
-                try:
-                    self._bill_flushed_rows(
-                        pool.scatter(place_slots, np.stack(place_kv)))
-                except BaseException:
-                    scrub_partial()
-                    raise
-            elif pool.pending:
-                self._bill_flushed_rows(pool.scatter([], None))
+                if missing:
+                    # shared chunks dedupe here too: sequences that miss
+                    # one arena chunk share ONE slot and ONE upload (billed
+                    # to the first); allocating the key twice would orphan
+                    # a slot and hand kernel B3 the same chunk twice
+                    up_keys: List[Tuple[int, int, int]] = []  # seq, row, c
+                    try:
+                        for i, j, seq, p, c in missing:
+                            slot = fresh.get((p, c))
+                            if slot is None:
+                                slot, evicted = pool.alloc((p, c), pinned)
+                                if evicted is not None:
+                                    self.tier[evicted[0], layer,
+                                              evicted[1]] = HOST
+                                self.tier[p, layer, c] = DEVICE
+                                fresh[(p, c)] = slot
+                                up_keys.append((seq, p, c))
+                            slots[i, j] = slot
+                        # (m, planes, c, Hkv, hd)
+                        kv_stack = np.stack(
+                            [self._plane_stack(self._host_k[(p, layer, c)],
+                                               self._host_v[(p, layer, c)])
+                             for _, p, c in up_keys])
+                        m = len(up_keys)
+                        n_comp = int(round(min(1.0, max(0.0, theta)) * m)) \
+                            if self.real_codec else 0
+                        int4_rows = None if pool.int4 is None else [
+                            min(self.chunk, lengths[seq] - c * self.chunk)
+                            for seq, _p, c in up_keys[:n_comp]]
+                        # deferred placements ride along as plain rows
+                        # after the delta; B3's slot list stays the codec
+                        # part
+                        self._bill_flushed_rows(pool.scatter(
+                            [fresh[(p, c)] for _, p, c in up_keys]
+                            + place_slots,
+                            np.concatenate([kv_stack[n_comp:], *(
+                                [np.stack(place_kv)] if place_kv else [])]),
+                            self._pack_upload(kv_stack[:n_comp]),
+                            codec=self.transit_codec, impl=self.impl,
+                            int4_rows=int4_rows))
+                    except BaseException:
+                        scrub_partial()
+                        raise
+                    per_comp = self._packed_bytes() if self.real_codec \
+                        else self._transit_bytes()
+                    per_plain = float(self.chunk_bytes) if self.real_codec \
+                        else self._transit_bytes()
+                    for idx, (seq, p, _c) in enumerate(up_keys):
+                        nb = per_comp if idx < n_comp else per_plain
+                        self._record(seq, HOST, DEVICE,
+                                     self._kv_kind(seq, p), nb)
+                        st.upload_bytes += nb
+                    st.uploads = m
+                    st.compressed = n_comp
+                    self.codec_uploads += n_comp
+                    self.plain_uploads += m - n_comp
+                elif place_slots:
+                    try:
+                        self._bill_flushed_rows(
+                            pool.scatter(place_slots, np.stack(place_kv)))
+                    except BaseException:
+                        scrub_partial()
+                        raise
+                elif pool.pending:
+                    self._bill_flushed_rows(pool.scatter([], None))
             st.upload_s = time.perf_counter() - t1
             return slots, nsel, st
 

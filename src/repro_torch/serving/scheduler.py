@@ -64,6 +64,7 @@ import numpy as np
 from repro_torch.core.pipeline import chunked_admission_model
 from repro_torch.serving.faults import AdmissionError, RejectedOverload
 from repro_torch.serving.sanitizer import any_thread, decode_thread_only
+from repro_torch.serving.spans import span
 
 # pressure watermark states (mirrored by serving.overload — the monitor
 # lives there; the string values are the contract, so the scheduler never
@@ -803,53 +804,57 @@ class ContinuousBatcher:
     @decode_thread_only
     def step(self) -> int:
         """One decode round over all active requests; returns #active."""
-        self._sweep_deadlines()
-        self._apply_pressure()
-        self._admit()
-        self._collect_admitted(block=not self.active and bool(self._pending))
-        retired = [rid for rid, (req, _, _) in self.active.items() if req.done]
-        live = {rid: v for rid, v in self.active.items()
-                if rid not in retired}
-        admission_active = bool(self._pending) or bool(self._chunked)
-        if self.engine is not None and live:
-            # ONE batched decode round for every live sequence; async
-            # admissions prefill underneath it on the admission worker
-            t0 = time.perf_counter()
-            toks = self.engine.decode_round(
-                {sid: tok for (_, sid, tok) in live.values()})
-            self._note_round(time.perf_counter() - t0, admission_active)
-            for rid, (req, sid, _) in live.items():
-                if sid not in toks:
-                    # the engine contained this sequence's failure
-                    # (fail_sequence already drained and recycled the
-                    # slot — releasing again would double-free); surface
-                    # the terminal state on just this request
-                    req.error = self.engine.failed.pop(
-                        sid, "sequence failed")
-                    req.t_done = time.perf_counter()
-                    self._prefix_credit.pop(rid, None)
-                    self.active.pop(rid)
-                    self.finished.append(req)
-                    continue
-                tok = toks[sid]
-                req.out.append(tok)
-                self.active[rid] = (req, sid, tok)
-                if req.done:
-                    retired.append(rid)
-        else:
-            for rid, (req, eng, tok) in list(live.items()):
-                tok = eng.decode_step(tok)
-                req.out.append(tok)
-                self.active[rid] = (req, eng, tok)
-                if req.done:
-                    retired.append(rid)
-        self._retire(retired)
-        # chunked admissions advance HERE, between decode rounds, under
-        # the per-round prefill token budget
-        self._advance_chunked()
-        self._admit()
-        self._collect_admitted(block=not self.active and bool(self._pending))
-        return len(self.active)
+        with span("leoam.step"):
+            self._sweep_deadlines()
+            self._apply_pressure()
+            self._admit()
+            self._collect_admitted(
+                block=not self.active and bool(self._pending))
+            retired = [rid for rid, (req, _, _) in self.active.items()
+                       if req.done]
+            live = {rid: v for rid, v in self.active.items()
+                    if rid not in retired}
+            admission_active = bool(self._pending) or bool(self._chunked)
+            if self.engine is not None and live:
+                # ONE batched decode round for every live sequence; async
+                # admissions prefill underneath it on the admission worker
+                t0 = time.perf_counter()
+                toks = self.engine.decode_round(
+                    {sid: tok for (_, sid, tok) in live.values()})
+                self._note_round(time.perf_counter() - t0, admission_active)
+                for rid, (req, sid, _) in live.items():
+                    if sid not in toks:
+                        # the engine contained this sequence's failure
+                        # (fail_sequence already drained and recycled
+                        # the slot — releasing again would double-free);
+                        # surface the terminal state on just this request
+                        req.error = self.engine.failed.pop(
+                            sid, "sequence failed")
+                        req.t_done = time.perf_counter()
+                        self._prefix_credit.pop(rid, None)
+                        self.active.pop(rid)
+                        self.finished.append(req)
+                        continue
+                    tok = toks[sid]
+                    req.out.append(tok)
+                    self.active[rid] = (req, sid, tok)
+                    if req.done:
+                        retired.append(rid)
+            else:
+                for rid, (req, eng, tok) in list(live.items()):
+                    tok = eng.decode_step(tok)
+                    req.out.append(tok)
+                    self.active[rid] = (req, eng, tok)
+                    if req.done:
+                        retired.append(rid)
+            self._retire(retired)
+            # chunked admissions advance HERE, between decode rounds, under
+            # the per-round prefill token budget
+            self._advance_chunked()
+            self._admit()
+            self._collect_admitted(
+                block=not self.active and bool(self._pending))
+            return len(self.active)
 
     def run(self, max_rounds: int = 10_000) -> List[Request]:
         rounds = 0

@@ -12,9 +12,9 @@ longchat smoke config (chunk 16, ``max_len`` 128) of
   blocks do not divide (1536) takes a shorter last block;
 - ``prefill_programs``: the reference's count of compiled prefill programs,
   over ``test_chunked_prefill.py``'s 16 prompt lengths;
-- ``profile``: the reference's ``round_profiles`` keys, the measured
-  ``attend_s`` inside the rest of the round, and the streams and traffic of
-  a run without it;
+- ``profile``: the reference's ``round_profiles`` keys and the port's
+  round parts, the measured ``attend_s`` inside the rest of the round, and
+  the streams and traffic of a run without it;
 - the single-sequence ``LeoAMEngine``'s passthroughs.
 """
 
@@ -35,6 +35,7 @@ from repro_torch.models.params import params_from_jax
 from repro_torch.serving.engine import BatchedLeoAMEngine as TEngine
 from repro_torch.serving.engine import EngineCfg as TCfg
 from repro_torch.serving.engine import LeoAMEngine as TSingle
+from repro_torch.serving.engine import ROUND_KEYS
 
 MAX_LEN, LENS, ROUNDS = 128, (48, 57), 4
 # test_chunked_prefill.py:100's 16 distinct prompt lengths
@@ -245,10 +246,13 @@ def test_profile_times_attend_and_changes_nothing_else(setup, pooled):
     prof = _run(True, setup, pooled=pooled, profile=True)
     plain = _run(True, setup, pooled=pooled, profile=False)
     ref = _run(False, setup, pooled=pooled, profile=True)
+    # the port's rounds keep every key of the reference's and add the
+    # round's parts (engine.ROUND_KEYS)
     assert [sorted(p) for p in prof["rounds"]] == \
-        [sorted(p) for p in ref["rounds"]]
+        [sorted(ROUND_KEYS) for _ in ref["rounds"]]
     assert [sorted(p) for p in plain["rounds"]] == \
-        [sorted(p) for p in ref["rounds"]]
+        [sorted(ROUND_KEYS) for _ in ref["rounds"]]
+    assert all(set(p) <= set(ROUND_KEYS) for p in ref["rounds"])
     for p in prof["rounds"]:
         rest = p["total_s"] - p["eval_s"] - p["gather_s"] - p["upload_s"]
         assert 0.0 < p["attend_s"] <= rest
